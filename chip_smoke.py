@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's all-sky LW+SW step on one CUDA GPU and check it.
+"""Run the PyTorch port's two all-sky paths on one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -7,18 +7,31 @@ Phases (any failure ends the run with a non-zero exit and no result):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from rte_rrtmgp_tpu_torch/csrc (nvcc, one
      process per source, in parallel) and print the build time;
-  3. each kernel against its plain-PyTorch twin on the device at the main
-     path's shapes (4096 x 72, LW 256 g-points / 16 bands, SW 224 / 14,
-     ntemp 14, npres 59), with the median CUDA-event time of both;
-  4. the golden gate: the float32 kernel path at the production
-     configuration (256 x 72) against tests/golden/production.npz, each
-     field within 3x tests/golden/production_f32_noise.json;
-  5. the main path, build_allsky_step(4096, 72, ...) then step(inputs),
-     with the launch counters set to 0 just before it: every kernel must
-     have launched, outputs finite and non-negative, TOA SW down equal to
-     the solar source times mu0; its median step time;
-  6. a ``{"kernels": [...]}`` line, then the last line
-     ``{"ok": true, "device": {...}}``.
+  3. each kernel against its plain-PyTorch twin on the device at the
+     shapes its path gives it (4096 x 72, LW 256 g-points / 16 bands,
+     SW 224 / 14, ntemp 14, npres 59), with the median CUDA-event time of
+     both and the card's lower bound for the same work;
+  4. golden gates: the float32 fused step and the float32 public-API path
+     at the production configuration (256 x 72) against
+     tests/golden/production.npz, each field within 3x
+     tests/golden/production_f32_noise.json;
+  5. the fused path, build_allsky_step(4096, 72, ...) then step(inputs),
+     with the launch counters set to 0 just before it: cloud_props,
+     fused_lw and fused_sw must have launched, outputs finite and
+     non-negative, TOA SW down equal to the solar source times mu0; its
+     median step time;
+  6. the public-API path on the same inputs (gas_optics_lw/sw ->
+     cloud_optics -> increment -> rte_lw/rte_sw), counters set to 0 just
+     before it: gas_major, gas_minor, gas_rayleigh, solver_lw, solver_sw
+     and cloud_props must have launched and the fused kernels not; its
+     fluxes against the fused path's; its median step time; then where
+     each path's time goes (torch.profiler over 3 steps: device time by
+     kernel, device busy share);
+  7. rte_lw with 3 quadrature angles and with compute_optimal_angles
+     secants, on the card against the twins on the CPU (512 columns);
+  8. a ``{"kernels": [...]}`` line (launches from the path that runs each
+     kernel: phase 5 for the fused kernels and cloud optics, phase 6 for
+     the others), then the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before doing anything.
 """
@@ -32,14 +45,35 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 MAIN = dict(ncol=4096, nlay=72, ngpt_lw=256, nbnd_lw=16, ngpt_sw=224,
             nbnd_sw=14, ntemp=14, npres=59)
+PROD = dict(MAIN, ncol=256)
 # kernel vs twin, same float32 inputs: the two differ only in summation
-# order, fused multiply-adds and expf's last bit. Cloud optics is a lerp
-# and two products per value; the fused steps sum 224-256 g-points over
-# 72-layer recurrences. Both bounds are relative to the largest value
-# (measured on an H100: 5e-8 and 2e-7).
-TOL_CLOUD = 1e-6     # x max |twin|
+# order, fused multiply-adds and expf's last bit. The gathers (cloud
+# optics, major/minor/Rayleigh) are lerps of a few products per value;
+# the solvers and fused steps sum 224-256 g-points over 72-layer
+# recurrences. Bounds are relative to the largest twin value (measured
+# on an H100: gathers below 1e-7, fluxes about 2e-7).
+TOL_GATHER = 1e-6    # x max |twin|
 TOL_FLUX = 2e-6      # x max |twin| (about 3e-3 W/m2 on LW fluxes)
+# public-API path vs the fused path, same inputs (the JAX package's own
+# bound for its fused-vs-generic test, tests/test_pallas_gas_optics.py:275)
+PATH_RTOL, PATH_ATOL = 3e-5, 5e-4
 REPS = 5
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bandwidth and float32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# float operations per unit of work, counted from the kernels' arithmetic
+# (an exp or a division counts as one)
+OPS_MAJOR_CORNER = 5       # weight (2), x col_mix, multiply-add
+OPS_PFRAC_CORNER = 2
+OPS_MINOR = 16             # per (cell, g-point) a minor gas covers
+OPS_RAYLEIGH = 18          # 2-D lerp (14), x scale, combine (3)
+OPS_CLOUD = 27             # per (cell, band): 2 phases x (3 lerps + 3)
+OPS_LW_LAYER = 24          # per (column, layer, g-point): source, sweeps
+OPS_LW_RESCALE = 14        # Tang terms and the second down sweep
+OPS_PLANCK = 12            # totplnk lerps, level geometric mean
+OPS_SW_LAYER = 62          # Meador-Weaver (47), direct beam, adding (12)
+OPS_SW_COMBINE = 12        # Rayleigh and cloud combine
 
 
 def log(msg):
@@ -68,32 +102,382 @@ def cuda_ms(fn, reps=REPS, burst_ms=10.0):
     return statistics.median(burst(n) for _ in range(reps))
 
 
-def max_err(got, ref):
-    return max(float((g - r).abs().max()) for g, r in zip(got, ref)), \
-        max(float(r.abs().max()) for r in ref)
+def as_tuple(x):
+    return tuple(v for v in (x if isinstance(x, tuple) else (x,))
+                 if v is not None)
 
 
-def check_kernel(name, kernel, plain, args, tol, source, replaces):
+def nbytes(*xs):
+    """Bytes of every tensor in xs (nested tuples included), each once."""
     import torch
-    got = kernel(args)
-    ref = plain(args)
+    seen, total = set(), 0
+    stack = list(xs)
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            if x.data_ptr() not in seen:
+                seen.add(x.data_ptr())
+                total += min(x.numel() * x.element_size(),
+                             x.untyped_storage().nbytes())
+        elif isinstance(x, (tuple, list)):
+            stack.extend(x)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+    return total
+
+
+def bound(moved_bytes, ops):
+    """The least time the card could take: bytes over HBM bandwidth or
+    operations over the float32 peak, whichever is larger."""
+    t_bytes = moved_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=moved_bytes, ops=ops)
+
+
+def check_kernel(name, kernel, plain, args, tol, source, replaces, work,
+                 fresh=lambda a: a):
+    """Kernel vs twin on fresh copies of the inputs (``fresh`` clones what
+    a kernel updates in place), then both timed. ``work`` is (bytes the
+    function must move, its operations)."""
+    import torch
+    got = as_tuple(kernel(fresh(args)))
+    ref = as_tuple(plain(fresh(args)))
     torch.cuda.synchronize()
-    got = got if isinstance(got, tuple) else (got,)
-    ref = ref if isinstance(ref, tuple) else (ref,)
+    if len(got) != len(ref):
+        raise SystemExit(f"{name}: kernel gives {len(got)} outputs, twin "
+                         f"{len(ref)}")
     for g, r in zip(got, ref):
         if g.shape != r.shape or not bool(torch.isfinite(g).all()):
             raise SystemExit(f"{name}: kernel output {tuple(g.shape)} is "
                              f"not finite or not {tuple(r.shape)}")
-    err, scale = max_err(got, ref)
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    scale = max(float(r.abs().max()) for r in ref)
+    del got, ref
     ms = cuda_ms(lambda: kernel(args))
     plain_ms = cuda_ms(lambda: plain(args))
-    ok = err <= tol * scale
+    b = bound(*work)
     log(f"kernel {name}: max_abs_err {err:.3e} (limit {tol * scale:.3e}), "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    if not ok:
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e9:.3f}"
+        f" GB, {b['ops'] / 1e9:.3f} Gop)")
+    if not err <= tol * scale:
         raise SystemExit(f"{name}: kernel disagrees with its twin")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                library_ms=None)
+
+
+def fused_rows(prob, dev):
+    """Phase 3, the fused path's kernels: cloud optics and the fused
+    LW and SW steps."""
+    from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
+                                                     allsky_sw_inputs)
+    from rte_rrtmgp_tpu_torch.ops.kernels.cloud_props import (
+        cloud_props, cloud_props_plain)
+    from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import (lw_fused,
+                                                           lw_fused_plain)
+    from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import (sw_fused,
+                                                           sw_fused_plain)
+    inp = prob.inputs
+    ncol, nlay = inp.play.shape
+    ncell, nlev = ncol * nlay, nlay + 1
+    cld = prob.cld_lw
+    cloud_args = (cld.lane_inputs(inp.lwp, inp.iwp, inp.rel, inp.dei)
+                  + cld.tables())
+    nbnd_c = cloud_args[3].shape[2]
+    lw = allsky_lw_inputs(inp, prob.gas_lw, cloud_optics=prob.cld_lw)
+    sw = allsky_sw_inputs(inp, prob.gas_sw, cloud_optics=prob.cld_sw)
+    gpt = lambda x: sum(w for (_, _, _, w, _) in x.minors)
+    ngl, ngs = lw.kmajor.shape[3], sw.kmajor.shape[3]
+    ops_lw = ncell * (ngl * (8 * (OPS_MAJOR_CORNER + OPS_PFRAC_CORNER)
+                             + OPS_PLANCK + OPS_LW_LAYER)
+                      + gpt(lw) * OPS_MINOR)
+    ops_sw = ncell * (ngs * (8 * OPS_MAJOR_CORNER + OPS_RAYLEIGH
+                             + OPS_SW_COMBINE + OPS_SW_LAYER)
+                      + gpt(sw) * OPS_MINOR)
+    rows = [
+        check_kernel("cloud_props", lambda a: cloud_props(*a),
+                     lambda a: cloud_props_plain(*a), cloud_args, TOL_GATHER,
+                     "rte_rrtmgp_tpu_torch/csrc/cloud_props.cu",
+                     "rte_rrtmgp_tpu/ops/pallas/minor_gather.py:227",
+                     (nbytes(cloud_args) + 3 * nbnd_c * ncell * 4,
+                      OPS_CLOUD * nbnd_c * ncell)),
+        check_kernel("fused_lw", lw_fused, lw_fused_plain, lw, TOL_FLUX,
+                     "rte_rrtmgp_tpu_torch/csrc/fused_lw.cu",
+                     "rte_rrtmgp_tpu/ops/pallas/fused_lw.py:368",
+                     (nbytes(tuple(lw)) + 2 * nlev * ncol * 4, ops_lw)),
+        check_kernel("fused_sw", sw_fused, sw_fused_plain, sw, TOL_FLUX,
+                     "rte_rrtmgp_tpu_torch/csrc/fused_sw.cu",
+                     "rte_rrtmgp_tpu/ops/pallas/fused_sw.py:309",
+                     (nbytes(tuple(sw)) + 3 * nlev * ncol * 4, ops_sw)),
+    ]
+    return rows
+
+
+def api_rows(prob, dev):
+    """Phase 3, the public-API path's kernels: the staged major, minor and
+    Rayleigh gathers and the LW and SW solvers, on inputs prepared as the
+    path prepares them."""
+    import torch
+    from rte_rrtmgp_tpu_torch.ops.gas_optics import minor_scaling
+    from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import _split_minors
+    from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import (gas_major,
+                                                            gas_major_plain)
+    from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (
+        gas_minor, gas_minor_plain, gas_rayleigh, gas_rayleigh_plain)
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import (lw_noscat,
+                                                            lw_noscat_plain)
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw import (sw_2stream,
+                                                            sw_2stream_plain)
+    from rte_rrtmgp_tpu_torch.optical_props import delta_scale, increment
+    inp = prob.inputs
+    ncol, nlay = inp.play.shape
+    ncell = ncol * nlay
+    gl, gs = prob.gas_lw, prob.gas_sw
+
+    def cells(gas):
+        col_gas, col_dry, idx_h2o = gas.col_gas(inp.play, inp.plev,
+                                                inp.gas_concs)
+        return gas.interp(inp.play, inp.tlay, col_gas), col_gas, col_dry, \
+            idx_h2o
+
+    co, col_gas, _, idx_h2o = cells(gl)
+    kd = gl.kdist
+    ngl = kd.ngpt
+    major = (co, kd.kmajor, kd.planck_frac, gl.gpoint_flavor)
+    rows = [check_kernel(
+        "gas_major", lambda a: gas_major(*a), lambda a: gas_major_plain(*a),
+        major, TOL_GATHER, "rte_rrtmgp_tpu_torch/csrc/gas_major.cu",
+        "rte_rrtmgp_tpu/ops/pallas/major_gather.py:188",
+        (nbytes(major) + 2 * ncell * ngl * 4,
+         ncell * ngl * 8 * (OPS_MAJOR_CORNER + OPS_PFRAC_CORNER)))]
+
+    tau = gas_major_plain(*major)[0]
+    lo = _split_minors(gl.minors)[0]
+    scaling = minor_scaling(co, kd.minor_lower, lower=True, play=inp.play,
+                            tlay=inp.tlay, col_gas=col_gas, idx_h2o=idx_h2o)
+    minor = (tau, co, kd.kminor_lower, lo, gl.minor_meta[:len(lo)], scaling)
+    covered = sum(w for (_, _, w, _) in lo)
+    rows.append(check_kernel(
+        "gas_minor", lambda a: gas_minor(*a), lambda a: gas_minor_plain(*a),
+        minor, TOL_GATHER, "rte_rrtmgp_tpu_torch/csrc/gas_minor.cu",
+        "rte_rrtmgp_tpu/ops/pallas/minor_gather.py:100",
+        (nbytes(co.jtemp, co.ftemp, co.jeta, co.feta, kd.kminor_lower,
+                scaling) + 2 * tau.numel() * 4,
+         ncell * covered * OPS_MINOR),
+        fresh=lambda a: (a[0].clone(),) + a[1:]))
+    del minor, tau, scaling
+
+    co, col_gas, col_dry, idx_h2o = cells(gs)
+    kds = gs.kdist
+    ngs = kds.ngpt
+    tau = gas_major_plain(co, kds.kmajor, None, gs.gpoint_flavor)[0]
+    rayl = (tau, co, kds.krayl, gs.gpoint_flavor,
+            (col_gas[idx_h2o] + col_dry).contiguous(), True)
+    rows.append(check_kernel(
+        "gas_rayleigh", lambda a: gas_rayleigh(*a),
+        lambda a: gas_rayleigh_plain(*a), rayl, TOL_GATHER,
+        "rte_rrtmgp_tpu_torch/csrc/gas_minor.cu",
+        "rte_rrtmgp_tpu/ops/pallas/minor_gather.py:161",
+        (nbytes(co.jtemp, co.ftemp, co.tropo, co.jeta, co.feta, kds.krayl,
+                rayl[4]) + 3 * tau.numel() * 4,
+         ncell * ngs * OPS_RAYLEIGH),
+        fresh=lambda a: (a[0].clone(),) + a[1:]))
+    del rayl, tau, co, col_gas, col_dry
+
+    # LW solver with Tang rescaling, the Jacobian, an incident flux and
+    # per-(column, g-point) secants, on the path's gas optics and sources
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rand = lambda shape, lo, hi: lo + (hi - lo) * torch.rand(
+        shape, generator=gen, device=dev)
+    props, src = gl.gas_optics_lw(inp.play, inp.plev, inp.tlay, inp.tsfc,
+                                  inp.gas_concs, tlev=inp.tlev, top_at_1=True)
+    shape = tuple(props.tau.shape)
+    bc = (ncol, ngl)
+    lw = (props.tau, src.lay_source, src.lev_source, rand(bc, 0.8, 1.0),
+          src.sfc_source, rand(bc, 0.0, 2.0),
+          dict(ds=gl.compute_optimal_angles(props), weight=1.0,
+               sfc_src_jac=src.sfc_source_jac, ssa=rand(shape, 0.0, 0.6),
+               g=rand(shape, 0.0, 0.9)))
+    call = lambda f: lambda a: f(*a[:6], **a[6])
+    rows.append(check_kernel(
+        "solver_lw", call(lw_noscat), call(lw_noscat_plain), lw, TOL_FLUX,
+        "rte_rrtmgp_tpu_torch/csrc/solver_lw.cu",
+        "rte_rrtmgp_tpu/ops/pallas/solver_lw_kernel.py:239",
+        (nbytes(lw) + 3 * ncol * (nlay + 1) * 4,
+         ncol * nlay * ngl * (OPS_LW_LAYER + OPS_LW_RESCALE))))
+    del lw, props, src
+
+    # SW solver with a diffuse incident flux, night columns and mu0 that
+    # varies by layer, on the path's gas optics and delta-scaled clouds
+    props, toa = gs.gas_optics_sw(inp.play, inp.plev, inp.tlay,
+                                  inp.gas_concs, top_at_1=True)
+    props = increment(props, delta_scale(prob.cld_sw.cloud_optics(
+        inp.lwp, inp.iwp, inp.rel, inp.dei)))
+    col = torch.arange(ncol, device=dev)
+    mu_col = torch.where(col % 16 == 0, -0.3,
+                         torch.where(col % 16 == 1, 0.0, 0.86))
+    layer = torch.arange(nlay, device=dev) / nlay
+    mu0 = torch.where(mu_col[:, None] > 0,
+                      mu_col[:, None] * (1.0 - 0.05 * layer),
+                      mu_col[:, None].expand(ncol, nlay)).contiguous()
+    bc = (ncol, ngs)
+    inc = toa.contiguous()
+    sw = (props.tau, props.ssa, props.g, mu0, rand(bc, 0.0, 0.3),
+          rand(bc, 0.0, 0.3), inc, 0.05 * inc)
+    rows.append(check_kernel(
+        "solver_sw", lambda a: sw_2stream(*a), lambda a: sw_2stream_plain(*a),
+        sw, TOL_FLUX, "rte_rrtmgp_tpu_torch/csrc/solver_sw.cu",
+        "rte_rrtmgp_tpu/ops/pallas/solver_sw_kernel.py:222",
+        (nbytes(sw) + 3 * ncol * (nlay + 1) * 4,
+         ncol * nlay * ngs * OPS_SW_LAYER)))
+    return rows
+
+
+def golden_gate(what, out):
+    """Each float32 field within 3x the float32 noise floor of the f64
+    golden (the production configuration)."""
+    import numpy as np
+    golden = np.load(os.path.join(HERE, "tests", "golden", "production.npz"))
+    with open(os.path.join(HERE, "tests", "golden",
+                           "production_f32_noise.json")) as f:
+        noise = json.load(f)["f32_noise"]
+    for key, o in zip(("lw_up", "lw_dn", "sw_up", "sw_dn", "sw_dir"), out):
+        d = float(np.abs(o.double().cpu().numpy() - golden[key]).max())
+        log(f"golden {what} {key}: max |f32 - f64 golden| {d:.4g} "
+            f"(limit {3 * noise[key]:.4g})")
+        if not d <= 3 * noise[key]:
+            raise SystemExit(f"golden gate failed on {what} {key}")
+
+
+def api_step_fn(prob):
+    """One all-sky step through the public API: (lw_up, lw_dn, sw_up,
+    sw_dn, sw_dn_dir), each (ncol, nlay+1)."""
+    from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_api_lw,
+                                                     allsky_api_sw)
+
+    def step(inputs):
+        lw = allsky_api_lw(inputs, prob.gas_lw, cloud_optics=prob.cld_lw)
+        sw = allsky_api_sw(inputs, prob.gas_sw, cloud_optics=prob.cld_sw)
+        return (lw.flux_up, lw.flux_dn, sw.flux_up, sw.flux_dn,
+                sw.flux_dn_dir)
+    return step
+
+
+def run_path(name, step, inputs, counters, must, must_not, solar):
+    """Drive one path with the counters set to 0 just before it; check
+    the launches, the outputs and TOA SW; time it. Returns (outputs,
+    launches)."""
+    import torch
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    out = step(inputs)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"{name} path launches: {launches}")
+    for k in must:
+        if launches[k] == 0:
+            raise SystemExit(f"{name} path never launched {k}")
+    for k in must_not:
+        if launches[k] != 0:
+            raise SystemExit(f"{name} path launched {k}")
+    ncol, nlev = inputs.play.shape[0], inputs.play.shape[1] + 1
+    for o in out:
+        if tuple(o.shape) != (ncol, nlev):
+            raise SystemExit(f"{name} output shape {tuple(o.shape)}")
+        if not bool(torch.isfinite(o).all()) or bool((o < 0).any()):
+            raise SystemExit(f"{name} path output not finite or negative")
+    toa = solar * inputs.mu0.double()
+    toa_err = float(((out[3][:, 0].double() - toa).abs() / toa).max())
+    log(f"{name} sw_dn at TOA vs sum(solar source) * mu0: rel err "
+        f"{toa_err:.2e}")
+    if toa_err > 1e-5:
+        raise SystemExit(f"{name}: sw_dn at TOA does not equal the "
+                         "incident flux")
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(inputs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t_step = statistics.median(times)
+    log(f"{name} path step: {t_step * 1e3:.3f} ms median of {REPS}, "
+        f"{ncol / t_step:.1f} columns/s")
+    return out, launches
+
+
+def profile_path(name, step, inputs, n=3, top=8):
+    """Device time by kernel and the device's busy share over n steps,
+    from torch.profiler (the profiler's own overhead lengthens the wall
+    time, so the busy share is a lower bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step(inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(inputs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)) / 1e3 / n
+    on_card = lambda e: e.device_type == torch.autograd.DeviceType.CUDA
+    rows = sorted(((dev(e), e.count / n, e.key) for e in prof.key_averages()
+                   if on_card(e) and dev(e) > 0), reverse=True)
+    total = sum(r[0] for r in rows)
+    if total == 0:
+        log(f"profile {name}: the profiler saw no device time (not "
+            "measured)")
+        return
+    log(f"profile {name}: device {total:.3f} ms per step, wall "
+        f"{wall_ms:.3f} ms under the profiler, busy share "
+        f"{total / wall_ms:.3f}")
+    for ms, count, key in rows[:top]:
+        log(f"profile {name}:   {ms:8.3f} ms  x{count:g}  {key[:70]}")
+    rest = rows[top:]
+    log(f"profile {name}:   {sum(r[0] for r in rest):8.3f} ms  in "
+        f"{sum(r[1] for r in rest):g} other launches")
+
+
+def angles_check(prob, inputs):
+    """Phase 7: rte_lw with 3 Gauss angles and with per-(column, g-point)
+    optimal-angle secants, on the card against the same calls on the CPU
+    (the twins), on 512 columns."""
+    import dataclasses
+    from rte_rrtmgp_tpu_torch.rte import rte_lw
+    from rte_rrtmgp_tpu_torch.optical_props import subset
+    from rte_rrtmgp_tpu_torch.sources import subset_sources
+    n = 512
+    props, src = prob.gas_lw.gas_optics_lw(
+        inputs.play, inputs.plev, inputs.tlay, inputs.tsfc,
+        inputs.gas_concs, tlev=inputs.tlev, top_at_1=True)
+    props, src = subset(props, 0, n), subset_sources(src, 0, n)
+    emis = inputs.sfc_emis[:n]
+    cpu = lambda x: x.cpu() if hasattr(x, "cpu") else x
+    props_c = dataclasses.replace(props, tau=props.tau.cpu())
+    src_c = dataclasses.replace(src, **{f: cpu(getattr(src, f)) for f in (
+        "lay_source", "lev_source", "sfc_source", "sfc_source_jac")})
+    ds = prob.gas_lw.compute_optimal_angles(props)
+    for what, kw, kw_c in (("3 angles", dict(n_gauss_angles=3),
+                            dict(n_gauss_angles=3)),
+                           ("optimal angles", dict(lw_ds=ds),
+                            dict(lw_ds=ds.cpu()))):
+        got = rte_lw(props, src, emis, **kw)
+        ref = rte_lw(props_c, src_c, emis.cpu(), **kw_c)
+        pairs = ((got.flux_up, ref.flux_up), (got.flux_dn, ref.flux_dn))
+        err = max(float((g.cpu() - r).abs().max()) for g, r in pairs)
+        scale = max(float(r.abs().max()) for _, r in pairs)
+        log(f"rte_lw {what}: card vs CPU twin max_abs_err {err:.3e} "
+            f"(limit {TOL_FLUX * scale:.3e})")
+        if not err <= TOL_FLUX * scale:
+            raise SystemExit(f"rte_lw {what}: card and twin disagree")
 
 
 def main():
@@ -101,23 +485,23 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    import numpy as np
 
-    from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
-                                                     allsky_sw_inputs,
-                                                     build_allsky,
+    from rte_rrtmgp_tpu_torch.drivers.allsky import (build_allsky,
                                                      build_allsky_step)
     from rte_rrtmgp_tpu_torch.ops.kernels import _build
-    from rte_rrtmgp_tpu_torch.ops.kernels.cloud_props import (
-        cloud_props, cloud_props_plain)
-    from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import (lw_fused,
-                                                           lw_fused_plain)
-    from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import (sw_fused,
-                                                           sw_fused_plain)
+    from rte_rrtmgp_tpu_torch.ops.kernels.cloud_props import cloud_props
+    from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import lw_fused
+    from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import sw_fused
+    from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import gas_major
+    from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (gas_minor,
+                                                            gas_rayleigh)
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import lw_noscat
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw import sw_2stream
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # ---- 1. the card ----
     card = subprocess.run(
@@ -137,84 +521,56 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
-    # ---- 3. each kernel against its twin at the main path's shapes ----
+    # ---- 3. each kernel against its twin at its path's shapes ----
     prob = build_allsky(**MAIN, device=dev)
-    inp = prob.inputs
-    cld = prob.cld_lw
-    idx, fint, wp = cld.lane_inputs(inp.lwp, inp.iwp, inp.rel, inp.dei)
-    liq, ice = cld.tables()
-    cloud_args = (idx, fint, wp, liq, ice)
-    lw_args = allsky_lw_inputs(inp, prob.gas_lw, cloud_optics=prob.cld_lw)
-    sw_args = allsky_sw_inputs(inp, prob.gas_sw, cloud_optics=prob.cld_sw)
-    rows = [
-        check_kernel("cloud_props", lambda a: cloud_props(*a),
-                     lambda a: cloud_props_plain(*a), cloud_args, TOL_CLOUD,
-                     "rte_rrtmgp_tpu_torch/csrc/cloud_props.cu",
-                     "rte_rrtmgp_tpu/ops/pallas/minor_gather.py:227"),
-        check_kernel("fused_lw", lw_fused, lw_fused_plain, lw_args, TOL_FLUX,
-                     "rte_rrtmgp_tpu_torch/csrc/fused_lw.cu",
-                     "rte_rrtmgp_tpu/ops/pallas/fused_lw.py:368"),
-        check_kernel("fused_sw", sw_fused, sw_fused_plain, sw_args, TOL_FLUX,
-                     "rte_rrtmgp_tpu_torch/csrc/fused_sw.cu",
-                     "rte_rrtmgp_tpu/ops/pallas/fused_sw.py:309"),
-    ]
+    rows = fused_rows(prob, dev) + api_rows(prob, dev)
     solar = float(prob.gas_sw.kdist.solar_source.double().sum())
-    del prob, inp, lw_args, sw_args, cloud_args
+    del prob
     torch.cuda.empty_cache()
 
-    # ---- 4. golden gate: float32 kernel path at the production config ----
-    golden = np.load(os.path.join(HERE, "tests", "golden", "production.npz"))
-    with open(os.path.join(HERE, "tests", "golden",
-                           "production_f32_noise.json")) as f:
-        noise = json.load(f)["f32_noise"]
-    step, inputs = build_allsky_step(256, 72, 256, 16, 224, 14, 14, 59,
-                                     device=dev)
-    out = step(inputs)
-    for key, o in zip(("lw_up", "lw_dn", "sw_up", "sw_dn", "sw_dir"), out):
-        d = float(np.abs(o.double().cpu().numpy() - golden[key]).max())
-        log(f"golden {key}: max |f32 kernel - f64 golden| {d:.4g} "
-            f"(limit {3 * noise[key]:.4g})")
-        if not d <= 3 * noise[key]:
-            raise SystemExit(f"golden gate failed on {key}")
+    # ---- 4. golden gates at the production configuration ----
+    step, inputs = build_allsky_step(**PROD, device=dev)
+    golden_gate("fused", step(inputs))
+    golden_gate("public API",
+                api_step_fn(build_allsky(**PROD, device=dev))(inputs))
 
-    # ---- 5. the main path ----
-    step, inputs = build_allsky_step(**MAIN, device=dev)
+    # ---- 5. the fused path ----
     counters = {"cloud_props": cloud_props, "fused_lw": lw_fused,
-                "fused_sw": sw_fused}
-    torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
-    out = step(inputs)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    log(f"main path launches: {launches}")
-    for name, n in launches.items():
-        if n == 0:
-            raise SystemExit(f"main path never launched {name}")
-    nlev = MAIN["nlay"] + 1
-    for o in out:
-        if tuple(o.shape) != (MAIN["ncol"], nlev):
-            raise SystemExit(f"output shape {tuple(o.shape)}")
-        if not bool(torch.isfinite(o).all()) or bool((o < 0).any()):
-            raise SystemExit("main path output not finite or negative")
-    toa = solar * inputs.mu0.double()
-    toa_err = float(((out[3][:, 0].double() - toa).abs() / toa).max())
-    log(f"sw_dn at TOA vs sum(solar source) * mu0: rel err {toa_err:.2e}")
-    if toa_err > 1e-5:
-        raise SystemExit("sw_dn at TOA does not equal the incident flux")
-    times = []
-    for _ in range(REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(inputs)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    t_step = statistics.median(times)
-    log(f"main path step: {t_step * 1e3:.3f} ms median of {REPS}, "
-        f"{MAIN['ncol'] / t_step:.1f} columns/s")
+                "fused_sw": sw_fused, "gas_major": gas_major,
+                "gas_minor": gas_minor, "gas_rayleigh": gas_rayleigh,
+                "solver_lw": lw_noscat, "solver_sw": sw_2stream}
+    fused_names = ("cloud_props", "fused_lw", "fused_sw")
+    api_names = ("cloud_props", "gas_major", "gas_minor", "gas_rayleigh",
+                 "solver_lw", "solver_sw")
+    step, inputs = build_allsky_step(**MAIN, device=dev)
+    fused_out, fused_launches = run_path(
+        "fused", step, inputs, counters, fused_names,
+        [k for k in counters if k not in fused_names], solar)
 
+    # ---- 6. the public-API path on the same inputs ----
+    prob = build_allsky(**MAIN, device=dev)
+    api_out, api_launches = run_path(
+        "public API", api_step_fn(prob), inputs, counters, api_names,
+        ("fused_lw", "fused_sw"), solar)
+    gap = max(float(((a - f).abs() - PATH_RTOL * f.abs()).max())
+              for a, f in zip(api_out, fused_out))
+    diff = max(float((a - f).abs().max()) for a, f in zip(api_out, fused_out))
+    log(f"public API vs fused: max |diff| {diff:.3e} W/m2, max(|diff| - "
+        f"{PATH_RTOL} |fused|) {gap:.3e} W/m2 (limit {PATH_ATOL})")
+    if not gap <= PATH_ATOL:
+        raise SystemExit("the public-API and fused paths disagree")
+    del fused_out, api_out
+    profile_path("fused", step, inputs)
+    profile_path("public API", api_step_fn(prob), inputs)
+
+    # ---- 7. multi-angle and optimal-angle LW against the twins ----
+    angles_check(prob, inputs)
+
+    # ---- 8. result ----
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        src = fused_launches if row["name"] in fused_names else api_launches
+        row["launches"] = src[row["name"]]
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
-"""Runtime configuration: the working dtype and the value-check toggle.
+"""Runtime configuration: the working dtype, the value-check toggle and
+the default device.
 
 Mirrors the reference's precision switch (``RTE_USE_SP``,
 rte/kernels/mo_rte_kind.F90:24-41) and its ``check_values`` toggle
 (rte/frontend/mo_rte_config.F90:20-51). There is no kernel switch:
-kernels are chosen by the device a tensor lives on.
+kernels are chosen by the device a tensor lives on, and the entry points
+that make tensors put them on the CUDA device unless told otherwise.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ from contextlib import contextmanager
 
 import torch
 
-__all__ = ["RTEConfig", "get_config", "checks_disabled", "check_dtype"]
+__all__ = ["RTEConfig", "get_config", "checks_disabled", "check_dtype",
+           "resolve_device"]
 
 _DTYPES = (torch.float32, torch.float64)
 
@@ -49,3 +52,15 @@ def check_dtype(dtype) -> torch.dtype:
     if dtype not in _DTYPES:
         raise ValueError(f"working dtype must be float32 or float64, got {dtype}")
     return dtype
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point builds its tensors on: ``None`` means the
+    current CUDA device, and raises when there is none (the CPU is used
+    only when asked for, e.g. ``device="cpu"``)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to build "
+                               "on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .config import resolve_device
 from .models.rrtmgp.cloud_optics import CloudOpticsRRTMGP
 from .models.rrtmgp.kdist import KDist, MinorSet
 from .spectral import SpectralGrid
@@ -28,8 +29,10 @@ def _tensor(x, dtype, device):
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
-def kdist_from_jax(kd, *, dtype=torch.float32, device="cpu") -> KDist:
-    """The port's KDist with the tables and metadata of a JAX KDist."""
+def kdist_from_jax(kd, *, dtype=torch.float32, device=None) -> KDist:
+    """The port's KDist with the tables and metadata of a JAX KDist, on
+    ``device`` (default: the CUDA device)."""
+    device = resolve_device(device)
     t = lambda x: _tensor(x, dtype, device)
     minor = lambda m: MinorSet(**{f: getattr(m, f) for f in (
         "gas_names", "limits_gpt", "scales_with_density",
@@ -51,13 +54,17 @@ def kdist_from_jax(kd, *, dtype=torch.float32, device="cpu") -> KDist:
         kminor_upper=t(kd.kminor_upper), krayl=t(kd.krayl),
         planck_frac=t(kd.planck_frac), totplnk=t(kd.totplnk),
         totplnk_delta=float(kd.totplnk_delta),
-        solar_source=t(kd.solar_source))
+        solar_source=t(kd.solar_source),
+        optimal_angle_fit=(None if kd.optimal_angle_fit is None
+                           else np.asarray(kd.optimal_angle_fit)))
 
 
 def cloud_optics_from_jax(cld, *, dtype=torch.float32,
-                          device="cpu") -> CloudOpticsRRTMGP:
+                          device=None) -> CloudOpticsRRTMGP:
     """The port's CloudOpticsRRTMGP with the tables of a JAX one (both
-    store the ice tables roughness-major)."""
+    store the ice tables roughness-major), on ``device`` (default: the
+    CUDA device)."""
+    device = resolve_device(device)
     t = lambda x: _tensor(x, dtype, device)
     return CloudOpticsRRTMGP(
         grid=_grid(cld.grid), radliq_lwr=float(cld.radliq_lwr),

@@ -1,4 +1,5 @@
-// Helpers shared by the fused LW and SW kernels.
+// Helpers shared by the kernels: deterministic block sums and the
+// gas-optics table lookups.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -120,6 +121,30 @@ __device__ __forceinline__ float minor_tau(
         tau += msc[(long long)m * ncell + cell] * kk;
     }
     return tau;
+}
+
+// Rayleigh absorption coefficient of g-point g at one cell (reference
+// compute_tau_rayleigh): the 2-D (temperature x eta) lerp of krayl
+// (ntemp, neta, ngpt, 2) in the cell's atmosphere; the caller scales it
+// by col_h2o + col_dry.
+__device__ __forceinline__ float rayleigh_k(
+        const CellDesc& d, int flav, int nflav, int ncell, int cell,
+        const int* __restrict__ jeta, const float* __restrict__ feta,
+        const float* __restrict__ krayl, int neta, int ngpt, int g) {
+    int atm = d.lower ? 0 : 1;
+    float k = 0.0f;
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+        int fi = (it * nflav + flav) * ncell + cell;
+        int je = jeta[fi];
+        float fe = feta[fi];
+        float ftv = it == 0 ? 1.0f - d.ft : d.ft;
+        long long base = ((long long)((d.jt + it) * neta + je) * ngpt + g);
+        float lo = __ldg(krayl + base * 2 + atm);
+        float hi = __ldg(krayl + (base + ngpt) * 2 + atm);
+        k += ((1.0f - fe) * ftv) * lo + (fe * ftv) * hi;
+    }
+    return k;
 }
 
 // Dynamic shared memory beyond 48 KB must be opted into per kernel.

@@ -35,6 +35,7 @@
 #include <cmath>
 
 #include "common.cuh"
+#include "transport.cuh"
 
 namespace {
 
@@ -113,7 +114,6 @@ __global__ void fused_lw_kernel(
     }
 
     // ---- pass 2: sources + down sweep (reference :51-240, :620-745) ----
-    const float tau_thresh = sqrtf(sqrtf(FLT_EPSILON));
     float rdn = 0.0f;
     float pf_cur = 0.0f, lev_top = 0.0f;
     if (active) {
@@ -135,14 +135,8 @@ __global__ void fused_lw_kernel(
                                              ntot, nbnd, band, tp_min,
                                              tp_delta);
             float tl = tau_s[(long long)l * ngpt] * ds;
-            float trans = expf(-tl);
-            float fact_big = (1.0f - trans) / fmaxf(tl, FLT_MIN) - trans;
-            float fact_small = tl * (0.5f + tl * (-1.0f / 3.0f + tl * 0.125f));
-            float fact = tl > tau_thresh ? fact_big : fact_small;
-            float sdn = (1.0f - trans) * lev_bot
-                + 2.0f * fact * (lay - lev_bot);
-            float sup = (1.0f - trans) * lev_top
-                + 2.0f * fact * (lay - lev_top);
+            float trans, sdn, sup;
+            rte::lw_source(tl, lay, lev_top, lev_bot, &trans, &sdn, &sup);
             rdn = trans * rdn + sdn;
             tau_s[(long long)l * ngpt] = trans;
             src_s[(long long)l * ngpt] = sup;

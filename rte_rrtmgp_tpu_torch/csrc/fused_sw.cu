@@ -32,31 +32,11 @@
 #include <cmath>
 
 #include "common.cuh"
+#include "transport.cuh"
 
 namespace {
 
 using rte::CellDesc;
-
-__device__ __forceinline__ float rayleigh_k(
-        const CellDesc& d, int flav, int nflav, int ncell, int cell,
-        const int* __restrict__ jeta, const float* __restrict__ feta,
-        const float* __restrict__ krayl, int neta, int ngpt, int g) {
-    // krayl (ntemp, neta, ngpt, 2): 2-D lerp in the cell's atmosphere
-    int atm = d.lower ? 0 : 1;
-    float k = 0.0f;
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-        int fi = (it * nflav + flav) * ncell + cell;
-        int je = jeta[fi];
-        float fe = feta[fi];
-        float ftv = it == 0 ? 1.0f - d.ft : d.ft;
-        long long base = ((long long)((d.jt + it) * neta + je) * ngpt + g);
-        float lo = __ldg(krayl + base * 2 + atm);
-        float hi = __ldg(krayl + (base + ngpt) * 2 + atm);
-        k += ((1.0f - fe) * ftv) * lo + (fe * ftv) * hi;
-    }
-    return k;
-}
 
 __global__ void fused_sw_kernel(
         const int* __restrict__ jtemp, const float* __restrict__ ftemp,
@@ -97,10 +77,7 @@ __global__ void fused_sw_kernel(
     float* SRC = ALB + field;                              // source at levels
     const int band = active ? gpt2band[g] : 0;
 
-    const float eps = FLT_EPSILON;
     const float tiny = FLT_MIN;
-    const float min_k = 1.0e4f * FLT_EPSILON;
-    const float min_mu0 = sqrtf(FLT_EPSILON);
 
     // ---- pass 1: optics, two-stream coefficients, direct beam ----
     float dir = active ? inc[(long long)g * ncol + c] * mu0[c] : 0.0f;
@@ -117,8 +94,9 @@ __global__ void fused_sw_kernel(
                            &unused);
             tau = rte::minor_tau(tau, d, meta, nminor, nflav, ncell, cell,
                                  jeta, feta, msc, klo, kup, ncl, ncu, neta, g);
-            float ray = rayleigh_k(d, flav, nflav, ncell, cell, jeta, feta,
-                                   krayl, neta, ngpt, g) * rayscale[cell];
+            float ray = rte::rayleigh_k(d, flav, nflav, ncell, cell, jeta,
+                                        feta, krayl, neta, ngpt, g)
+                * rayscale[cell];
             // combine_abs_and_rayleigh + cloud increment (fused_sw.py:40-64)
             float t = tau + ray;
             float w0 = t > 2.0f * tiny ? ray / t : 0.0f;
@@ -138,84 +116,27 @@ __global__ void fused_sw_kernel(
             }
             // Meador-Weaver / PIFM coefficients (reference :985-1127)
             float mu = mu0[cell];
-            float mu_s = fmaxf(min_mu0, mu);
-            float g1 = (8.0f - w0 * (5.0f + 3.0f * asym)) * 0.25f;
-            float g2 = 3.0f * (w0 * (1.0f - asym)) * 0.25f;
-            float k = sqrtf(fmaxf((g1 - g2) * (g1 + g2), min_k));
-            float e1 = expf(-t * k);
-            float e2 = e1 * e1;
-            float rt = 1.0f / (k * (1.0f + e2) + g1 * (1.0f - e2));
-            float rdif = rt * g2 * (1.0f - e2);
-            float tdif = rt * 2.0f * k * e1;
-            float k_mu = k * mu_s;
-            float den = 1.0f - k_mu * k_mu;
-            den = fabsf(den) >= eps ? den : eps;
-            float rt2 = w0 * rt / den;
-            float g3 = (2.0f - 3.0f * mu_s * asym) * 0.25f;
-            float g4 = 1.0f - g3;
-            float a1 = g1 * g4 + g2 * g3;
-            float a2 = g1 * g3 + g2 * g4;
-            float kg3 = k * g3;
-            float kg4 = k * g4;
-            float tns = expf(-t / mu_s);
-            float rdir = rt2 * ((1.0f - k_mu) * (a2 + kg3)
-                                - (1.0f + k_mu) * (a2 - kg3) * e2
-                                - 2.0f * (kg3 - a2 * k_mu) * e1 * tns);
-            float tdir = -rt2 * ((1.0f + k_mu) * (a1 + kg4) * tns
-                                 - (1.0f - k_mu) * (a1 - kg4) * e2 * tns
-                                 - 2.0f * (kg4 + a1 * k_mu) * e1);
-            rdir = fminf(fmaxf(rdir, 0.0f), 1.0f - tns);
-            tdir = fminf(fmaxf(tdir, 0.0f), 1.0f - tns - rdir);
+            rte::SwLayer s = rte::sw_layer(t, w0, asym, mu);
             bool day = mu > 0.0f;
             long long o = (long long)l * ngpt;
-            R[o] = rdif;
-            T[o] = tdif;
-            SUP[o] = day ? rdir * dir : 0.0f;
-            SDN[o] = day ? tdir * dir : 0.0f;
-            dir = dir * tns;
+            R[o] = s.rdif;
+            T[o] = s.tdif;
+            SUP[o] = day ? s.rdir * dir : 0.0f;
+            SDN[o] = day ? s.tdir * dir : 0.0f;
+            dir = dir * s.tns;
         }
         rte::reduce_level(dir, p_dir, nlev, l + 1);
     }
 
-    // ---- pass 2: adding, bottom-up albedo/source build (Eqs 9-11) ----
-    float alb = 0.0f, src = 0.0f;
+    // ---- passes 2 and 3: adding (Eqs 9-13), no diffuse flux at TOA ----
+    float alb_sfc = 0.0f, src_sfc = 0.0f;
     if (active) {
-        alb = alb_dif[(long long)g * ncol + c];
-        src = mu0[(nlay - 1) * ncol + c] > 0.0f
+        alb_sfc = alb_dif[(long long)g * ncol + c];
+        src_sfc = mu0[(nlay - 1) * ncol + c] > 0.0f
             ? dir * alb_dir[(long long)g * ncol + c] : 0.0f;
-        long long o = (long long)nlay * ngpt;
-        ALB[o] = alb;
-        SRC[o] = src;
-        for (int v = nlay - 1; v >= 0; --v) {
-            long long ov = (long long)v * ngpt;
-            float r = R[ov];
-            float td = T[ov];
-            float dd = 1.0f / (1.0f - r * alb);
-            float src_v = SUP[ov] + td * dd * (src + alb * SDN[ov]);
-            alb = r + td * td * alb * dd;
-            src = src_v;
-            SUP[ov] = dd;
-            ALB[ov] = alb;
-            SRC[ov] = src;
-        }
     }
-
-    // ---- pass 3: top-down diffuse fluxes (Eqs 12-13), no diffuse TOA ----
-    float fdn = 0.0f;
-    float fup = active ? src : 0.0f;          // 0 * albedo + source at TOA
-    rte::reduce_level(fup, p_up, nlev, 0);
-    rte::reduce_level(fdn, p_dn, nlev, 0);
-    for (int v = 0; v < nlay; ++v) {
-        if (active) {
-            long long ov = (long long)v * ngpt;
-            long long on = ov + ngpt;
-            float src_n = SRC[on];
-            fdn = (T[ov] * fdn + R[ov] * src_n + SDN[ov]) * SUP[ov];
-            fup = fdn * ALB[on] + src_n;
-        }
-        rte::reduce_level(fup, p_up, nlev, v + 1);
-        rte::reduce_level(fdn, p_dn, nlev, v + 1);
-    }
+    rte::sw_adding(active, R, T, SDN, SUP, ALB, SRC, nlay, ngpt, alb_sfc,
+                   src_sfc, 0.0f, p_up, p_dn);
 
     __syncthreads();
     const long long oplane = (long long)nlev * ncol;

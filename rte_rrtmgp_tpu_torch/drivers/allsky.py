@@ -1,11 +1,17 @@
 """The all-sky problem and its forward step on tensors.
 
 Counterpart of ``rte_rrtmgp_tpu.drivers.allsky`` (reference
-examples/all-sky/rrtmgp_allsky.F90) on its fused branch: per step,
-cloud optics (``ops/kernels/cloud_props``), then the fused LW kernel with
-the absorption-only cloud increment, then the fused SW kernel with the
-delta-scaled cloud increment. :func:`build_allsky_step` is the
-counterpart of the JAX package's ``__graft_entry__._build``.
+examples/all-sky/rrtmgp_allsky.F90), two ways:
+
+  * the fused branch (``allsky_step_lw/sw``): per step, cloud optics
+    (``ops/kernels/cloud_props``), then the fused LW kernel with the
+    absorption-only cloud increment, then the fused SW kernel with the
+    delta-scaled cloud increment. :func:`build_allsky_step` is the
+    counterpart of the JAX package's ``__graft_entry__._build``;
+  * the public API (``allsky_api_lw/sw``), the JAX driver's generic
+    branch (drivers/allsky.py:393-411, :431-446): ``gas_optics_lw/sw``,
+    ``cloud_optics``, ``increment`` and ``rte_lw/rte_sw``, as a user of
+    the library composes them.
 """
 from __future__ import annotations
 
@@ -15,20 +21,22 @@ import numpy as np
 import torch
 
 from .. import constants
-from ..config import check_dtype
+from ..config import check_dtype, resolve_device
 from ..fluxes import Fluxes
 from ..gas_concs import GasConcs
 from ..models.rrtmgp.gas_optics import GasOpticsRRTMGP
+from ..optical_props import delta_scale, increment
 from ..ops.kernels.fused_lw import LWFusedInputs, lw_fused
 from ..ops.kernels.fused_sw import SWFusedInputs, sw_fused
 from ..ops.solver_lw import GAUSS_DS, GAUSS_WTS
+from ..rte import rte_lw, rte_sw
 from ..utils.profiles import allsky_profiles
 from ..utils.synthetic import synthetic_cloud_optics, synthetic_kdist
 
 __all__ = ["AllSkyInputs", "make_allsky_inputs", "get_relhum",
            "allsky_lw_inputs", "allsky_sw_inputs", "allsky_step_lw",
-           "allsky_step_sw", "AllSkyProblem", "build_allsky",
-           "build_allsky_step"]
+           "allsky_step_sw", "allsky_api_lw", "allsky_api_sw",
+           "AllSkyProblem", "build_allsky", "build_allsky_step"]
 
 # MERRA aerosol type codes used by the all-sky inputs (reference
 # mo_aerosol_optics_rrtmgp_merra.F90)
@@ -68,11 +76,13 @@ def get_relhum(play, tlay, vmr_h2o):
 
 
 def make_allsky_inputs(ncol: int, nlay: int, *, cloud_optics=None,
-                       dtype=torch.float32, device="cpu") -> AllSkyInputs:
+                       dtype=torch.float32, device=None) -> AllSkyInputs:
     """Build the all-sky problem (reference rrtmgp_allsky.F90: analytic
     profiles :496-587, clouds :590-662, aerosols :666-739, emissivity
-    0.98 / albedo 0.06 / mu0 0.86) in numpy, then move it to ``device``."""
+    0.98 / albedo 0.06 / mu0 0.86) in numpy, then move it to ``device``
+    (default: the CUDA device)."""
     check_dtype(dtype)
+    device = resolve_device(device)
     play, plev, tlay, tlev, gas = allsky_profiles(ncol, nlay)
 
     # clouds: troposphere (100-900 hPa), 2 of every 3 columns
@@ -147,7 +157,7 @@ def allsky_lw_inputs(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
     return gas_optics.lw_fused_inputs(
         inputs.play, inputs.plev, inputs.tlay, inputs.tsfc, inputs.gas_concs,
         sfc_emis=emis, tlev=inputs.tlev, cloud_tau_abs=cld_abs,
-        ds=GAUSS_DS, weight=GAUSS_WTS)
+        ds=GAUSS_DS[0][0], weight=GAUSS_WTS[0][0])
 
 
 def allsky_sw_inputs(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
@@ -188,6 +198,35 @@ def allsky_step_sw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
                                              use_clouds=use_clouds))
     up, dn, fdir = up.T, dn.T, fdir.T
     return Fluxes(flux_up=up, flux_dn=dn, flux_net=dn - up, flux_dn_dir=fdir)
+
+
+def allsky_api_lw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
+                  cloud_optics=None, use_clouds=True) -> Fluxes:
+    """One LW all-sky step through the public API (the JAX driver's
+    generic branch, drivers/allsky.py:393-411): gas optics and Planck
+    sources, the absorption-only cloud increment, then ``rte_lw``."""
+    i = inputs
+    props, sources = gas_optics.gas_optics_lw(
+        i.play, i.plev, i.tlay, i.tsfc, i.gas_concs, tlev=i.tlev,
+        top_at_1=True)
+    if use_clouds:
+        props = increment(props, cloud_optics.cloud_optics(
+            i.lwp, i.iwp, i.rel, i.dei, scattering=False))
+    return rte_lw(props, sources, i.sfc_emis)
+
+
+def allsky_api_sw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
+                  cloud_optics=None, use_clouds=True) -> Fluxes:
+    """One SW all-sky step through the public API (drivers/allsky.py:
+    431-446): gas optics, the delta-scaled cloud increment, then
+    ``rte_sw``."""
+    i = inputs
+    props, toa = gas_optics.gas_optics_sw(i.play, i.plev, i.tlay,
+                                          i.gas_concs, top_at_1=True)
+    if use_clouds:
+        props = increment(props, delta_scale(cloud_optics.cloud_optics(
+            i.lwp, i.iwp, i.rel, i.dei)))
+    return rte_sw(props, i.mu0, toa, i.sfc_alb, i.sfc_alb)
 
 
 class AllSkyProblem(NamedTuple):

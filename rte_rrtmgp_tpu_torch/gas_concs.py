@@ -36,7 +36,7 @@ class GasConcs:
         # host scalars and arrays are kept in float64 (torch would make a
         # Python float float32); the caller casts with .to(dtype)
         arr = (vmr if isinstance(vmr, torch.Tensor)
-               else torch.as_tensor(np.asarray(vmr, np.float64)))
+               else torch.as_tensor(np.array(vmr, np.float64)))
         if arr.ndim > 2:
             raise ValueError(f"set_vmr({name}): vmr must be scalar, 1-D, or 2-D")
         if bool(((arr < 0.0) | (arr > 1.0)).any()):

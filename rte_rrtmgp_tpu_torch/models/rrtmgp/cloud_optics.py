@@ -5,7 +5,9 @@ Counterpart of ``rte_rrtmgp_tpu.models.rrtmgp.cloud_optics`` (reference
 and ``compute_cld_from_table``). The per-cell size index, fraction and
 masked water path are prepared here in plain PyTorch; the table lerp and
 the two-phase sum run in ``ops/kernels/cloud_props`` (CUDA kernel or its
-plain twin).
+plain twin). Two outputs: ``cloud_optics`` returns optical properties on
+the band grid (the public API), ``cloud_optics_lanes`` the by-band
+triplet on layer-major cells (the fused all-sky step).
 """
 from __future__ import annotations
 
@@ -14,8 +16,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ...config import get_config
+from ...config import get_config, resolve_device
 from ...ops.kernels.cloud_props import cloud_props
+from ...optical_props import OpticalProps, OpticalProps1scl, OpticalProps2str
 from ...spectral import SpectralGrid
 
 __all__ = ["CloudOpticsRRTMGP"]
@@ -40,10 +43,11 @@ class CloudOpticsRRTMGP:
     def load(band_lims_wvn, radliq_lwr, radliq_upr, diamice_lwr, diamice_upr,
              extliq, ssaliq, asyliq, extice, ssaice, asyice,
              band_lims_gpt=None, dtype=torch.float32,
-             device="cpu") -> "CloudOpticsRRTMGP":
+             device=None) -> "CloudOpticsRRTMGP":
         """Build from tables (reference ``load``, :77-214). extice/ssaice/
         asyice arrive (nsize_ice, nbnd, nrghice) in file order and are
-        stored roughness-major."""
+        stored roughness-major, on ``device`` (default: the CUDA device)."""
+        device = resolve_device(device)
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
                                       device=device)
         ice = lambda a: t(np.moveaxis(np.asarray(a), -1, 0))
@@ -72,9 +76,10 @@ class CloudOpticsRRTMGP:
         return (torch.stack([self.extliq, self.ssaliq, self.asyliq]),
                 torch.stack([self.extice[r], self.ssaice[r], self.asyice[r]]))
 
-    def lane_inputs(self, clwp, ciwp, reliq, dgice):
+    def lane_inputs(self, clwp, ciwp, reliq, dgice, layer_major=True):
         """Per-cell (idx, fint, wp), each (2 phase, nlay, ncol) with
-        layer-major cells (the index/fraction prep of the JAX package's
+        layer-major cells, or (2 phase, ncol, nlay) without ``layer_major``
+        (the index/fraction prep of the JAX package's
         ``_lane_triplet_raw``, cloud_optics.py:198-227): idx is the 0-based
         lower size bin, fint the bin fraction (taken from the clipped
         index, so out-of-table sizes extrapolate), wp the water path with
@@ -88,7 +93,8 @@ class CloudOpticsRRTMGP:
                            self.radliq_lwr)
         ii, if_ = phase_idx(dgice, self.ice_nsteps, self.ice_step_size,
                             self.diamice_lwr)
-        lm = lambda x, y: torch.stack([x.T, y.T]).contiguous()
+        lm = lambda x, y: (torch.stack([x.T, y.T]) if layer_major
+                           else torch.stack([x, y])).contiguous()
         wp = lm(clwp * (clwp > 0.0).to(clwp.dtype),
                 ciwp * (ciwp > 0.0).to(ciwp.dtype))
         return lm(li, ii), lm(lf, if_), wp
@@ -103,6 +109,30 @@ class CloudOpticsRRTMGP:
         liq, ice = self.tables()
         out = cloud_props(idx, fint, wp, liq, ice)
         return out[0], out[1], out[2]
+
+    def cloud_optics(self, clwp, ciwp, reliq, dgice, *,
+                     scattering: bool = True,
+                     top_at_1: bool = True) -> OpticalProps:
+        """Cloud optical properties on this object's band grid, each
+        (ncol, nlay, nbnd), from (ncol, nlay) water paths [g/m2] and
+        particle sizes [microns] (reference ``cloud_optics`` :256-431):
+        2-stream (tau, ssa, g), or absorption-only tau (1 - ssa) without
+        ``scattering``."""
+        if get_config().check_values:
+            self.validate_inputs(clwp, ciwp, reliq, dgice)
+        idx, fint, wp = self.lane_inputs(clwp, ciwp, reliq, dgice,
+                                         layer_major=False)
+        liq, ice = self.tables()
+        tau, taussa, taussag = cloud_props(idx, fint, wp, liq,
+                                           ice).permute(0, 2, 3, 1)
+        if not scattering:
+            return OpticalProps1scl(tau=tau - taussa, grid=self.grid,
+                                    top_at_1=top_at_1)
+        eps = torch.finfo(tau.dtype).eps
+        return OpticalProps2str(
+            tau=tau.contiguous(), ssa=taussa / torch.clamp(tau, min=eps),
+            g=taussag / torch.clamp(taussa, min=eps), grid=self.grid,
+            top_at_1=top_at_1)
 
     def validate_inputs(self, clwp, ciwp, reliq, dgice) -> None:
         """Range checks (reference :346-353); one host read per check."""

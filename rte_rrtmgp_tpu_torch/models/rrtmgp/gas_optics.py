@@ -1,12 +1,19 @@
-"""RRTMGP gas-optics front end for the fused LW and SW steps.
+"""RRTMGP gas-optics front end.
 
 Counterpart of ``rte_rrtmgp_tpu.models.rrtmgp.gas_optics`` (reference
 ``ty_gas_optics_rrtmgp`` run-time methods, rrtmgp/frontend/
 mo_gas_optics_rrtmgp.F90): column amounts, the interpolation descriptors,
 the minor-gas scaling rows and Rayleigh scaling (the descriptor prep,
-plain PyTorch as it is plain JAX in the JAX package), then one call of
-the fused LW or SW kernel (``ops/kernels``). Cell inputs are (ncol, nlay)
-top-at-0; the kernels take layer-major (nlay, ncol) cells.
+plain PyTorch as it is plain JAX in the JAX package), then two routes:
+
+  * the public API, ``gas_optics_lw`` / ``gas_optics_sw`` (reference
+    gas_optics_int :220-331 / gas_optics_ext :337-414), returning optical
+    properties (ncol, nlay, ngpt) and sources: the staged gathers
+    ``ops/kernels/gas_major`` and ``ops/kernels/gas_minor`` (major, minor
+    and Rayleigh) on (ncol, nlay) cells, then the Planck sources in plain
+    PyTorch;
+  * one call of the fused LW or SW kernel (``ops/kernels/fused_*``) on
+    layer-major (nlay, ncol) cells, for the all-sky step.
 """
 from __future__ import annotations
 
@@ -14,9 +21,16 @@ import torch
 
 from ... import constants
 from ...gas_concs import GasConcs
-from ...ops.gas_optics import InterpCoeffs, interpolation, minor_scaling
-from ...ops.kernels.fused_lw import LWFusedInputs, lw_fused
+from ...optical_props import (OpticalProps, OpticalProps1scl,
+                              OpticalProps2str)
+from ...ops.gas_optics import (InterpCoeffs, interpolation, minor_scaling,
+                               planck_sources)
+from ...ops.kernels.fused_lw import LWFusedInputs, _split_minors, lw_fused
 from ...ops.kernels.fused_sw import SWFusedInputs, sw_fused
+from ...ops.kernels.gas_major import gas_major
+from ...ops.kernels.gas_minor import gas_minor, gas_rayleigh
+from ...sources import SourcesLW
+from ..base import infer_top_at_1
 from .kdist import KDist
 
 __all__ = ["GasOpticsRRTMGP", "get_col_dry", "interp_tlev"]
@@ -73,6 +87,12 @@ class GasOpticsRRTMGP:
     def ngpt(self) -> int:
         return self.kdist.ngpt
 
+    def source_is_internal(self) -> bool:
+        return self.kdist.source_is_internal()
+
+    def source_is_external(self) -> bool:
+        return self.kdist.source_is_external()
+
     def _check_key_species_present(self, gas_concs: GasConcs):
         """Reference check_key_species_present (:1403-1422)."""
         kd = self.kdist
@@ -82,19 +102,24 @@ class GasOpticsRRTMGP:
         if missing:
             raise ValueError(f"gas_optics: required gases {missing} are not provided")
 
-    def col_gas(self, play, plev, gas_concs: GasConcs):
+    def col_gas(self, play, plev, gas_concs: GasConcs, col_dry=None):
         """VMR gather + column amounts (reference compute_gas_taus
         :538-609): (ngas+1, ncol, nlay) with col_gas[0] = col_dry and
-        col_gas[i] = vmr_i * col_dry; plus col_dry and the 1-based h2o
-        row (a zeros row is appended when the k-distribution has no h2o)."""
+        col_gas[i] = vmr_i * col_dry; plus col_dry (computed from the
+        pressures unless given) and the 1-based h2o row (a zeros row is
+        appended when the k-distribution has no h2o)."""
         kd = self.kdist
         ncol, nlay = play.shape
         vmrs = [gas_concs.get_vmr(g, ncol, nlay).to(play.dtype)
                 if g in gas_concs else torch.zeros_like(play)
                 for g in kd.gas_names]
         idx_h2o = kd.idx_gas("h2o")
-        vmr_h2o = vmrs[idx_h2o - 1] if idx_h2o > 0 else torch.zeros_like(play)
-        col_dry = get_col_dry(vmr_h2o, plev)
+        if col_dry is None:
+            vmr_h2o = (vmrs[idx_h2o - 1] if idx_h2o > 0
+                       else torch.zeros_like(play))
+            col_dry = get_col_dry(vmr_h2o, plev)
+        col_dry = torch.as_tensor(col_dry, dtype=play.dtype,
+                                  device=play.device)
         if idx_h2o < 0:
             vmrs = vmrs + [torch.zeros_like(play)]
             idx_h2o = len(vmrs)
@@ -110,6 +135,107 @@ class GasOpticsRRTMGP:
             temp_ref_min=kd.temp_ref_min, temp_ref_delta=kd.temp_ref_delta,
             press_ref_trop_log=kd.press_ref_trop_log, vmr_ref=kd.vmr_ref)
 
+    # ------------------------------------------------------------------
+    # the public API
+    # ------------------------------------------------------------------
+    def _compute_taus(self, play, plev, tlay, gas_concs, col_dry,
+                      top_at_1: bool, scattering: bool):
+        """compute_gas_taus (reference :419-745): major-gas absorption and
+        Planck fraction, the minor gases of each atmosphere, and Rayleigh
+        with the absorption/Rayleigh combine (reference
+        combine_abs_and_rayleigh :1954-2036), each through its kernel
+        wrapper on (ncol, nlay) cells. Returns (props, pfrac or None)."""
+        self._check_key_species_present(gas_concs)
+        kd = self.kdist
+        col_gas, col_dry, idx_h2o = self.col_gas(play, plev, gas_concs,
+                                                 col_dry)
+        co = self.interp(play, tlay, col_gas)
+        tau, pfrac = gas_major(co, kd.kmajor, kd.planck_frac,
+                               self.gpoint_flavor)
+        nlo = len(kd.minor_lower)
+        minors_lo, minors_up = _split_minors(self.minors)
+        kw = dict(play=play, tlay=tlay, col_gas=col_gas, idx_h2o=idx_h2o)
+        for lower, mset, ktab, minors, meta in (
+                (True, kd.minor_lower, kd.kminor_lower, minors_lo,
+                 self.minor_meta[:nlo]),
+                (False, kd.minor_upper, kd.kminor_upper, minors_up,
+                 self.minor_meta[nlo:])):
+            if minors:
+                scaling = minor_scaling(co, mset, lower=lower, **kw)
+                tau = gas_minor(tau, co, ktab, minors, meta, scaling)
+        ssa = None
+        if kd.krayl is not None:
+            tau, ssa = gas_rayleigh(tau, co, kd.krayl, self.gpoint_flavor,
+                                    col_gas[idx_h2o] + col_dry, scattering)
+        if not scattering:
+            return OpticalProps1scl(tau=tau, grid=self.grid,
+                                    top_at_1=top_at_1), pfrac
+        ssa = torch.zeros_like(tau) if ssa is None else ssa
+        return OpticalProps2str(tau=tau, ssa=ssa, g=torch.zeros_like(tau),
+                                grid=self.grid, top_at_1=top_at_1), pfrac
+
+    def gas_optics_lw(self, play, plev, tlay, tsfc, gas_concs: GasConcs, *,
+                      tlev=None, col_dry=None, scattering: bool = False,
+                      top_at_1=None):
+        """LW optical depths and Planck sources (reference
+        gas_optics_int): play/tlay (ncol, nlay), plev/tlev (ncol, nlay+1),
+        tsfc (ncol,). Returns (OpticalProps1scl, or 2str with
+        ``scattering``, and SourcesLW). The vertical orientation is
+        ``top_at_1`` or inferred from the pressures."""
+        if not self.source_is_internal():
+            raise ValueError("rrtmgp gas optics: k-distribution is SW "
+                             "(external source)")
+        kd = self.kdist
+        play, plev, tlay = (x.contiguous() for x in (play, plev, tlay))
+        tsfc = torch.as_tensor(tsfc, dtype=play.dtype, device=play.device)
+        top = infer_top_at_1(play, top_at_1)
+        props, pfrac = self._compute_taus(play, plev, tlay, gas_concs,
+                                          col_dry, top, scattering)
+        tlev = interp_tlev(tlay, play, plev) if tlev is None else tlev
+        sfc, lay, lev, jac = planck_sources(
+            pfrac, totplnk=kd.totplnk, totplnk_delta=kd.totplnk_delta,
+            temp_ref_min=kd.temp_ref_min, gpt2band=kd.grid.gpt2band,
+            tlay=tlay, tlev=tlev, tsfc=tsfc, top_at_1=top)
+        return props, SourcesLW(lay_source=lay, lev_source=lev,
+                                sfc_source=sfc, sfc_source_jac=jac,
+                                grid=self.grid)
+
+    def gas_optics_sw(self, play, plev, tlay, gas_concs: GasConcs, *,
+                      col_dry=None, scattering: bool = True, top_at_1=None):
+        """SW optical depths and the TOA solar source (reference
+        gas_optics_ext). Returns (OpticalProps2str, or 1scl without
+        ``scattering``, and the incident flux (ncol, ngpt))."""
+        if not self.source_is_external():
+            raise ValueError("rrtmgp gas optics: k-distribution is LW "
+                             "(internal source)")
+        play, plev, tlay = (x.contiguous() for x in (play, plev, tlay))
+        top = infer_top_at_1(play, top_at_1)
+        props, _ = self._compute_taus(play, plev, tlay, gas_concs, col_dry,
+                                      top, scattering)
+        toa = self.kdist.solar_source.to(play.dtype)[None, :].expand(
+            play.shape[0], self.ngpt)
+        return props, toa
+
+    def compute_optimal_angles(self, props: OpticalProps) -> torch.Tensor:
+        """Per-(column, g-point) LW secants from the total-column
+        transmittance (reference compute_optimal_angles :1503-1562, Hogan
+        fits), for ``rte_lw(lw_ds=...)``: (ncol, ngpt)."""
+        kd = self.kdist
+        if kd.optimal_angle_fit is None:
+            raise ValueError("compute_optimal_angles: no fit coefficients "
+                             "loaded")
+        if not kd.grid.gpoints_are_equal(props.grid):
+            raise ValueError("compute_optimal_angles: spectral "
+                             "discretization mismatch")
+        trans_total = torch.exp(-props.tau.sum(1))
+        fit = torch.as_tensor(kd.optimal_angle_fit, dtype=props.tau.dtype,
+                              device=props.tau.device)
+        band = self.gpt2band.long()
+        return fit[0, band][None] * trans_total + fit[1, band][None]
+
+    # ------------------------------------------------------------------
+    # the fused kernels' inputs
+    # ------------------------------------------------------------------
     def _descriptors(self, play, plev, tlay, gas_concs):
         """Layer-major interpolation state and minor scaling rows."""
         self._check_key_species_present(gas_concs)

@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...config import resolve_device
 from ...spectral import SpectralGrid
 
 __all__ = ["KDist", "MinorSet"]
@@ -73,10 +74,15 @@ class KDist:
     totplnk: Optional[torch.Tensor]       # (nPlanckTemp, nbnd), LW
     totplnk_delta: float
     solar_source: Optional[torch.Tensor]  # (ngpt,), SW
+    optimal_angle_fit: Optional[np.ndarray] = None  # (2, nbnd) float64, LW
 
     @property
     def ngpt(self) -> int:
         return self.grid.ngpt
+
+    @property
+    def nflav(self) -> int:
+        return self.flavor.shape[1]
 
     def source_is_internal(self) -> bool:
         return self.totplnk is not None
@@ -106,11 +112,12 @@ class KDist:
                  totplnk=None, planck_frac=None, optimal_angle_fit=None,
                  solar_quiet=None, solar_facular=None, solar_sunspot=None,
                  tsi_default=None, mg_default=None, sb_default=None,
-                 dtype=torch.float32, device="cpu") -> "KDist":
+                 dtype=torch.float32, device=None) -> "KDist":
         """Build a KDist from raw arrays in the conventions of the JAX
         package's ``KDist.from_raw`` (1-based gas, g-point and kminor
-        indices; tables temperature-major). ``optimal_angle_fit`` is
-        accepted and unused: this slice has no optimal-angle API."""
+        indices; tables temperature-major), its tables on ``device``
+        (default: the CUDA device)."""
+        device = resolve_device(device)
         avail = {_lower(g) for g in available_gases}
         gas_names = [_lower(g) for g in gas_names]
         gas_minor = [_lower(g) for g in gas_minor]
@@ -269,4 +276,6 @@ class KDist:
             kmajor=tensor(kmajor), kminor_lower=tensor(klow),
             kminor_upper=tensor(kupp), krayl=krayl,
             planck_frac=planck_t, totplnk=totplnk_t,
-            totplnk_delta=float(totplnk_delta), solar_source=src)
+            totplnk_delta=float(totplnk_delta), solar_source=src,
+            optimal_angle_fit=(None if optimal_angle_fit is None else
+                               np.asarray(optimal_angle_fit, np.float64)))

@@ -3,11 +3,13 @@
 Counterpart of ``rte_rrtmgp_tpu.ops.gas_optics`` (reference kernels
 rrtmgp/kernels/mo_gas_optics_rrtmgp_kernels.F90): ``interpolation``
 (:37-170), the major/minor absorption (:345-501), Rayleigh (:506-565) and
-the Planck source (:568-710). These are the building blocks of the fused
+the Planck source (:568-710). These are the building blocks of the
 kernels' plain twins.
 
-Conventions: cell arrays have any shape ``S`` (the drivers use layer-major
-``(nlay, ncol)``); spectral outputs are ``(ngpt, *S)``, g-points leading.
+Conventions: cell arrays have any shape ``S`` (the fused kernels use
+layer-major ``(nlay, ncol)``, the public API ``(ncol, nlay)``); the
+lookups' spectral outputs are ``(ngpt, *S)``, g-points leading;
+:func:`planck_sources` works in the public layout.
 Tables are the KDist's plain layouts; indices are 0-based.
   col_gas  (ngas+1, *S), dry air at index 0
   jeta, col_mix, feta  (2, nflav, *S), axis 0 = temperature corner
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 __all__ = ["InterpCoeffs", "interpolation", "tau_major", "tau_minor",
-           "minor_scaling", "tau_rayleigh", "planck_bands", "planck_sources"]
+           "minor_scaling", "tau_rayleigh", "interp1d_table", "planck_sources"]
 
 
 class InterpCoeffs(NamedTuple):
@@ -204,31 +206,39 @@ def tau_rayleigh(co: InterpCoeffs, krayl, gpoint_flavor, rayscale):
     return k * rayscale
 
 
-def planck_bands(t, totplnk, *, tp_min: float, tp_delta: float):
-    """Band-integrated Planck function by temperature (reference
-    interpolate1D, kernels :715-737): t (*S) -> (nbnd, *S)."""
-    ntab = totplnk.shape[0]
-    val0 = (t - tp_min) / tp_delta
+def interp1d_table(val, offset, delta, table):
+    """Linear interpolation returning every value along the table's second
+    axis (reference interpolate1D, kernels :715-737): val (...), table
+    (ntab, nout) -> (..., nout). The fraction comes from the unclipped
+    position, so values off the table extrapolate."""
+    ntab = table.shape[0]
+    val0 = (val - offset) / delta
     frac = val0 - torch.trunc(val0)
     idx = torch.clamp(val0.to(torch.int32), 0, ntab - 2).long()
-    lo = totplnk[idx].movedim(-1, 0)
-    hi = totplnk[idx + 1].movedim(-1, 0)
-    return lo + frac * (hi - lo)
+    lo = table[idx]
+    hi = table[idx + 1]
+    return lo + frac[..., None] * (hi - lo)
 
 
-def planck_sources(pfrac, gpt2band, pb_lay, pb_lev, pb_sfc):
-    """Planck sources on the layer-major lane layout (reference
-    compute_Planck_source :568-710): pfrac (ngpt, nlay, ncol); pb_* band
-    Planck values (nbnd, nlay[+1], ncol) and (nbnd, ncol). Level sources
-    use the geometric mean of the adjacent layers' pfrac inside and the
-    adjacent layer's pfrac at the ends. Returns (lay (ngpt, nlay, ncol),
-    lev (ngpt, nlay+1, ncol), sfc (ngpt, ncol)), top at index 0."""
+def planck_sources(pfrac, *, totplnk, totplnk_delta, temp_ref_min, gpt2band,
+                   tlay, tlev, tsfc, top_at_1: bool):
+    """Planck sources in the public layout (reference
+    compute_Planck_source, kernels :568-710): the totplnk lerp by
+    temperature, band -> g-point, geometric-mean level sources, and the
+    surface Jacobian by a 1 K difference. pfrac (ncol, nlay, ngpt);
+    tlay (ncol, nlay), tlev (ncol, nlay+1), tsfc (ncol,). Returns
+    (sfc_src, lay_src, lev_src, sfc_src_jac)."""
     band = torch.as_tensor(gpt2band, device=pfrac.device).long()
-    lay = pfrac * pb_lay[band]
-    pp = pfrac[:, 1:] * pfrac[:, :-1]
+    pb = lambda t: interp1d_table(t, temp_ref_min, totplnk_delta,
+                                  totplnk).index_select(-1, band)
+    pf_sfc = pfrac[:, -1 if top_at_1 else 0, :]
+    pb_sfc = pb(tsfc)
+    sfc_src = pf_sfc * pb_sfc
+    sfc_src_jac = pf_sfc * (pb(tsfc + 1.0) - pb_sfc)
+    lay_src = pfrac * pb(tlay)
+    pp = pfrac[:, 1:, :] * pfrac[:, :-1, :]
     pf_in = torch.where(pp > 0.0, torch.sqrt(torch.where(pp > 0.0, pp, 1.0)),
                         0.0)
-    pf_lev = torch.cat([pfrac[:, :1], pf_in, pfrac[:, -1:]], dim=1)
-    lev = pf_lev * pb_lev[band]
-    sfc = pfrac[:, -1] * pb_sfc[band]
-    return lay, lev, sfc
+    pf_lev = torch.cat([pfrac[:, :1, :], pf_in, pfrac[:, -1:, :]], dim=1)
+    lev_src = pf_lev * pb(tlev)
+    return sfc_src, lay_src, lev_src, sfc_src_jac

@@ -24,7 +24,8 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "build_all", "library",
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("cloud_props", "fused_lw", "fused_sw")
+SOURCES = ("cloud_props", "fused_lw", "fused_sw", "gas_major", "gas_minor",
+           "solver_lw", "solver_sw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

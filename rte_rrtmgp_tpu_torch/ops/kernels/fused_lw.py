@@ -20,10 +20,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..gas_optics import (InterpCoeffs, planck_bands, planck_sources,
-                          tau_major, tau_minor)
-from ..solver_lw import lw_solver_noscat
+from ..gas_optics import InterpCoeffs, planck_sources, tau_major, tau_minor
 from ._build import check_args, launch, on_cpu
+from .solver_lw import lw_noscat_plain
 
 __all__ = ["LWFusedInputs", "lw_fused", "lw_fused_plain"]
 
@@ -64,15 +63,18 @@ def lw_fused_plain(x: LWFusedInputs):
     lo, up = _split_minors(x.minors)
     tau = tau_minor(tau, co, x.kminor_lower, lo, x.minor_scale[:len(lo)])
     tau = tau_minor(tau, co, x.kminor_upper, up, x.minor_scale[len(lo):])
-    band = x.gpt2band.long()
     if x.cloud_tau_abs is not None:
-        tau = tau + x.cloud_tau_abs[band]
-    pb = lambda t: planck_bands(t, x.totplnk, tp_min=x.tp_min,
-                                tp_delta=x.tp_delta)
-    lay, lev, sfc = planck_sources(pfrac, band, pb(x.tlay), pb(x.tlev),
-                                   pb(x.tsfc))
-    return lw_solver_noscat(tau, lay, lev, x.sfc_emis, sfc, ds=x.ds,
-                            weight=x.weight)
+        tau = tau + x.cloud_tau_abs[x.gpt2band.long()]
+    # lane layout (ngpt, nlay, ncol) -> the public (ncol, nlay, ngpt)
+    pub = lambda a: a.permute(2, 1, 0)
+    sfc, lay, lev, _ = planck_sources(
+        pub(pfrac), totplnk=x.totplnk, totplnk_delta=x.tp_delta,
+        temp_ref_min=x.tp_min, gpt2band=x.gpt2band, tlay=x.tlay.T,
+        tlev=x.tlev.T, tsfc=x.tsfc, top_at_1=True)
+    up, dn, _ = lw_noscat_plain(pub(tau), lay, lev, x.sfc_emis.T, sfc,
+                                torch.zeros_like(sfc), ds=x.ds,
+                                weight=x.weight)
+    return up.T, dn.T
 
 
 def lw_fused(x: LWFusedInputs):

@@ -22,9 +22,9 @@ import numpy as np
 import torch
 
 from ..gas_optics import InterpCoeffs, tau_major, tau_minor, tau_rayleigh
-from ..solver_sw import sw_solver_2stream
 from ._build import check_args, launch, on_cpu
 from .fused_lw import _split_minors
+from .solver_sw import sw_2stream_plain
 
 __all__ = ["SWFusedInputs", "sw_fused", "sw_fused_plain"]
 
@@ -79,8 +79,11 @@ def sw_fused_plain(x: SWFusedInputs):
         g = torch.where(tauscat > 2.0 * _TINY32, g12, 0.0)
         ssa = torch.where(t12 > 2.0 * _TINY32, ssa12, ssa)
         t = t12
-    return sw_solver_2stream(t, ssa, g, x.mu0, x.sfc_alb_dir, x.sfc_alb_dif,
-                             x.inc)
+    # lane layout (ngpt, nlay, ncol) -> the public (ncol, nlay, ngpt)
+    pub = lambda a: a.permute(2, 1, 0)
+    up, dn, fdir = sw_2stream_plain(pub(t), pub(ssa), pub(g), x.mu0.T,
+                                    x.sfc_alb_dir.T, x.sfc_alb_dif.T, x.inc.T)
+    return up.T, dn.T, fdir.T
 
 
 def sw_fused(x: SWFusedInputs):

@@ -1,0 +1,121 @@
+"""Minor-gas and Rayleigh optical depths: the CUDA kernels
+``csrc/gas_minor.cu`` and their plain-PyTorch twins.
+
+Replace the TPU kernels ``rte_rrtmgp_tpu/ops/pallas/minor_gather.py::
+minor_contributions_lane`` (via ``ops/gas_optics_pallas.py::
+tau_minor_pallas``; semantics of ``ops/gas_optics.py::tau_minor``,
+reference gas_optical_depths_minor) and ``::rayleigh_k_lane`` (via
+``tau_rayleigh_pallas``; reference compute_tau_rayleigh), the latter with
+the absorption/Rayleigh combine of ``models/rrtmgp/gas_optics.py:344-358``
+(reference combine_abs_and_rayleigh).
+
+Both add into ``tau`` (cells of any shape S, then g-points) in place. A
+CUDA tensor goes to the kernel (float32 only; anything else raises), a
+CPU tensor to the twin.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..gas_optics import InterpCoeffs, tau_minor, tau_rayleigh
+from ._build import check_args, launch, on_cpu
+
+__all__ = ["gas_minor", "gas_minor_plain", "gas_rayleigh",
+           "gas_rayleigh_plain"]
+
+
+def gas_minor_plain(tau, co: InterpCoeffs, kminor, minors, minor_meta,
+                    scaling):
+    """Add one atmosphere's minor-gas optical depths into ``tau``
+    (*S, ngpt) in place and return it. kminor (ntemp, neta, ncont);
+    minors: one (flavor, g0, width, kminor_start) per minor gas; scaling
+    (nminor, *S) from ``minor_scaling`` (atmosphere mask applied).
+    ``minor_meta`` (the kernel's copy of ``minors``) is not read here."""
+    tau.copy_(tau_minor(tau.movedim(-1, 0), co, kminor, minors,
+                        scaling).movedim(0, -1))
+    return tau
+
+
+def gas_minor(tau, co: InterpCoeffs, kminor, minors, minor_meta, scaling):
+    """:func:`gas_minor_plain` semantics; on CUDA, one launch of the
+    hand-written kernel (counted in ``gas_minor.launches``).
+    minor_meta: (nminor, 5) int32 rows (lower, flavor, g0, width, start)
+    on the device, the same gases as ``minors``."""
+    if on_cpu(tau, "gas_minor"):
+        return gas_minor_plain(tau, co, kminor, minors, minor_meta, scaling)
+    cells = tuple(co.jtemp.shape)
+    ncell = co.jtemp.numel()
+    ngpt = tau.shape[-1]
+    ntemp, neta, ncont = kminor.shape
+    nflav = co.jeta.shape[1]
+    nminor = len(minors)
+    if ngpt > 1024:
+        raise ValueError(f"gas_minor: {ngpt} g-points exceed one CUDA block")
+    f32, i32 = torch.float32, torch.int32
+    check_args("gas_minor", tau.device, {
+        "tau": (tau, cells + (ngpt,), f32),
+        "jtemp": (co.jtemp, cells, i32), "ftemp": (co.ftemp, cells, f32),
+        "jeta": (co.jeta, (2, nflav) + cells, i32),
+        "feta": (co.feta, (2, nflav) + cells, f32),
+        "scaling": (scaling, (nminor,) + cells, f32),
+        "minor_meta": (minor_meta, (nminor, 5), i32),
+        "kminor": (kminor, (ntemp, neta, ncont), f32)})
+    launch("gas_minor", "launch_gas_minor", "gas_minor",
+           tau, co.jtemp, co.ftemp, co.jeta, co.feta, scaling, minor_meta,
+           kminor, ncell, ngpt, neta, nflav, nminor, ncont)
+    gas_minor.launches += 1
+    return tau
+
+
+gas_minor.launches = 0
+
+
+def gas_rayleigh_plain(tau, co: InterpCoeffs, krayl, gpoint_flavor,
+                       rayscale, scattering: bool = True):
+    """Add the Rayleigh optical depth (krayl (ntemp, neta, ngpt, 2) in the
+    cell's atmosphere, times ``rayscale`` = col_h2o + col_dry, (*S)) into
+    ``tau`` (*S, ngpt) in place. Returns (tau, ssa), ssa = tau_rayleigh /
+    tau where tau > 2 tiny (else 0), or None without ``scattering``."""
+    ray = tau_rayleigh(co, krayl, gpoint_flavor, rayscale).movedim(0, -1)
+    t = tau + ray
+    ssa = None
+    if scattering:
+        big = t > 2.0 * torch.finfo(t.dtype).tiny
+        ssa = torch.where(big, ray / torch.where(big, t, 1.0), 0.0)
+    tau.copy_(t)
+    return tau, ssa
+
+
+def gas_rayleigh(tau, co: InterpCoeffs, krayl, gpoint_flavor, rayscale,
+                 scattering: bool = True):
+    """:func:`gas_rayleigh_plain` semantics; on CUDA, one launch of the
+    hand-written kernel (counted in ``gas_rayleigh.launches``)."""
+    if on_cpu(tau, "gas_rayleigh"):
+        return gas_rayleigh_plain(tau, co, krayl, gpoint_flavor, rayscale,
+                                  scattering)
+    cells = tuple(co.jtemp.shape)
+    ncell = co.jtemp.numel()
+    ntemp, neta, ngpt, _ = krayl.shape
+    nflav = co.jeta.shape[1]
+    if ngpt > 1024:
+        raise ValueError(f"gas_rayleigh: {ngpt} g-points exceed one CUDA "
+                         "block")
+    f32, i32 = torch.float32, torch.int32
+    check_args("gas_rayleigh", tau.device, {
+        "tau": (tau, cells + (ngpt,), f32),
+        "jtemp": (co.jtemp, cells, i32), "ftemp": (co.ftemp, cells, f32),
+        "tropo": (co.tropo, cells, torch.bool),
+        "jeta": (co.jeta, (2, nflav) + cells, i32),
+        "feta": (co.feta, (2, nflav) + cells, f32),
+        "krayl": (krayl, (ntemp, neta, ngpt, 2), f32),
+        "gpoint_flavor": (gpoint_flavor, (2, ngpt), i32),
+        "rayscale": (rayscale, cells, f32)})
+    ssa = torch.empty_like(tau) if scattering else None
+    launch("gas_minor", "launch_gas_rayleigh", "gas_rayleigh",
+           tau, ssa, co.jtemp, co.ftemp, co.tropo.to(i32), co.jeta, co.feta,
+           krayl, gpoint_flavor, rayscale, ncell, ngpt, neta, nflav)
+    gas_rayleigh.launches += 1
+    return tau, ssa
+
+
+gas_rayleigh.launches = 0

@@ -1,0 +1,82 @@
+"""One-angle LW no-scattering solve with broadband output: the CUDA kernel
+``csrc/solver_lw.cu`` and its plain-PyTorch twin.
+
+Replaces the TPU kernel ``rte_rrtmgp_tpu/ops/pallas/solver_lw_kernel.py::
+lw_noscat_broadband_lane`` (semantics of ``ops/solver_lw.py::_oneangle``,
+reference mo_rte_solver_kernels.F90:51-240): per (column, g-point) the
+transmittance and linear-in-tau sources, the down sweep from the incident
+flux, the surface term, the up sweep, optionally Tang rescaling (ssa, g)
+and the surface Jacobian, and the broadband sum times pi * weight.
+
+A CUDA tensor goes to the kernel (float32 only; anything else raises), a
+CPU tensor to :func:`lw_noscat_plain`.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...constants import PI
+from ..solver_lw import _oneangle
+from ._build import check_args, launch, on_cpu
+
+__all__ = ["lw_noscat", "lw_noscat_plain"]
+
+
+def lw_noscat_plain(tau, lay, lev, sfc_emis, sfc_src, inc_flux, *, ds,
+                    weight: float, sfc_src_jac=None, ssa=None, g=None):
+    """tau/lay (ncol, nlay, ngpt), lev (ncol, nlay+1, ngpt), sfc_emis/
+    sfc_src/inc_flux (ncol, ngpt), top at layer 0; ``ds`` a secant or
+    (ncol, ngpt) secants. With ssa and g (ncol, nlay, ngpt), Tang
+    rescaling; with sfc_src_jac (ncol, ngpt), the Jacobian. Returns
+    broadband (flux_up, flux_dn, flux_up_jac or None), each (ncol, nlay+1)
+    in W/m2."""
+    up, dn, jac = _oneangle(tau, lay, lev, sfc_emis, sfc_src, inc_flux, ds,
+                            weight, sfc_src_jac, ssa, g)
+    piw = PI * weight
+    return up * piw, dn * piw, None if jac is None else jac * piw
+
+
+def lw_noscat(tau, lay, lev, sfc_emis, sfc_src, inc_flux, *, ds,
+              weight: float, sfc_src_jac=None, ssa=None, g=None):
+    """:func:`lw_noscat_plain` semantics; on CUDA, one launch of the
+    hand-written kernel (counted in ``lw_noscat.launches``)."""
+    if on_cpu(tau, "lw_noscat"):
+        return lw_noscat_plain(tau, lay, lev, sfc_emis, sfc_src, inc_flux,
+                               ds=ds, weight=weight, sfc_src_jac=sfc_src_jac,
+                               ssa=ssa, g=g)
+    ncol, nlay, ngpt = tau.shape
+    if ngpt > 1024:
+        raise ValueError(f"lw_noscat: {ngpt} g-points exceed one CUDA block")
+    if (ssa is None) != (g is None):
+        raise ValueError("lw_noscat: rescaling needs both ssa and g")
+    f32 = torch.float32
+    lay3, bc = (ncol, nlay, ngpt), (ncol, ngpt)
+    specs = {"tau": (tau, lay3, f32), "lay": (lay, lay3, f32),
+             "lev": (lev, (ncol, nlay + 1, ngpt), f32),
+             "sfc_emis": (sfc_emis, bc, f32), "sfc_src": (sfc_src, bc, f32),
+             "inc_flux": (inc_flux, bc, f32)}
+    if ssa is not None:
+        specs.update(ssa=(ssa, lay3, f32), g=(g, lay3, f32))
+    if sfc_src_jac is not None:
+        specs["sfc_src_jac"] = (sfc_src_jac, bc, f32)
+    ds_field, ds_scalar = (ds, 0.0) if isinstance(ds, torch.Tensor) \
+        else (None, float(ds))
+    if ds_field is not None:
+        specs["ds"] = (ds_field, bc, f32)
+    dev = tau.device
+    check_args("lw_noscat", dev, specs)
+    # rescaling keeps each thread's radiances at the layer tops
+    scratch = (None if ssa is None
+               else torch.empty(lay3, dtype=f32, device=dev))
+    up = torch.empty((ncol, nlay + 1), dtype=f32, device=dev)
+    dn = torch.empty_like(up)
+    jac = None if sfc_src_jac is None else torch.empty_like(up)
+    launch("solver_lw", "launch_solver_lw", "lw_noscat",
+           tau, lay, lev, ssa, g, sfc_emis, sfc_src, sfc_src_jac, inc_flux,
+           ds_field, scratch, up, dn, jac, ncol, nlay, ngpt, ds_scalar,
+           PI * float(weight))
+    lw_noscat.launches += 1
+    return up, dn, jac
+
+
+lw_noscat.launches = 0

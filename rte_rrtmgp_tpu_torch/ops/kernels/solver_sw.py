@@ -1,0 +1,66 @@
+"""SW two-stream solve with broadband output: the CUDA kernel
+``csrc/solver_sw.cu`` and its plain-PyTorch twin.
+
+Replaces the TPU kernel ``rte_rrtmgp_tpu/ops/pallas/solver_sw_kernel.py::
+sw_two_stream_broadband_lane`` (semantics of ``ops/solver_sw.py``'s XLA
+two-stream, reference mo_rte_solver_kernels.F90:503-609, 985-1127): per
+(column, g-point) the Meador-Weaver coefficients with the reference's
+clamps, night masking by mu0 > 0 per layer, the direct beam, Shonk-Hogan
+adding from the diffuse flux at the top, and the broadband sums.
+
+A CUDA tensor goes to the kernel (float32 only; anything else raises), a
+CPU tensor to :func:`sw_2stream_plain`.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..solver_sw import two_stream
+from ._build import check_args, launch, on_cpu
+
+__all__ = ["sw_2stream", "sw_2stream_plain"]
+
+
+def sw_2stream_plain(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
+                     inc_flux_dir, inc_flux_dif=None):
+    """tau/ssa/g (ncol, nlay, ngpt), top at layer 0; mu0 (ncol, nlay);
+    albedos and incident fluxes (ncol, ngpt), inc_flux_dif None for zero.
+    Returns broadband (flux_up, flux_dn total = diffuse + direct,
+    flux_dir), each (ncol, nlay+1)."""
+    return two_stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
+                      inc_flux_dir, inc_flux_dif)
+
+
+def sw_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
+               inc_flux_dif=None):
+    """:func:`sw_2stream_plain` semantics; on CUDA, one launch of the
+    hand-written kernel (counted in ``sw_2stream.launches``)."""
+    if on_cpu(tau, "sw_2stream"):
+        return sw_2stream_plain(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
+                                inc_flux_dir, inc_flux_dif)
+    ncol, nlay, ngpt = tau.shape
+    if ngpt > 1024:
+        raise ValueError(f"sw_2stream: {ngpt} g-points exceed one CUDA block")
+    f32 = torch.float32
+    lay3, bc = (ncol, nlay, ngpt), (ncol, ngpt)
+    specs = {"tau": (tau, lay3, f32), "ssa": (ssa, lay3, f32),
+             "g": (g, lay3, f32), "mu0": (mu0, (ncol, nlay), f32),
+             "sfc_alb_dir": (sfc_alb_dir, bc, f32),
+             "sfc_alb_dif": (sfc_alb_dif, bc, f32),
+             "inc_flux_dir": (inc_flux_dir, bc, f32)}
+    if inc_flux_dif is not None:
+        specs["inc_flux_dif"] = (inc_flux_dif, bc, f32)
+    dev = tau.device
+    check_args("sw_2stream", dev, specs)
+    # per-(column, level, g-point) scratch: rdif, tdif, source_dn,
+    # source_up (then the adding denominator), albedo, source
+    scratch = torch.empty((6, ncol, nlay + 1, ngpt), dtype=f32, device=dev)
+    out = torch.empty((3, ncol, nlay + 1), dtype=f32, device=dev)
+    launch("solver_sw", "launch_solver_sw", "sw_2stream",
+           tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
+           inc_flux_dif, scratch, out, ncol, nlay, ngpt)
+    sw_2stream.launches += 1
+    return out[0], out[1], out[2]
+
+
+sw_2stream.launches = 0

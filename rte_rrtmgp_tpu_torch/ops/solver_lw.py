@@ -2,24 +2,49 @@
 
 Counterpart of ``rte_rrtmgp_tpu.ops.solver_lw`` (reference
 rte/kernels/mo_rte_solver_kernels.F90): ``lw_source_noscat`` (:620-675),
-the one-angle emission/absorption solve (:51-240) and Shonk-Hogan
-``adding`` (:1135-1245). Fields use the lane layout (ngpt, nlay[+1],
-ncol), top at index 0; the layer recurrences are Python loops over
-(ngpt, ncol) slices.
+the one-angle emission/absorption solve with Tang rescaling and the
+surface Jacobian (:51-240), the multi-angle ``lw_solver_noscat``
+(:248-367) and Shonk-Hogan ``adding`` (:1135-1245).
+
+Public fields are (ncol, nlay[+1], ngpt) with the layer on axis 1; the
+layer recurrences are Python loops over (ncol, ngpt) slices. The
+broadband one-angle solve is the hand-written kernel
+``ops/kernels/solver_lw`` on a CUDA tensor.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["GAUSS_DS", "GAUSS_WTS", "lw_source_noscat", "lw_solver_noscat",
-           "adding"]
+from ..constants import PI
 
-# one-angle Gauss-Jacobi-5 secant and weight (Hogan 2023 Table 1; reference
-# mo_rte_lw.F90:135-160)
-GAUSS_DS = 1.0 / 0.6096748751
-GAUSS_WTS = 1.0
+__all__ = ["GAUSS_DS", "GAUSS_WTS", "LWFluxes", "lw_source_noscat",
+           "lw_solver_noscat", "adding"]
+
+# "Gauss-Jacobi-5" quadrature secants and weights (Hogan 2023 Table 1;
+# reference mo_rte_lw.F90:135-160): GAUSS_DS[n-1][k] is the k-th secant
+# of the n-point rule
+_MUS = (
+    (0.6096748751,),
+    (0.2509907356, 0.7908473988),
+    (0.1024922169, 0.4417960320, 0.8633751621),
+    (0.0454586727, 0.2322334416, 0.5740198775, 0.9030775973),
+)
+GAUSS_DS = tuple(tuple(1.0 / m for m in row) for row in _MUS)
+GAUSS_WTS = (
+    (1.0,),
+    (0.2300253764, 0.7699746236),
+    (0.0437820218, 0.3875796738, 0.5686383044),
+    (0.0092068785, 0.1285704278, 0.4323381850, 0.4298845087),
+)
+
+
+class LWFluxes(NamedTuple):
+    flux_up: torch.Tensor                 # (ncol, nlev) or (ncol, nlev, ngpt)
+    flux_dn: torch.Tensor
+    flux_up_jac: Optional[torch.Tensor]   # (ncol, nlev) broadband, or None
 
 
 def lw_source_noscat(lay_source, lev_top, lev_bot, tau, trans):
@@ -36,35 +61,124 @@ def lw_source_noscat(lay_source, lev_top, lev_bot, tau, trans):
     return source_dn, source_up
 
 
-def lw_solver_noscat(tau, lay_source, lev_source, sfc_emis, sfc_src, *,
-                     ds: float = GAUSS_DS, weight: float = GAUSS_WTS):
-    """One-angle no-scattering solve with zero incident flux (reference
-    lw_solver_noscat_oneangle): tau/lay_source (ngpt, nlay, ncol),
-    lev_source (ngpt, nlay+1, ncol), sfc_emis/sfc_src (ngpt, ncol).
-    Returns broadband (flux_up, flux_dn), each (nlay+1, ncol) in W/m2."""
+def _oneangle(tau, lay_source, lev_source, sfc_emis, sfc_src, inc_flux, ds,
+              weight, sfc_src_jac=None, ssa=None, g=None, spectral=False):
+    """One-angle emission/absorption solve, top at index 0 (reference
+    :51-240). tau/lay_source (ncol, nlay, ngpt), lev_source
+    (ncol, nlay+1, ngpt), boundary fields (ncol, ngpt); ``ds`` a secant or
+    (ncol, ngpt) secants. With ssa and g, Tang (2018) rescaling; with
+    sfc_src_jac, the surface Jacobian. Returns (up, dn, jac) radiances,
+    summed over g-points unless ``spectral`` (jac always summed; None
+    without sfc_src_jac); the caller multiplies by pi * weight."""
     nlay = tau.shape[1]
+    rescale = ssa is not None
+    if isinstance(ds, torch.Tensor):
+        ds = ds[:, None, :]
     tau_loc = tau * ds
+    if rescale:
+        # similarity-principle rescaling (reference :148-178)
+        wb = ssa * (1.0 - g) * 0.5
+        scale_tau = 1.0 - ssa + wb
+        cn = 0.4 * wb / scale_tau
+        tau_loc = tau_loc * scale_tau
     trans = torch.exp(-tau_loc)
+    an = 1.0 - trans * trans if rescale else None
     sdn, sup = lw_source_noscat(lay_source, lev_source[:, :-1],
                                 lev_source[:, 1:], tau_loc, trans)
-    radn_dn = [torch.zeros_like(sfc_src)]
+
+    # down (reference lw_transport_noscat_dn :681-708), surface (:198-202)
+    radn_dn = [inc_flux / (PI * weight)]
     for l in range(nlay):
         radn_dn.append(trans[:, l] * radn_dn[-1] + sdn[:, l])
     radn_up = [radn_dn[-1] * (1.0 - sfc_emis) + sfc_emis * sfc_src]
+    jac = None if sfc_src_jac is None else [sfc_emis * sfc_src_jac]
     for l in range(nlay - 1, -1, -1):
-        radn_up.append(trans[:, l] * radn_up[-1] + sup[:, l])
+        r = trans[:, l] * radn_up[-1] + sup[:, l]
+        if rescale:
+            # Tang adjustment from the downwelling radiance at the layer's
+            # top edge (reference lw_transport_1rescl :784-793)
+            r = r + cn[:, l] * (an[:, l] * radn_dn[l]
+                                - trans[:, l] * sdn[:, l] - sup[:, l])
+        radn_up.append(r)
+        if jac is not None:
+            jac.append(trans[:, l] * jac[-1])
     radn_up.reverse()
-    piw = math.pi * weight
-    up = torch.stack(radn_up, dim=1).sum(0) * piw
-    dn = torch.stack(radn_dn, dim=1).sum(0) * piw
-    return up, dn
+    if rescale:
+        # second down sweep, adjusted from the upwelling field (:798-808)
+        radn_dn = radn_dn[:1]
+        for l in range(nlay):
+            adj = cn[:, l] * (an[:, l] * radn_up[l] - trans[:, l] * sup[:, l]
+                              - sdn[:, l])
+            radn_dn.append(trans[:, l] * radn_dn[-1] + sdn[:, l] + adj)
+    up = torch.stack(radn_up, dim=1)
+    dn = torch.stack(radn_dn, dim=1)
+    if jac is not None:
+        jac.reverse()
+        jac = torch.stack(jac, dim=1).sum(-1)
+    if not spectral:
+        up, dn = up.sum(-1), dn.sum(-1)
+    return up, dn, jac
+
+
+def lw_solver_noscat(tau, lay_source, lev_source, sfc_emis, sfc_src,
+                     inc_flux, *, top_at_1: bool, ds, weights,
+                     sfc_src_jac=None, ssa=None, g=None,
+                     do_rescaling: bool = False, do_jacobians: bool = False,
+                     spectral: bool = False) -> LWFluxes:
+    """Multi-angle no-scattering LW solve (reference rte_lw_solver_noscat,
+    :248-367): one one-angle solve per quadrature angle, summed. ``ds``:
+    per-angle scalar secants, or (nangle, ncol, ngpt) secants; ``weights``
+    the quadrature weights. Broadband output goes through the one-angle
+    kernel (``ops/kernels/solver_lw``: the CUDA kernel on a CUDA tensor,
+    its plain twin on a CPU one); ``spectral`` output is plain tensor code.
+    Fluxes in W/m2."""
+    from .kernels.solver_lw import lw_noscat
+
+    if not top_at_1:
+        flip = lambda x: None if x is None else torch.flip(x, [1])
+        tau, lay_source, lev_source = flip(tau), flip(lay_source), \
+            flip(lev_source)
+        ssa, g = flip(ssa), flip(g)
+    if do_rescaling and (ssa is None or g is None):
+        raise ValueError("do_rescaling requires ssa and g")
+    if not do_rescaling:
+        ssa = g = None
+    if do_jacobians and sfc_src_jac is None:
+        sfc_src_jac = torch.zeros_like(sfc_src)
+    if not do_jacobians:
+        sfc_src_jac = None
+    up = dn = jac = None
+    for imu, w in enumerate(weights):
+        d = ds[imu]
+        d = d if isinstance(d, torch.Tensor) else float(d)
+        if spectral:
+            u, dd, j = _oneangle(tau, lay_source, lev_source, sfc_emis,
+                                 sfc_src, inc_flux, d, float(w), sfc_src_jac,
+                                 ssa, g, spectral=True)
+            piw = PI * float(w)
+            u, dd = u * piw, dd * piw
+            j = None if j is None else j * piw
+        else:
+            c = lambda x: None if x is None else x.contiguous()
+            u, dd, j = lw_noscat(c(tau), c(lay_source), c(lev_source),
+                                 c(sfc_emis), c(sfc_src), c(inc_flux),
+                                 ds=c(d) if isinstance(d, torch.Tensor) else d,
+                                 weight=float(w), sfc_src_jac=c(sfc_src_jac),
+                                 ssa=c(ssa), g=c(g))
+        up = u if up is None else up + u
+        dn = dd if dn is None else dn + dd
+        jac = j if jac is None else jac + j
+    if not top_at_1:
+        up, dn = torch.flip(up, [1]), torch.flip(dn, [1])
+        jac = None if jac is None else torch.flip(jac, [1])
+    return LWFluxes(flux_up=up, flux_dn=dn, flux_up_jac=jac)
 
 
 def adding(albedo_sfc, rdif, tdif, src_dn, src_up, src_sfc, flux_dn_top):
     """Shonk & Hogan 2008 adding for diffuse transport (Eqs 9-13), top at
-    index 0. rdif/tdif/src_* (ngpt, nlay, ncol); albedo_sfc/src_sfc/
-    flux_dn_top (ngpt, ncol). Returns (flux_up, flux_dn), each
-    (ngpt, nlay+1, ncol)."""
+    index 0: rdif/tdif/src_* (ncol, nlay, ngpt); albedo_sfc/src_sfc/
+    flux_dn_top (ncol, ngpt). Returns (flux_up, flux_dn), each
+    (ncol, nlay+1, ngpt)."""
     nlay = rdif.shape[1]
     albedo = [None] * (nlay + 1)
     src = [None] * (nlay + 1)

@@ -131,8 +131,9 @@ def synthetic_kdist_raw(sw: bool = False, *, ngpt=None, nbnd=None,
     return raw
 
 
-def synthetic_kdist(sw: bool = False, *, dtype=None, device="cpu", **kw):
-    """The port's KDist built from :func:`synthetic_kdist_raw`."""
+def synthetic_kdist(sw: bool = False, *, dtype=None, device=None, **kw):
+    """The port's KDist built from :func:`synthetic_kdist_raw`, on
+    ``device`` (default: the CUDA device)."""
     import torch
 
     from ..models.rrtmgp.kdist import KDist
@@ -160,8 +161,9 @@ def synthetic_cloud_raw(nbnd=16, nsize_liq=25, nsize_ice=25, nrgh=3,
         asyice=rng.uniform(0.6, 0.95, (nsize_ice, nbnd, nrgh)))
 
 
-def synthetic_cloud_optics(nbnd=16, *, dtype=None, device="cpu", **kw):
-    """The port's CloudOpticsRRTMGP built from :func:`synthetic_cloud_raw`."""
+def synthetic_cloud_optics(nbnd=16, *, dtype=None, device=None, **kw):
+    """The port's CloudOpticsRRTMGP built from :func:`synthetic_cloud_raw`,
+    on ``device`` (default: the CUDA device)."""
     import torch
 
     from ..models.rrtmgp.cloud_optics import CloudOpticsRRTMGP

@@ -45,7 +45,7 @@ def _fields(cld, seed=3):
 def test_cloud_optics_lanes_match_jax(dtype):
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     jcld = jax_cloud(nbnd=NBND, dtype=jdt)
-    cld = cloud_optics_from_jax(jcld, dtype=tdt)
+    cld = cloud_optics_from_jax(jcld, dtype=tdt, device="cpu")
     fields = _fields(cld)
     got = cld.cloud_optics_lanes(*(torch.as_tensor(f, dtype=tdt)
                                    for f in fields))
@@ -71,7 +71,8 @@ def test_cloud_optics_lanes_match_jax(dtype):
 
 def test_cloud_props_dispatch_on_cpu():
     """A CPU tensor goes to the twin; the launch counter does not move."""
-    cld = cloud_optics_from_jax(jax_cloud(nbnd=NBND, dtype=jnp.float32))
+    cld = cloud_optics_from_jax(jax_cloud(nbnd=NBND, dtype=jnp.float32),
+                                device="cpu")
     args = cld.lane_inputs(*(torch.as_tensor(f, dtype=torch.float32)
                              for f in _fields(cld)))
     before = cloud_props.launches
@@ -84,7 +85,7 @@ def test_cloud_props_dispatch_on_cpu():
 
 def test_cloud_range_checks():
     cld = cloud_optics_from_jax(jax_cloud(nbnd=NBND, dtype=jnp.float64),
-                                dtype=torch.float64)
+                                dtype=torch.float64, device="cpu")
     lwp, iwp, rel, dei = (torch.as_tensor(f) for f in _fields(cld))
     bad = rel.clone()
     bad[lwp > 0] = cld.radliq_upr + 1.0

@@ -8,8 +8,9 @@ so they run on a GPU host that has none, without the JAX-side conftest:
 Small shapes, including a g-point count that is not a multiple of the
 32-thread warp (the kernels' idle lanes). Kernel and twin get the same
 float32 inputs and differ in summation order and fused multiply-adds
-only: cloud optics within 1e-6 of the largest value, fluxes within 2e-6
-of the largest flux (measured at the main path's shapes: 5e-8 and 2e-7).
+only: cloud optics and the gas-optics gathers within 1e-6 of the largest
+value, fluxes within 2e-6 of the largest flux (measured at the main
+paths' shapes: below 1e-7 and about 2e-7).
 """
 import pytest
 
@@ -17,13 +18,23 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from rte_rrtmgp_tpu_torch.drivers.allsky import (  # noqa: E402
-    allsky_lw_inputs, allsky_sw_inputs, build_allsky, build_allsky_step)
+    allsky_api_lw, allsky_api_sw, allsky_lw_inputs, allsky_sw_inputs,
+    build_allsky, build_allsky_step)
+from rte_rrtmgp_tpu_torch.ops.gas_optics import minor_scaling  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels.cloud_props import (  # noqa: E402
     cloud_props, cloud_props_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import (  # noqa: E402
     lw_fused, lw_fused_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import (  # noqa: E402
     sw_fused, sw_fused_plain)
+from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import (  # noqa: E402
+    gas_major, gas_major_plain)
+from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (  # noqa: E402
+    gas_minor, gas_minor_plain, gas_rayleigh, gas_rayleigh_plain)
+from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import (  # noqa: E402
+    lw_noscat, lw_noscat_plain)
+from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw import (  # noqa: E402
+    sw_2stream, sw_2stream_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +113,130 @@ def test_wrappers_refuse_float64(cuda):
     x = allsky_lw_inputs(inp, p.gas_lw, use_clouds=False)
     with pytest.raises(ValueError, match="dtype"):
         lw_fused(x)
+
+
+def _descriptors(p, gas):
+    inp = p.inputs
+    cg, dry, h2o = gas.col_gas(inp.play, inp.plev, inp.gas_concs)
+    return gas.interp(inp.play, inp.tlay, cg), cg, dry, h2o
+
+
+@pytest.mark.parametrize("dims", sorted(DIMS))
+def test_gas_major_matches_twin(cuda, dims):
+    p = build_allsky(*DIMS[dims], device=cuda)
+    for gas in (p.gas_lw, p.gas_sw):
+        co = _descriptors(p, gas)[0]
+        args = (co, gas.kdist.kmajor, gas.kdist.planck_frac,
+                gas.gpoint_flavor)
+        n0 = gas_major.launches
+        got = tuple(x for x in gas_major(*args) if x is not None)
+        assert gas_major.launches == n0 + 1
+        _close(got, tuple(x for x in gas_major_plain(*args)
+                          if x is not None), 1e-6)
+
+
+@pytest.mark.parametrize("dims", sorted(DIMS))
+def test_gas_minor_matches_twin(cuda, dims):
+    p = build_allsky(*DIMS[dims], device=cuda)
+    gas, inp = p.gas_lw, p.inputs
+    co, cg, _, h2o = _descriptors(p, gas)
+    kd = gas.kdist
+    tau = gas_major_plain(co, kd.kmajor, None, gas.gpoint_flavor)[0]
+    nlo = len(kd.minor_lower)
+    for lower, mset, ktab, meta in (
+            (True, kd.minor_lower, kd.kminor_lower, gas.minor_meta[:nlo]),
+            (False, kd.minor_upper, kd.kminor_upper, gas.minor_meta[nlo:])):
+        minors = tuple(m[1:] for m in gas.minors if bool(m[0]) == lower)
+        sc = minor_scaling(co, mset, lower=lower, play=inp.play,
+                           tlay=inp.tlay, col_gas=cg, idx_h2o=h2o)
+        n0 = gas_minor.launches
+        got = gas_minor(tau.clone(), co, ktab, minors, meta, sc)
+        assert gas_minor.launches == n0 + 1
+        _close(got, gas_minor_plain(tau.clone(), co, ktab, minors, meta, sc),
+               1e-6)
+
+
+@pytest.mark.parametrize("scattering", [True, False])
+def test_gas_rayleigh_matches_twin(cuda, scattering):
+    p = build_allsky(*DIMS["g24"], device=cuda)
+    gas = p.gas_sw
+    co, cg, dry, h2o = _descriptors(p, gas)
+    kd = gas.kdist
+    tau = gas_major_plain(co, kd.kmajor, None, gas.gpoint_flavor)[0]
+    args = (co, kd.krayl, gas.gpoint_flavor, (cg[h2o] + dry).contiguous(),
+            scattering)
+    n0 = gas_rayleigh.launches
+    got = tuple(x for x in gas_rayleigh(tau.clone(), *args) if x is not None)
+    assert gas_rayleigh.launches == n0 + 1
+    ref = tuple(x for x in gas_rayleigh_plain(tau.clone(), *args)
+                if x is not None)
+    assert len(got) == len(ref) == (2 if scattering else 1)
+    _close(got, ref, 1e-6)
+
+
+@pytest.mark.parametrize("variant", ["plain", "rescale-jac-ds"])
+@pytest.mark.parametrize("dims", sorted(DIMS))
+def test_lw_noscat_matches_twin(cuda, dims, variant):
+    p = build_allsky(*DIMS[dims], device=cuda)
+    inp = p.inputs
+    props, src = p.gas_lw.gas_optics_lw(inp.play, inp.plev, inp.tlay,
+                                        inp.tsfc, inp.gas_concs,
+                                        tlev=inp.tlev)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    ncol, nlay, ngpt = props.tau.shape
+    rand = lambda *s: torch.rand(s, generator=gen, device=cuda)
+    args = (props.tau, src.lay_source, src.lev_source,
+            0.8 + 0.2 * rand(ncol, ngpt), src.sfc_source, rand(ncol, ngpt))
+    kw = dict(ds=1.66, weight=1.0)
+    if variant != "plain":
+        kw = dict(ds=p.gas_lw.compute_optimal_angles(props), weight=1.0,
+                  sfc_src_jac=src.sfc_source_jac,
+                  ssa=0.6 * rand(ncol, nlay, ngpt),
+                  g=0.9 * rand(ncol, nlay, ngpt))
+    n0 = lw_noscat.launches
+    got = tuple(x for x in lw_noscat(*args, **kw) if x is not None)
+    assert lw_noscat.launches == n0 + 1
+    ref = tuple(x for x in lw_noscat_plain(*args, **kw) if x is not None)
+    assert len(got) == len(ref) == (2 if variant == "plain" else 3)
+    _close(got, ref, 2e-6)
+
+
+@pytest.mark.parametrize("dims", sorted(DIMS))
+def test_sw_2stream_matches_twin(cuda, dims):
+    """Night, low-sun and overhead columns, mu0 that varies by layer and a
+    diffuse incident flux."""
+    p = build_allsky(*DIMS[dims], device=cuda)
+    inp = p.inputs
+    props, toa = p.gas_sw.gas_optics_sw(inp.play, inp.plev, inp.tlay,
+                                        inp.gas_concs)
+    ncol, nlay, ngpt = props.tau.shape
+    mu = torch.tensor([-0.3, 0.0, 1e-4, 3e-4, 1e-3, 0.05, 0.3, 0.6, 0.86,
+                       1.0], device=cuda)[:ncol]
+    mu0 = (mu[:, None] * torch.linspace(1.0, 0.95, nlay, device=cuda)
+           ).contiguous()
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    rand = lambda *s: torch.rand(s, generator=gen, device=cuda)
+    inc = toa.contiguous()
+    args = (props.tau, 0.99 * rand(ncol, nlay, ngpt),
+            0.85 * rand(ncol, nlay, ngpt), mu0, 0.3 * rand(ncol, ngpt),
+            0.3 * rand(ncol, ngpt), inc, 0.05 * inc)
+    n0 = sw_2stream.launches
+    got = sw_2stream(*args)
+    assert sw_2stream.launches == n0 + 1
+    _close(got, sw_2stream_plain(*args), 2e-6)
+
+
+def test_public_path_runs_on_kernels(cuda):
+    p = build_allsky(*DIMS["g32"], device=cuda)
+    counters = (cloud_props, gas_major, gas_minor, gas_rayleigh, lw_noscat,
+                sw_2stream)
+    before = [f.launches for f in counters]
+    fused_before = (lw_fused.launches, sw_fused.launches)
+    lw = allsky_api_lw(p.inputs, p.gas_lw, cloud_optics=p.cld_lw)
+    sw = allsky_api_sw(p.inputs, p.gas_sw, cloud_optics=p.cld_sw)
+    torch.cuda.synchronize()
+    assert all(f.launches > b for f, b in zip(counters, before))
+    assert (lw_fused.launches, sw_fused.launches) == fused_before
+    for o in (lw.flux_up, lw.flux_dn, sw.flux_up, sw.flux_dn,
+              sw.flux_dn_dir):
+        assert o.is_cuda and bool(torch.isfinite(o).all())

@@ -28,7 +28,7 @@ from rte_rrtmgp_tpu_torch.models.rrtmgp.gas_optics import (  # noqa: E402
     GasOpticsRRTMGP, get_col_dry, interp_tlev)
 from rte_rrtmgp_tpu_torch.models.rrtmgp.kdist import KDist  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.gas_optics import (  # noqa: E402
-    planck_bands, planck_sources, tau_major, tau_minor, tau_rayleigh)
+    planck_sources, tau_major, tau_minor, tau_rayleigh)
 from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import _split_minors  # noqa: E402
 
 RTOL = 1e-12
@@ -40,7 +40,8 @@ def case(request):
     sw = request.param
     raw = synthetic_raw(sw=sw)
     jgas = JGasOptics(JKDist.from_raw(GASES, dtype=jnp.float64, **raw))
-    gas = GasOpticsRRTMGP(KDist.from_raw(GASES, dtype=F64, **raw))
+    gas = GasOpticsRRTMGP(KDist.from_raw(GASES, dtype=F64, device="cpu",
+                                         **raw))
     play, plev, tlay, tlev, tsfc, vmr = sample_atmosphere(ncol=4, nlay=9)
     jgc, gc = JGasConcs.empty(), GasConcs.empty()
     for k, v in vmr.items():
@@ -138,16 +139,13 @@ def test_optical_depths_and_sources(case):
                             ds=1.0, weight=1.0)
     tau, pfrac = _port_tau(gas, x)
     np.testing.assert_allclose(lane(tau), np.asarray(props.tau), rtol=RTOL)
-    pb = lambda v: planck_bands(v, x.totplnk, tp_min=x.tp_min,
-                                tp_delta=x.tp_delta)
-    lay, lev, sfc = planck_sources(pfrac, x.gpt2band, pb(x.tlay), pb(x.tlev),
-                                   pb(x.tsfc))
-    np.testing.assert_allclose(lane(lay), np.asarray(src.lay_source),
-                               rtol=RTOL)
-    np.testing.assert_allclose(lane(lev), np.asarray(src.lev_source),
-                               rtol=RTOL)
-    np.testing.assert_allclose(sfc.numpy().T, np.asarray(src.sfc_source),
-                               rtol=RTOL)
+    sfc, lay, lev, jac = planck_sources(
+        pfrac.permute(2, 1, 0), totplnk=x.totplnk, totplnk_delta=x.tp_delta,
+        temp_ref_min=x.tp_min, gpt2band=x.gpt2band, tlay=x.tlay.T,
+        tlev=x.tlev.T, tsfc=x.tsfc, top_at_1=True)
+    for got, ref in ((lay, src.lay_source), (lev, src.lev_source),
+                     (sfc, src.sfc_source), (jac, src.sfc_source_jac)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL)
 
 
 def test_missing_key_species_raises(case):

@@ -44,7 +44,7 @@ SIZES = dict(ngpt=NGPT, nbnd=NBND, ntemp=5, npres=10)
 def problem(seed=7):
     """numpy arrays of one perturbed all-sky atmosphere."""
     rng = np.random.default_rng(seed)
-    inp = make_allsky_inputs(NCOL, NLAY, dtype=torch.float64)
+    inp = make_allsky_inputs(NCOL, NLAY, dtype=torch.float64, device="cpu")
     arr = {k: getattr(inp, k).numpy() for k in ("play", "plev", "tlay",
                                                 "tlev")}
     arr["tlay"] = arr["tlay"] + rng.uniform(-5.0, 5.0, arr["tlay"].shape)
@@ -63,13 +63,13 @@ def run_both(dtype, pallas):
     jkd = jax_kdist(sw=False, dtype=getattr(jnp, dtype), **SIZES)
     jgas = JGasOptics(jkd)
     tdt = getattr(torch, dtype)
-    gas = GasOpticsRRTMGP(kdist_from_jax(jkd, dtype=tdt))
+    gas = GasOpticsRRTMGP(kdist_from_jax(jkd, dtype=tdt, device="cpu"))
     jgc, gc = JGasConcs.empty(), GasConcs.empty()
     for k, v in gases.items():
         jgc, gc = jgc.set_vmr(k, v), gc.set_vmr(k, v)
     j = {k: jnp.asarray(v, getattr(jnp, dtype)) for k, v in arr.items()}
     t = {k: torch.as_tensor(v, dtype=tdt) for k, v in arr.items()}
-    kw = dict(ds=GAUSS_DS, weight=GAUSS_WTS)
+    kw = dict(ds=GAUSS_DS[0][0], weight=GAUSS_WTS[0][0])
     got = gas.lw_fused_solve(t["play"], t["plev"], t["tlay"], t["tsfc"], gc,
                              sfc_emis=t["sfc_emis"], tlev=t["tlev"],
                              cloud_tau_abs=t["cloud_tau_abs"], **kw)
@@ -109,15 +109,16 @@ def test_lw_fused_twin_matches_jax(dtype, pallas, tol):
 def test_lw_fused_dispatch_on_cpu():
     """A CPU tensor goes to the twin; the launch counter does not move."""
     arr, gases = problem()
-    gas = GasOpticsRRTMGP(kdist_from_jax(jax_kdist(sw=False, **SIZES)))
+    gas = GasOpticsRRTMGP(kdist_from_jax(jax_kdist(sw=False, **SIZES),
+                                         device="cpu"))
     gc = GasConcs.empty()
     for k, v in gases.items():
         gc = gc.set_vmr(k, v)
     t = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in arr.items()}
     x = gas.lw_fused_inputs(t["play"], t["plev"], t["tlay"], t["tsfc"], gc,
                             sfc_emis=t["sfc_emis"], tlev=t["tlev"],
-                            cloud_tau_abs=t["cloud_tau_abs"], ds=GAUSS_DS,
-                            weight=GAUSS_WTS)
+                            cloud_tau_abs=t["cloud_tau_abs"],
+                            ds=GAUSS_DS[0][0], weight=GAUSS_WTS[0][0])
     before = lw_fused.launches
     up, dn = lw_fused(x)
     assert lw_fused.launches == before

@@ -43,7 +43,7 @@ SIZES = dict(ngpt=NGPT, nbnd=NBND, ntemp=5, npres=10)
 def problem(seed=11):
     """numpy arrays of one perturbed all-sky atmosphere."""
     rng = np.random.default_rng(seed)
-    inp = make_allsky_inputs(NCOL, NLAY, dtype=torch.float64)
+    inp = make_allsky_inputs(NCOL, NLAY, dtype=torch.float64, device="cpu")
     arr = {k: getattr(inp, k).numpy() for k in ("play", "plev", "tlay")}
     arr["tlay"] = arr["tlay"] + rng.uniform(-5.0, 5.0, arr["tlay"].shape)
     mu0 = rng.uniform(0.05, 1.0, NCOL)
@@ -66,7 +66,7 @@ def run_both(dtype, pallas):
     jkd = jax_kdist(sw=True, dtype=getattr(jnp, dtype), **SIZES)
     jgas = JGasOptics(jkd)
     tdt = getattr(torch, dtype)
-    gas = GasOpticsRRTMGP(kdist_from_jax(jkd, dtype=tdt))
+    gas = GasOpticsRRTMGP(kdist_from_jax(jkd, dtype=tdt, device="cpu"))
     jgc, gc = JGasConcs.empty(), GasConcs.empty()
     for k, v in gases.items():
         jgc, gc = jgc.set_vmr(k, v), gc.set_vmr(k, v)
@@ -115,7 +115,8 @@ def test_sw_fused_twin_matches_jax(dtype, pallas, tol):
 def test_sw_fused_dispatch_on_cpu():
     """A CPU tensor goes to the twin; the launch counter does not move."""
     arr, gases = problem()
-    gas = GasOpticsRRTMGP(kdist_from_jax(jax_kdist(sw=True, **SIZES)))
+    gas = GasOpticsRRTMGP(kdist_from_jax(jax_kdist(sw=True, **SIZES),
+                                         device="cpu"))
     gc = GasConcs.empty()
     for k, v in gases.items():
         gc = gc.set_vmr(k, v)

@@ -1,12 +1,16 @@
 """Guards for the port's rules.
 
-  * The port and chip_smoke.py import no JAX: the machine with the GPU
-    has none. Checked in a fresh interpreter where ``import jax`` fails.
+  * The port and chip_smoke.py import no JAX and nothing of the JAX
+    package: the machine with the GPU has none. Checked in a fresh
+    interpreter where ``import jax`` fails, and in the sources.
   * chip_smoke.py has no CPU path: without a CUDA device it exits
     non-zero and prints no result.
+  * The entry points that build tensors default to the CUDA device and,
+    without one, raise; the CPU is used only when asked for.
   * The CUDA wrappers refuse what their kernels do not take, and a
     missing compiler raises rather than falling back.
 """
+import inspect
 import os
 import pkgutil
 import re
@@ -48,7 +52,8 @@ def test_port_imports_without_jax():
 
 
 def test_no_jax_in_port_sources():
-    pattern = re.compile(r"^\s*(import jax|from jax)", re.M)
+    pattern = re.compile(r"^\s*(import|from) (jax|rte_rrtmgp_tpu(?!_torch))\b",
+                         re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, PKG)):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -82,23 +87,86 @@ def test_check_args_refuses_what_kernels_do_not_take():
             check_args("k", device, {"x": spec})
 
 
-@pytest.mark.parametrize("name", ["cloud_props", "lw_fused", "sw_fused"])
+WRAPPERS = ["cloud_props", "lw_fused", "sw_fused", "gas_major", "gas_minor",
+            "gas_rayleigh", "lw_noscat", "sw_2stream"]
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
 def test_wrappers_refuse_other_devices(name):
     """Dispatch goes by device: a CPU tensor runs the twin, a CUDA one the
     kernel, and a tensor on any other device raises instead of reaching
     the twin."""
-    from rte_rrtmgp_tpu_torch.ops.kernels import cloud_props, fused_lw, fused_sw
+    from rte_rrtmgp_tpu_torch.ops.gas_optics import InterpCoeffs
+    from rte_rrtmgp_tpu_torch.ops.kernels import (cloud_props, fused_lw,
+                                                  fused_sw, gas_major,
+                                                  gas_minor, solver_lw,
+                                                  solver_sw)
     meta = torch.empty((2, 3), device="meta")
-    if name == "cloud_props":
-        call = lambda: cloud_props.cloud_props(meta, meta, meta, meta, meta)
-    elif name == "lw_fused":
-        x = fused_lw.LWFusedInputs(*[None] * len(fused_lw.LWFusedInputs._fields))
-        call = lambda: fused_lw.lw_fused(x._replace(tlay=meta))
-    else:
-        x = fused_sw.SWFusedInputs(*[None] * len(fused_sw.SWFusedInputs._fields))
-        call = lambda: fused_sw.sw_fused(x._replace(mu0=meta))
+    co = InterpCoeffs(*[meta] * len(InterpCoeffs._fields))
+    calls = {
+        "cloud_props": lambda: cloud_props.cloud_props(*[meta] * 5),
+        "lw_fused": lambda: fused_lw.lw_fused(fused_lw.LWFusedInputs(
+            *[None] * len(fused_lw.LWFusedInputs._fields))._replace(
+                tlay=meta)),
+        "sw_fused": lambda: fused_sw.sw_fused(fused_sw.SWFusedInputs(
+            *[None] * len(fused_sw.SWFusedInputs._fields))._replace(
+                mu0=meta)),
+        "gas_major": lambda: gas_major.gas_major(co, meta, None, meta),
+        "gas_minor": lambda: gas_minor.gas_minor(meta, co, meta, (), meta,
+                                                 meta),
+        "gas_rayleigh": lambda: gas_minor.gas_rayleigh(meta, co, meta, meta,
+                                                       meta),
+        "lw_noscat": lambda: solver_lw.lw_noscat(*[meta] * 6, ds=1.0,
+                                                 weight=1.0),
+        "sw_2stream": lambda: solver_sw.sw_2stream(*[meta] * 7),
+    }
     with pytest.raises(ValueError, match="on meta"):
-        call()
+        calls[name]()
+
+
+def _entry_points():
+    from rte_rrtmgp_tpu_torch import convert
+    from rte_rrtmgp_tpu_torch.drivers import allsky
+    from rte_rrtmgp_tpu_torch.models.rrtmgp.cloud_optics import (
+        CloudOpticsRRTMGP)
+    from rte_rrtmgp_tpu_torch.models.rrtmgp.kdist import KDist
+    from rte_rrtmgp_tpu_torch.utils import synthetic
+    return {
+        "synthetic_kdist": (synthetic.synthetic_kdist, lambda f: f(
+            ngpt=8, nbnd=2, ntemp=4, npres=5)),
+        "synthetic_cloud_optics": (synthetic.synthetic_cloud_optics,
+                                   lambda f: f(nbnd=2)),
+        "make_allsky_inputs": (allsky.make_allsky_inputs,
+                               lambda f: f(4, 6)),
+        "KDist.from_raw": (KDist.from_raw, lambda f: f(
+            synthetic.GASES_FULL, **synthetic.synthetic_kdist_raw(
+                ngpt=8, nbnd=2, ntemp=4, npres=5))),
+        "CloudOpticsRRTMGP.load": (CloudOpticsRRTMGP.load, lambda f: f(
+            **synthetic.synthetic_cloud_raw(nbnd=2))),
+        "kdist_from_jax": (convert.kdist_from_jax, lambda f: f(object())),
+        "cloud_optics_from_jax": (convert.cloud_optics_from_jax,
+                                  lambda f: f(object())),
+    }
+
+
+ENTRY_POINTS = ["synthetic_kdist", "synthetic_cloud_optics",
+                "make_allsky_inputs", "KDist.from_raw",
+                "CloudOpticsRRTMGP.load", "kdist_from_jax",
+                "cloud_optics_from_jax"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_default_to_cuda(name):
+    """Each entry point that builds tensors takes device=None, meaning the
+    CUDA device; without one it raises and does not build on the CPU."""
+    fn, call = _entry_points()[name]
+    default = inspect.signature(fn).parameters["device"].default
+    assert default is None and default != "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-device error cannot "
+                    "be shown here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(fn)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -61,18 +61,20 @@ def _same_kdist(port, ref):
 @pytest.mark.parametrize("route", ["generator", "convert"])
 def test_kdist_equals_jax(sw, route):
     ref = jax_kdist(sw=sw, dtype=jnp.float64, **SIZES)
-    port = (synthetic_kdist(sw=sw, dtype=torch.float64, **SIZES)
+    port = (synthetic_kdist(sw=sw, dtype=torch.float64, device="cpu",
+                            **SIZES)
             if route == "generator"
-            else kdist_from_jax(ref, dtype=torch.float64))
+            else kdist_from_jax(ref, dtype=torch.float64, device="cpu"))
     _same_kdist(port, ref)
 
 
 @pytest.mark.parametrize("route", ["generator", "convert"])
 def test_cloud_tables_equal_jax(route):
     ref = jax_cloud(nbnd=4, dtype=jnp.float64)
-    port = (synthetic_cloud_optics(nbnd=4, dtype=torch.float64)
+    port = (synthetic_cloud_optics(nbnd=4, dtype=torch.float64, device="cpu")
             if route == "generator"
-            else cloud_optics_from_jax(ref, dtype=torch.float64))
+            else cloud_optics_from_jax(ref, dtype=torch.float64,
+                                      device="cpu"))
     for name in ("extliq", "ssaliq", "asyliq", "extice", "ssaice", "asyice"):
         np.testing.assert_array_equal(getattr(port, name).numpy(),
                                       np.asarray(getattr(ref, name)), name)
@@ -88,8 +90,8 @@ def test_allsky_inputs_equal_jax(ncol, nlay):
     ref = jax_inputs(ncol, nlay, cloud_optics=cld_ref, dtype=jnp.float64)
     port = make_allsky_inputs(ncol, nlay,
                               cloud_optics=synthetic_cloud_optics(
-                                  nbnd=4, dtype=torch.float64),
-                              dtype=torch.float64)
+                                  nbnd=4, dtype=torch.float64, device="cpu"),
+                              dtype=torch.float64, device="cpu")
     for name in ref._fields:
         if name == "gas_concs":
             continue
