@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's two all-sky paths on one CUDA GPU and check them.
+"""Run the PyTorch port's three all-sky paths on one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -9,29 +9,37 @@ Phases (any failure ends the run with a non-zero exit and no result):
      process per source, in parallel) and print the build time;
   3. each kernel against its plain-PyTorch twin on the device at the
      shapes its path gives it (4096 x 72, LW 256 g-points / 16 bands,
-     SW 224 / 14, ntemp 14, npres 59), with the median CUDA-event time of
-     both and the card's lower bound for the same work;
-  4. golden gates: the float32 fused step and the float32 public-API path
-     at the production configuration (256 x 72) against
-     tests/golden/production.npz, each field within 3x
-     tests/golden/production_f32_noise.json;
-  5. the fused path, build_allsky_step(4096, 72, ...) then step(inputs),
-     with the launch counters set to 0 just before it: cloud_props,
-     fused_lw and fused_sw must have launched, outputs finite and
-     non-negative, TOA SW down equal to the solar source times mu0; its
-     median step time;
-  6. the public-API path on the same inputs (gas_optics_lw/sw ->
-     cloud_optics -> increment -> rte_lw/rte_sw), counters set to 0 just
-     before it: gas_major, gas_minor, gas_rayleigh, solver_lw, solver_sw
-     and cloud_props must have launched and the fused kernels not; its
-     fluxes against the fused path's; its median step time; then where
-     each path's time goes (torch.profiler over 3 steps: device time by
-     kernel, device busy share);
-  7. rte_lw with 3 quadrature angles and with compute_optimal_angles
+     SW 224 / 14, ntemp 14, npres 59; the staged path's plain lane
+     solvers on the non-banded configuration, LW 192 / 16 and SW 168 / 14,
+     the only one on which the JAX package's dispatch reaches them; the
+     lane solvers with clouds and aerosols), with the median CUDA-event
+     time of both and the card's lower bound for the same work;
+  4. golden gates at the production configuration (256 x 72): the float32
+     fused step, public-API path and staged path against
+     tests/golden/production.npz, and the float32 aerosols step (fused)
+     against the port's float64 twin of that step on the CPU, each field
+     within 3x tests/golden/production_f32_noise.json;
+  5. the paths at 4096 x 72, each with the launch counters set to 0 just
+     before it, the kernels it must and must not launch, finite
+     non-negative outputs, TOA SW down equal to the solar source times
+     mu0, and its median step time: the fused path
+     (build_allsky_step(...) then step(inputs)); the public-API path
+     (gas_optics_lw/sw -> cloud_optics -> increment -> rte_lw/rte_sw);
+     the staged lane-layout path (allsky_staged_lw/sw), banded and on the
+     non-banded configuration; the aerosols configuration on the fused,
+     staged and public-API paths; the clear-sky configuration on the
+     fused and staged paths (no cloud optics launched). Every path is
+     held against the fused one on the same inputs within rtol 3e-5 /
+     atol 5e-4 W/m2; then where the time goes (torch.profiler over 3
+     steps of the fused, public-API, staged and aerosols fused paths:
+     device time by kernel, device busy share);
+  6. rte_lw with 3 quadrature angles and with compute_optimal_angles
      secants, on the card against the twins on the CPU (512 columns);
-  8. a ``{"kernels": [...]}`` line (launches from the path that runs each
-     kernel: phase 5 for the fused kernels and cloud optics, phase 6 for
-     the others), then the last line ``{"ok": true, "device": {...}}``.
+  7. a ``{"kernels": [...]}`` line (launches from the path that runs each
+     kernel: the fused path for the fused kernels and cloud optics, the
+     public-API path for the gathers and the public solvers, the staged
+     paths for the lane solvers), then the last line
+     ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before doing anything.
 """
@@ -46,6 +54,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 MAIN = dict(ncol=4096, nlay=72, ngpt_lw=256, nbnd_lw=16, ngpt_sw=224,
             nbnd_sw=14, ntemp=14, npres=59)
 PROD = dict(MAIN, ncol=256)
+# bands of 12 g-points: the staged path takes the plain lane solvers
+NONBANDED = dict(MAIN, ngpt_lw=192, ngpt_sw=168)
 # kernel vs twin, same float32 inputs: the two differ only in summation
 # order, fused multiply-adds and expf's last bit. The gathers (cloud
 # optics, major/minor/Rayleigh) are lerps of a few products per value;
@@ -74,6 +84,7 @@ OPS_LW_RESCALE = 14        # Tang terms and the second down sweep
 OPS_PLANCK = 12            # totplnk lerps, level geometric mean
 OPS_SW_LAYER = 62          # Meador-Weaver (47), direct beam, adding (12)
 OPS_SW_COMBINE = 12        # Rayleigh and cloud combine
+OPS_PFRAC_SOURCES = 8      # layer source, two level geometric means, cloud
 
 
 def log(msg):
@@ -337,34 +348,129 @@ def api_rows(prob, dev):
     return rows
 
 
-def golden_gate(what, out):
+def lanes_rows(prob, nonbanded):
+    """Phase 3, the staged path's lane solvers on inputs prepared as the
+    path prepares them, clouds and aerosols on: the solvers that form
+    their own sources or combine (rows 11, 13) on the flagship problem,
+    the plain ones (rows 10, 12) on the non-banded configuration."""
+    import torch
+    from rte_rrtmgp_tpu_torch.drivers.allsky import (_absorption_lanes,
+                                                     _scattering_lanes)
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lanes as sl
+    from rte_rrtmgp_tpu_torch.ops.solver_lw import GAUSS_DS, GAUSS_WTS
+    call = lambda f: lambda a: f(*a[:-1], **a[-1])
+    angle = dict(ds=GAUSS_DS[0][0], weight=GAUSS_WTS[0][0])
+    rows = []
+
+    def lw_args(p, banded):
+        inp = p.inputs
+        out = p.gas_lw.gas_optics_lw_lanes(
+            inp.play, inp.plev, inp.tlay, inp.tsfc, inp.gas_concs,
+            tlev=inp.tlev, banded_planck=banded)
+        cld = _absorption_lanes(inp, p.cld_lw, True, p.aer_lw, True)
+        tau = out[0]
+        ngpt, _, ncol = tau.shape
+        emis = inp.sfc_emis[:, 0][None, :].expand(ngpt, ncol)
+        inc = tau.new_zeros(()).expand(ngpt, ncol)
+        if banded:
+            _, pfrac, (pbs, pbl, pbv) = out
+            return (tau, pfrac, pbl, pbv, pbs, emis, inc,
+                    dict(angle, gpt2band=p.gas_lw.gpt2band,
+                         cloud_tau_abs=cld))
+        sfc, lay, lev, _ = out[1]
+        tau = tau + cld[p.gas_lw.gpt2band.long()]
+        return (tau, lay, lev, emis, sfc, inc, dict(angle))
+
+    def sw_args(p, banded):
+        inp = p.inputs
+        tau, second, toa = p.gas_sw.gas_optics_sw_lanes(
+            inp.play, inp.plev, inp.tlay, inp.gas_concs,
+            split_rayleigh=banded)
+        cloud = _scattering_lanes(inp, p.cld_sw, True, p.aer_sw, True)
+        ngpt, nlay, ncol = tau.shape
+        mu0 = inp.mu0[None, :].expand(nlay, ncol)
+        alb = inp.sfc_alb[:, 0][None, :].expand(ngpt, ncol)
+        if banded:
+            return (tau, second, cloud, mu0, alb, alb, toa, None,
+                    dict(gpt2band=p.gas_sw.gpt2band))
+        tau, ssa, g = sl.increment_2str_bybnd(tau, second, cloud,
+                                              p.gas_sw.gpt2band,
+                                              torch.finfo(tau.dtype).tiny)
+        return (tau, ssa, g, mu0, alb, alb, toa, None, {})
+
+    src_lw = "rte_rrtmgp_tpu_torch/csrc/solver_lw.cu"
+    src_sw = "rte_rrtmgp_tpu_torch/csrc/solver_sw.cu"
+    lanes = "rte_rrtmgp_tpu/ops/pallas/solver_lanes.py"
+    for name, p, banded, kernel, plain, src, line, ops in (
+            ("solver_lw_lanes", nonbanded, False, sl.lw_noscat_lanes,
+             sl.lw_noscat_lanes_plain, src_lw, 224, OPS_LW_LAYER),
+            ("solver_lw_pfrac", prob, True, sl.lw_noscat_lanes_pfrac,
+             sl.lw_noscat_lanes_pfrac_plain, src_lw, 372,
+             OPS_LW_LAYER + OPS_PFRAC_SOURCES),
+            ("solver_sw_lanes", nonbanded, False, sl.sw_2stream_lanes,
+             sl.sw_2stream_lanes_plain, src_sw, 675, OPS_SW_LAYER),
+            ("solver_sw_combined", prob, True,
+             sl.sw_2stream_lanes_combined,
+             sl.sw_2stream_lanes_combined_plain, src_sw, 774,
+             OPS_SW_LAYER + OPS_SW_COMBINE)):
+        sw = name.startswith("solver_sw")
+        args = (sw_args if sw else lw_args)(p, banded)
+        ngpt, nlay, ncol = args[0].shape
+        nout = (3 if sw else 2) * (nlay + 1) * ncol * 4
+        rows.append(check_kernel(
+            name, call(kernel), call(plain), args, TOL_FLUX, src,
+            f"{lanes}:{line}", (nbytes(args) + nout, ncol * nlay * ngpt * ops)))
+        del args
+    return rows
+
+
+def golden_gate(what, out, golden=None):
     """Each float32 field within 3x the float32 noise floor of the f64
-    golden (the production configuration)."""
+    golden (the production configuration): tests/golden/production.npz,
+    or the given float64 fields."""
     import numpy as np
-    golden = np.load(os.path.join(HERE, "tests", "golden", "production.npz"))
+    if golden is None:
+        golden = np.load(os.path.join(HERE, "tests", "golden",
+                                      "production.npz"))
     with open(os.path.join(HERE, "tests", "golden",
                            "production_f32_noise.json")) as f:
         noise = json.load(f)["f32_noise"]
     for key, o in zip(("lw_up", "lw_dn", "sw_up", "sw_dn", "sw_dir"), out):
-        d = float(np.abs(o.double().cpu().numpy() - golden[key]).max())
+        d = float(np.abs(o.double().cpu().numpy()
+                         - np.asarray(golden[key])).max())
         log(f"golden {what} {key}: max |f32 - f64 golden| {d:.4g} "
             f"(limit {3 * noise[key]:.4g})")
         if not d <= 3 * noise[key]:
             raise SystemExit(f"golden gate failed on {what} {key}")
 
 
-def api_step_fn(prob):
-    """One all-sky step through the public API: (lw_up, lw_dn, sw_up,
-    sw_dn, sw_dn_dir), each (ncol, nlay+1)."""
-    from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_api_lw,
-                                                     allsky_api_sw)
+def step_fn(prob, path, **opts):
+    """One all-sky step through the public API ("api") or the staged
+    lane-layout branch ("staged"), composed from the problem's objects:
+    (lw_up, lw_dn, sw_up, sw_dn, sw_dn_dir), each (ncol, nlay+1)."""
+    from rte_rrtmgp_tpu_torch.drivers import allsky
+    lw_fn = getattr(allsky, f"allsky_{path}_lw")
+    sw_fn = getattr(allsky, f"allsky_{path}_sw")
 
     def step(inputs):
-        lw = allsky_api_lw(inputs, prob.gas_lw, cloud_optics=prob.cld_lw)
-        sw = allsky_api_sw(inputs, prob.gas_sw, cloud_optics=prob.cld_sw)
+        lw = lw_fn(inputs, prob.gas_lw, cloud_optics=prob.cld_lw,
+                   aerosol_optics=prob.aer_lw, **opts)
+        sw = sw_fn(inputs, prob.gas_sw, cloud_optics=prob.cld_sw,
+                   aerosol_optics=prob.aer_sw, **opts)
         return (lw.flux_up, lw.flux_dn, sw.flux_up, sw.flux_dn,
                 sw.flux_dn_dir)
     return step
+
+
+def agree(what, out, ref):
+    """A path's fluxes against the fused path's on the same inputs."""
+    gap = max(float(((a - f).abs() - PATH_RTOL * f.abs()).max())
+              for a, f in zip(out, ref))
+    diff = max(float((a - f).abs().max()) for a, f in zip(out, ref))
+    log(f"{what} vs fused: max |diff| {diff:.3e} W/m2, max(|diff| - "
+        f"{PATH_RTOL} |fused|) {gap:.3e} W/m2 (limit {PATH_ATOL})")
+    if not gap <= PATH_ATOL:
+        raise SystemExit(f"{what} and the fused path disagree")
 
 
 def run_path(name, step, inputs, counters, must, must_not, solar):
@@ -447,7 +553,7 @@ def profile_path(name, step, inputs, n=3, top=8):
 
 
 def angles_check(prob, inputs):
-    """Phase 7: rte_lw with 3 Gauss angles and with per-(column, g-point)
+    """Phase 6: rte_lw with 3 Gauss angles and with per-(column, g-point)
     optimal-angle secants, on the card against the same calls on the CPU
     (the twins), on 512 columns."""
     import dataclasses
@@ -489,6 +595,7 @@ def main():
     from rte_rrtmgp_tpu_torch.drivers.allsky import (build_allsky,
                                                      build_allsky_step)
     from rte_rrtmgp_tpu_torch.ops.kernels import _build
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lanes as sl
     from rte_rrtmgp_tpu_torch.ops.kernels.cloud_props import cloud_props
     from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import lw_fused
     from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import sw_fused
@@ -522,54 +629,111 @@ def main():
                 log(f"ptxas {name}: {line.strip()}")
 
     # ---- 3. each kernel against its twin at its path's shapes ----
-    prob = build_allsky(**MAIN, device=dev)
-    rows = fused_rows(prob, dev) + api_rows(prob, dev)
+    prob = build_allsky(**MAIN, device=dev, use_aerosols=True)
+    nonbanded = build_allsky(**NONBANDED, device=dev, use_aerosols=True)
+    rows = (fused_rows(prob, dev) + api_rows(prob, dev)
+            + lanes_rows(prob, nonbanded))
     solar = float(prob.gas_sw.kdist.solar_source.double().sum())
+    solar_nb = float(nonbanded.gas_sw.kdist.solar_source.double().sum())
     del prob
     torch.cuda.empty_cache()
 
     # ---- 4. golden gates at the production configuration ----
     step, inputs = build_allsky_step(**PROD, device=dev)
     golden_gate("fused", step(inputs))
-    golden_gate("public API",
-                api_step_fn(build_allsky(**PROD, device=dev))(inputs))
+    prod = build_allsky(**PROD, device=dev)
+    golden_gate("public API", step_fn(prod, "api")(inputs))
+    golden_gate("staged", step_fn(prod, "staged")(inputs))
+    step, inputs = build_allsky_step(**PROD, device=dev, use_aerosols=True)
+    t0 = time.perf_counter()
+    step64, inputs64 = build_allsky_step(**PROD, device="cpu",
+                                         dtype=torch.float64,
+                                         use_aerosols=True)
+    twin = dict(zip(("lw_up", "lw_dn", "sw_up", "sw_dn", "sw_dir"),
+                    (x.numpy() for x in step64(inputs64))))
+    log(f"aerosols float64 twin on the CPU: {time.perf_counter() - t0:.1f} s")
+    golden_gate("aerosols fused vs f64 twin", step(inputs), twin)
+    del prod, step64, inputs64, twin
 
-    # ---- 5. the fused path ----
+    # ---- 5. the paths at 4096 x 72 ----
     counters = {"cloud_props": cloud_props, "fused_lw": lw_fused,
                 "fused_sw": sw_fused, "gas_major": gas_major,
                 "gas_minor": gas_minor, "gas_rayleigh": gas_rayleigh,
-                "solver_lw": lw_noscat, "solver_sw": sw_2stream}
-    fused_names = ("cloud_props", "fused_lw", "fused_sw")
-    api_names = ("cloud_props", "gas_major", "gas_minor", "gas_rayleigh",
-                 "solver_lw", "solver_sw")
+                "solver_lw": lw_noscat, "solver_sw": sw_2stream,
+                "solver_lw_lanes": sl.lw_noscat_lanes,
+                "solver_lw_pfrac": sl.lw_noscat_lanes_pfrac,
+                "solver_sw_lanes": sl.sw_2stream_lanes,
+                "solver_sw_combined": sl.sw_2stream_lanes_combined}
+    gathers = ("gas_major", "gas_minor", "gas_rayleigh")
+    launched = {
+        "fused": ("cloud_props", "fused_lw", "fused_sw"),
+        "public API": ("cloud_props",) + gathers + ("solver_lw",
+                                                    "solver_sw"),
+        "staged": ("cloud_props",) + gathers + ("solver_lw_pfrac",
+                                                "solver_sw_combined"),
+        "staged non-banded": ("cloud_props",) + gathers + (
+            "solver_lw_lanes", "solver_sw_lanes")}
+
+    def drive(name, kind, step, inputs, solar, clouds=True):
+        must = tuple(k for k in launched[kind]
+                     if clouds or k != "cloud_props")
+        return run_path(name, step, inputs, counters, must,
+                        [k for k in counters if k not in must], solar)
+
     step, inputs = build_allsky_step(**MAIN, device=dev)
-    fused_out, fused_launches = run_path(
-        "fused", step, inputs, counters, fused_names,
-        [k for k in counters if k not in fused_names], solar)
-
-    # ---- 6. the public-API path on the same inputs ----
-    prob = build_allsky(**MAIN, device=dev)
-    api_out, api_launches = run_path(
-        "public API", api_step_fn(prob), inputs, counters, api_names,
-        ("fused_lw", "fused_sw"), solar)
-    gap = max(float(((a - f).abs() - PATH_RTOL * f.abs()).max())
-              for a, f in zip(api_out, fused_out))
-    diff = max(float((a - f).abs().max()) for a, f in zip(api_out, fused_out))
-    log(f"public API vs fused: max |diff| {diff:.3e} W/m2, max(|diff| - "
-        f"{PATH_RTOL} |fused|) {gap:.3e} W/m2 (limit {PATH_ATOL})")
-    if not gap <= PATH_ATOL:
-        raise SystemExit("the public-API and fused paths disagree")
-    del fused_out, api_out
+    fused_out, path_launches = drive("fused", "fused", step, inputs, solar)
+    launches = {k: path_launches[k] for k in launched["fused"]}
+    prob = build_allsky(**MAIN, device=dev, use_aerosols=True)
+    for kind, fn in (("public API", "api"), ("staged", "staged")):
+        out, path_launches = drive(kind, kind, step_fn(prob, fn), inputs,
+                                   solar)
+        agree(kind, out, fused_out)
+        launches.update({k: path_launches[k] for k in launched[kind]
+                         if k not in launches})
+        del out
+    del fused_out
     profile_path("fused", step, inputs)
-    profile_path("public API", api_step_fn(prob), inputs)
+    profile_path("public API", step_fn(prob, "api"), inputs)
+    profile_path("staged", step_fn(prob, "staged"), inputs)
 
-    # ---- 7. multi-angle and optimal-angle LW against the twins ----
+    # the staged path on the non-banded configuration: the plain lane
+    # solvers, against the fused path on the same problem
+    nb_staged = step_fn(nonbanded, "staged")
+    ref, _ = drive("fused non-banded", "fused",
+                   build_allsky_step(**NONBANDED, device=dev)[0],
+                   nonbanded.inputs, solar_nb)
+    out, path_launches = drive("staged non-banded", "staged non-banded",
+                               nb_staged, nonbanded.inputs, solar_nb)
+    agree("staged non-banded", out, ref)
+    launches.update({k: path_launches[k]
+                     for k in ("solver_lw_lanes", "solver_sw_lanes")})
+    del nonbanded, nb_staged, ref, out
+    torch.cuda.empty_cache()
+
+    # the aerosols and clear-sky configurations
+    for config, opts in (("aerosols", dict(use_aerosols=True)),
+                         ("clear-sky", dict(use_clouds=False))):
+        clouds = opts.get("use_clouds", True)
+        step, _ = build_allsky_step(**MAIN, device=dev, **opts)
+        ref, _ = drive(f"{config} fused", "fused", step, inputs, solar,
+                       clouds)
+        if config == "aerosols":
+            profile_path("aerosols fused", step, inputs)
+        kinds = (("staged", "staged"),) + (
+            (("public API", "api"),) if config == "aerosols" else ())
+        for kind, fn in kinds:
+            out, _ = drive(f"{config} {kind}", kind,
+                           step_fn(prob, fn, **opts), inputs, solar, clouds)
+            agree(f"{config} {kind}", out, ref)
+            del out
+        del ref
+
+    # ---- 6. multi-angle and optimal-angle LW against the twins ----
     angles_check(prob, inputs)
 
-    # ---- 8. result ----
+    # ---- 7. result ----
     for row in rows:
-        src = fused_launches if row["name"] in fused_names else api_launches
-        row["launches"] = src[row["name"]]
+        row["launches"] = launches[row["name"]]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Carry state across from the JAX package: its ``KDist`` and
-``CloudOpticsRRTMGP`` become the port's objects holding the very same
-tables, so one test can run both packages on identical data.
+"""Carry state across from the JAX package: its ``KDist``,
+``CloudOpticsRRTMGP`` and ``AerosolOpticsMERRA`` become the port's
+objects holding the very same tables, so one test can run both packages
+on identical data.
 
 The JAX objects are read only through their fields, as numpy arrays
 (``np.asarray``); this module imports no JAX.
@@ -11,11 +12,13 @@ import numpy as np
 import torch
 
 from .config import resolve_device
+from .models.rrtmgp.aerosol_optics import AerosolOpticsMERRA
 from .models.rrtmgp.cloud_optics import CloudOpticsRRTMGP
 from .models.rrtmgp.kdist import KDist, MinorSet
 from .spectral import SpectralGrid
 
-__all__ = ["kdist_from_jax", "cloud_optics_from_jax"]
+__all__ = ["kdist_from_jax", "cloud_optics_from_jax",
+           "aerosol_optics_from_jax"]
 
 
 def _grid(g) -> SpectralGrid:
@@ -73,3 +76,17 @@ def cloud_optics_from_jax(cld, *, dtype=torch.float32,
         extliq=t(cld.extliq), ssaliq=t(cld.ssaliq), asyliq=t(cld.asyliq),
         extice=t(cld.extice), ssaice=t(cld.ssaice), asyice=t(cld.asyice),
         icergh=int(cld.icergh))
+
+
+def aerosol_optics_from_jax(aer, *, dtype=torch.float32,
+                            device=None) -> AerosolOpticsMERRA:
+    """The port's AerosolOpticsMERRA with the tables of a JAX one (both
+    store them value-major), on ``device`` (default: the CUDA device)."""
+    device = resolve_device(device)
+    t = lambda x: _tensor(x, dtype, device)
+    return AerosolOpticsMERRA(
+        grid=_grid(aer.grid), bin_lims=np.array(aer.bin_lims, np.float64),
+        aero_rh=np.array(aer.aero_rh, np.float64),
+        **{f: t(getattr(aer, f)) for f in (
+            "dust_tbl", "salt_tbl", "sulf_tbl", "bcar_tbl", "bcar_rh_tbl",
+            "ocar_tbl", "ocar_rh_tbl")})

@@ -34,6 +34,49 @@ __device__ __forceinline__ float level_total(const float* partial,
     return s;
 }
 
+// Fields read through element strides, so that a permuted or broadcast
+// tensor view needs no copy: Field2 is (i, column), Field3 (i, layer,
+// column), i a g-point or a band. A null p marks an absent field. They
+// are kernel inputs, never written by the kernel, so they load through
+// the read-only path (__ldg), which a plain pointer in a struct would
+// not get and without which their loads stay ordered behind the
+// kernel's scratch stores.
+struct Field2 {
+    const float* p;
+    int s0, sc;
+    __device__ __forceinline__ float at(int i, int c) const {
+        return __ldg(p + (long long)i * s0 + (long long)c * sc);
+    }
+};
+
+// One (i, column) line of a Field3, indexed by layer.
+struct Line {
+    const float* p;
+    int sl;
+    __device__ __forceinline__ float operator[](int l) const {
+        return __ldg(p + (long long)l * sl);
+    }
+};
+
+struct Field3 {
+    const float* p;
+    int s0, sl, sc;
+    __device__ __forceinline__ Line line(int i, int c) const {
+        return Line{p ? p + (long long)i * s0 + (long long)c * sc : nullptr,
+                    sl};
+    }
+};
+
+// The launchers' host-side constructors of the fields from a pointer
+// and its element strides.
+inline Field2 f2(const void* p, int s0, int sc) {
+    return Field2{(const float*)p, s0, sc};
+}
+
+inline Field3 f3(const void* p, int s0, int sl, int sc) {
+    return Field3{(const float*)p, s0, sl, sc};
+}
+
 // Major-gas tau (and, with pfrac_tab, the Planck fraction) of g-point g
 // at one cell: the 8-corner lerp over (temperature, eta, pressure) of the
 // plain (ntemp, neta, npres+1, ngpt) tables, the upper atmosphere reading

@@ -1,17 +1,24 @@
 """The all-sky problem and its forward step on tensors.
 
 Counterpart of ``rte_rrtmgp_tpu.drivers.allsky`` (reference
-examples/all-sky/rrtmgp_allsky.F90), two ways:
+examples/all-sky/rrtmgp_allsky.F90), three ways, each with clouds and
+aerosols on or off (``use_clouds``, ``use_aerosols``):
 
   * the fused branch (``allsky_step_lw/sw``): per step, cloud optics
-    (``ops/kernels/cloud_props``), then the fused LW kernel with the
-    absorption-only cloud increment, then the fused SW kernel with the
-    delta-scaled cloud increment. :func:`build_allsky_step` is the
+    (``ops/kernels/cloud_props``) and aerosol optics, then the fused LW
+    kernel with the absorption-only increment, then the fused SW kernel
+    with the delta-scaled increment. :func:`build_allsky_step` is the
     counterpart of the JAX package's ``__graft_entry__._build``;
+  * the staged lane-layout branch (``allsky_staged_lw/sw``), the JAX
+    driver's non-fused lane branch (drivers/allsky.py:221-262,
+    :321-372): ``gas_optics_lw/sw_lanes``, the increments by band, and
+    the lane solvers (``ops/kernels/solver_lanes``), the Planck sources
+    or the Rayleigh/cloud combine inside the solver for a banded
+    k-distribution;
   * the public API (``allsky_api_lw/sw``), the JAX driver's generic
     branch (drivers/allsky.py:393-411, :431-446): ``gas_optics_lw/sw``,
-    ``cloud_optics``, ``increment`` and ``rte_lw/rte_sw``, as a user of
-    the library composes them.
+    ``cloud_optics``, ``aerosol_optics``, ``increment`` and
+    ``rte_lw/rte_sw``, as a user of the library composes them.
 """
 from __future__ import annotations
 
@@ -24,24 +31,27 @@ from .. import constants
 from ..config import check_dtype, resolve_device
 from ..fluxes import Fluxes
 from ..gas_concs import GasConcs
+from ..models.rrtmgp.aerosol_optics import MERRA_AERO_DUST, MERRA_AERO_SULF
 from ..models.rrtmgp.gas_optics import GasOpticsRRTMGP
 from ..optical_props import delta_scale, increment
 from ..ops.kernels.fused_lw import LWFusedInputs, lw_fused
 from ..ops.kernels.fused_sw import SWFusedInputs, sw_fused
+from ..ops.kernels.solver_lanes import (increment_2str_bybnd,
+                                        lw_noscat_lanes,
+                                        lw_noscat_lanes_pfrac,
+                                        sw_2stream_lanes,
+                                        sw_2stream_lanes_combined)
 from ..ops.solver_lw import GAUSS_DS, GAUSS_WTS
 from ..rte import rte_lw, rte_sw
 from ..utils.profiles import allsky_profiles
-from ..utils.synthetic import synthetic_cloud_optics, synthetic_kdist
+from ..utils.synthetic import (synthetic_aerosol_optics,
+                               synthetic_cloud_optics, synthetic_kdist)
 
 __all__ = ["AllSkyInputs", "make_allsky_inputs", "get_relhum",
            "allsky_lw_inputs", "allsky_sw_inputs", "allsky_step_lw",
-           "allsky_step_sw", "allsky_api_lw", "allsky_api_sw",
-           "AllSkyProblem", "build_allsky", "build_allsky_step"]
-
-# MERRA aerosol type codes used by the all-sky inputs (reference
-# mo_aerosol_optics_rrtmgp_merra.F90)
-MERRA_AERO_DUST = 1
-MERRA_AERO_SULF = 3
+           "allsky_step_sw", "allsky_staged_lw", "allsky_staged_sw",
+           "allsky_api_lw", "allsky_api_sw", "AllSkyProblem",
+           "build_allsky", "build_allsky_step"]
 
 
 class AllSkyInputs(NamedTuple):
@@ -140,36 +150,97 @@ def _delta_scaled_band(t, ts, tsg):
                         / torch.clamp(1.0 - f, min=finfo.tiny), 0.0))
 
 
-def allsky_lw_inputs(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
-                     cloud_optics=None, use_clouds=True) -> LWFusedInputs:
-    """The fused LW kernel's inputs for one all-sky step: the
-    absorption-only by-band cloud increment (tau - tau*ssa, reference
-    increment_1scalar_by_2stream) and the descriptor prep."""
-    cld_abs = None
+def _combine_band_2str(a, b):
+    """Two by-band (tau, ssa, g) increments as one (JAX drivers/
+    allsky.py:147-162): the tau-weighted averaging of
+    increment_2stream_by_2stream is associative, so incrementing with the
+    combination equals the reference's sequential increments
+    (rrtmgp_allsky.F90:394-399). Either may be None."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    tiny = torch.finfo(a[0].dtype).tiny
+    t = a[0] + b[0]
+    tauscat = a[0] * a[1] + b[0] * b[1]
+    g = (a[0] * a[1] * a[2] + b[0] * b[1] * b[2]) / torch.clamp(tauscat,
+                                                               min=tiny)
+    ssa = tauscat / torch.clamp(t, min=tiny)
+    return (t, torch.where(t > 2.0 * tiny, ssa, 0.0),
+            torch.where(tauscat > 2.0 * tiny, g, 0.0))
+
+
+def _aerosol_lanes(inputs: AllSkyInputs, aerosol_optics):
+    i = inputs
+    return aerosol_optics.aerosol_optics_lanes(i.aero_type, i.aero_size,
+                                               i.aero_mass, i.relhum)
+
+
+def _absorption_lanes(inputs: AllSkyInputs, cloud_optics, use_clouds,
+                      aerosol_optics, use_aerosols):
+    """The LW increment by band, (nbnd, nlay, ncol) or None: the
+    absorption (tau - tau*ssa) of the clouds plus that of the aerosols
+    (reference increment_1scalar_by_2stream; JAX drivers/allsky.py:
+    122-128, :231-245)."""
+    out = None
     if use_clouds:
         if cloud_optics is None:
             raise ValueError("allsky LW: use_clouds needs cloud_optics")
         t, ts, _ = cloud_optics.cloud_optics_lanes(
             inputs.lwp, inputs.iwp, inputs.rel, inputs.dei)
-        cld_abs = (t - ts).contiguous()
+        out = t - ts
+    if use_aerosols:
+        if aerosol_optics is None:
+            raise ValueError("allsky LW: use_aerosols needs aerosol_optics")
+        t, ts, _ = _aerosol_lanes(inputs, aerosol_optics)
+        out = t - ts if out is None else out + (t - ts)
+    return out
+
+
+def _scattering_lanes(inputs: AllSkyInputs, cloud_optics, use_clouds,
+                      aerosol_optics, use_aerosols):
+    """The SW increment by band, delta-scaled (tau, ssa, g) each (nbnd,
+    nlay, ncol), or None: the clouds' combined with the aerosols' (JAX
+    drivers/allsky.py:288-301, :327-341)."""
+    out = None
+    if use_clouds:
+        if cloud_optics is None:
+            raise ValueError("allsky SW: use_clouds needs cloud_optics")
+        out = _delta_scaled_band(*cloud_optics.cloud_optics_lanes(
+            inputs.lwp, inputs.iwp, inputs.rel, inputs.dei))
+    if use_aerosols:
+        if aerosol_optics is None:
+            raise ValueError("allsky SW: use_aerosols needs aerosol_optics")
+        out = _combine_band_2str(out, _delta_scaled_band(
+            *_aerosol_lanes(inputs, aerosol_optics)))
+    return out
+
+
+def allsky_lw_inputs(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
+                     cloud_optics=None, use_clouds=True, aerosol_optics=None,
+                     use_aerosols=False) -> LWFusedInputs:
+    """The fused LW kernel's inputs for one all-sky step: the
+    absorption-only by-band increment of clouds and aerosols and the
+    descriptor prep."""
+    cld_abs = _absorption_lanes(inputs, cloud_optics, use_clouds,
+                                aerosol_optics, use_aerosols)
     ncol = inputs.play.shape[0]
     emis = inputs.sfc_emis[:, 0][None, :].expand(gas_optics.ngpt, ncol)
     return gas_optics.lw_fused_inputs(
         inputs.play, inputs.plev, inputs.tlay, inputs.tsfc, inputs.gas_concs,
-        sfc_emis=emis, tlev=inputs.tlev, cloud_tau_abs=cld_abs,
+        sfc_emis=emis, tlev=inputs.tlev,
+        cloud_tau_abs=None if cld_abs is None else cld_abs.contiguous(),
         ds=GAUSS_DS[0][0], weight=GAUSS_WTS[0][0])
 
 
 def allsky_sw_inputs(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
-                     cloud_optics=None, use_clouds=True) -> SWFusedInputs:
+                     cloud_optics=None, use_clouds=True, aerosol_optics=None,
+                     use_aerosols=False) -> SWFusedInputs:
     """The fused SW kernel's inputs for one all-sky step: the
-    delta-scaled by-band cloud optics and the descriptor prep."""
-    cloud = None
-    if use_clouds:
-        if cloud_optics is None:
-            raise ValueError("allsky SW: use_clouds needs cloud_optics")
-        cloud = _delta_scaled_band(*cloud_optics.cloud_optics_lanes(
-            inputs.lwp, inputs.iwp, inputs.rel, inputs.dei))
+    delta-scaled by-band increment of clouds and aerosols and the
+    descriptor prep."""
+    cloud = _scattering_lanes(inputs, cloud_optics, use_clouds,
+                              aerosol_optics, use_aerosols)
     ncol, nlay = inputs.play.shape
     mu0 = inputs.mu0[None, :].expand(nlay, ncol)
     alb = inputs.sfc_alb[:, 0][None, :].expand(gas_optics.ngpt, ncol)
@@ -179,32 +250,117 @@ def allsky_sw_inputs(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
 
 
 def allsky_step_lw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
-                   cloud_optics=None, use_clouds=True) -> Fluxes:
-    """One LW all-sky step (reference timed loop :368-380): cloud optics,
-    then gas optics + no-scattering solve in one fused kernel."""
-    up, dn = lw_fused(allsky_lw_inputs(inputs, gas_optics,
-                                       cloud_optics=cloud_optics,
-                                       use_clouds=use_clouds))
+                   cloud_optics=None, use_clouds=True, aerosol_optics=None,
+                   use_aerosols=False) -> Fluxes:
+    """One LW all-sky step (reference timed loop :368-380): cloud and
+    aerosol optics, then gas optics + no-scattering solve in one fused
+    kernel."""
+    up, dn = lw_fused(allsky_lw_inputs(
+        inputs, gas_optics, cloud_optics=cloud_optics, use_clouds=use_clouds,
+        aerosol_optics=aerosol_optics, use_aerosols=use_aerosols))
     up, dn = up.T, dn.T
     return Fluxes(flux_up=up, flux_dn=dn, flux_net=dn - up)
 
 
 def allsky_step_sw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
-                   cloud_optics=None, use_clouds=True) -> Fluxes:
-    """One SW all-sky step (reference :388-404): cloud optics, then gas
-    optics + Rayleigh + two-stream solve in one fused kernel."""
-    up, dn, fdir = sw_fused(allsky_sw_inputs(inputs, gas_optics,
-                                             cloud_optics=cloud_optics,
-                                             use_clouds=use_clouds))
+                   cloud_optics=None, use_clouds=True, aerosol_optics=None,
+                   use_aerosols=False) -> Fluxes:
+    """One SW all-sky step (reference :388-404): cloud and aerosol
+    optics, then gas optics + Rayleigh + two-stream solve in one fused
+    kernel."""
+    up, dn, fdir = sw_fused(allsky_sw_inputs(
+        inputs, gas_optics, cloud_optics=cloud_optics, use_clouds=use_clouds,
+        aerosol_optics=aerosol_optics, use_aerosols=use_aerosols))
+    up, dn, fdir = up.T, dn.T, fdir.T
+    return Fluxes(flux_up=up, flux_dn=dn, flux_net=dn - up, flux_dn_dir=fdir)
+
+
+def _banded(gas_optics: GasOpticsRRTMGP) -> bool:
+    """The JAX package's choice between its two staged kernel pairs
+    (drivers/allsky.py:179-184): uniform band width, a multiple of 8. The
+    8 is the TPU kernels' g-point block; the port's solvers take any band
+    widths (through gpt2band), and keep the rule only so that both
+    packages pick the same solver for the same k-distribution."""
+    lims = np.asarray(gas_optics.grid.band_lims_gpt)
+    widths = lims[:, 1] - lims[:, 0] + 1
+    return bool((widths == widths[0]).all() and widths[0] % 8 == 0)
+
+
+def allsky_staged_lw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
+                     cloud_optics=None, use_clouds=True, aerosol_optics=None,
+                     use_aerosols=False) -> Fluxes:
+    """One LW all-sky step through the staged lane-layout branch (JAX
+    drivers/allsky.py:221-262): gas optics in the lane layout, the
+    absorption increment by band, then one lane solver: with a banded
+    k-distribution the one that forms the Planck sources and adds the
+    increment itself (``lw_noscat_lanes_pfrac``), else the plain one
+    after both are done here (``lw_noscat_lanes``). No incident flux."""
+    i = inputs
+    banded = _banded(gas_optics)
+    out = gas_optics.gas_optics_lw_lanes(i.play, i.plev, i.tlay, i.tsfc,
+                                         i.gas_concs, tlev=i.tlev,
+                                         banded_planck=banded)
+    cld_abs = _absorption_lanes(i, cloud_optics, use_clouds, aerosol_optics,
+                                use_aerosols)
+    tau = out[0]
+    ngpt, _, ncol = tau.shape
+    emis = i.sfc_emis[:, 0][None, :].expand(ngpt, ncol)
+    inc = tau.new_zeros(()).expand(ngpt, ncol)
+    kw = dict(ds=GAUSS_DS[0][0], weight=GAUSS_WTS[0][0])
+    if banded:
+        _, pfrac, (pb_sfc, pb_lay, pb_lev) = out
+        up, dn = lw_noscat_lanes_pfrac(
+            tau, pfrac, pb_lay, pb_lev, pb_sfc, emis, inc,
+            gpt2band=gas_optics.gpt2band, cloud_tau_abs=cld_abs, **kw)
+    else:
+        sfc_src, lay_src, lev_src, _ = out[1]
+        if cld_abs is not None:
+            tau = tau + cld_abs[gas_optics.gpt2band.long()]
+        up, dn, _ = lw_noscat_lanes(tau, lay_src, lev_src, emis, sfc_src,
+                                    inc, **kw)
+    up, dn = up.T, dn.T
+    return Fluxes(flux_up=up, flux_dn=dn, flux_net=dn - up)
+
+
+def allsky_staged_sw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
+                     cloud_optics=None, use_clouds=True, aerosol_optics=None,
+                     use_aerosols=False) -> Fluxes:
+    """One SW all-sky step through the staged lane-layout branch (JAX
+    drivers/allsky.py:321-372): gas optics in the lane layout, the
+    delta-scaled increment by band, then one lane solver: with a banded
+    k-distribution the one that does the Rayleigh combine and the
+    increment itself (``sw_2stream_lanes_combined``), else the plain one
+    after both are done here (``sw_2stream_lanes``)."""
+    i = inputs
+    banded = _banded(gas_optics)
+    tau, ssa_or_ray, toa = gas_optics.gas_optics_sw_lanes(
+        i.play, i.plev, i.tlay, i.gas_concs, split_rayleigh=banded)
+    cloud = _scattering_lanes(i, cloud_optics, use_clouds, aerosol_optics,
+                              use_aerosols)
+    ngpt, nlay, ncol = tau.shape
+    mu0 = i.mu0[None, :].expand(nlay, ncol)
+    alb = i.sfc_alb[:, 0][None, :].expand(ngpt, ncol)
+    if banded:
+        up, dn, fdir = sw_2stream_lanes_combined(
+            tau, ssa_or_ray, cloud, mu0, alb, alb, toa,
+            gpt2band=gas_optics.gpt2band)
+    else:
+        # JAX drivers/allsky.py:352-367, the dtype's tiny
+        tau, ssa, g = increment_2str_bybnd(tau, ssa_or_ray, cloud,
+                                           gas_optics.gpt2band,
+                                           torch.finfo(tau.dtype).tiny)
+        up, dn, fdir = sw_2stream_lanes(tau, ssa, g, mu0, alb, alb, toa)
     up, dn, fdir = up.T, dn.T, fdir.T
     return Fluxes(flux_up=up, flux_dn=dn, flux_net=dn - up, flux_dn_dir=fdir)
 
 
 def allsky_api_lw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
-                  cloud_optics=None, use_clouds=True) -> Fluxes:
+                  cloud_optics=None, use_clouds=True, aerosol_optics=None,
+                  use_aerosols=False) -> Fluxes:
     """One LW all-sky step through the public API (the JAX driver's
     generic branch, drivers/allsky.py:393-411): gas optics and Planck
-    sources, the absorption-only cloud increment, then ``rte_lw``."""
+    sources, the absorption-only cloud and aerosol increments, then
+    ``rte_lw``."""
     i = inputs
     props, sources = gas_optics.gas_optics_lw(
         i.play, i.plev, i.tlay, i.tsfc, i.gas_concs, tlev=i.tlev,
@@ -212,20 +368,28 @@ def allsky_api_lw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
     if use_clouds:
         props = increment(props, cloud_optics.cloud_optics(
             i.lwp, i.iwp, i.rel, i.dei, scattering=False))
+    if use_aerosols:
+        props = increment(props, aerosol_optics.aerosol_optics(
+            i.aero_type, i.aero_size, i.aero_mass, i.relhum,
+            scattering=False))
     return rte_lw(props, sources, i.sfc_emis)
 
 
 def allsky_api_sw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
-                  cloud_optics=None, use_clouds=True) -> Fluxes:
+                  cloud_optics=None, use_clouds=True, aerosol_optics=None,
+                  use_aerosols=False) -> Fluxes:
     """One SW all-sky step through the public API (drivers/allsky.py:
-    431-446): gas optics, the delta-scaled cloud increment, then
-    ``rte_sw``."""
+    431-446): gas optics, the delta-scaled cloud and aerosol increments,
+    then ``rte_sw``."""
     i = inputs
     props, toa = gas_optics.gas_optics_sw(i.play, i.plev, i.tlay,
                                           i.gas_concs, top_at_1=True)
     if use_clouds:
         props = increment(props, delta_scale(cloud_optics.cloud_optics(
             i.lwp, i.iwp, i.rel, i.dei)))
+    if use_aerosols:
+        props = increment(props, delta_scale(aerosol_optics.aerosol_optics(
+            i.aero_type, i.aero_size, i.aero_mass, i.relhum)))
     return rte_sw(props, i.mu0, toa, i.sfc_alb, i.sfc_alb)
 
 
@@ -234,43 +398,53 @@ class AllSkyProblem(NamedTuple):
     gas_sw: GasOpticsRRTMGP
     cld_lw: object           # CloudOpticsRRTMGP on the LW bands
     cld_sw: object           # CloudOpticsRRTMGP on the SW bands
+    aer_lw: object           # AerosolOpticsMERRA on the LW bands, or None
+    aer_sw: object           # AerosolOpticsMERRA on the SW bands, or None
     inputs: AllSkyInputs
 
 
 def build_allsky(ncol, nlay, ngpt_lw, nbnd_lw, ngpt_sw, nbnd_sw, ntemp,
-                 npres, *, device, dtype=torch.float32) -> AllSkyProblem:
-    """Synthetic LW and SW k-distributions and cloud tables (seed 0, as
-    the JAX package's ``_build``) and the all-sky inputs, on ``device``."""
+                 npres, *, device, use_aerosols=False,
+                 dtype=torch.float32) -> AllSkyProblem:
+    """Synthetic LW and SW k-distributions, cloud tables and, with
+    ``use_aerosols``, aerosol tables (seed 0, as the JAX package's
+    ``_build``), and the all-sky inputs, on ``device``."""
     check_dtype(dtype)
     kw = dict(ntemp=ntemp, npres=npres, dtype=dtype, device=device)
     gas_lw = GasOpticsRRTMGP(synthetic_kdist(sw=False, ngpt=ngpt_lw,
                                              nbnd=nbnd_lw, **kw))
     gas_sw = GasOpticsRRTMGP(synthetic_kdist(sw=True, ngpt=ngpt_sw,
                                              nbnd=nbnd_sw, **kw))
-    cld = dict(dtype=dtype, device=device)
-    cld_lw = synthetic_cloud_optics(
-        nbnd=nbnd_lw, band_lims_wvn=gas_lw.grid.band_lims_wvn_array, **cld)
-    cld_sw = synthetic_cloud_optics(
-        nbnd=nbnd_sw, band_lims_wvn=gas_sw.grid.band_lims_wvn_array, **cld)
+    tab = dict(dtype=dtype, device=device)
+    per_band = lambda make: tuple(
+        make(nbnd=n, band_lims_wvn=g.grid.band_lims_wvn_array, **tab)
+        for n, g in ((nbnd_lw, gas_lw), (nbnd_sw, gas_sw)))
+    cld_lw, cld_sw = per_band(synthetic_cloud_optics)
+    aer_lw, aer_sw = (per_band(synthetic_aerosol_optics) if use_aerosols
+                      else (None, None))
     inputs = make_allsky_inputs(ncol, nlay, cloud_optics=cld_lw, dtype=dtype,
                                 device=device)
-    return AllSkyProblem(gas_lw, gas_sw, cld_lw, cld_sw, inputs)
+    return AllSkyProblem(gas_lw, gas_sw, cld_lw, cld_sw, aer_lw, aer_sw,
+                         inputs)
 
 
 def build_allsky_step(ncol, nlay, ngpt_lw, nbnd_lw, ngpt_sw, nbnd_sw, ntemp,
-                      npres, *, device, use_clouds=True,
+                      npres, *, device, use_clouds=True, use_aerosols=False,
                       dtype=torch.float32):
-    """(step, inputs) for the all-sky problem of :func:`build_allsky`.
+    """(step, inputs) for the all-sky problem of :func:`build_allsky`
+    through the fused branch, as the JAX package's ``_build``.
     ``step(inputs)`` returns (lw_up, lw_dn, sw_up, sw_dn, sw_dn_dir), each
     (ncol, nlay+1)."""
     p = build_allsky(ncol, nlay, ngpt_lw, nbnd_lw, ngpt_sw, nbnd_sw, ntemp,
-                     npres, device=device, dtype=dtype)
+                     npres, device=device, use_aerosols=use_aerosols,
+                     dtype=dtype)
+    opts = dict(use_clouds=use_clouds, use_aerosols=use_aerosols)
 
     def step(inputs):
         lw = allsky_step_lw(inputs, p.gas_lw, cloud_optics=p.cld_lw,
-                            use_clouds=use_clouds)
+                            aerosol_optics=p.aer_lw, **opts)
         sw = allsky_step_sw(inputs, p.gas_sw, cloud_optics=p.cld_sw,
-                            use_clouds=use_clouds)
+                            aerosol_optics=p.aer_sw, **opts)
         return (lw.flux_up, lw.flux_dn, sw.flux_up, sw.flux_dn,
                 sw.flux_dn_dir)
 

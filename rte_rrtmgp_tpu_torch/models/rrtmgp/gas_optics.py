@@ -4,7 +4,7 @@ Counterpart of ``rte_rrtmgp_tpu.models.rrtmgp.gas_optics`` (reference
 ``ty_gas_optics_rrtmgp`` run-time methods, rrtmgp/frontend/
 mo_gas_optics_rrtmgp.F90): column amounts, the interpolation descriptors,
 the minor-gas scaling rows and Rayleigh scaling (the descriptor prep,
-plain PyTorch as it is plain JAX in the JAX package), then two routes:
+plain PyTorch as it is plain JAX in the JAX package), then three routes:
 
   * the public API, ``gas_optics_lw`` / ``gas_optics_sw`` (reference
     gas_optics_int :220-331 / gas_optics_ext :337-414), returning optical
@@ -12,6 +12,11 @@ plain PyTorch as it is plain JAX in the JAX package), then two routes:
     ``ops/kernels/gas_major`` and ``ops/kernels/gas_minor`` (major, minor
     and Rayleigh) on (ncol, nlay) cells, then the Planck sources in plain
     PyTorch;
+  * the staged lane-layout branch, ``gas_optics_lw_lanes`` /
+    ``gas_optics_sw_lanes``: the same gathers, returned as (ngpt, nlay,
+    ncol) views for the lane solvers (``ops/kernels/solver_lanes``), with
+    band Planck values or a split Rayleigh depth for the solvers that
+    form the sources or the combine themselves;
   * one call of the fused LW or SW kernel (``ops/kernels/fused_*``) on
     layer-major (nlay, ncol) cells, for the all-sky step.
 """
@@ -24,7 +29,7 @@ from ...gas_concs import GasConcs
 from ...optical_props import (OpticalProps, OpticalProps1scl,
                               OpticalProps2str)
 from ...ops.gas_optics import (InterpCoeffs, interpolation, minor_scaling,
-                               planck_sources)
+                               planck_bands_lanes, planck_sources)
 from ...ops.kernels.fused_lw import LWFusedInputs, _split_minors, lw_fused
 from ...ops.kernels.fused_sw import SWFusedInputs, sw_fused
 from ...ops.kernels.gas_major import gas_major
@@ -138,13 +143,16 @@ class GasOpticsRRTMGP:
     # ------------------------------------------------------------------
     # the public API
     # ------------------------------------------------------------------
-    def _compute_taus(self, play, plev, tlay, gas_concs, col_dry,
-                      top_at_1: bool, scattering: bool):
-        """compute_gas_taus (reference :419-745): major-gas absorption and
-        Planck fraction, the minor gases of each atmosphere, and Rayleigh
-        with the absorption/Rayleigh combine (reference
-        combine_abs_and_rayleigh :1954-2036), each through its kernel
-        wrapper on (ncol, nlay) cells. Returns (props, pfrac or None)."""
+    def _taus(self, play, plev, tlay, gas_concs, col_dry, scattering: bool,
+              split_rayleigh: bool = False):
+        """compute_gas_taus (reference :419-745) on (ncol, nlay) cells:
+        major-gas absorption and Planck fraction, the minor gases of each
+        atmosphere, and Rayleigh, each through its kernel wrapper. Returns
+        (tau, second, pfrac or None), each (ncol, nlay, ngpt): ``second``
+        is the Rayleigh ssa with the absorption/Rayleigh combine (reference
+        combine_abs_and_rayleigh :1954-2036) with ``scattering``, None
+        without; with ``split_rayleigh``, tau is the absorption alone and
+        ``second`` the Rayleigh optical depth (zero without krayl)."""
         self._check_key_species_present(gas_concs)
         kd = self.kdist
         col_gas, col_dry, idx_h2o = self.col_gas(play, plev, gas_concs,
@@ -163,14 +171,27 @@ class GasOpticsRRTMGP:
             if minors:
                 scaling = minor_scaling(co, mset, lower=lower, **kw)
                 tau = gas_minor(tau, co, ktab, minors, meta, scaling)
-        ssa = None
-        if kd.krayl is not None:
-            tau, ssa = gas_rayleigh(tau, co, kd.krayl, self.gpoint_flavor,
-                                    col_gas[idx_h2o] + col_dry, scattering)
+        if kd.krayl is None:
+            second = (torch.zeros_like(tau) if scattering or split_rayleigh
+                      else None)
+            return tau, second, pfrac
+        rayl = (co, kd.krayl, self.gpoint_flavor, col_gas[idx_h2o] + col_dry)
+        if split_rayleigh:
+            # 0 + Rayleigh: the kernel's own sum gives tau_ray exactly
+            ray, _ = gas_rayleigh(torch.zeros_like(tau), *rayl,
+                                  scattering=False)
+            return tau, ray, pfrac
+        tau, ssa = gas_rayleigh(tau, *rayl, scattering=scattering)
+        return tau, ssa, pfrac
+
+    def _compute_taus(self, play, plev, tlay, gas_concs, col_dry,
+                      top_at_1: bool, scattering: bool):
+        """:meth:`_taus` as optical properties: (props, pfrac or None)."""
+        tau, ssa, pfrac = self._taus(play, plev, tlay, gas_concs, col_dry,
+                                     scattering)
         if not scattering:
             return OpticalProps1scl(tau=tau, grid=self.grid,
                                     top_at_1=top_at_1), pfrac
-        ssa = torch.zeros_like(tau) if ssa is None else ssa
         return OpticalProps2str(tau=tau, ssa=ssa, g=torch.zeros_like(tau),
                                 grid=self.grid, top_at_1=top_at_1), pfrac
 
@@ -215,6 +236,59 @@ class GasOpticsRRTMGP:
         toa = self.kdist.solar_source.to(play.dtype)[None, :].expand(
             play.shape[0], self.ngpt)
         return props, toa
+
+    # ------------------------------------------------------------------
+    # the staged lane-layout branch (JAX gas_optics.py:438-494): the same
+    # kernels as the public API, returned as (ngpt, nlay, ncol) views, top
+    # at layer 0
+    # ------------------------------------------------------------------
+    def gas_optics_lw_lanes(self, play, plev, tlay, tsfc, gas_concs, *,
+                            tlev=None, col_dry=None,
+                            banded_planck: bool = False):
+        """LW optical depths and Planck sources for the lane solvers:
+        (tau, (sfc_src, lay_src, lev_src, sfc_src_jac)), or with
+        ``banded_planck`` (tau, pfrac, (pb_sfc (nbnd, ncol), pb_lay
+        (nbnd, nlay, ncol), pb_lev (nbnd, nlay+1, ncol))) for the solver
+        that forms the sources itself. Spectral fields are (ngpt, nlay[+1],
+        ncol) and boundary fields (ngpt, ncol): permuted views of the
+        gathers' (ncol, nlay, ngpt) output, not copies."""
+        if not self.source_is_internal():
+            raise ValueError("rrtmgp gas optics: k-distribution is SW")
+        kd = self.kdist
+        play, plev, tlay = (x.contiguous() for x in (play, plev, tlay))
+        tsfc = torch.as_tensor(tsfc, dtype=play.dtype, device=play.device)
+        tau, _, pfrac = self._taus(play, plev, tlay, gas_concs, col_dry,
+                                   scattering=False)
+        tlev = interp_tlev(tlay, play, plev) if tlev is None else tlev
+        lane = lambda x: x.permute(2, 1, 0)
+        if banded_planck:
+            pb = lambda t: planck_bands_lanes(
+                t, totplnk=kd.totplnk, totplnk_delta=kd.totplnk_delta,
+                temp_ref_min=kd.temp_ref_min)
+            return lane(tau), lane(pfrac), (pb(tsfc), pb(tlay.T),
+                                            pb(tlev.T))
+        sfc, lay, lev, jac = planck_sources(
+            pfrac, totplnk=kd.totplnk, totplnk_delta=kd.totplnk_delta,
+            temp_ref_min=kd.temp_ref_min, gpt2band=kd.grid.gpt2band,
+            tlay=tlay, tlev=tlev, tsfc=tsfc, top_at_1=True)
+        return lane(tau), (sfc.T, lane(lay), lane(lev), jac.T)
+
+    def gas_optics_sw_lanes(self, play, plev, tlay, gas_concs, *,
+                            col_dry=None, split_rayleigh: bool = False):
+        """SW (tau, ssa, toa) for the lane solvers, tau/ssa (ngpt, nlay,
+        ncol) views and toa (ngpt, ncol); with ``split_rayleigh``, (tau of
+        absorption, tau of Rayleigh, toa) for the solver that combines
+        them itself."""
+        if not self.source_is_external():
+            raise ValueError("rrtmgp gas optics: k-distribution is LW")
+        play, plev, tlay = (x.contiguous() for x in (play, plev, tlay))
+        tau, second, _ = self._taus(play, plev, tlay, gas_concs, col_dry,
+                                    scattering=True,
+                                    split_rayleigh=split_rayleigh)
+        lane = lambda x: x.permute(2, 1, 0)
+        toa = self.kdist.solar_source.to(play.dtype)[:, None].expand(
+            self.ngpt, play.shape[0])
+        return lane(tau), lane(second), toa
 
     def compute_optimal_angles(self, props: OpticalProps) -> torch.Tensor:
         """Per-(column, g-point) LW secants from the total-column

@@ -9,7 +9,8 @@ kernels' plain twins.
 Conventions: cell arrays have any shape ``S`` (the fused kernels use
 layer-major ``(nlay, ncol)``, the public API ``(ncol, nlay)``); the
 lookups' spectral outputs are ``(ngpt, *S)``, g-points leading;
-:func:`planck_sources` works in the public layout.
+:func:`planck_sources` works in the public layout, and
+:func:`planck_bands_lanes` gives the band values with the band leading.
 Tables are the KDist's plain layouts; indices are 0-based.
   col_gas  (ngas+1, *S), dry air at index 0
   jeta, col_mix, feta  (2, nflav, *S), axis 0 = temperature corner
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 
 __all__ = ["InterpCoeffs", "interpolation", "tau_major", "tau_minor",
-           "minor_scaling", "tau_rayleigh", "interp1d_table", "planck_sources"]
+           "minor_scaling", "tau_rayleigh", "interp1d_table", "planck_sources",
+           "planck_bands_lanes", "level_pfrac"]
 
 
 class InterpCoeffs(NamedTuple):
@@ -236,9 +238,24 @@ def planck_sources(pfrac, *, totplnk, totplnk_delta, temp_ref_min, gpt2band,
     sfc_src = pf_sfc * pb_sfc
     sfc_src_jac = pf_sfc * (pb(tsfc + 1.0) - pb_sfc)
     lay_src = pfrac * pb(tlay)
-    pp = pfrac[:, 1:, :] * pfrac[:, :-1, :]
+    lev_src = level_pfrac(pfrac) * pb(tlev)
+    return sfc_src, lay_src, lev_src, sfc_src_jac
+
+
+def level_pfrac(pfrac):
+    """Planck fractions at the levels from those of the layers on axis 1
+    (reference :695-706): the geometric mean of the two adjacent layers
+    inside, 0 where their product is not positive; the top and bottom
+    levels take their layer's value. (a, nlay, b) -> (a, nlay+1, b)."""
+    pp = pfrac[:, 1:] * pfrac[:, :-1]
     pf_in = torch.where(pp > 0.0, torch.sqrt(torch.where(pp > 0.0, pp, 1.0)),
                         0.0)
-    pf_lev = torch.cat([pfrac[:, :1, :], pf_in, pfrac[:, -1:, :]], dim=1)
-    lev_src = pf_lev * pb(tlev)
-    return sfc_src, lay_src, lev_src, sfc_src_jac
+    return torch.cat([pfrac[:, :1], pf_in, pfrac[:, -1:]], dim=1)
+
+
+def planck_bands_lanes(t, *, totplnk, totplnk_delta, temp_ref_min):
+    """Band Planck values by temperature with the band axis leading (the
+    JAX ``planck_bands_lanes``, ops/gas_optics.py:410-421): t (...) ->
+    (nbnd, ...), a permuted view of :func:`interp1d_table`'s result."""
+    return interp1d_table(t, temp_ref_min, totplnk_delta,
+                          totplnk).movedim(-1, 0)

@@ -19,7 +19,7 @@ import subprocess
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "build_all", "library",
-           "on_cpu", "check_args", "launch"]
+           "on_cpu", "check_args", "check_strided", "strided", "launch"]
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
@@ -110,10 +110,12 @@ def on_cpu(t: torch.Tensor, what: str) -> bool:
                      "tensors and its plain twin CPU ones")
 
 
-def check_args(what: str, device, specs: dict) -> None:
-    """specs: {name: (tensor, shape, dtype)}. The kernels take contiguous
-    tensors of exactly these shapes and dtypes (float32 data, int32
-    indices) on one CUDA device; raise on anything else."""
+def check_args(what: str, device, specs: dict,
+               contiguous: bool = True) -> None:
+    """specs: {name: (tensor, shape, dtype)}. The kernels take tensors of
+    exactly these shapes and dtypes (float32 data, int32 indices) on one
+    CUDA device, contiguous unless told otherwise; raise on anything
+    else."""
     for name, (t, shape, dtype) in specs.items():
         if t.device != device:
             raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")
@@ -123,8 +125,30 @@ def check_args(what: str, device, specs: dict) -> None:
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
+
+
+def check_strided(what: str, device, specs: dict) -> None:
+    """:func:`check_args` for the kernels that read through element
+    strides: any strides (permuted or broadcast views included) as long as
+    every offset fits the kernels' 32-bit strides. A None tensor is
+    skipped."""
+    specs = {k: v for k, v in specs.items() if v[0] is not None}
+    check_args(what, device, specs, contiguous=False)
+    for name, (t, _, _) in specs.items():
+        last = sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+        if last >= 2 ** 31:
+            raise ValueError(f"{what}: {name} spans {last + 1} elements, "
+                             "more than 32-bit strides reach")
+
+
+def strided(t, ndim: int) -> tuple:
+    """A tensor and its element strides as launcher arguments; None and
+    ``ndim`` zero strides for an absent one."""
+    if t is None:
+        return (None,) + (0,) * ndim
+    return (t,) + tuple(t.stride())
 
 
 def launch(name: str, fn: str, what: str, *args) -> None:

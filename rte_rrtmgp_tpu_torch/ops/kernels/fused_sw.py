@@ -24,6 +24,7 @@ import torch
 from ..gas_optics import InterpCoeffs, tau_major, tau_minor, tau_rayleigh
 from ._build import check_args, launch, on_cpu
 from .fused_lw import _split_minors
+from .solver_lanes import increment_2str_bybnd
 from .solver_sw import sw_2stream_plain
 
 __all__ = ["SWFusedInputs", "sw_fused", "sw_fused_plain"]
@@ -67,18 +68,7 @@ def sw_fused_plain(x: SWFusedInputs):
     tiny = torch.finfo(t.dtype).tiny
     big = t > 2.0 * tiny
     ssa = torch.where(big, ray / torch.where(big, t, 1.0), 0.0)
-    g = torch.zeros_like(t)
-    if x.cloud is not None:
-        # increment_2stream_by_2stream by band (gas g is zero)
-        band = x.gpt2band.long()
-        ct, cs, cg = x.cloud[0][band], x.cloud[1][band], x.cloud[2][band]
-        t12 = t + ct
-        tauscat = t * ssa + ct * cs
-        g12 = (t * ssa * g + ct * cs * cg) / torch.clamp(tauscat, min=_TINY32)
-        ssa12 = tauscat / torch.clamp(t12, min=_TINY32)
-        g = torch.where(tauscat > 2.0 * _TINY32, g12, 0.0)
-        ssa = torch.where(t12 > 2.0 * _TINY32, ssa12, ssa)
-        t = t12
+    t, ssa, g = increment_2str_bybnd(t, ssa, x.cloud, x.gpt2band, _TINY32)
     # lane layout (ngpt, nlay, ncol) -> the public (ncol, nlay, ngpt)
     pub = lambda a: a.permute(2, 1, 0)
     up, dn, fdir = sw_2stream_plain(pub(t), pub(ssa), pub(g), x.mu0.T,

@@ -1,17 +1,19 @@
 """Synthetic optics data at production-like dimensions (numpy).
 
 Counterpart of ``rte_rrtmgp_tpu.utils.synthetic``: ``synthetic_kdist_raw``
-is a verbatim copy, and the cloud-table generator draws the same rng
-sequence as the JAX package's ``synthetic_cloud_optics``, so both packages
-build identical tables from one seed. Numbers are NOT scientifically
+is a verbatim copy, and the cloud- and aerosol-table generators draw the
+same rng sequences as the JAX package's ``synthetic_cloud_optics`` and
+``synthetic_aerosol_optics``, so both packages build identical tables
+from one seed. Numbers are NOT scientifically
 meaningful.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["synthetic_kdist_raw", "synthetic_cloud_raw", "synthetic_kdist",
-           "synthetic_cloud_optics", "GASES_FULL"]
+__all__ = ["synthetic_kdist_raw", "synthetic_cloud_raw",
+           "synthetic_aerosol_raw", "synthetic_kdist", "synthetic_cloud_optics",
+           "synthetic_aerosol_optics", "GASES_FULL"]
 
 GASES_FULL = ("h2o", "co2", "o3", "n2o", "co", "ch4", "o2", "n2")
 
@@ -170,3 +172,46 @@ def synthetic_cloud_optics(nbnd=16, *, dtype=None, device=None, **kw):
     return CloudOpticsRRTMGP.load(dtype=dtype or torch.float32,
                                   device=device,
                                   **synthetic_cloud_raw(nbnd=nbnd, **kw))
+
+
+def synthetic_aerosol_raw(nbnd=16, nbin=5, nrh=37, band_lims_wvn=None,
+                          seed=0):
+    """Raw-array dict for AerosolOpticsMERRA.load (tables in the
+    reference's in-memory order), drawn in the same order as the JAX
+    package's ``synthetic_aerosol_optics``: ext in [50, 5000] m2/kg, ssa
+    and g in [0.3, 0.95]."""
+    rng = np.random.default_rng(seed)
+    if band_lims_wvn is None:
+        edges = np.linspace(10.0, 3250.0, nbnd + 1)
+        band_lims_wvn = np.stack([edges[:-1], edges[1:]], axis=1)
+    bin_edges = np.logspace(-1, 1, nbin + 1)
+
+    def tbl(*shape):
+        t = rng.uniform(0.3, 0.95, shape)
+        t[0] = rng.uniform(50.0, 5000.0, t[0].shape)   # value axis: ext
+        return t
+
+    rh_major = lambda t: np.moveaxis(t, 0, 1)
+    return dict(
+        band_lims_wvn=band_lims_wvn,
+        merra_aero_bin_lims=np.stack([bin_edges[:-1], bin_edges[1:]]),
+        aero_rh=np.linspace(0.0, 0.99, nrh),
+        aero_dust_tbl=tbl(3, nbin, nbnd),
+        aero_salt_tbl=rh_major(tbl(3, nrh, nbin, nbnd)),
+        aero_sulf_tbl=rh_major(tbl(3, nrh, nbnd)),
+        aero_bcar_tbl=tbl(3, nbnd),
+        aero_bcar_rh_tbl=rh_major(tbl(3, nrh, nbnd)),
+        aero_ocar_tbl=tbl(3, nbnd),
+        aero_ocar_rh_tbl=rh_major(tbl(3, nrh, nbnd)))
+
+
+def synthetic_aerosol_optics(nbnd=16, *, dtype=None, device=None, **kw):
+    """The port's AerosolOpticsMERRA built from
+    :func:`synthetic_aerosol_raw`, on ``device`` (default: the CUDA
+    device)."""
+    import torch
+
+    from ..models.rrtmgp.aerosol_optics import AerosolOpticsMERRA
+    return AerosolOpticsMERRA.load(dtype=dtype or torch.float32,
+                                   device=device,
+                                   **synthetic_aerosol_raw(nbnd=nbnd, **kw))

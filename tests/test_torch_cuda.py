@@ -6,7 +6,9 @@ so they run on a GPU host that has none, without the JAX-side conftest:
     python -m pytest -m cuda --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Small shapes, including a g-point count that is not a multiple of the
-32-thread warp (the kernels' idle lanes). Kernel and twin get the same
+32-thread warp (the kernels' idle lanes). The lane solvers get both the
+gathers' output as permuted views (the staged path's strides) and
+contiguous (g-point, layer, column) copies. Kernel and twin get the same
 float32 inputs and differ in summation order and fused multiply-adds
 only: cloud optics and the gas-optics gathers within 1e-6 of the largest
 value, fluxes within 2e-6 of the largest flux (measured at the main
@@ -18,8 +20,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from rte_rrtmgp_tpu_torch.drivers.allsky import (  # noqa: E402
-    allsky_api_lw, allsky_api_sw, allsky_lw_inputs, allsky_sw_inputs,
-    build_allsky, build_allsky_step)
+    allsky_api_lw, allsky_api_sw, allsky_lw_inputs, allsky_staged_lw,
+    allsky_staged_sw, allsky_sw_inputs, build_allsky, build_allsky_step)
 from rte_rrtmgp_tpu_torch.ops.gas_optics import minor_scaling  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels.cloud_props import (  # noqa: E402
     cloud_props, cloud_props_plain)
@@ -33,6 +35,10 @@ from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (  # noqa: E402
     gas_minor, gas_minor_plain, gas_rayleigh, gas_rayleigh_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import (  # noqa: E402
     lw_noscat, lw_noscat_plain)
+from rte_rrtmgp_tpu_torch.ops.kernels.solver_lanes import (  # noqa: E402
+    lw_noscat_lanes, lw_noscat_lanes_pfrac, lw_noscat_lanes_pfrac_plain,
+    lw_noscat_lanes_plain, sw_2stream_lanes, sw_2stream_lanes_combined,
+    sw_2stream_lanes_combined_plain, sw_2stream_lanes_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw import (  # noqa: E402
     sw_2stream, sw_2stream_plain)
 
@@ -40,6 +46,10 @@ pytestmark = pytest.mark.cuda
 
 DIMS = {"g32": (10, 9, 32, 4, 32, 4, 5, 10),
         "g24": (7, 12, 24, 3, 40, 5, 6, 11)}
+# bands of 4 g-points: the staged path takes the plain lane solvers
+NONBANDED = (9, 7, 24, 6, 24, 6, 5, 10)
+LANE_KERNELS = (lw_noscat_lanes, lw_noscat_lanes_pfrac, sw_2stream_lanes,
+                sw_2stream_lanes_combined)
 
 
 @pytest.fixture
@@ -240,3 +250,185 @@ def test_public_path_runs_on_kernels(cuda):
     for o in (lw.flux_up, lw.flux_dn, sw.flux_up, sw.flux_dn,
               sw.flux_dn_dir):
         assert o.is_cuda and bool(torch.isfinite(o).all())
+
+
+def _lane_cases(p, cuda):
+    """The staged path's lane inputs (views) and their contiguous copies."""
+    inp = p.inputs
+    tau, pfrac, (pbs, pbl, pbv) = p.gas_lw.gas_optics_lw_lanes(
+        inp.play, inp.plev, inp.tlay, inp.tsfc, inp.gas_concs,
+        tlev=inp.tlev, banded_planck=True)
+    return [(tau, pfrac, pbl, pbv, pbs),
+            tuple(x.contiguous() for x in (tau, pfrac, pbl, pbv, pbs))]
+
+
+@pytest.mark.parametrize("variant", ["plain", "rescale-jac"])
+@pytest.mark.parametrize("dims", sorted(DIMS))
+def test_lw_noscat_lanes_matches_twin(cuda, dims, variant):
+    p = build_allsky(*DIMS[dims], device=cuda)
+    inp = p.inputs
+    tau, (sfc, lay, lev, jac) = p.gas_lw.gas_optics_lw_lanes(
+        inp.play, inp.plev, inp.tlay, inp.tsfc, inp.gas_concs, tlev=inp.tlev)
+    ngpt, nlay, ncol = tau.shape
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rand = lambda *s: torch.rand(s, generator=gen, device=cuda)
+    kw = dict(ds=1.66, weight=0.7)
+    if variant != "plain":
+        kw.update(ssa=0.6 * rand(ngpt, nlay, ncol),
+                  g=0.9 * rand(ngpt, nlay, ncol), sfc_src_jac=jac,
+                  do_rescaling=True, do_jacobians=True)
+    for fields in ((tau, lay, lev), tuple(x.contiguous()
+                                          for x in (tau, lay, lev))):
+        args = fields + (0.8 + 0.2 * rand(ngpt, ncol), sfc,
+                         rand(ngpt, ncol))
+        n0 = lw_noscat_lanes.launches
+        got = tuple(x for x in lw_noscat_lanes(*args, **kw) if x is not None)
+        assert lw_noscat_lanes.launches == n0 + 1
+        ref = tuple(x for x in lw_noscat_lanes_plain(*args, **kw)
+                    if x is not None)
+        assert len(got) == len(ref) == (2 if variant == "plain" else 3)
+        _close(got, ref, 2e-6)
+
+
+@pytest.mark.parametrize("cloud", [False, True], ids=["clear", "cloud"])
+@pytest.mark.parametrize("dims", sorted(DIMS))
+def test_lw_noscat_lanes_pfrac_matches_twin(cuda, dims, cloud):
+    p = build_allsky(*DIMS[dims], device=cuda)
+    inp = p.inputs
+    cld = None
+    if cloud:
+        t, ts, _ = p.cld_lw.cloud_optics_lanes(inp.lwp, inp.iwp, inp.rel,
+                                               inp.dei)
+        cld = t - ts
+    ngpt, ncol = p.gas_lw.ngpt, inp.play.shape[0]
+    emis = inp.sfc_emis[:, 0][None, :].expand(ngpt, ncol)
+    inc = 0.5 * torch.ones((ngpt, ncol), device=cuda)
+    for tau, pfrac, pbl, pbv, pbs in _lane_cases(p, cuda):
+        args = (tau, pfrac, pbl, pbv, pbs, emis, inc)
+        kw = dict(ds=1.66, weight=1.0, gpt2band=p.gas_lw.gpt2band,
+                  cloud_tau_abs=cld)
+        n0 = lw_noscat_lanes_pfrac.launches
+        got = lw_noscat_lanes_pfrac(*args, **kw)
+        assert lw_noscat_lanes_pfrac.launches == n0 + 1
+        _close(got, lw_noscat_lanes_pfrac_plain(*args, **kw), 2e-6)
+
+
+def _sw_bounds(p, cuda, ngpt, nlay, ncol):
+    """mu0 (nlay, ncol) with night, low-sun and overhead columns varying by
+    layer; albedos, TOA flux and a diffuse TOA flux (ngpt, ncol)."""
+    mu = torch.tensor([-0.3, 0.0, 1e-4, 3e-4, 1e-3, 0.05, 0.3, 0.6, 0.86,
+                       1.0], device=cuda)[torch.arange(ncol) % 10]
+    mu0 = mu[None, :] * torch.linspace(1.0, 0.95, nlay, device=cuda)[:, None]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    alb = 0.3 * torch.rand((ngpt, ncol), generator=gen, device=cuda)
+    toa = p.gas_sw.kdist.solar_source[:, None].expand(ngpt, ncol)
+    return mu0, alb, alb.flip(0), toa, 0.05 * toa
+
+
+@pytest.mark.parametrize("diffuse", [False, True], ids=["dir", "dir-dif"])
+@pytest.mark.parametrize("dims", sorted(DIMS))
+def test_sw_2stream_lanes_matches_twin(cuda, dims, diffuse):
+    p = build_allsky(*DIMS[dims], device=cuda)
+    inp = p.inputs
+    tau, ssa, _ = p.gas_sw.gas_optics_sw_lanes(inp.play, inp.plev, inp.tlay,
+                                               inp.gas_concs)
+    ngpt, nlay, ncol = tau.shape
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    g = 0.85 * torch.rand((ngpt, nlay, ncol), generator=gen, device=cuda)
+    mu0, adir, adif, toa, dif = _sw_bounds(p, cuda, ngpt, nlay, ncol)
+    for fields in ((tau, ssa, g), tuple(x.contiguous()
+                                        for x in (tau, ssa, g))):
+        args = fields + (mu0, adir, adif, toa, dif if diffuse else None)
+        n0 = sw_2stream_lanes.launches
+        got = sw_2stream_lanes(*args)
+        assert sw_2stream_lanes.launches == n0 + 1
+        _close(got, sw_2stream_lanes_plain(*args), 2e-6)
+
+
+@pytest.mark.parametrize("cloud", [False, True], ids=["clear", "cloud"])
+@pytest.mark.parametrize("dims", sorted(DIMS))
+def test_sw_2stream_lanes_combined_matches_twin(cuda, dims, cloud):
+    p = build_allsky(*DIMS[dims], device=cuda, use_aerosols=True)
+    inp = p.inputs
+    tau, ray, _ = p.gas_sw.gas_optics_sw_lanes(
+        inp.play, inp.plev, inp.tlay, inp.gas_concs, split_rayleigh=True)
+    ngpt, nlay, ncol = tau.shape
+    from rte_rrtmgp_tpu_torch.drivers.allsky import _scattering_lanes
+    cld = (_scattering_lanes(inp, p.cld_sw, True, p.aer_sw, True)
+           if cloud else None)
+    mu0, adir, adif, toa, dif = _sw_bounds(p, cuda, ngpt, nlay, ncol)
+    for fields in ((tau, ray), (tau.contiguous(), ray.contiguous())):
+        args = fields + (cld, mu0, adir, adif, toa, dif)
+        kw = dict(gpt2band=p.gas_sw.gpt2band)
+        n0 = sw_2stream_lanes_combined.launches
+        got = sw_2stream_lanes_combined(*args, **kw)
+        assert sw_2stream_lanes_combined.launches == n0 + 1
+        _close(got, sw_2stream_lanes_combined_plain(*args, **kw), 2e-6)
+
+
+@pytest.mark.parametrize("dims", ["banded", "nonbanded"])
+def test_staged_path_runs_on_kernels(cuda, dims):
+    """Banded k-distributions launch the in-kernel-sources and combined
+    solvers, the others the plain lane solvers; no fused kernel, and the
+    fluxes agree with the fused step's (rtol 3e-5 / atol 5e-4 W/m2)."""
+    d = DIMS["g32"] if dims == "banded" else NONBANDED
+    p = build_allsky(*d, device=cuda, use_aerosols=True)
+    want = ((lw_noscat_lanes_pfrac, sw_2stream_lanes_combined)
+            if dims == "banded" else (lw_noscat_lanes, sw_2stream_lanes))
+    counters = LANE_KERNELS + (cloud_props, gas_major, gas_minor,
+                               gas_rayleigh, lw_fused, sw_fused)
+    before = {f: f.launches for f in counters}
+    kw = dict(use_aerosols=True)
+    lw = allsky_staged_lw(p.inputs, p.gas_lw, cloud_optics=p.cld_lw,
+                          aerosol_optics=p.aer_lw, **kw)
+    sw = allsky_staged_sw(p.inputs, p.gas_sw, cloud_optics=p.cld_sw,
+                          aerosol_optics=p.aer_sw, **kw)
+    torch.cuda.synchronize()
+    moved = {f for f in counters if f.launches > before[f]}
+    assert moved == set(want) | {cloud_props, gas_major, gas_minor,
+                                 gas_rayleigh}
+    step, _ = build_allsky_step(*d, device=cuda, use_aerosols=True)
+    fused = step(p.inputs)
+    for got, ref in zip((lw.flux_up, lw.flux_dn, sw.flux_up, sw.flux_dn,
+                         sw.flux_dn_dir), fused):
+        assert got.is_cuda and bool(torch.isfinite(got).all())
+        assert bool(((got - ref).abs() <= 5e-4 + 3e-5 * ref.abs()).all())
+
+
+def test_aerosols_fused_step_runs_on_kernels(cuda):
+    step, inputs = build_allsky_step(*DIMS["g32"], device=cuda,
+                                     use_aerosols=True)
+    counters = (cloud_props, lw_fused, sw_fused)
+    before = [f.launches for f in counters]
+    out = step(inputs)
+    torch.cuda.synchronize()
+    assert all(f.launches > b for f, b in zip(counters, before))
+    for o in out:
+        assert o.is_cuda and bool(torch.isfinite(o).all())
+
+
+def test_lane_wrappers_refuse_float64(cuda):
+    """The staged path's lane inputs in float64 on the card: each lane
+    wrapper raises and launches nothing."""
+    p = build_allsky(*DIMS["g32"], device=cuda)
+    inp = p.inputs
+    f64 = lambda xs: tuple(x.double() for x in xs)
+    tau, pfrac, pbl, pbv, pbs = f64(_lane_cases(p, cuda)[0])
+    ngpt, nlay, ncol = tau.shape
+    bc = torch.ones((ngpt, ncol), dtype=torch.float64, device=cuda)
+    stau, sray, toa = f64(p.gas_sw.gas_optics_sw_lanes(
+        inp.play, inp.plev, inp.tlay, inp.gas_concs, split_rayleigh=True))
+    mu0 = inp.mu0[None, :].expand(nlay, ncol).double()
+    counts = [f.launches for f in LANE_KERNELS]
+    with pytest.raises(ValueError, match="dtype"):
+        lw_noscat_lanes_pfrac(tau, pfrac, pbl, pbv, pbs, bc, bc, ds=1.66,
+                              weight=1.0, gpt2band=p.gas_lw.gpt2band)
+    with pytest.raises(ValueError, match="dtype"):
+        lw_noscat_lanes(tau, tau, pbv[:1].expand(ngpt, nlay + 1, ncol), bc,
+                        bc, bc, ds=1.66, weight=1.0)
+    with pytest.raises(ValueError, match="dtype"):
+        sw_2stream_lanes(stau, sray, sray, mu0, bc, bc, toa)
+    with pytest.raises(ValueError, match="dtype"):
+        sw_2stream_lanes_combined(stau, sray, None, mu0, bc, bc, toa,
+                                  gpt2band=p.gas_sw.gpt2band)
+    assert [f.launches for f in LANE_KERNELS] == counts
