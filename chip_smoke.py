@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's three all-sky paths on one CUDA GPU and check them.
+"""Run the PyTorch port's three all-sky paths, and gradient steps through
+two of them, on one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -13,12 +14,17 @@ Phases (any failure ends the run with a non-zero exit and no result):
      solvers on the non-banded configuration, LW 192 / 16 and SW 168 / 14,
      the only one on which the JAX package's dispatch reaches them; the
      lane solvers with clouds and aerosols), with the median CUDA-event
-     time of both and the card's lower bound for the same work;
+     time of both and the card's lower bound for the same work; the four
+     adjoint kernels against the twins' autograd on the same inputs and
+     seeded flux cotangents (see TOL_ADJ);
   4. golden gates at the production configuration (256 x 72): the float32
      fused step, public-API path and staged path against
      tests/golden/production.npz, and the float32 aerosols step (fused)
      against the port's float64 twin of that step on the CPU, each field
-     within 3x tests/golden/production_f32_noise.json;
+     within 3x tests/golden/production_f32_noise.json; the fused path's
+     d(TOA LW up)/d(tsfc) against the analytic surface Jacobian, and the
+     float32 training-loss gradients against the float64 twin's on the
+     CPU (printed as the gradient noise floor);
   5. the paths at 4096 x 72, each with the launch counters set to 0 just
      before it, the kernels it must and must not launch, finite
      non-negative outputs, TOA SW down equal to the solar source times
@@ -32,17 +38,24 @@ Phases (any failure ends the run with a non-zero exit and no result):
      held against the fused one on the same inputs within rtol 3e-5 /
      atol 5e-4 W/m2; then where the time goes (torch.profiler over 3
      steps of the fused, public-API, staged and aerosols fused paths:
-     device time by kernel, device busy share);
+     device time by kernel, device busy share); then two gradient steps
+     (forward + backward of a weighted flux loss) on the fused path with
+     clouds, then with aerosols, and on the public-API path, with the
+     adjoint kernels each launched once per step, gradients finite and
+     bit-identical over the two, the step time beside the forward's and
+     the fused step's profile;
   6. rte_lw with 3 quadrature angles and with compute_optimal_angles
      secants, on the card against the twins on the CPU (512 columns);
   7. a ``{"kernels": [...]}`` line (launches from the path that runs each
      kernel: the fused path for the fused kernels and cloud optics, the
      public-API path for the gathers and the public solvers, the staged
-     paths for the lane solvers), then the last line
+     paths for the lane solvers, the gradient steps for the adjoints),
+     then the last line
      ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before doing anything.
 """
+import contextlib
 import json
 import os
 import statistics
@@ -85,6 +98,26 @@ OPS_PLANCK = 12            # totplnk lerps, level geometric mean
 OPS_SW_LAYER = 62          # Meador-Weaver (47), direct beam, adding (12)
 OPS_SW_COMBINE = 12        # Rayleigh and cloud combine
 OPS_PFRAC_SOURCES = 8      # layer source, two level geometric means, cloud
+# the adjoints, per (column, layer, g-point): the layer terms recomputed
+# twice and the sweeps' and sources' adjoints (LW); the coefficients,
+# beam and adding recomputed, their adjoints and the Meador-Weaver chain
+# transposed (SW); per corner of the major lookup, its five cotangents
+OPS_LW_ADJ = 70
+OPS_SW_ADJ = 300
+OPS_MAJOR_ADJ_CORNER = 14
+OPS_MINOR_ADJ = 12         # per (cell, g-point) a minor gas covers
+OPS_RAYLEIGH_ADJ = 12
+OPS_COMBINE_ADJ = 30       # Rayleigh combine and cloud increment transposed
+# an adjoint kernel against the twin's autograd, same float32 inputs and
+# cotangents: each cotangent within this share of its largest twin value
+# (the JAX package's float32 bound, tests/test_fused_autodiff.py:641-642).
+# A cotangent whose float32 twin misses that bound against the twin run
+# in float64 (with the float32 eps and tiny that the kernels use in
+# every dtype: the same algorithm in exact-enough arithmetic), as the
+# descriptor and cloud cotangents of nearly transparent upper layers
+# and the ssa cotangent at the min_k clamp do, is held to the same bound
+# against that float64 twin instead.
+TOL_ADJ = 5e-4
 
 
 def log(msg):
@@ -424,6 +457,342 @@ def lanes_rows(prob, nonbanded):
     return rows
 
 
+def subset_inputs(inputs, n):
+    """The all-sky inputs of the first n columns."""
+    from rte_rrtmgp_tpu_torch.gas_concs import GasConcs
+    gc = inputs.gas_concs
+    gc = GasConcs(names=gc.names, values=tuple(
+        v[:n] if v.ndim == 2 else v for v in gc.values))
+    return inputs._replace(**{k: getattr(inputs, k)[:n]
+                              for k in inputs._fields if k != "gas_concs"},
+                           gas_concs=gc)
+
+
+def to_f64(tree):
+    """``tree`` (tensors in nested tuples and NamedTuples) with every
+    float tensor in float64."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.double() if tree.is_floating_point() else tree
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_f64(v) for v in tree))
+    if isinstance(tree, tuple):
+        return tuple(to_f64(v) for v in tree)
+    return tree
+
+
+@contextlib.contextmanager
+def float32_constants():
+    """``torch.finfo`` of any dtype gives float32's within the block: the
+    twins' eps- and tiny-based clamps and guards (min_k, min_mu0, the
+    small-tau threshold) take the float32 values the kernels use, so a
+    float64 twin is the float32 algorithm in float64 arithmetic."""
+    import torch
+    finfo = torch.finfo
+    torch.finfo = lambda dtype=None: finfo(torch.float32)
+    try:
+        yield
+    finally:
+        torch.finfo = finfo
+
+
+def check_adjoint(name, kernel, plain, make, source, replaces, ops_per_col):
+    """An adjoint kernel against its plain version (the twin's autograd)
+    on the same inputs and seeded cotangents, ``make(n)`` building them
+    for n columns: compared at 4096 columns, or at the largest halving
+    whose twin graph fits in memory (printed); each cotangent within
+    TOL_ADJ of its largest twin value, or, where the float32 twin is
+    itself further than that from the float64 twin (run on the card with
+    the float32 constants), within TOL_ADJ of the float64 twin's.
+    The kernel is timed at 4096."""
+    import torch
+    ncol = MAIN["ncol"]
+    n = ncol
+    while True:
+        args = make(n)
+        try:
+            ref = as_tuple(plain(args))
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            del args
+            torch.cuda.empty_cache()
+            n //= 2
+            if n < 64:
+                raise SystemExit(f"{name}: the twin does not fit at 64 "
+                                 "columns")
+    got = as_tuple(kernel(args))
+    torch.cuda.synchronize()
+    if len(got) != len(ref):
+        raise SystemExit(f"{name}: kernel gives {len(got)} cotangents, twin "
+                         f"{len(ref)}")
+    errs, beyond = [], []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+            raise SystemExit(f"{name}: cotangent {i} {tuple(g.shape)} is not "
+                             f"finite or not {tuple(r.shape)}")
+        err = float((g - r).abs().max())
+        scale = float(r.abs().max())
+        errs.append(err)
+        log(f"kernel {name}: cotangent {i} {tuple(r.shape)} max_abs_err "
+            f"{err:.3e} (limit {TOL_ADJ * scale:.3e})")
+        if not err <= TOL_ADJ * scale:
+            beyond.append(i)
+    if beyond:
+        with float32_constants():
+            ref64 = as_tuple(plain(to_f64(args)))
+        for i in beyond:
+            scale = float(ref64[i].abs().max())
+            k64 = float((got[i].double() - ref64[i]).abs().max()) / scale
+            t64 = float((ref[i].double() - ref64[i]).abs().max()) / scale
+            log(f"kernel {name}: cotangent {i} against the float64 twin: "
+                f"kernel {k64:.3e}, float32 twin {t64:.3e} of its largest "
+                f"value (limit {TOL_ADJ} for the kernel, where the float32 "
+                f"twin is beyond it)")
+            if not (t64 > TOL_ADJ and k64 <= TOL_ADJ):
+                raise SystemExit(f"{name}: cotangent {i} disagrees with the "
+                                 "twin")
+        del ref64
+    plain_ms = cuda_ms(lambda: plain(args), reps=3)
+    del got, ref, args
+    torch.cuda.empty_cache()
+    args = make(ncol)
+    ms = cuda_ms(lambda: kernel(args))
+    b = bound(nbytes(args) + nbytes(as_tuple(kernel(args))),
+              ops_per_col * ncol)
+    log(f"kernel {name}: compared at {n} columns, kernel {ms:.3f} ms at "
+        f"{ncol}, plain {plain_ms:.3f} ms at {n}, bound {b['bound_ms']:.4f}"
+        f" ms by {b['bound_by']} ({b['bytes'] / 1e9:.3f} GB, "
+        f"{b['ops'] / 1e9:.3f} Gop)")
+    del args
+    torch.cuda.empty_cache()
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                library_ms=None)
+
+
+def adjoint_rows(prob, dev):
+    """Phase 3, the backward kernels, on the inputs their paths give them
+    (clouds on) and seeded cotangents of the broadband fluxes: the fused
+    adjoints on the fused step's inputs, the solver adjoints on the public
+    path's optics and sources."""
+    import torch
+    from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
+                                                     allsky_sw_inputs)
+    from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw as flw
+    from rte_rrtmgp_tpu_torch.ops.kernels import fused_sw as fsw
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_bwd as slw
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd as ssw
+    from rte_rrtmgp_tpu_torch.ops.solver_lw import GAUSS_DS
+    from rte_rrtmgp_tpu_torch.optical_props import delta_scale, increment
+    nlay = MAIN["nlay"]
+    gl, gs = prob.gas_lw, prob.gas_sw
+
+    def cot(shape, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return 0.5 + torch.rand(shape, generator=gen, device=dev)
+
+    def fused_lw_args(n):
+        inp = subset_inputs(prob.inputs, n)
+        return (allsky_lw_inputs(inp, gl, cloud_optics=prob.cld_lw),
+                cot((nlay + 1, n), 1), cot((nlay + 1, n), 2))
+
+    def fused_sw_args(n):
+        inp = subset_inputs(prob.inputs, n)
+        return (allsky_sw_inputs(inp, gs, cloud_optics=prob.cld_sw),
+                cot((nlay + 1, n), 3), cot((nlay + 1, n), 4),
+                cot((nlay + 1, n), 5))
+
+    def lw_args(n):
+        i = subset_inputs(prob.inputs, n)
+        props, src = gl.gas_optics_lw(i.play, i.plev, i.tlay, i.tsfc,
+                                      i.gas_concs, tlev=i.tlev, top_at_1=True)
+        props = increment(props, prob.cld_lw.cloud_optics(
+            i.lwp, i.iwp, i.rel, i.dei, scattering=False))
+        ngpt = props.tau.shape[2]
+        emis = i.sfc_emis.expand(n, ngpt).contiguous()
+        return (props.tau.contiguous(), src.lay_source, src.lev_source, emis,
+                src.sfc_source, torch.zeros_like(emis),
+                cot((n, nlay + 1), 6), cot((n, nlay + 1), 7))
+
+    def sw_args(n):
+        i = subset_inputs(prob.inputs, n)
+        props, toa = gs.gas_optics_sw(i.play, i.plev, i.tlay, i.gas_concs,
+                                      top_at_1=True)
+        props = increment(props, delta_scale(prob.cld_sw.cloud_optics(
+            i.lwp, i.iwp, i.rel, i.dei)))
+        ngpt = props.tau.shape[2]
+        alb = i.sfc_alb.expand(n, ngpt).contiguous()
+        inc = toa.contiguous()
+        return (props.tau, props.ssa, props.g,
+                i.mu0[:, None].expand(n, nlay).contiguous(), alb, alb, inc,
+                torch.zeros_like(inc), cot((n, nlay + 1), 8),
+                cot((n, nlay + 1), 9), cot((n, nlay + 1), 10))
+
+    gpt = lambda g: sum(w for (_, _, _, w, _) in g.minors)
+    ngl, ngs = gl.ngpt, gs.ngpt
+    ops_flw = nlay * (ngl * (8 * (OPS_MAJOR_CORNER + OPS_PFRAC_CORNER
+                                  + OPS_MAJOR_ADJ_CORNER) + OPS_PLANCK
+                             + OPS_LW_ADJ)
+                      + gpt(gl) * (OPS_MINOR + OPS_MINOR_ADJ))
+    ops_fsw = nlay * (ngs * (8 * (OPS_MAJOR_CORNER + OPS_MAJOR_ADJ_CORNER)
+                             + OPS_RAYLEIGH + OPS_RAYLEIGH_ADJ
+                             + OPS_SW_COMBINE + OPS_COMBINE_ADJ + OPS_SW_ADJ)
+                      + gpt(gs) * (OPS_MINOR + OPS_MINOR_ADJ))
+    ds, wt = GAUSS_DS[0][0], 1.0
+    pallas = "rte_rrtmgp_tpu/ops/pallas"
+    csrc = "rte_rrtmgp_tpu_torch/csrc"
+    return [
+        check_adjoint("fused_lw_bwd", lambda a: flw.lw_fused_bwd(*a),
+                      lambda a: flw.lw_fused_bwd_plain(*a), fused_lw_args,
+                      f"{csrc}/fused_lw_bwd.cu", f"{pallas}/fused_lw_bwd.py:506",
+                      ops_flw),
+        check_adjoint("fused_sw_bwd", lambda a: fsw.sw_fused_bwd(*a),
+                      lambda a: fsw.sw_fused_bwd_plain(*a), fused_sw_args,
+                      f"{csrc}/fused_sw_bwd.cu", f"{pallas}/fused_sw_bwd.py:694",
+                      ops_fsw),
+        check_adjoint("solver_lw_bwd",
+                      lambda a: slw.lw_noscat_bwd(*a, ds=ds, weight=wt),
+                      lambda a: slw.lw_noscat_bwd_plain(*a, ds=ds, weight=wt),
+                      lw_args, f"{csrc}/solver_lw_bwd.cu",
+                      f"{pallas}/solver_lw_bwd.py:207", nlay * ngl * OPS_LW_ADJ),
+        check_adjoint("solver_sw_bwd", lambda a: ssw.sw_2stream_bwd(*a),
+                      lambda a: ssw.sw_2stream_bwd_plain(*a), sw_args,
+                      f"{csrc}/solver_sw_bwd.cu",
+                      f"{pallas}/solver_sw_bwd.py:402", nlay * ngs * OPS_SW_ADJ),
+    ]
+
+
+def train_loss(step, inputs):
+    """One training step's loss and its gradients with respect to (tlay,
+    tsfc, lwp, rel, h2o vmr): sum(w_lev up) + 0.5 sum(w_lev dn) for LW and
+    SW, + 0.25 sum(SW direct), w_lev = linspace(0.5, 1.5, nlay+1) (as
+    tests/test_fused_autodiff.py:69)."""
+    import torch
+    ncol, nlay = inputs.play.shape
+    leaves = {k: getattr(inputs, k).detach().clone().requires_grad_()
+              for k in ("tlay", "tsfc", "lwp", "rel")}
+    leaves["h2o"] = inputs.gas_concs.get_vmr("h2o", ncol, nlay).detach() \
+        .clone().requires_grad_()
+    gc = inputs.gas_concs.set_vmr("h2o", leaves["h2o"])
+    inp = inputs._replace(gas_concs=gc, **{k: v for k, v in leaves.items()
+                                           if k != "h2o"})
+    lw_up, lw_dn, sw_up, sw_dn, sw_dir = step(inp)
+    w = torch.linspace(0.5, 1.5, nlay + 1, dtype=lw_up.dtype,
+                       device=lw_up.device)[None, :]
+    loss = ((w * lw_up).sum() + 0.5 * (w * lw_dn).sum() + (w * sw_up).sum()
+            + 0.5 * (w * sw_dn).sum() + 0.25 * sw_dir.sum())
+    grads = torch.autograd.grad(loss, tuple(leaves.values()))
+    return loss, dict(zip(leaves, grads))
+
+
+def gradient_gates(dev):
+    """Phase 4, the gradients at the production configuration (256 x 72):
+    the float32 fused-path d(sum of TOA LW up)/d(tsfc) against the
+    analytic surface Jacobian transported by lw_solver_noscat (rtol 2e-2,
+    all positive; tests/test_fused_autodiff.py:110-149), then the float32
+    card gradients of the training loss against the port's float64 twin
+    on the CPU: the largest difference per input over that input's
+    largest float64 gradient, printed as the measured noise floor (no
+    gate)."""
+    import torch
+    from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_step_lw,
+                                                     build_allsky,
+                                                     build_allsky_step)
+    from rte_rrtmgp_tpu_torch.ops.solver_lw import (GAUSS_DS, GAUSS_WTS,
+                                                    lw_solver_noscat)
+    from rte_rrtmgp_tpu_torch.optical_props import increment
+    p = build_allsky(**PROD, device=dev)
+    i = p.inputs
+    tsfc = i.tsfc.clone().requires_grad_()
+    f = allsky_step_lw(i._replace(tsfc=tsfc), p.gas_lw, cloud_optics=p.cld_lw)
+    grad, = torch.autograd.grad(f.flux_up[:, 0].sum(), tsfc)
+    props, src = p.gas_lw.gas_optics_lw(i.play, i.plev, i.tlay, i.tsfc,
+                                        i.gas_concs, tlev=i.tlev,
+                                        top_at_1=True)
+    props = increment(props, p.cld_lw.cloud_optics(i.lwp, i.iwp, i.rel,
+                                                   i.dei, scattering=False))
+    ngpt = props.tau.shape[2]
+    emis = i.sfc_emis.expand(-1, ngpt).contiguous()
+    jac = lw_solver_noscat(props.tau, src.lay_source, src.lev_source, emis,
+                           src.sfc_source, torch.zeros_like(emis),
+                           top_at_1=True, ds=GAUSS_DS[0],
+                           weights=GAUSS_WTS[0],
+                           sfc_src_jac=src.sfc_source_jac,
+                           do_jacobians=True).flux_up_jac[:, 0]
+    rel = float(((grad - jac).abs() / jac.abs()).max())
+    log(f"gradient gate: fused d(TOA up)/d(tsfc) vs analytic Jacobian, max "
+        f"rel diff {rel:.3e} (limit 2e-2), Jacobian min "
+        f"{float(jac.min()):.4g} W/m2/K")
+    if not (rel <= 2e-2 and bool((jac > 0).all())):
+        raise SystemExit("the fused tsfc gradient disagrees with the "
+                         "analytic surface Jacobian")
+    step, inputs = build_allsky_step(**PROD, device=dev)
+    _, g32 = train_loss(step, inputs)
+    t0 = time.perf_counter()
+    step64, inputs64 = build_allsky_step(**PROD, device="cpu",
+                                         dtype=torch.float64)
+    _, g64 = train_loss(step64, inputs64)
+    log(f"gradient noise floor: float64 twin gradients on the CPU in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for k, v in g64.items():
+        d = float((g32[k].double().cpu() - v).abs().max())
+        log(f"gradient noise floor {k}: max |f32 card - f64 twin| / max "
+            f"|f64| = {d / float(v.abs().max()):.3e}")
+
+
+def training_steps(name, step, inputs, counters, exact, launched):
+    """Phase 5: two training steps (forward + backward) of one path with
+    the counters set to 0 just before them: the kernels a step launches an
+    exact number of times (``exact``, name -> launches per step), those it
+    launches at least once (``launched``), no other; finite gradients that
+    are not all zero and bit-identical over the two steps; then the median
+    step time beside the forward's. Returns the launches of one step."""
+    import torch
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    runs = [train_loss(step, inputs) for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = {k: fn.launches // 2 for k, fn in counters.items()}
+    log(f"{name} training step launches: {launches}")
+    for k, n in launches.items():
+        if k in exact and n != exact[k]:
+            raise SystemExit(f"{name} training step launched {k} {n} times,"
+                             f" expected {exact[k]}")
+        if k in launched and n == 0:
+            raise SystemExit(f"{name} training step never launched {k}")
+        if k not in exact and k not in launched and n != 0:
+            raise SystemExit(f"{name} training step launched {k}")
+    (_, ga), (_, gb) = runs
+    for k in ga:
+        if not bool(torch.isfinite(ga[k]).all()) or not bool(
+                (ga[k] != 0).any()):
+            raise SystemExit(f"{name}: d loss / d {k} not finite or all "
+                             "zero")
+        if not torch.equal(ga[k], gb[k]):
+            raise SystemExit(f"{name}: d loss / d {k} differs between two "
+                             "runs")
+    log(f"{name} training step: gradients finite and bit-identical over "
+        "two runs; max |d loss / d x|: " + ", ".join(
+            f"{k} {float(v.abs().max()):.3e}" for k, v in ga.items()))
+    times = {}
+    for what, fn in (("forward+backward", lambda: train_loss(step, inputs)),
+                     ("forward", lambda: step(inputs))):
+        ts = []
+        for _ in range(REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        times[what] = statistics.median(ts) * 1e3
+    log(f"{name} training step: {times['forward+backward']:.3f} ms median "
+        f"of {REPS} (forward alone {times['forward']:.3f} ms)")
+    return launches
+
+
 def golden_gate(what, out, golden=None):
     """Each float32 field within 3x the float32 noise floor of the f64
     golden (the production configuration): tests/golden/production.npz,
@@ -597,13 +966,17 @@ def main():
     from rte_rrtmgp_tpu_torch.ops.kernels import _build
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_lanes as sl
     from rte_rrtmgp_tpu_torch.ops.kernels.cloud_props import cloud_props
-    from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import lw_fused
-    from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import sw_fused
+    from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import (lw_fused,
+                                                           lw_fused_bwd)
+    from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import (sw_fused,
+                                                           sw_fused_bwd)
     from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import gas_major
     from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (gas_minor,
                                                             gas_rayleigh)
     from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import lw_noscat
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_bwd import lw_noscat_bwd
     from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw import sw_2stream
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw_bwd import sw_2stream_bwd
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -633,6 +1006,8 @@ def main():
     nonbanded = build_allsky(**NONBANDED, device=dev, use_aerosols=True)
     rows = (fused_rows(prob, dev) + api_rows(prob, dev)
             + lanes_rows(prob, nonbanded))
+    torch.cuda.empty_cache()
+    rows += adjoint_rows(prob, dev)
     solar = float(prob.gas_sw.kdist.solar_source.double().sum())
     solar_nb = float(nonbanded.gas_sw.kdist.solar_source.double().sum())
     del prob
@@ -654,6 +1029,8 @@ def main():
     log(f"aerosols float64 twin on the CPU: {time.perf_counter() - t0:.1f} s")
     golden_gate("aerosols fused vs f64 twin", step(inputs), twin)
     del prod, step64, inputs64, twin
+    gradient_gates(dev)
+    torch.cuda.empty_cache()
 
     # ---- 5. the paths at 4096 x 72 ----
     counters = {"cloud_props": cloud_props, "fused_lw": lw_fused,
@@ -663,7 +1040,10 @@ def main():
                 "solver_lw_lanes": sl.lw_noscat_lanes,
                 "solver_lw_pfrac": sl.lw_noscat_lanes_pfrac,
                 "solver_sw_lanes": sl.sw_2stream_lanes,
-                "solver_sw_combined": sl.sw_2stream_lanes_combined}
+                "solver_sw_combined": sl.sw_2stream_lanes_combined,
+                "fused_lw_bwd": lw_fused_bwd, "fused_sw_bwd": sw_fused_bwd,
+                "solver_lw_bwd": lw_noscat_bwd,
+                "solver_sw_bwd": sw_2stream_bwd}
     gathers = ("gas_major", "gas_minor", "gas_rayleigh")
     launched = {
         "fused": ("cloud_props", "fused_lw", "fused_sw"),
@@ -727,6 +1107,28 @@ def main():
             agree(f"{config} {kind}", out, ref)
             del out
         del ref
+
+    # the training steps at full width: the fused path with clouds, then
+    # with aerosols, then the public API; each forward kernel of the fused
+    # path once per step (cloud optics once per band set), each backward
+    # kernel once
+    fused_step = {"fused_lw": 1, "fused_sw": 1, "fused_lw_bwd": 1,
+                  "fused_sw_bwd": 1, "cloud_props": 2}
+    step, _ = build_allsky_step(**MAIN, device=dev)
+    got = training_steps("fused", step, inputs, counters, fused_step, ())
+    launches.update({k: got[k] for k in ("fused_lw_bwd", "fused_sw_bwd")})
+    profile_path("fused training step", lambda i: train_loss(step, i),
+                 inputs)
+    step, _ = build_allsky_step(**MAIN, device=dev, use_aerosols=True)
+    training_steps("aerosols fused", step, inputs, counters, fused_step, ())
+    got = training_steps(
+        "public API", step_fn(prob, "api"), inputs, counters,
+        {"solver_lw_bwd": 1, "solver_sw_bwd": 1, "solver_lw": 1,
+         "solver_sw": 1, "cloud_props": 2},
+        ("gas_major", "gas_minor", "gas_rayleigh"))
+    launches.update({k: got[k] for k in ("solver_lw_bwd", "solver_sw_bwd")})
+    del step
+    torch.cuda.empty_cache()
 
     # ---- 6. multi-angle and optimal-angle LW against the twins ----
     angles_check(prob, inputs)

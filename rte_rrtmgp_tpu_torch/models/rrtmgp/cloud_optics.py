@@ -5,9 +5,10 @@ Counterpart of ``rte_rrtmgp_tpu.models.rrtmgp.cloud_optics`` (reference
 and ``compute_cld_from_table``). The per-cell size index, fraction and
 masked water path are prepared here in plain PyTorch; the table lerp and
 the two-phase sum run in ``ops/kernels/cloud_props`` (CUDA kernel or its
-plain twin). Two outputs: ``cloud_optics`` returns optical properties on
-the band grid (the public API), ``cloud_optics_lanes`` the by-band
-triplet on layer-major cells (the fused all-sky step).
+plain twin), differentiable through the twin's gradient. Two outputs:
+``cloud_optics`` returns optical properties on the band grid (the public
+API), ``cloud_optics_lanes`` the by-band triplet on layer-major cells
+(the fused all-sky step).
 """
 from __future__ import annotations
 
@@ -17,11 +18,19 @@ import numpy as np
 import torch
 
 from ...config import get_config, resolve_device
-from ...ops.kernels.cloud_props import cloud_props
+from ...ops.kernels.autodiff import with_twin_grad
+from ...ops.kernels.cloud_props import cloud_props, cloud_props_plain
 from ...optical_props import OpticalProps, OpticalProps1scl, OpticalProps2str
 from ...spectral import SpectralGrid
 
 __all__ = ["CloudOpticsRRTMGP"]
+
+
+def _cloud_props(idx, fint, wp, liq, ice):
+    """The LUT kernel with its twin's gradient (the JAX package's
+    with_xla_grad, cloud_optics.py:165, :259)."""
+    return with_twin_grad(cloud_props, cloud_props_plain, idx, fint, wp, liq,
+                          ice)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,8 +115,7 @@ class CloudOpticsRRTMGP:
         if get_config().check_values:
             self.validate_inputs(clwp, ciwp, reliq, dgice)
         idx, fint, wp = self.lane_inputs(clwp, ciwp, reliq, dgice)
-        liq, ice = self.tables()
-        out = cloud_props(idx, fint, wp, liq, ice)
+        out = _cloud_props(idx, fint, wp, *self.tables())
         return out[0], out[1], out[2]
 
     def cloud_optics(self, clwp, ciwp, reliq, dgice, *,
@@ -122,9 +130,8 @@ class CloudOpticsRRTMGP:
             self.validate_inputs(clwp, ciwp, reliq, dgice)
         idx, fint, wp = self.lane_inputs(clwp, ciwp, reliq, dgice,
                                          layer_major=False)
-        liq, ice = self.tables()
-        tau, taussa, taussag = cloud_props(idx, fint, wp, liq,
-                                           ice).permute(0, 2, 3, 1)
+        tau, taussa, taussag = _cloud_props(idx, fint, wp,
+                                            *self.tables()).permute(0, 2, 3, 1)
         if not scattering:
             return OpticalProps1scl(tau=tau - taussa, grid=self.grid,
                                     top_at_1=top_at_1)

@@ -29,16 +29,39 @@ from ...gas_concs import GasConcs
 from ...optical_props import (OpticalProps, OpticalProps1scl,
                               OpticalProps2str)
 from ...ops.gas_optics import (InterpCoeffs, interpolation, minor_scaling,
-                               planck_bands_lanes, planck_sources)
+                               planck_bands_lanes, planck_sources, tau_minor)
+from ...ops.kernels.autodiff import with_twin_grad
 from ...ops.kernels.fused_lw import LWFusedInputs, _split_minors, lw_fused
 from ...ops.kernels.fused_sw import SWFusedInputs, sw_fused
-from ...ops.kernels.gas_major import gas_major
-from ...ops.kernels.gas_minor import gas_minor, gas_rayleigh
+from ...ops.kernels.gas_major import gas_major, gas_major_plain
+from ...ops.kernels.gas_minor import gas_minor, gas_rayleigh, rayleigh_combine
 from ...sources import SourcesLW
 from ..base import infer_top_at_1
 from .kdist import KDist
 
 __all__ = ["GasOpticsRRTMGP", "get_col_dry", "interp_tlev"]
+
+
+def _major(co, kmajor, planck_frac, gpoint_flavor):
+    return with_twin_grad(gas_major, gas_major_plain, co, kmajor,
+                          planck_frac, gpoint_flavor)
+
+
+def _minor(tau, co, kminor, minors, meta, scaling):
+    """gas_minor out of place: a new tensor, ``tau`` untouched."""
+    return with_twin_grad(
+        lambda t, *a: gas_minor(t.clone(), *a),
+        lambda t, c, k, m, _, s: tau_minor(t.movedim(-1, 0), c, k, m,
+                                           s).movedim(0, -1),
+        tau, co, kminor, minors, meta, scaling)
+
+
+def _rayleigh(tau, co, krayl, gpoint_flavor, rayscale, scattering):
+    """gas_rayleigh out of place: (tau + tau_rayleigh, ssa or None)."""
+    return with_twin_grad(
+        lambda t, *a: gas_rayleigh(t.clone(), *a, scattering=scattering),
+        lambda *a: rayleigh_combine(*a, scattering=scattering),
+        tau, co, krayl, gpoint_flavor, rayscale)
 
 
 def get_col_dry(vmr_h2o, plev):
@@ -147,7 +170,9 @@ class GasOpticsRRTMGP:
               split_rayleigh: bool = False):
         """compute_gas_taus (reference :419-745) on (ncol, nlay) cells:
         major-gas absorption and Planck fraction, the minor gases of each
-        atmosphere, and Rayleigh, each through its kernel wrapper. Returns
+        atmosphere, and Rayleigh, each through its kernel wrapper with its
+        twin's gradient (the JAX _compute_taus, gas_optics.py:154-206).
+        Returns
         (tau, second, pfrac or None), each (ncol, nlay, ngpt): ``second``
         is the Rayleigh ssa with the absorption/Rayleigh combine (reference
         combine_abs_and_rayleigh :1954-2036) with ``scattering``, None
@@ -158,8 +183,8 @@ class GasOpticsRRTMGP:
         col_gas, col_dry, idx_h2o = self.col_gas(play, plev, gas_concs,
                                                  col_dry)
         co = self.interp(play, tlay, col_gas)
-        tau, pfrac = gas_major(co, kd.kmajor, kd.planck_frac,
-                               self.gpoint_flavor)
+        tau, pfrac = _major(co, kd.kmajor, kd.planck_frac,
+                            self.gpoint_flavor)
         nlo = len(kd.minor_lower)
         minors_lo, minors_up = _split_minors(self.minors)
         kw = dict(play=play, tlay=tlay, col_gas=col_gas, idx_h2o=idx_h2o)
@@ -170,7 +195,7 @@ class GasOpticsRRTMGP:
                  self.minor_meta[nlo:])):
             if minors:
                 scaling = minor_scaling(co, mset, lower=lower, **kw)
-                tau = gas_minor(tau, co, ktab, minors, meta, scaling)
+                tau = _minor(tau, co, ktab, minors, meta, scaling)
         if kd.krayl is None:
             second = (torch.zeros_like(tau) if scattering or split_rayleigh
                       else None)
@@ -178,10 +203,9 @@ class GasOpticsRRTMGP:
         rayl = (co, kd.krayl, self.gpoint_flavor, col_gas[idx_h2o] + col_dry)
         if split_rayleigh:
             # 0 + Rayleigh: the kernel's own sum gives tau_ray exactly
-            ray, _ = gas_rayleigh(torch.zeros_like(tau), *rayl,
-                                  scattering=False)
+            ray, _ = _rayleigh(torch.zeros_like(tau), *rayl, False)
             return tau, ray, pfrac
-        tau, ssa = gas_rayleigh(tau, *rayl, scattering=scattering)
+        tau, ssa = _rayleigh(tau, *rayl, scattering)
         return tau, ssa, pfrac
 
     def _compute_taus(self, play, plev, tlay, gas_concs, col_dry,

@@ -9,15 +9,20 @@ band and phase (liquid, ice), lerp (ext, ssa, asy) between size bins
 sum (tau, tau*ssa, tau*ssa*g) over the phases.
 
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
-CPU tensor to :func:`cloud_props_plain`.
+CPU tensor to :func:`cloud_props_plain`. The kernel has no backward of
+its own: on CUDA it refuses inputs that require grad, and callers take
+the twin's gradient through ``autodiff.with_twin_grad``.
 """
 from __future__ import annotations
 
 import torch
 
 from ._build import check_args, launch, on_cpu
+from .autodiff import refuse_grad
 
 __all__ = ["cloud_props", "cloud_props_plain"]
+
+_HINT = "CloudOpticsRRTMGP differentiates it through autodiff.with_twin_grad"
 
 
 def cloud_props_plain(idx, fint, wp, liq, ice):
@@ -44,6 +49,7 @@ def cloud_props(idx, fint, wp, liq, ice):
     hand-written kernel (counted in ``cloud_props.launches``)."""
     if on_cpu(wp, "cloud_props"):
         return cloud_props_plain(idx, fint, wp, liq, ice)
+    refuse_grad("cloud_props", fint, wp, liq, ice, hint=_HINT)
     _, nlay, ncol = wp.shape
     nsl, nbnd = liq.shape[1], liq.shape[2]
     nsi = ice.shape[1]

@@ -11,7 +11,12 @@ from the ``totplnk`` lerp, the down and up sweeps, and the broadband
 sum times pi * weight.
 
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
-CPU tensor to :func:`lw_fused_plain`.
+CPU tensor to :func:`lw_fused_plain`. :func:`lw_fused` is differentiable:
+its backward is the adjoint kernel ``csrc/fused_lw_bwd.cu``
+(:func:`lw_fused_bwd`, replacing the TPU kernel ``ops/pallas/
+fused_lw_bwd.py::_lw_fused_bwd``) on CUDA tensors and the twin's gradient
+on CPU tensors, with respect to the fields of :data:`LW_DIFF`; the
+tables, the integer indices and ``tropo`` are constants.
 """
 from __future__ import annotations
 
@@ -22,9 +27,11 @@ import torch
 
 from ..gas_optics import InterpCoeffs, planck_sources, tau_major, tau_minor
 from ._build import check_args, launch, on_cpu
+from .autodiff import none_like, refuse_grad, with_adjoint
 from .solver_lw import lw_noscat_plain
 
-__all__ = ["LWFusedInputs", "lw_fused", "lw_fused_plain"]
+__all__ = ["LWFusedInputs", "LW_DIFF", "lw_fused", "lw_fused_plain",
+           "lw_fused_bwd", "lw_fused_bwd_plain"]
 
 
 class LWFusedInputs(NamedTuple):
@@ -77,11 +84,47 @@ def lw_fused_plain(x: LWFusedInputs):
     return up.T, dn.T
 
 
-def lw_fused(x: LWFusedInputs):
-    """:func:`lw_fused_plain` semantics; on CUDA, one launch of the
-    hand-written kernel (counted in ``lw_fused.launches``)."""
-    if on_cpu(x.tlay, "lw_fused"):
-        return lw_fused_plain(x)
+# the differentiable inputs, in the order of lw_fused_bwd's cotangents
+LW_DIFF = ("co.ftemp", "co.fpress", "co.feta", "co.col_mix", "minor_scale",
+           "tlay", "tlev", "tsfc", "sfc_emis", "cloud_tau_abs")
+
+
+def _field(x, name):
+    for part in name.split("."):
+        x = getattr(x, part)
+    return x
+
+
+def _with_fields(x, values: dict):
+    """``x`` with the fields named in ``values`` ("co.ftemp", "tlay", ...)
+    replaced."""
+    co = x.co._replace(**{k[3:]: v for k, v in values.items()
+                          if k.startswith("co.")})
+    return x._replace(co=co, **{k: v for k, v in values.items()
+                                if not k.startswith("co.")})
+
+
+def _fields_grad(plain, x, names, cotangents):
+    """Cotangents of the ``names`` fields of ``x`` (None for an absent one)
+    for the ``cotangents`` of ``plain(x)``'s outputs: its autograd,
+    recomputed."""
+    with torch.enable_grad():
+        leaves = {k: _field(x, k).detach().requires_grad_() for k in names
+                  if _field(x, k) is not None}
+        got = dict(zip(leaves, torch.autograd.grad(
+            plain(_with_fields(x, leaves)), tuple(leaves.values()),
+            cotangents)))
+    return tuple(got.get(k) for k in names)
+
+
+def _fused_adjoint(bwd, names, x, *grads):
+    """The adjoint ``bwd``'s cotangents of the ``names`` fields, as an
+    input-shaped template for :func:`autodiff.with_adjoint`."""
+    return _with_fields(none_like(x), dict(zip(names, bwd(x, *grads))))
+
+
+def _check(x: LWFusedInputs, what: str) -> dict:
+    """The kernels' shape, dtype and contiguity checks; returns sizes."""
     co = x.co
     nlay, ncol = x.tlay.shape
     ntemp, neta, npres1, ngpt = x.kmajor.shape
@@ -90,7 +133,7 @@ def lw_fused(x: LWFusedInputs):
     nbnd = x.totplnk.shape[1]
     ncl, ncu = x.kminor_lower.shape[2], x.kminor_upper.shape[2]
     if ngpt > 1024:
-        raise ValueError(f"lw_fused: {ngpt} g-points exceed one CUDA block")
+        raise ValueError(f"{what}: {ngpt} g-points exceed one CUDA block")
     f32, i32 = torch.float32, torch.int32
     cell = (nlay, ncol)
     specs = {
@@ -114,25 +157,99 @@ def lw_fused(x: LWFusedInputs):
         "sfc_emis": (x.sfc_emis, (ngpt, ncol), f32)}
     if x.cloud_tau_abs is not None:
         specs["cloud_tau_abs"] = (x.cloud_tau_abs, (nbnd,) + cell, f32)
-    check_args("lw_fused", x.tlay.device, specs)
-    tropo = co.tropo.to(i32)
+    check_args(what, x.tlay.device, specs)
+    return dict(nlay=nlay, ncol=ncol, ngpt=ngpt, neta=neta, npres1=npres1,
+                nflav=nflav, nminor=nminor, nbnd=nbnd, ncl=ncl, ncu=ncu)
+
+
+def _inputs(x: LWFusedInputs):
+    """The launchers' leading arguments: the forward kernel's inputs."""
+    co = x.co
+    return (co.jtemp, co.ftemp, co.jpress, co.fpress, co.tropo.to(torch.int32),
+            co.jeta, co.feta, co.col_mix, x.minor_scale, x.minor_meta,
+            x.kmajor, x.planck_frac, x.kminor_lower, x.kminor_upper,
+            x.gpoint_flavor, x.gpt2band, x.totplnk, x.tlay, x.tlev, x.tsfc,
+            x.sfc_emis, x.cloud_tau_abs)
+
+
+def _sizes(x: LWFusedInputs, n: dict) -> tuple:
+    return (n["ncol"], n["nlay"], n["ngpt"], n["neta"], n["npres1"],
+            n["nflav"], n["nminor"], n["ncl"], n["ncu"], x.totplnk.shape[0],
+            n["nbnd"], float(x.tp_min), float(x.tp_delta), float(x.ds),
+            math.pi * x.weight)
+
+
+def _lw_fused_kernel(x: LWFusedInputs):
+    """One launch of the forward kernel (or the twin on CPU tensors)."""
+    if on_cpu(x.tlay, "lw_fused"):
+        return lw_fused_plain(x)
+    n = _check(x, "lw_fused")
+    dev = x.tlay.device
     # per-(column, layer, g-point) scratch: tau then transmittance, and
     # Planck fraction then upward source
-    scratch = torch.empty((2, ncol, nlay, ngpt), dtype=f32,
-                          device=x.tlay.device)
-    up = torch.empty((nlay + 1, ncol), dtype=f32, device=x.tlay.device)
+    scratch = torch.empty((2, n["ncol"], n["nlay"], n["ngpt"]),
+                          dtype=torch.float32, device=dev)
+    up = torch.empty((n["nlay"] + 1, n["ncol"]), dtype=torch.float32,
+                     device=dev)
     dn = torch.empty_like(up)
-    launch("fused_lw", "launch_fused_lw", "lw_fused",
-           co.jtemp, co.ftemp, co.jpress, co.fpress, tropo, co.jeta,
-           co.feta, co.col_mix, x.minor_scale, x.minor_meta, x.kmajor,
-           x.planck_frac, x.kminor_lower, x.kminor_upper, x.gpoint_flavor,
-           x.gpt2band, x.totplnk, x.tlay, x.tlev, x.tsfc, x.sfc_emis,
-           x.cloud_tau_abs, scratch, up, dn,
-           ncol, nlay, ngpt, neta, npres1, nflav, nminor, ncl, ncu,
-           x.totplnk.shape[0], nbnd, float(x.tp_min), float(x.tp_delta),
-           float(x.ds), math.pi * x.weight)
+    launch("fused_lw", "launch_fused_lw", "lw_fused", *_inputs(x), scratch,
+           up, dn, *_sizes(x, n))
     lw_fused.launches += 1
     return up, dn
+
+
+def lw_fused_bwd_plain(x: LWFusedInputs, g_up, g_dn):
+    """Cotangents of the :data:`LW_DIFF` fields of ``x`` (None for an
+    absent cloud) for the cotangents g_up, g_dn (nlay+1, ncol) of
+    :func:`lw_fused_plain`'s fluxes: its autograd, recomputed."""
+    return _fields_grad(lw_fused_plain, x, LW_DIFF, (g_up, g_dn))
+
+
+def lw_fused_bwd(x: LWFusedInputs, g_up, g_dn):
+    """:func:`lw_fused_bwd_plain` semantics; on CUDA, one launch of the
+    hand-written adjoint kernel (counted in ``lw_fused_bwd.launches``)."""
+    if on_cpu(x.tlay, "lw_fused_bwd"):
+        return lw_fused_bwd_plain(x, g_up, g_dn)
+    refuse_grad("lw_fused_bwd", x, g_up, g_dn,
+                hint="the adjoints have no backward of their own")
+    n = _check(x, "lw_fused_bwd")
+    nlay, ncol, ngpt = n["nlay"], n["ncol"], n["ngpt"]
+    dev = x.tlay.device
+    f32 = torch.float32
+    g_up, g_dn = g_up.contiguous(), g_dn.contiguous()
+    check_args("lw_fused_bwd", dev, {"g_up": (g_up, (nlay + 1, ncol), f32),
+                                     "g_dn": (g_dn, (nlay + 1, ncol), f32)})
+    # per-(column, layer, g-point) scratch: tau, Planck fraction, and the
+    # adjoint's kept radiances and cotangents (then tau's and pf's)
+    scratch = torch.empty((4, ncol, nlay, ngpt), dtype=f32, device=dev)
+    co = x.co
+    bars = (torch.empty_like(co.ftemp), torch.empty_like(co.fpress),
+            torch.empty_like(co.feta), torch.empty_like(co.col_mix),
+            torch.empty_like(x.minor_scale), torch.empty_like(x.tlay),
+            torch.empty_like(x.tlev), torch.empty_like(x.tsfc),
+            torch.empty_like(x.sfc_emis),
+            None if x.cloud_tau_abs is None
+            else torch.empty_like(x.cloud_tau_abs))
+    ft, fp, fe, cm, ms, tl, tv, ts, em, cl = bars
+    launch("fused_lw_bwd", "launch_fused_lw_bwd", "lw_fused_bwd",
+           *_inputs(x), g_up, g_dn, scratch, ft, fp, fe, cm, ms, cl, tl, tv,
+           ts, em, *_sizes(x, n))
+    lw_fused_bwd.launches += 1
+    return bars
+
+
+lw_fused_bwd.launches = 0
+
+
+def lw_fused(x: LWFusedInputs):
+    """:func:`lw_fused_plain` semantics; on CUDA, one launch of the
+    hand-written kernel (counted in ``lw_fused.launches``). Differentiable
+    with respect to the :data:`LW_DIFF` fields: the backward is one launch
+    of the adjoint kernel on CUDA (:func:`lw_fused_bwd`), the twin's
+    gradient on the CPU."""
+    return with_adjoint(
+        _lw_fused_kernel, lw_fused_plain,
+        lambda a, *g: (_fused_adjoint(lw_fused_bwd, LW_DIFF, *a, *g),), x)
 
 
 lw_fused.launches = 0

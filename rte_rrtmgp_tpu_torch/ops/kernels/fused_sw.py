@@ -12,7 +12,12 @@ dtype), Meador-Weaver two-stream with the reference's clamps and night
 masking, the direct beam, Shonk-Hogan adding, and the broadband sums.
 
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
-CPU tensor to :func:`sw_fused_plain`.
+CPU tensor to :func:`sw_fused_plain`. :func:`sw_fused` is differentiable:
+its backward is the adjoint kernel ``csrc/fused_sw_bwd.cu``
+(:func:`sw_fused_bwd`, replacing the TPU kernel ``ops/pallas/
+fused_sw_bwd.py::_sw_fused_bwd``) on CUDA tensors and the twin's gradient
+on CPU tensors, with respect to the fields of :data:`SW_DIFF`; the
+tables, the integer indices and ``tropo`` are constants.
 """
 from __future__ import annotations
 
@@ -23,11 +28,13 @@ import torch
 
 from ..gas_optics import InterpCoeffs, tau_major, tau_minor, tau_rayleigh
 from ._build import check_args, launch, on_cpu
-from .fused_lw import _split_minors
+from .autodiff import refuse_grad, with_adjoint
+from .fused_lw import _fields_grad, _fused_adjoint, _split_minors
 from .solver_lanes import increment_2str_bybnd
 from .solver_sw import sw_2stream_plain
 
-__all__ = ["SWFusedInputs", "sw_fused", "sw_fused_plain"]
+__all__ = ["SWFusedInputs", "SW_DIFF", "sw_fused", "sw_fused_plain",
+           "sw_fused_bwd", "sw_fused_bwd_plain"]
 
 # the cloud combine's guard is float32's tiny in every dtype, as in the
 # TPU kernel (fused_sw.py:47) and its XLA reference (gas_optics.py:734)
@@ -76,11 +83,13 @@ def sw_fused_plain(x: SWFusedInputs):
     return up.T, dn.T, fdir.T
 
 
-def sw_fused(x: SWFusedInputs):
-    """:func:`sw_fused_plain` semantics; on CUDA, one launch of the
-    hand-written kernel (counted in ``sw_fused.launches``)."""
-    if on_cpu(x.mu0, "sw_fused"):
-        return sw_fused_plain(x)
+# the differentiable inputs, in the order of sw_fused_bwd's cotangents
+SW_DIFF = ("co.ftemp", "co.fpress", "co.feta", "co.col_mix", "minor_scale",
+           "rayscale", "cloud", "mu0", "sfc_alb_dir", "sfc_alb_dif", "inc")
+
+
+def _check(x: SWFusedInputs, what: str) -> dict:
+    """The kernels' shape, dtype and contiguity checks; returns sizes."""
     co = x.co
     nlay, ncol = x.mu0.shape
     ntemp, neta, npres1, ngpt = x.kmajor.shape
@@ -88,7 +97,7 @@ def sw_fused(x: SWFusedInputs):
     nminor = len(x.minors)
     ncl, ncu = x.kminor_lower.shape[2], x.kminor_upper.shape[2]
     if ngpt > 1024:
-        raise ValueError(f"sw_fused: {ngpt} g-points exceed one CUDA block")
+        raise ValueError(f"{what}: {ngpt} g-points exceed one CUDA block")
     f32, i32 = torch.float32, torch.int32
     cell = (nlay, ncol)
     specs = {
@@ -112,23 +121,96 @@ def sw_fused(x: SWFusedInputs):
         "inc": (x.inc, (ngpt, ncol), f32)}
     if x.cloud is not None:
         specs["cloud"] = (x.cloud, (3, x.cloud.shape[1]) + cell, f32)
-    check_args("sw_fused", x.mu0.device, specs)
-    tropo = co.tropo.to(i32)
+    check_args(what, x.mu0.device, specs)
+    return dict(nlay=nlay, ncol=ncol, ngpt=ngpt, neta=neta, npres1=npres1,
+                nflav=nflav, nminor=nminor, ncl=ncl, ncu=ncu,
+                nbnd=0 if x.cloud is None else x.cloud.shape[1])
+
+
+def _inputs(x: SWFusedInputs):
+    """The launchers' leading arguments: the forward kernel's inputs."""
+    co = x.co
+    return (co.jtemp, co.ftemp, co.jpress, co.fpress, co.tropo.to(torch.int32),
+            co.jeta, co.feta, co.col_mix, x.minor_scale, x.minor_meta,
+            x.kmajor, x.kminor_lower, x.kminor_upper, x.krayl,
+            x.gpoint_flavor, x.gpt2band, x.rayscale, x.cloud, x.mu0,
+            x.sfc_alb_dir, x.sfc_alb_dif, x.inc)
+
+
+def _sizes(n: dict) -> tuple:
+    return (n["ncol"], n["nlay"], n["ngpt"], n["neta"], n["npres1"],
+            n["nflav"], n["nminor"], n["ncl"], n["ncu"], n["nbnd"])
+
+
+def _sw_fused_kernel(x: SWFusedInputs):
+    """One launch of the forward kernel (or the twin on CPU tensors)."""
+    if on_cpu(x.mu0, "sw_fused"):
+        return sw_fused_plain(x)
+    n = _check(x, "sw_fused")
+    dev = x.mu0.device
+    nlay, ncol = n["nlay"], n["ncol"]
     # per-(column, level, g-point) scratch: rdif, tdif, source_dn,
     # source_up (then the adding denominator), albedo, source
-    scratch = torch.empty((6, ncol, nlay + 1, ngpt), dtype=f32,
-                          device=x.mu0.device)
-    out = torch.empty((3, nlay + 1, ncol), dtype=f32, device=x.mu0.device)
-    launch("fused_sw", "launch_fused_sw", "sw_fused",
-           co.jtemp, co.ftemp, co.jpress, co.fpress, tropo, co.jeta,
-           co.feta, co.col_mix, x.minor_scale, x.minor_meta, x.kmajor,
-           x.kminor_lower, x.kminor_upper, x.krayl, x.gpoint_flavor,
-           x.gpt2band, x.rayscale, x.cloud, x.mu0, x.sfc_alb_dir,
-           x.sfc_alb_dif, x.inc, scratch, out,
-           ncol, nlay, ngpt, neta, npres1, nflav, nminor, ncl, ncu,
-           0 if x.cloud is None else x.cloud.shape[1])
+    scratch = torch.empty((6, ncol, nlay + 1, n["ngpt"]),
+                          dtype=torch.float32, device=dev)
+    out = torch.empty((3, nlay + 1, ncol), dtype=torch.float32, device=dev)
+    launch("fused_sw", "launch_fused_sw", "sw_fused", *_inputs(x), scratch,
+           out, *_sizes(n))
     sw_fused.launches += 1
     return out[0], out[1], out[2]
+
+
+def sw_fused_bwd_plain(x: SWFusedInputs, g_up, g_dn, g_dir):
+    """Cotangents of the :data:`SW_DIFF` fields of ``x`` (None for an
+    absent cloud) for the cotangents g_up, g_dn, g_dir (nlay+1, ncol) of
+    :func:`sw_fused_plain`'s fluxes: its autograd, recomputed."""
+    return _fields_grad(sw_fused_plain, x, SW_DIFF, (g_up, g_dn, g_dir))
+
+
+def sw_fused_bwd(x: SWFusedInputs, g_up, g_dn, g_dir):
+    """:func:`sw_fused_bwd_plain` semantics; on CUDA, one launch of the
+    hand-written adjoint kernel (counted in ``sw_fused_bwd.launches``)."""
+    if on_cpu(x.mu0, "sw_fused_bwd"):
+        return sw_fused_bwd_plain(x, g_up, g_dn, g_dir)
+    refuse_grad("sw_fused_bwd", x, g_up, g_dn, g_dir,
+                hint="the adjoints have no backward of their own")
+    n = _check(x, "sw_fused_bwd")
+    nlay, ncol, ngpt = n["nlay"], n["ncol"], n["ngpt"]
+    dev = x.mu0.device
+    f32 = torch.float32
+    gs = tuple(g.contiguous() for g in (g_up, g_dn, g_dir))
+    check_args("sw_fused_bwd", dev, {
+        k: (g, (nlay + 1, ncol), f32)
+        for k, g in zip(("g_up", "g_dn", "g_dir"), gs)})
+    # scratch: the layer optics (3 fields of (column, layer, g-point)) and
+    # the adjoint's 13 of (column, level, g-point)
+    scratch = torch.empty((3 * nlay + 13 * (nlay + 1)) * ncol * ngpt,
+                          dtype=f32, device=dev)
+    co = x.co
+    bars = (torch.empty_like(co.ftemp), torch.empty_like(co.fpress),
+            torch.empty_like(co.feta), torch.empty_like(co.col_mix),
+            torch.empty_like(x.minor_scale), torch.empty_like(x.rayscale),
+            None if x.cloud is None else torch.empty_like(x.cloud),
+            torch.empty_like(x.mu0), torch.empty_like(x.sfc_alb_dir),
+            torch.empty_like(x.sfc_alb_dif), torch.empty_like(x.inc))
+    launch("fused_sw_bwd", "launch_fused_sw_bwd", "sw_fused_bwd",
+           *_inputs(x), *gs, scratch, *bars, *_sizes(n))
+    sw_fused_bwd.launches += 1
+    return bars
+
+
+sw_fused_bwd.launches = 0
+
+
+def sw_fused(x: SWFusedInputs):
+    """:func:`sw_fused_plain` semantics; on CUDA, one launch of the
+    hand-written kernel (counted in ``sw_fused.launches``). Differentiable
+    with respect to the :data:`SW_DIFF` fields: the backward is one launch
+    of the adjoint kernel on CUDA (:func:`sw_fused_bwd`), the twin's
+    gradient on the CPU."""
+    return with_adjoint(
+        _sw_fused_kernel, sw_fused_plain,
+        lambda a, *g: (_fused_adjoint(sw_fused_bwd, SW_DIFF, *a, *g),), x)
 
 
 sw_fused.launches = 0

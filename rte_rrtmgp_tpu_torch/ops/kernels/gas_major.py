@@ -9,7 +9,9 @@ the 8-corner (temperature, eta, pressure) lerp of kmajor times col_mix,
 and of the Planck fraction from the same corners.
 
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
-CPU tensor to :func:`gas_major_plain`.
+CPU tensor to :func:`gas_major_plain`. The kernel has no backward of its
+own: on CUDA it refuses inputs that require grad, and callers take the
+twin's gradient through ``autodiff.with_twin_grad``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from ..gas_optics import InterpCoeffs, tau_major
 from ._build import check_args, launch, on_cpu
+from .autodiff import refuse_grad
 
 __all__ = ["gas_major", "gas_major_plain"]
 
@@ -35,6 +38,9 @@ def gas_major(co: InterpCoeffs, kmajor, planck_frac, gpoint_flavor):
     hand-written kernel (counted in ``gas_major.launches``)."""
     if on_cpu(co.ftemp, "gas_major"):
         return gas_major_plain(co, kmajor, planck_frac, gpoint_flavor)
+    refuse_grad("gas_major", co, kmajor, planck_frac,
+                hint="gas_optics differentiates it through "
+                "autodiff.with_twin_grad")
     cells = tuple(co.jtemp.shape)
     ncell = co.jtemp.numel()
     ntemp, neta, npres1, ngpt = kmajor.shape

@@ -11,7 +11,11 @@ the absorption/Rayleigh combine of ``models/rrtmgp/gas_optics.py:344-358``
 
 Both add into ``tau`` (cells of any shape S, then g-points) in place. A
 CUDA tensor goes to the kernel (float32 only; anything else raises), a
-CPU tensor to the twin.
+CPU tensor to the twin. The kernels have no backward of their own: on
+CUDA they refuse inputs that require grad, and gas_optics takes the
+twins' gradient out of place (on a copy of tau, :func:`rayleigh_combine`
+and ``ops/gas_optics.py::tau_minor``) through
+``autodiff.with_twin_grad``.
 """
 from __future__ import annotations
 
@@ -19,9 +23,13 @@ import torch
 
 from ..gas_optics import InterpCoeffs, tau_minor, tau_rayleigh
 from ._build import check_args, launch, on_cpu
+from .autodiff import refuse_grad
 
 __all__ = ["gas_minor", "gas_minor_plain", "gas_rayleigh",
-           "gas_rayleigh_plain"]
+           "gas_rayleigh_plain", "rayleigh_combine"]
+
+_HINT = ("gas_optics differentiates it out of place through "
+         "autodiff.with_twin_grad")
 
 
 def gas_minor_plain(tau, co: InterpCoeffs, kminor, minors, minor_meta,
@@ -43,6 +51,7 @@ def gas_minor(tau, co: InterpCoeffs, kminor, minors, minor_meta, scaling):
     on the device, the same gases as ``minors``."""
     if on_cpu(tau, "gas_minor"):
         return gas_minor_plain(tau, co, kminor, minors, minor_meta, scaling)
+    refuse_grad("gas_minor", tau, co, kminor, scaling, hint=_HINT)
     cells = tuple(co.jtemp.shape)
     ncell = co.jtemp.numel()
     ngpt = tau.shape[-1]
@@ -76,14 +85,23 @@ def gas_rayleigh_plain(tau, co: InterpCoeffs, krayl, gpoint_flavor,
     cell's atmosphere, times ``rayscale`` = col_h2o + col_dry, (*S)) into
     ``tau`` (*S, ngpt) in place. Returns (tau, ssa), ssa = tau_rayleigh /
     tau where tau > 2 tiny (else 0), or None without ``scattering``."""
+    t, ssa = rayleigh_combine(tau, co, krayl, gpoint_flavor, rayscale,
+                              scattering)
+    tau.copy_(t)
+    return tau, ssa
+
+
+def rayleigh_combine(tau, co: InterpCoeffs, krayl, gpoint_flavor, rayscale,
+                     scattering: bool = True):
+    """:func:`gas_rayleigh_plain` out of place: (tau + tau_rayleigh, ssa or
+    None), ``tau`` untouched."""
     ray = tau_rayleigh(co, krayl, gpoint_flavor, rayscale).movedim(0, -1)
     t = tau + ray
     ssa = None
     if scattering:
         big = t > 2.0 * torch.finfo(t.dtype).tiny
         ssa = torch.where(big, ray / torch.where(big, t, 1.0), 0.0)
-    tau.copy_(t)
-    return tau, ssa
+    return t, ssa
 
 
 def gas_rayleigh(tau, co: InterpCoeffs, krayl, gpoint_flavor, rayscale,
@@ -93,6 +111,7 @@ def gas_rayleigh(tau, co: InterpCoeffs, krayl, gpoint_flavor, rayscale,
     if on_cpu(tau, "gas_rayleigh"):
         return gas_rayleigh_plain(tau, co, krayl, gpoint_flavor, rayscale,
                                   scattering)
+    refuse_grad("gas_rayleigh", tau, co, krayl, rayscale, hint=_HINT)
     cells = tuple(co.jtemp.shape)
     ncell = co.jtemp.numel()
     ntemp, neta, ngpt, _ = krayl.shape

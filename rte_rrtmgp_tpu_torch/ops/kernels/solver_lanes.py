@@ -17,7 +17,9 @@ The twins run the public-layout solvers (``lw_noscat_plain`` and
 ``sw_2stream_plain``) on permuted views, after the pfrac-source or the
 Rayleigh/cloud-combine prologue of the two solvers that do their own.
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
-CPU tensor to the twin. Each wrapper counts its launches.
+CPU tensor to the twin. Each wrapper counts its launches. The staged
+branch has no gradient on the card, as the JAX package gives its lane
+kernels none: on CUDA the wrappers raise when an input requires grad.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 from ...constants import PI
 from ..gas_optics import level_pfrac
 from ._build import check_strided, launch, on_cpu, strided
+from .autodiff import refuse_grad
 from .solver_lw import lw_noscat_plain
 from .solver_sw import sw_2stream_plain
 
@@ -59,6 +62,12 @@ def _lw_options(tau, sfc_src, ssa, g, sfc_src_jac, do_rescaling,
     else:
         sfc_src_jac = None
     return ssa, g, sfc_src_jac
+
+
+def _no_grad(what, *args):
+    refuse_grad(what, *args, hint="the staged lane-layout path "
+                "(allsky_staged_lw/sw) is not differentiable on the card; "
+                "take gradients through the fused step or the public API")
 
 
 def _block(what, ngpt):
@@ -100,6 +109,8 @@ def lw_noscat_lanes(tau, lay_source, lev_source, sfc_emis, sfc_src,
             do_rescaling=do_rescaling, do_jacobians=do_jacobians)
     ssa, g, sfc_src_jac = _lw_options(tau, sfc_src, ssa, g, sfc_src_jac,
                                       do_rescaling, do_jacobians)
+    _no_grad("lw_noscat_lanes", tau, lay_source, lev_source, sfc_emis,
+             sfc_src, inc_flux, ssa, g, sfc_src_jac)
     ngpt, nlay, ncol = tau.shape
     _block("lw_noscat_lanes", ngpt)
     f32 = torch.float32
@@ -163,6 +174,8 @@ def lw_noscat_lanes_pfrac(tau, pfrac, pb_lay, pb_lev, pb_sfc, sfc_emis,
         return lw_noscat_lanes_pfrac_plain(
             tau, pfrac, pb_lay, pb_lev, pb_sfc, sfc_emis, inc_flux, ds=ds,
             weight=weight, gpt2band=gpt2band, cloud_tau_abs=cloud_tau_abs)
+    _no_grad("lw_noscat_lanes_pfrac", tau, pfrac, pb_lay, pb_lev, pb_sfc,
+             sfc_emis, inc_flux, cloud_tau_abs)
     ngpt, nlay, ncol = tau.shape
     nbnd = pb_lay.shape[0]
     _block("lw_noscat_lanes_pfrac", ngpt)
@@ -242,6 +255,8 @@ def sw_2stream_lanes(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
         return sw_2stream_lanes_plain(tau, ssa, g, mu0, sfc_alb_dir,
                                       sfc_alb_dif, inc_flux_dir,
                                       inc_flux_dif)
+    _no_grad("sw_2stream_lanes", tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
+             inc_flux_dir, inc_flux_dif)
     ngpt, nlay, ncol = tau.shape
     _block("sw_2stream_lanes", ngpt)
     lay3, f32 = (ngpt, nlay, ncol), torch.float32
@@ -269,8 +284,10 @@ def increment_2str_bybnd(tau, ssa, cloud, gpt2band, tiny):
     o_tau, o_ssa, o_g = (x[gpt2band.long()] for x in cloud)
     t = tau + o_tau
     tauscat = tau * ssa + o_tau * o_ssa
-    g12 = (o_tau * o_ssa * o_g) / torch.clamp(tauscat, min=tiny)
-    ssa12 = tauscat / torch.clamp(t, min=tiny)
+    # maximum, not clamp: at a tie the gradient splits half and half, as
+    # jnp.maximum's does in the JAX package
+    g12 = (o_tau * o_ssa * o_g) / torch.maximum(tauscat, t.new_tensor(tiny))
+    ssa12 = tauscat / torch.maximum(t, t.new_tensor(tiny))
     return (t, torch.where(t > 2.0 * tiny, ssa12, ssa),
             torch.where(tauscat > 2.0 * tiny, g12, 0.0))
 
@@ -303,6 +320,8 @@ def sw_2stream_lanes_combined(tau_abs, tau_ray, cloud, mu0, sfc_alb_dir,
         return sw_2stream_lanes_combined_plain(
             tau_abs, tau_ray, cloud, mu0, sfc_alb_dir, sfc_alb_dif,
             inc_flux_dir, inc_flux_dif, gpt2band=gpt2band)
+    _no_grad("sw_2stream_lanes_combined", tau_abs, tau_ray, cloud, mu0,
+             sfc_alb_dir, sfc_alb_dif, inc_flux_dir, inc_flux_dif)
     ngpt, nlay, ncol = tau_abs.shape
     _block("sw_2stream_lanes_combined", ngpt)
     lay3, f32 = (ngpt, nlay, ncol), torch.float32

@@ -9,7 +9,10 @@ flux, the surface term, the up sweep, optionally Tang rescaling (ssa, g)
 and the surface Jacobian, and the broadband sum times pi * weight.
 
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
-CPU tensor to :func:`lw_noscat_plain`.
+CPU tensor to :func:`lw_noscat_plain`. The kernel has no backward of its
+own: on CUDA it refuses inputs that require grad; ``ops/solver_lw.py``
+differentiates it (``solver_lw_bwd.lw_noscat_vjp``, or the twin's
+gradient through ``autodiff.with_twin_grad``).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from ...constants import PI
 from ..solver_lw import _oneangle
 from ._build import check_args, launch, on_cpu
+from .autodiff import refuse_grad
 
 __all__ = ["lw_noscat", "lw_noscat_plain"]
 
@@ -44,6 +48,9 @@ def lw_noscat(tau, lay, lev, sfc_emis, sfc_src, inc_flux, *, ds,
         return lw_noscat_plain(tau, lay, lev, sfc_emis, sfc_src, inc_flux,
                                ds=ds, weight=weight, sfc_src_jac=sfc_src_jac,
                                ssa=ssa, g=g)
+    refuse_grad("lw_noscat", tau, lay, lev, sfc_emis, sfc_src, inc_flux, ds,
+                sfc_src_jac, ssa, g, hint="ops/solver_lw.lw_solver_noscat "
+                "differentiates it (solver_lw_bwd.lw_noscat_vjp)")
     ncol, nlay, ngpt = tau.shape
     if ngpt > 1024:
         raise ValueError(f"lw_noscat: {ngpt} g-points exceed one CUDA block")

@@ -9,7 +9,9 @@ clamps, night masking by mu0 > 0 per layer, the direct beam, Shonk-Hogan
 adding from the diffuse flux at the top, and the broadband sums.
 
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
-CPU tensor to :func:`sw_2stream_plain`.
+CPU tensor to :func:`sw_2stream_plain`. The kernel has no backward of its
+own: on CUDA it refuses inputs that require grad; ``ops/solver_sw.py``
+differentiates it through ``solver_sw_bwd.sw_2stream_vjp``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from ..solver_sw import two_stream
 from ._build import check_args, launch, on_cpu
+from .autodiff import refuse_grad
 
 __all__ = ["sw_2stream", "sw_2stream_plain"]
 
@@ -38,6 +41,10 @@ def sw_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
     if on_cpu(tau, "sw_2stream"):
         return sw_2stream_plain(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
                                 inc_flux_dir, inc_flux_dif)
+    refuse_grad("sw_2stream", tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
+                inc_flux_dir, inc_flux_dif, hint="ops/solver_sw."
+                "sw_solver_2stream differentiates it (solver_sw_bwd."
+                "sw_2stream_vjp)")
     ncol, nlay, ngpt = tau.shape
     if ngpt > 1024:
         raise ValueError(f"sw_2stream: {ngpt} g-points exceed one CUDA block")

@@ -53,7 +53,8 @@ def lw_source_noscat(lay_source, lev_top, lev_bot, tau, trans):
     source_up): "dn" exits the layer bottom, "up" its top."""
     finfo = torch.finfo(tau.dtype)
     tau_thresh = math.sqrt(math.sqrt(finfo.eps))
-    fact_big = (1.0 - trans) / torch.clamp(tau, min=finfo.tiny) - trans
+    safe_tau = torch.maximum(tau, tau.new_tensor(finfo.tiny))
+    fact_big = (1.0 - trans) / safe_tau - trans
     fact_small = tau * (0.5 + tau * (-1.0 / 3.0 + tau * (1.0 / 8.0)))
     fact = torch.where(tau > tau_thresh, fact_big, fact_small)
     source_dn = (1.0 - trans) * lev_bot + 2.0 * fact * (lay_source - lev_bot)
@@ -120,6 +121,15 @@ def _oneangle(tau, lay_source, lev_source, sfc_emis, sfc_src, inc_flux, ds,
     return up, dn, jac
 
 
+def _one_angle(solve, weight):
+    """``solve`` (lw_noscat or its twin) on positional (tau, lay, lev,
+    sfc_emis, sfc_src, inc_flux, ds, sfc_src_jac, ssa, g), the weight bound
+    now: a Function's backward calls it after the angle loop has moved
+    on."""
+    return lambda *a: solve(*a[:6], ds=a[6], weight=weight,
+                            sfc_src_jac=a[7], ssa=a[8], g=a[9])
+
+
 def lw_solver_noscat(tau, lay_source, lev_source, sfc_emis, sfc_src,
                      inc_flux, *, top_at_1: bool, ds, weights,
                      sfc_src_jac=None, ssa=None, g=None,
@@ -131,8 +141,14 @@ def lw_solver_noscat(tau, lay_source, lev_source, sfc_emis, sfc_src,
     the quadrature weights. Broadband output goes through the one-angle
     kernel (``ops/kernels/solver_lw``: the CUDA kernel on a CUDA tensor,
     its plain twin on a CPU one); ``spectral`` output is plain tensor code.
-    Fluxes in W/m2."""
-    from .kernels.solver_lw import lw_noscat
+    Fluxes in W/m2. Differentiable: one angle with a scalar secant, no
+    rescaling and no Jacobian takes the adjoint kernel on the backward
+    (``solver_lw_bwd.lw_noscat_vjp``, the JAX dispatch rule of
+    ops/solver_lw.py:338-350), any other broadband solve the twin's
+    gradient."""
+    from .kernels.autodiff import with_twin_grad
+    from .kernels.solver_lw import lw_noscat, lw_noscat_plain
+    from .kernels.solver_lw_bwd import lw_noscat_vjp
 
     if not top_at_1:
         flip = lambda x: None if x is None else torch.flip(x, [1])
@@ -159,12 +175,18 @@ def lw_solver_noscat(tau, lay_source, lev_source, sfc_emis, sfc_src,
             u, dd = u * piw, dd * piw
             j = None if j is None else j * piw
         else:
-            c = lambda x: None if x is None else x.contiguous()
-            u, dd, j = lw_noscat(c(tau), c(lay_source), c(lev_source),
-                                 c(sfc_emis), c(sfc_src), c(inc_flux),
-                                 ds=c(d) if isinstance(d, torch.Tensor) else d,
-                                 weight=float(w), sfc_src_jac=c(sfc_src_jac),
-                                 ssa=c(ssa), g=c(g))
+            c = lambda x: x.contiguous() if isinstance(x, torch.Tensor) else x
+            fields = tuple(c(x) for x in (tau, lay_source, lev_source,
+                                          sfc_emis, sfc_src, inc_flux))
+            if (len(weights) == 1 and not isinstance(d, torch.Tensor)
+                    and ssa is None and sfc_src_jac is None):
+                (u, dd), j = lw_noscat_vjp(*fields, ds=d,
+                                           weight=float(w)), None
+            else:
+                u, dd, j = with_twin_grad(
+                    _one_angle(lw_noscat, float(w)),
+                    _one_angle(lw_noscat_plain, float(w)), *fields, c(d),
+                    c(sfc_src_jac), c(ssa), c(g))
         up = u if up is None else up + u
         dn = dd if dn is None else dn + dd
         jac = j if jac is None else jac + j

@@ -57,15 +57,17 @@ def sw_dif_and_source(tau, w0, g, mu0, inc_flux_dir, sfc_alb_dir):
     min_mu0 = math.sqrt(eps)
     gamma1 = (8.0 - w0 * (5.0 + 3.0 * g)) * 0.25
     gamma2 = 3.0 * (w0 * (1.0 - g)) * 0.25
-    k = torch.sqrt(torch.clamp((gamma1 - gamma2) * (gamma1 + gamma2),
-                               min=min_k))
+    # maximum/minimum rather than clamp: at a tie the gradient splits
+    # half and half, as jnp.maximum's and jnp.clip's do in the JAX package
+    lo = lambda x, c: torch.maximum(x, x.new_tensor(c))
+    k = torch.sqrt(lo((gamma1 - gamma2) * (gamma1 + gamma2), min_k))
     e1 = torch.exp(-tau * k)
     e2 = e1 * e1
     rt = 1.0 / (k * (1.0 + e2) + gamma1 * (1.0 - e2))
     rdif = rt * gamma2 * (1.0 - e2)          # MW Eq 25
     tdif = rt * 2.0 * k * e1                 # MW Eq 26
 
-    mu0_s = torch.clamp(mu0e, min=min_mu0)
+    mu0_s = lo(mu0e, min_mu0)
     k_mu = k * mu0_s
     denom = 1.0 - k_mu * k_mu
     denom = torch.where(torch.abs(denom) >= eps, denom, eps)
@@ -84,8 +86,8 @@ def sw_dif_and_source(tau, w0, g, mu0, inc_flux_dir, sfc_alb_dir):
                    - (1.0 - k_mu) * (alpha1 - k_g4) * e2 * tnoscat
                    - 2.0 * (k_g4 + alpha1 * k_mu) * e1)
     # energy-safety clamps (reference :1103-1108)
-    rdir = torch.minimum(torch.clamp(rdir, min=0.0), 1.0 - tnoscat)
-    tdir = torch.minimum(torch.clamp(tdir, min=0.0), 1.0 - tnoscat - rdir)
+    rdir = torch.minimum(lo(rdir, 0.0), 1.0 - tnoscat)
+    tdir = torch.minimum(lo(tdir, 0.0), 1.0 - tnoscat - rdir)
 
     # direct beam at levels: cumulative transmission
     seed = (inc_flux_dir * mu0[:, :1])[:, None]
@@ -124,8 +126,10 @@ def sw_solver_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
     tau/ssa/g (ncol, nlay, ngpt); mu0 (ncol, nlay), per layer for
     spherical geometry; boundary fields (ncol, ngpt). Broadband output
     goes through ``ops/kernels/solver_sw`` (the CUDA kernel on a CUDA
-    tensor, its twin on a CPU one); ``spectral`` output is plain code."""
-    from .kernels.solver_sw import sw_2stream
+    tensor, its twin on a CPU one); ``spectral`` output is plain code.
+    Differentiable: the broadband solve's backward is the adjoint kernel
+    (``solver_sw_bwd.sw_2stream_vjp``, JAX ops/solver_sw.py:196-208)."""
+    from .kernels.solver_sw_bwd import sw_2stream_vjp
 
     if not top_at_1:
         tau, ssa, g = (torch.flip(x, [1]) for x in (tau, ssa, g))
@@ -135,9 +139,9 @@ def sw_solver_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
                                   inc_flux_dir, inc_flux_dif, spectral=True)
     else:
         c = lambda x: None if x is None else x.contiguous()
-        up, dn, fdir = sw_2stream(c(tau), c(ssa), c(g), c(mu0),
-                                  c(sfc_alb_dir), c(sfc_alb_dif),
-                                  c(inc_flux_dir), c(inc_flux_dif))
+        up, dn, fdir = sw_2stream_vjp(c(tau), c(ssa), c(g), c(mu0),
+                                      c(sfc_alb_dir), c(sfc_alb_dif),
+                                      c(inc_flux_dir), c(inc_flux_dif))
     if not top_at_1:
         up, dn, fdir = (torch.flip(x, [1]) for x in (up, dn, fdir))
     return SWFluxes(flux_up=up, flux_dn=dn, flux_dir=fdir)

@@ -12,7 +12,13 @@ contiguous (g-point, layer, column) copies. Kernel and twin get the same
 float32 inputs and differ in summation order and fused multiply-adds
 only: cloud optics and the gas-optics gathers within 1e-6 of the largest
 value, fluxes within 2e-6 of the largest flux (measured at the main
-paths' shapes: below 1e-7 and about 2e-7).
+paths' shapes: below 1e-7 and about 2e-7). The four adjoint kernels
+against the twins' autograd on the same inputs and seeded cotangents,
+each cotangent within 5e-4 of its largest twin value (the JAX package's
+float32 bound, tests/test_fused_autodiff.py:641-642); gradient steps
+through the fused step and the public API launch each adjoint once and
+give the same bits twice; every kernel wrapper either carries a backward
+or refuses an input that requires grad.
 """
 import pytest
 
@@ -26,9 +32,9 @@ from rte_rrtmgp_tpu_torch.ops.gas_optics import minor_scaling  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels.cloud_props import (  # noqa: E402
     cloud_props, cloud_props_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import (  # noqa: E402
-    lw_fused, lw_fused_plain)
+    lw_fused, lw_fused_bwd, lw_fused_bwd_plain, lw_fused_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import (  # noqa: E402
-    sw_fused, sw_fused_plain)
+    sw_fused, sw_fused_bwd, sw_fused_bwd_plain, sw_fused_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import (  # noqa: E402
     gas_major, gas_major_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (  # noqa: E402
@@ -39,8 +45,14 @@ from rte_rrtmgp_tpu_torch.ops.kernels.solver_lanes import (  # noqa: E402
     lw_noscat_lanes, lw_noscat_lanes_pfrac, lw_noscat_lanes_pfrac_plain,
     lw_noscat_lanes_plain, sw_2stream_lanes, sw_2stream_lanes_combined,
     sw_2stream_lanes_combined_plain, sw_2stream_lanes_plain)
+from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_bwd import (  # noqa: E402
+    lw_noscat_bwd, lw_noscat_bwd_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw import (  # noqa: E402
     sw_2stream, sw_2stream_plain)
+from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw_bwd import (  # noqa: E402
+    sw_2stream_bwd, sw_2stream_bwd_plain)
+from rte_rrtmgp_tpu_torch.optical_props import (  # noqa: E402
+    delta_scale, increment)
 
 pytestmark = pytest.mark.cuda
 
@@ -432,3 +444,184 @@ def test_lane_wrappers_refuse_float64(cuda):
         sw_2stream_lanes_combined(stau, sray, None, mu0, bc, bc, toa,
                                   gpt2band=p.gas_sw.gpt2band)
     assert [f.launches for f in LANE_KERNELS] == counts
+
+
+# ---------------------------------------------------------------------------
+# the adjoint kernels and the gradients through the port
+# ---------------------------------------------------------------------------
+
+ADJOINTS = {"fused_lw_bwd": (lw_fused_bwd, lw_fused_bwd_plain),
+            "fused_sw_bwd": (sw_fused_bwd, sw_fused_bwd_plain),
+            "lw_noscat_bwd": (lw_noscat_bwd, lw_noscat_bwd_plain),
+            "sw_2stream_bwd": (sw_2stream_bwd, sw_2stream_bwd_plain)}
+TOL_ADJ = 5e-4
+
+
+def _adjoint_args(p, cuda, name):
+    """The arguments and keywords of one adjoint on the inputs its path
+    gives it (clouds on) and seeded cotangents of the broadband fluxes;
+    the SW solver gets a night column and low suns."""
+    inp = p.inputs
+    ncol, nlay = inp.play.shape
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    cot = lambda *s: 0.5 + torch.rand(s, generator=gen, device=cuda)
+    if name == "fused_lw_bwd":
+        x = allsky_lw_inputs(inp, p.gas_lw, cloud_optics=p.cld_lw)
+        return (x, cot(nlay + 1, ncol), cot(nlay + 1, ncol)), {}
+    if name == "fused_sw_bwd":
+        x = allsky_sw_inputs(inp, p.gas_sw, cloud_optics=p.cld_sw)
+        return (x,) + tuple(cot(nlay + 1, ncol) for _ in range(3)), {}
+    if name == "lw_noscat_bwd":
+        props, src = p.gas_lw.gas_optics_lw(inp.play, inp.plev, inp.tlay,
+                                            inp.tsfc, inp.gas_concs,
+                                            tlev=inp.tlev, top_at_1=True)
+        props = increment(props, p.cld_lw.cloud_optics(
+            inp.lwp, inp.iwp, inp.rel, inp.dei, scattering=False))
+        emis = inp.sfc_emis.expand(ncol, props.tau.shape[2]).contiguous()
+        return ((props.tau.contiguous(), src.lay_source, src.lev_source,
+                 emis, src.sfc_source, 0.1 * emis, cot(ncol, nlay + 1),
+                 cot(ncol, nlay + 1)), dict(ds=1.66, weight=0.5))
+    props, toa = p.gas_sw.gas_optics_sw(inp.play, inp.plev, inp.tlay,
+                                        inp.gas_concs, top_at_1=True)
+    props = increment(props, delta_scale(p.cld_sw.cloud_optics(
+        inp.lwp, inp.iwp, inp.rel, inp.dei)))
+    ngpt = props.tau.shape[2]
+    mu = torch.tensor([0.0, 1e-4, 3e-4, 1e-3, 0.05, 0.3, 0.6, 0.86, 0.99,
+                       1.0], device=cuda)[torch.arange(ncol) % 10]
+    mu0 = (mu[:, None] * torch.linspace(1.0, 0.95, nlay, device=cuda)
+           ).contiguous()
+    alb = inp.sfc_alb.expand(ncol, ngpt).contiguous()
+    inc = toa.contiguous()
+    return ((props.tau.contiguous(), props.ssa.contiguous(),
+             props.g.contiguous(), mu0, alb, 0.5 * alb, inc, 0.05 * inc)
+            + tuple(cot(ncol, nlay + 1) for _ in range(3))), {}
+
+
+@pytest.mark.parametrize("name", sorted(ADJOINTS))
+@pytest.mark.parametrize("dims", sorted(DIMS))
+def test_adjoint_kernels_match_twins(cuda, dims, name):
+    """Each cotangent within TOL_ADJ of its largest twin value, one launch
+    per call, the same bits on a second call."""
+    kernel, plain = ADJOINTS[name]
+    p = build_allsky(*DIMS[dims], device=cuda)
+    args, kw = _adjoint_args(p, cuda, name)
+    n0 = kernel.launches
+    got = kernel(*args, **kw)
+    assert kernel.launches == n0 + 1
+    ref = plain(*args, **kw)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if r is None:
+            continue
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+        assert float((g - r).abs().max()) <= TOL_ADJ * float(r.abs().max())
+    again = kernel(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+
+
+def _train_grads(step, inputs):
+    """d/d(tlay, tsfc, lwp, rel) of the weighted flux loss of one step."""
+    ncol, nlay = inputs.play.shape
+    leaves = {k: getattr(inputs, k).detach().clone().requires_grad_()
+              for k in ("tlay", "tsfc", "lwp", "rel")}
+    out = step(inputs._replace(**leaves))
+    w = torch.linspace(0.5, 1.5, nlay + 1, device=inputs.play.device)
+    loss = sum((w * f).sum() * c for f, c in zip(out, (1, 0.5, 1, 0.5)))
+    loss = loss + 0.25 * out[4].sum()
+    return torch.autograd.grad(loss, tuple(leaves.values()))
+
+
+def _api_step(p):
+    def step(inputs):
+        lw = allsky_api_lw(inputs, p.gas_lw, cloud_optics=p.cld_lw)
+        sw = allsky_api_sw(inputs, p.gas_sw, cloud_optics=p.cld_sw)
+        return (lw.flux_up, lw.flux_dn, sw.flux_up, sw.flux_dn,
+                sw.flux_dn_dir)
+    return step
+
+
+@pytest.mark.parametrize("path", ["fused", "fused-aerosols", "api"])
+def test_gradient_step_launches_adjoints(cuda, path):
+    """A gradient step launches each adjoint of its path once and no
+    other; finite gradients, not all zero, the same bits twice."""
+    if path == "api":
+        p = build_allsky(*DIMS["g32"], device=cuda)
+        step, inputs = _api_step(p), p.inputs
+        want = {lw_noscat_bwd, sw_2stream_bwd}
+    else:
+        step, inputs = build_allsky_step(
+            *DIMS["g32"], device=cuda, use_aerosols=path != "fused")
+        want = {lw_fused_bwd, sw_fused_bwd}
+    counters = tuple(k for k, _ in ADJOINTS.values())
+    before = {f: f.launches for f in counters}
+    grads = _train_grads(step, inputs)
+    torch.cuda.synchronize()
+    assert {f: f.launches - before[f] for f in counters} == {
+        f: int(f in want) for f in counters}
+    for g in grads:
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
+    again = _train_grads(step, inputs)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_staged_path_refuses_grad(cuda):
+    """The staged lane-layout branch has no gradient on the card: its
+    solvers raise on inputs that require grad and launch nothing."""
+    p = build_allsky(*DIMS["g32"], device=cuda)
+    inp = p.inputs._replace(
+        tlay=p.inputs.tlay.detach().clone().requires_grad_())
+    counts = [f.launches for f in LANE_KERNELS]
+    with pytest.raises(ValueError, match="staged"):
+        allsky_staged_lw(inp, p.gas_lw, cloud_optics=p.cld_lw)
+    with pytest.raises(ValueError, match="staged"):
+        allsky_staged_sw(inp, p.gas_sw, cloud_optics=p.cld_sw)
+    assert [f.launches for f in LANE_KERNELS] == counts
+
+
+def test_kernel_wrappers_carry_a_backward_or_raise(cuda):
+    """Every kernel wrapper, given an input that requires grad: the
+    differentiable ones return outputs with a grad_fn, the raw ones
+    raise. No output comes back without a gradient."""
+    p = build_allsky(*DIMS["g24"], device=cuda)
+    inp = p.inputs
+    req = lambda t: t.detach().clone().requires_grad_()
+    for x in (allsky_lw_inputs(inp, p.gas_lw, cloud_optics=p.cld_lw),
+              allsky_sw_inputs(inp, p.gas_sw, cloud_optics=p.cld_sw)):
+        fused = lw_fused if hasattr(x, "tlev") else sw_fused
+        out = fused(x._replace(co=x.co._replace(ftemp=req(x.co.ftemp))))
+        assert all(o.grad_fn is not None for o in out)
+    raw = []
+    idx, fint, wp = p.cld_lw.lane_inputs(inp.lwp, inp.iwp, inp.rel, inp.dei)
+    raw.append(lambda: cloud_props(idx, fint, req(wp), *p.cld_lw.tables()))
+    co, cg, dry, h2o = _descriptors(p, p.gas_lw)
+    kd = p.gas_lw.kdist
+    co_g = co._replace(ftemp=req(co.ftemp))
+    raw.append(lambda: gas_major(co_g, kd.kmajor, kd.planck_frac,
+                                 p.gas_lw.gpoint_flavor))
+    tau = gas_major_plain(co, kd.kmajor, None, p.gas_lw.gpoint_flavor)[0]
+    nlo = len(kd.minor_lower)
+    minors = tuple(m[1:] for m in p.gas_lw.minors if m[0])
+    sc = minor_scaling(co, kd.minor_lower, lower=True, play=inp.play,
+                       tlay=inp.tlay, col_gas=cg, idx_h2o=h2o)
+    raw.append(lambda: gas_minor(req(tau), co, kd.kminor_lower, minors,
+                                 p.gas_lw.minor_meta[:nlo], sc))
+    cs, cgs, drys, h2os = _descriptors(p, p.gas_sw)
+    kds = p.gas_sw.kdist
+    taus = gas_major_plain(cs, kds.kmajor, None, p.gas_sw.gpoint_flavor)[0]
+    raw.append(lambda: gas_rayleigh(req(taus), cs, kds.krayl,
+                                    p.gas_sw.gpoint_flavor,
+                                    (cgs[h2os] + drys).contiguous()))
+    for name in ADJOINTS:
+        kernel = ADJOINTS[name][0]
+        args, kw = _adjoint_args(p, cuda, name)
+        raw.append(lambda k=kernel, a=args, kw=kw: k(
+            *a[:-1], req(a[-1]), **kw))
+        if name == "lw_noscat_bwd":
+            raw.append(lambda a=args: lw_noscat(req(a[0]), *a[1:6],
+                                                ds=1.66, weight=0.5))
+        if name == "sw_2stream_bwd":
+            raw.append(lambda a=args: sw_2stream(req(a[0]), *a[1:8]))
+    for call in raw:
+        with pytest.raises(ValueError, match="no backward"):
+            call()
