@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's three all-sky paths, and gradient steps through
-two of them, on one CUDA GPU and check them.
+"""Run the PyTorch port's three all-sky paths, the LW two-stream path, and
+gradient steps through two of them, on one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -13,10 +13,16 @@ Phases (any failure ends the run with a non-zero exit and no result):
      SW 224 / 14, ntemp 14, npres 59; the staged path's plain lane
      solvers on the non-banded configuration, LW 192 / 16 and SW 168 / 14,
      the only one on which the JAX package's dispatch reaches them; the
-     lane solvers with clouds and aerosols), with the median CUDA-event
-     time of both and the card's lower bound for the same work; the four
-     adjoint kernels against the twins' autograd on the same inputs and
-     seeded flux cotangents (see TOL_ADJ);
+     lane solvers with clouds and aerosols; the LW two-stream kernel on
+     the two-stream path's inputs, clouds at scattering=True), with the
+     median CUDA-event time of both and the card's lower bound for the same
+     work; the four adjoint kernels against the twins' autograd on the same
+     inputs and seeded flux cotangents (see TOL_ADJ); then the variants
+     the paths can ask for, each against its twin and timed, logged but
+     not in the kernels line: by-band output of the fused LW and SW steps
+     and of the LW no-scattering, LW two-stream and SW solvers, the fused
+     steps with an incident flux (LW) and a diffuse one (SW), and their
+     adjoints with the same;
   4. golden gates at the production configuration (256 x 72): the float32
      fused step, public-API path and staged path against
      tests/golden/production.npz, and the float32 aerosols step (fused)
@@ -24,7 +30,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
      within 3x tests/golden/production_f32_noise.json; the fused path's
      d(TOA LW up)/d(tsfc) against the analytic surface Jacobian, and the
      float32 training-loss gradients against the float64 twin's on the
-     CPU (printed as the gradient noise floor);
+     CPU (printed as the gradient noise floor); the float32 LW two-stream
+     path against the port's float64 twin of it on the CPU (no two-stream
+     golden is committed), within the same 3x noise floor;
   5. the paths at 4096 x 72, each with the launch counters set to 0 just
      before it, the kernels it must and must not launch, finite
      non-negative outputs, TOA SW down equal to the solar source times
@@ -36,20 +44,29 @@ Phases (any failure ends the run with a non-zero exit and no result):
      staged and public-API paths; the clear-sky configuration on the
      fused and staged paths (no cloud optics launched). Every path is
      held against the fused one on the same inputs within rtol 3e-5 /
-     atol 5e-4 W/m2; then where the time goes (torch.profiler over 3
-     steps of the fused, public-API, staged and aerosols fused paths:
-     device time by kernel, device busy share); then two gradient steps
+     atol 5e-4 W/m2. The fused step by band, its band sums against its
+     broadband fluxes; the LW two-stream path (gas_optics_lw(scattering=
+     True) -> cloud_optics(scattering=True) -> increment -> rte_lw(
+     use_2stream=True)), broadband and by band, the two-stream kernel once
+     per step and no no-scattering solver, finite non-negative fluxes, the
+     band sums against the broadband fluxes; then where the time goes
+     (torch.profiler over 3 steps of the fused, public-API, staged,
+     aerosols fused and two-stream paths: device time by kernel, device
+     busy share); then two gradient steps
      (forward + backward of a weighted flux loss) on the fused path with
      clouds, then with aerosols, and on the public-API path, with the
      adjoint kernels each launched once per step, gradients finite and
      bit-identical over the two, the step time beside the forward's and
      the fused step's profile;
   6. rte_lw with 3 quadrature angles and with compute_optimal_angles
-     secants, on the card against the twins on the CPU (512 columns);
+     secants, on the card against the twins on the CPU (512 columns); the
+     secant of lw_solver_noscat as a tuple, a 0-d tensor, a 1-D tensor and
+     a tuple holding a 0-d tensor: bit-identical fluxes on the card;
   7. a ``{"kernels": [...]}`` line (launches from the path that runs each
      kernel: the fused path for the fused kernels and cloud optics, the
      public-API path for the gathers and the public solvers, the staged
-     paths for the lane solvers, the gradient steps for the adjoints),
+     paths for the lane solvers, the two-stream path for its kernel, the
+     gradient steps for the adjoints),
      then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -98,6 +115,10 @@ OPS_PLANCK = 12            # totplnk lerps, level geometric mean
 OPS_SW_LAYER = 62          # Meador-Weaver (47), direct beam, adding (12)
 OPS_SW_COMBINE = 12        # Rayleigh and cloud combine
 OPS_PFRAC_SOURCES = 8      # layer source, two level geometric means, cloud
+# per (column, layer, g-point) of the LW two-stream solve: Meador-Weaver
+# Rdif/Tdif (21), the Toon sources (27), the adding build and sweep (19),
+# the level sums (2)
+OPS_LW2_LAYER = 69
 # the adjoints, per (column, layer, g-point): the layer terms recomputed
 # twice and the sweeps' and sources' adjoints (LW); the coefficients,
 # beam and adding recomputed, their adjoints and the Meador-Weaver chain
@@ -118,6 +139,15 @@ OPS_COMBINE_ADJ = 30       # Rayleigh combine and cloud increment transposed
 # and the ssa cotangent at the min_k clamp do, is held to the same bound
 # against that float64 twin instead.
 TOL_ADJ = 5e-4
+# the LW two-stream solve is ill-conditioned in float32: just above the
+# thin-layer threshold (tau 1e-8) its Toon sources subtract terms of size
+# |dB / (tau (g1 + g2))|, so the float32 twin itself is 3e-4 of the
+# largest flux from a float64 run on the same inputs (64 columns of the
+# flagship problem, CPU), and the kernel's other rounding (fused
+# multiply-adds, expf) moves the fluxes by as much. There the kernel is
+# held to the float64 twin instead, no further than this many times the
+# float32 twin is (see check_kernel).
+TOL_COND = 2.0
 
 
 def log(msg):
@@ -181,10 +211,14 @@ def bound(moved_bytes, ops):
 
 
 def check_kernel(name, kernel, plain, args, tol, source, replaces, work,
-                 fresh=lambda a: a):
+                 fresh=lambda a: a, ill_conditioned=False):
     """Kernel vs twin on fresh copies of the inputs (``fresh`` clones what
     a kernel updates in place), then both timed. ``work`` is (bytes the
-    function must move, its operations)."""
+    function must move, its operations). With ``ill_conditioned``, a
+    kernel beyond ``tol`` of its float32 twin passes when it is no further
+    than TOL_COND times the float32 twin from the twin run in float64
+    (with float32's constants) on the same inputs: the float32 rounding
+    of the function itself, not of one implementation, sets the gap."""
     import torch
     got = as_tuple(kernel(fresh(args)))
     ref = as_tuple(plain(fresh(args)))
@@ -198,6 +232,18 @@ def check_kernel(name, kernel, plain, args, tol, source, replaces, work,
                              f"not finite or not {tuple(r.shape)}")
     err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
     scale = max(float(r.abs().max()) for r in ref)
+    agrees = err <= tol * scale
+    if not agrees and ill_conditioned:
+        with float32_constants():
+            ref64 = as_tuple(plain(to_f64(args)))
+        gap = lambda xs: max(float((x.double() - r).abs().max())
+                             for x, r in zip(xs, ref64)) / scale
+        k64, t64 = gap(got), gap(ref)
+        log(f"kernel {name}: against the float64 twin, kernel {k64:.3e}, "
+            f"float32 twin {t64:.3e} of the largest value (limit "
+            f"{TOL_COND} x the float32 twin's)")
+        agrees = k64 <= TOL_COND * t64
+        del ref64
     del got, ref
     ms = cuda_ms(lambda: kernel(args))
     plain_ms = cuda_ms(lambda: plain(args))
@@ -206,7 +252,7 @@ def check_kernel(name, kernel, plain, args, tol, source, replaces, work,
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e9:.3f}"
         f" GB, {b['ops'] / 1e9:.3f} Gop)")
-    if not err <= tol * scale:
+    if not agrees:
         raise SystemExit(f"{name}: kernel disagrees with its twin")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -214,9 +260,11 @@ def check_kernel(name, kernel, plain, args, tol, source, replaces, work,
                 library_ms=None)
 
 
-def fused_rows(prob, dev):
+def fused_rows(prob, dev, variants):
     """Phase 3, the fused path's kernels: cloud optics and the fused
-    LW and SW steps."""
+    LW and SW steps; into ``variants`` the fused steps by band and with
+    incident fluxes."""
+    import torch
     from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
                                                      allsky_sw_inputs)
     from rte_rrtmgp_tpu_torch.ops.kernels.cloud_props import (
@@ -258,13 +306,31 @@ def fused_rows(prob, dev):
                      "rte_rrtmgp_tpu/ops/pallas/fused_sw.py:309",
                      (nbytes(tuple(sw)) + 3 * nlev * ncol * 4, ops_sw)),
     ]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    inc = 3.0 * torch.rand(lw.inc.shape, generator=gen, device=dev)
+    nbl, nbs = lw.totplnk.shape[1], sw.nband
+    for name, kernel, plain, x, nout in (
+            ("fused_lw byband", lw_fused, lw_fused_plain,
+             lw._replace(byband=True), 2 * nbl),
+            ("fused_sw byband", sw_fused, sw_fused_plain,
+             sw._replace(byband=True), 3 * nbs),
+            ("fused_lw inc", lw_fused, lw_fused_plain, lw._replace(inc=inc), 2),
+            ("fused_sw incdif", sw_fused, sw_fused_plain,
+             sw._replace(incdif=0.05 * sw.inc * inc[:sw.inc.shape[0]]), 3)):
+        src = "fused_lw" if name.startswith("fused_lw") else "fused_sw"
+        variants.append(check_kernel(
+            name, kernel, plain, x, TOL_FLUX,
+            f"rte_rrtmgp_tpu_torch/csrc/{src}.cu", rows[1 + (
+                src == "fused_sw")]["replaces"],
+            (nbytes(tuple(x)) + nout * nlev * ncol * 4,
+             ops_lw if src == "fused_lw" else ops_sw)))
     return rows
 
 
-def api_rows(prob, dev):
+def api_rows(prob, dev, variants):
     """Phase 3, the public-API path's kernels: the staged major, minor and
     Rayleigh gathers and the LW and SW solvers, on inputs prepared as the
-    path prepares them."""
+    path prepares them; into ``variants`` the solvers by band."""
     import torch
     from rte_rrtmgp_tpu_torch.ops.gas_optics import minor_scaling
     from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import _split_minors
@@ -353,7 +419,14 @@ def api_rows(prob, dev):
         "rte_rrtmgp_tpu/ops/pallas/solver_lw_kernel.py:239",
         (nbytes(lw) + 3 * ncol * (nlay + 1) * 4,
          ncol * nlay * ngl * (OPS_LW_LAYER + OPS_LW_RESCALE))))
-    del lw, props, src
+    nbl = gl.grid.nband
+    lwb = lw[:6] + (dict(lw[6], gpt2band=gl.gpt2band, nband=nbl),)
+    variants.append(check_kernel(
+        "solver_lw byband", call(lw_noscat), call(lw_noscat_plain), lwb,
+        TOL_FLUX, rows[-1]["source"], rows[-1]["replaces"],
+        (nbytes(lwb) + (2 * nbl + 1) * ncol * (nlay + 1) * 4,
+         ncol * nlay * ngl * (OPS_LW_LAYER + OPS_LW_RESCALE))))
+    del lw, lwb, props, src
 
     # SW solver with a diffuse incident flux, night columns and mu0 that
     # varies by layer, on the path's gas optics and delta-scaled clouds
@@ -378,7 +451,73 @@ def api_rows(prob, dev):
         "rte_rrtmgp_tpu/ops/pallas/solver_sw_kernel.py:222",
         (nbytes(sw) + 3 * ncol * (nlay + 1) * 4,
          ncol * nlay * ngs * OPS_SW_LAYER)))
+    nbs = gs.grid.nband
+    swb = sw + (gs.gpt2band,)
+    variants.append(check_kernel(
+        "solver_sw byband", lambda a: sw_2stream(*a, nband=nbs),
+        lambda a: sw_2stream_plain(*a, nband=nbs), swb, TOL_FLUX,
+        rows[-1]["source"], rows[-1]["replaces"],
+        (nbytes(swb) + 3 * nbs * ncol * (nlay + 1) * 4,
+         ncol * nlay * ngs * OPS_SW_LAYER)))
     return rows
+
+
+def lw2_step(prob, byband=False):
+    """The LW two-stream path, reference check_variants' true two-stream
+    with clouds (examples/flux_variants.py:76-82): gas optics with
+    scattering, the 2-stream cloud optics, increment, then
+    rte_lw(use_2stream=True). Returns step(inputs) -> (flux_up, flux_dn),
+    (ncol, nlay+1) or by band (ncol, nlay+1, nband)."""
+    from rte_rrtmgp_tpu_torch.optical_props import increment
+    from rte_rrtmgp_tpu_torch.rte import rte_lw
+
+    def step(i):
+        props, src = prob.gas_lw.gas_optics_lw(
+            i.play, i.plev, i.tlay, i.tsfc, i.gas_concs, tlev=i.tlev,
+            scattering=True, top_at_1=True)
+        props = increment(props, prob.cld_lw.cloud_optics(
+            i.lwp, i.iwp, i.rel, i.dei, scattering=True))
+        f = rte_lw(props, src, i.sfc_emis, use_2stream=True, byband=byband)
+        return f.flux_up, f.flux_dn
+    return step
+
+
+def lw2_rows(prob, dev, variants):
+    """Phase 3, the LW two-stream kernel on the two-stream path's inputs
+    (what rte_lw hands it: no incident flux); into ``variants`` the same
+    by band. The layer source is in its signature but never read, so its
+    bytes are not counted."""
+    import torch
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_2str import (
+        lw_2stream, lw_2stream_plain)
+    from rte_rrtmgp_tpu_torch.optical_props import increment
+    i = prob.inputs
+    props, src = prob.gas_lw.gas_optics_lw(
+        i.play, i.plev, i.tlay, i.tsfc, i.gas_concs, tlev=i.tlev,
+        scattering=True, top_at_1=True)
+    props = increment(props, prob.cld_lw.cloud_optics(
+        i.lwp, i.iwp, i.rel, i.dei, scattering=True))
+    ncol, nlay, ngpt = props.tau.shape
+    emis = i.sfc_emis.expand(ncol, ngpt).contiguous()
+    args = (props.tau.contiguous(), props.ssa.contiguous(),
+            props.g.contiguous(), src.lay_source, src.lev_source, emis,
+            src.sfc_source, torch.zeros_like(emis))
+    del props, src
+    ops = ncol * nlay * ngpt * OPS_LW2_LAYER
+    where = ("rte_rrtmgp_tpu_torch/csrc/solver_lw_2str.cu",
+             "rte_rrtmgp_tpu/ops/pallas/solver_lw_kernel.py:411")
+    row = check_kernel("solver_lw_2str", lambda a: lw_2stream(*a),
+                       lambda a: lw_2stream_plain(*a), args, TOL_FLUX, *where,
+                       (nbytes(args[:3], args[4:]) + 2 * ncol * (nlay + 1) * 4,
+                        ops), ill_conditioned=True)
+    nb = prob.gas_lw.grid.nband
+    argb = args + (prob.gas_lw.gpt2band,)
+    variants.append(check_kernel(
+        "solver_lw_2str byband", lambda a: lw_2stream(*a, nband=nb),
+        lambda a: lw_2stream_plain(*a, nband=nb), argb, TOL_FLUX, *where,
+        (nbytes(argb[:3], argb[4:]) + 2 * nb * ncol * (nlay + 1) * 4, ops),
+        ill_conditioned=True))
+    return [row]
 
 
 def lanes_rows(prob, nonbanded):
@@ -572,11 +711,12 @@ def check_adjoint(name, kernel, plain, make, source, replaces, ops_per_col):
                 library_ms=None)
 
 
-def adjoint_rows(prob, dev):
+def adjoint_rows(prob, dev, variants):
     """Phase 3, the backward kernels, on the inputs their paths give them
     (clouds on) and seeded cotangents of the broadband fluxes: the fused
     adjoints on the fused step's inputs, the solver adjoints on the public
-    path's optics and sources."""
+    path's optics and sources; into ``variants`` the fused adjoints with
+    an incident flux (LW) and a diffuse incident flux (SW)."""
     import torch
     from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
                                                      allsky_sw_inputs)
@@ -643,6 +783,25 @@ def adjoint_rows(prob, dev):
     ds, wt = GAUSS_DS[0][0], 1.0
     pallas = "rte_rrtmgp_tpu/ops/pallas"
     csrc = "rte_rrtmgp_tpu_torch/csrc"
+
+    def fused_lw_inc_args(n):
+        x, gu, gd = fused_lw_args(n)
+        return x._replace(inc=3.0 * cot(x.inc.shape, 11)), gu, gd
+
+    def fused_sw_incdif_args(n):
+        x, *gs_ = fused_sw_args(n)
+        return (x._replace(incdif=0.05 * x.inc * cot(x.inc.shape, 12)),
+                *gs_)
+
+    variants += [
+        check_adjoint("fused_lw_bwd inc", lambda a: flw.lw_fused_bwd(*a),
+                      lambda a: flw.lw_fused_bwd_plain(*a),
+                      fused_lw_inc_args, f"{csrc}/fused_lw_bwd.cu",
+                      f"{pallas}/fused_lw_bwd.py:506", ops_flw),
+        check_adjoint("fused_sw_bwd incdif", lambda a: fsw.sw_fused_bwd(*a),
+                      lambda a: fsw.sw_fused_bwd_plain(*a),
+                      fused_sw_incdif_args, f"{csrc}/fused_sw_bwd.cu",
+                      f"{pallas}/fused_sw_bwd.py:694", ops_fsw)]
     return [
         check_adjoint("fused_lw_bwd", lambda a: flw.lw_fused_bwd(*a),
                       lambda a: flw.lw_fused_bwd_plain(*a), fused_lw_args,
@@ -832,20 +991,23 @@ def step_fn(prob, path, **opts):
 
 
 def agree(what, out, ref):
-    """A path's fluxes against the fused path's on the same inputs."""
+    """A path's fluxes against a reference path's (the fused path, or the
+    broadband run of a by-band one) on the same inputs."""
     gap = max(float(((a - f).abs() - PATH_RTOL * f.abs()).max())
               for a, f in zip(out, ref))
     diff = max(float((a - f).abs().max()) for a, f in zip(out, ref))
-    log(f"{what} vs fused: max |diff| {diff:.3e} W/m2, max(|diff| - "
-        f"{PATH_RTOL} |fused|) {gap:.3e} W/m2 (limit {PATH_ATOL})")
+    log(f"{what} vs reference: max |diff| {diff:.3e} W/m2, max(|diff| - "
+        f"{PATH_RTOL} |reference|) {gap:.3e} W/m2 (limit {PATH_ATOL})")
     if not gap <= PATH_ATOL:
-        raise SystemExit(f"{what} and the fused path disagree")
+        raise SystemExit(f"{what} and its reference disagree")
 
 
-def run_path(name, step, inputs, counters, must, must_not, solar):
+def run_path(name, step, inputs, counters, must, must_not, solar,
+             once=(), nonneg=True):
     """Drive one path with the counters set to 0 just before it; check
-    the launches, the outputs and TOA SW; time it. Returns (outputs,
-    launches)."""
+    the launches (those in ``once`` exactly one), finite (and with
+    ``nonneg`` non-negative) outputs and, with ``solar``, TOA SW; time it.
+    Returns (outputs, launches)."""
     import torch
     torch.cuda.synchronize()
     for fn in counters.values():
@@ -860,19 +1022,28 @@ def run_path(name, step, inputs, counters, must, must_not, solar):
     for k in must_not:
         if launches[k] != 0:
             raise SystemExit(f"{name} path launched {k}")
+    for k in once:
+        if launches[k] != 1:
+            raise SystemExit(f"{name} path launched {k} {launches[k]} "
+                             "times, expected once")
     ncol, nlev = inputs.play.shape[0], inputs.play.shape[1] + 1
     for o in out:
-        if tuple(o.shape) != (ncol, nlev):
+        if tuple(o.shape[:2]) != (ncol, nlev):
             raise SystemExit(f"{name} output shape {tuple(o.shape)}")
-        if not bool(torch.isfinite(o).all()) or bool((o < 0).any()):
+        if not bool(torch.isfinite(o).all()) or (nonneg
+                                                 and bool((o < 0).any())):
             raise SystemExit(f"{name} path output not finite or negative")
-    toa = solar * inputs.mu0.double()
-    toa_err = float(((out[3][:, 0].double() - toa).abs() / toa).max())
-    log(f"{name} sw_dn at TOA vs sum(solar source) * mu0: rel err "
-        f"{toa_err:.2e}")
-    if toa_err > 1e-5:
-        raise SystemExit(f"{name}: sw_dn at TOA does not equal the "
-                         "incident flux")
+    if not nonneg:
+        log(f"{name}: smallest output {min(float(o.min()) for o in out):.4g}"
+            " W/m2")
+    if solar is not None:
+        toa = solar * inputs.mu0.double()
+        toa_err = float(((out[3][:, 0].double() - toa).abs() / toa).max())
+        log(f"{name} sw_dn at TOA vs sum(solar source) * mu0: rel err "
+            f"{toa_err:.2e}")
+        if toa_err > 1e-5:
+            raise SystemExit(f"{name}: sw_dn at TOA does not equal the "
+                             "incident flux")
     times = []
     for _ in range(REPS):
         torch.cuda.synchronize()
@@ -955,6 +1126,41 @@ def angles_check(prob, inputs):
             raise SystemExit(f"rte_lw {what}: card and twin disagree")
 
 
+def secant_check(prob, inputs):
+    """Phase 6: lw_solver_noscat's secant as a tuple of floats, a 0-d
+    tensor, a 1-D tensor and a tuple holding a 0-d tensor, at 4096
+    columns: one kernel launch each and bit-identical fluxes."""
+    import torch
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import lw_noscat
+    from rte_rrtmgp_tpu_torch.ops.solver_lw import lw_solver_noscat
+    i = inputs
+    props, src = prob.gas_lw.gas_optics_lw(i.play, i.plev, i.tlay, i.tsfc,
+                                           i.gas_concs, tlev=i.tlev,
+                                           top_at_1=True)
+    emis = i.sfc_emis.expand(-1, props.tau.shape[2]).contiguous()
+    args = (props.tau, src.lay_source, src.lev_source, emis, src.sfc_source,
+            torch.zeros_like(emis))
+    d = torch.tensor(1.66, device=emis.device)
+    ref = None
+    for what, ds in (("tuple", (1.66,)), ("0-d tensor", d),
+                     ("1-D tensor", d[None]), ("tuple of a 0-d tensor", (d,))):
+        n0 = lw_noscat.launches
+        f = lw_solver_noscat(*args, top_at_1=True, ds=ds, weights=(0.5,))
+        torch.cuda.synchronize()
+        if lw_noscat.launches != n0 + 1:
+            raise SystemExit(f"secant as a {what}: {lw_noscat.launches - n0}"
+                             " launches of solver_lw, expected one")
+        if ref is None:
+            ref = f
+            continue
+        same = (torch.equal(f.flux_up, ref.flux_up)
+                and torch.equal(f.flux_dn, ref.flux_dn))
+        log(f"secant as a {what}: fluxes "
+            f"{'bit-identical to' if same else 'differ from'} a tuple's")
+        if not same:
+            raise SystemExit(f"secant as a {what} gives other fluxes")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -974,6 +1180,7 @@ def main():
     from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (gas_minor,
                                                             gas_rayleigh)
     from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import lw_noscat
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_2str import lw_2stream
     from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_bwd import lw_noscat_bwd
     from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw import sw_2stream
     from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw_bwd import sw_2stream_bwd
@@ -1004,10 +1211,13 @@ def main():
     # ---- 3. each kernel against its twin at its path's shapes ----
     prob = build_allsky(**MAIN, device=dev, use_aerosols=True)
     nonbanded = build_allsky(**NONBANDED, device=dev, use_aerosols=True)
-    rows = (fused_rows(prob, dev) + api_rows(prob, dev)
-            + lanes_rows(prob, nonbanded))
+    variants = []
+    rows = (fused_rows(prob, dev, variants) + api_rows(prob, dev, variants)
+            + lw2_rows(prob, dev, variants) + lanes_rows(prob, nonbanded))
     torch.cuda.empty_cache()
-    rows += adjoint_rows(prob, dev)
+    rows += adjoint_rows(prob, dev, variants)
+    log(f"variants checked against their twins: "
+        f"{', '.join(v['name'] for v in variants)}")
     solar = float(prob.gas_sw.kdist.solar_source.double().sum())
     solar_nb = float(nonbanded.gas_sw.kdist.solar_source.double().sum())
     del prob
@@ -1028,7 +1238,14 @@ def main():
                     (x.numpy() for x in step64(inputs64))))
     log(f"aerosols float64 twin on the CPU: {time.perf_counter() - t0:.1f} s")
     golden_gate("aerosols fused vs f64 twin", step(inputs), twin)
-    del prod, step64, inputs64, twin
+    t0 = time.perf_counter()
+    prod64 = build_allsky(**PROD, device="cpu", dtype=torch.float64)
+    twin = dict(zip(("lw_up", "lw_dn"),
+                    (x.numpy() for x in lw2_step(prod64)(prod64.inputs))))
+    log(f"two-stream float64 twin on the CPU: "
+        f"{time.perf_counter() - t0:.1f} s")
+    golden_gate("two-stream vs f64 twin", lw2_step(prod)(prod.inputs), twin)
+    del prod, prod64, step64, inputs64, twin
     gradient_gates(dev)
     torch.cuda.empty_cache()
 
@@ -1041,6 +1258,7 @@ def main():
                 "solver_lw_pfrac": sl.lw_noscat_lanes_pfrac,
                 "solver_sw_lanes": sl.sw_2stream_lanes,
                 "solver_sw_combined": sl.sw_2stream_lanes_combined,
+                "solver_lw_2str": lw_2stream,
                 "fused_lw_bwd": lw_fused_bwd, "fused_sw_bwd": sw_fused_bwd,
                 "solver_lw_bwd": lw_noscat_bwd,
                 "solver_sw_bwd": sw_2stream_bwd}
@@ -1052,13 +1270,17 @@ def main():
         "staged": ("cloud_props",) + gathers + ("solver_lw_pfrac",
                                                 "solver_sw_combined"),
         "staged non-banded": ("cloud_props",) + gathers + (
-            "solver_lw_lanes", "solver_sw_lanes")}
+            "solver_lw_lanes", "solver_sw_lanes"),
+        "two-stream": ("cloud_props", "gas_major", "gas_minor",
+                       "solver_lw_2str")}
 
-    def drive(name, kind, step, inputs, solar, clouds=True):
+    def drive(name, kind, step, inputs, solar, clouds=True, once=(),
+              nonneg=True):
         must = tuple(k for k in launched[kind]
                      if clouds or k != "cloud_props")
         return run_path(name, step, inputs, counters, must,
-                        [k for k in counters if k not in must], solar)
+                        [k for k in counters if k not in must], solar, once,
+                        nonneg)
 
     step, inputs = build_allsky_step(**MAIN, device=dev)
     fused_out, path_launches = drive("fused", "fused", step, inputs, solar)
@@ -1071,10 +1293,30 @@ def main():
         launches.update({k: path_launches[k] for k in launched[kind]
                          if k not in launches})
         del out
-    del fused_out
+    # the fused step by band: its band sums are its broadband fluxes
+    out, _ = drive("fused by band", "fused", step_fn(prob, "step",
+                                                     byband=True),
+                   inputs, None, once=("fused_lw", "fused_sw"))
+    agree("fused by-band sums", tuple(o.sum(-1) for o in out), fused_out)
+    del out, fused_out
+    # the LW two-stream path, broadband and by band: the two-stream kernel
+    # once per step, no no-scattering solver. By band the float32 rounding
+    # of the Toon sources (TOL_COND) leaves some bands' downward flux in
+    # the top layers below zero, where the exact value is near zero (the
+    # float32 twin does the same): finite, and their sums the broadband
+    # fluxes
+    lw2_out, path_launches = drive("two-stream", "two-stream", lw2_step(prob),
+                                   inputs, None, once=("solver_lw_2str",))
+    launches["solver_lw_2str"] = path_launches["solver_lw_2str"]
+    out, _ = drive("two-stream by band", "two-stream",
+                   lw2_step(prob, byband=True), inputs, None,
+                   once=("solver_lw_2str",), nonneg=False)
+    agree("two-stream by-band sums", tuple(o.sum(-1) for o in out), lw2_out)
+    del out, lw2_out
     profile_path("fused", step, inputs)
     profile_path("public API", step_fn(prob, "api"), inputs)
     profile_path("staged", step_fn(prob, "staged"), inputs)
+    profile_path("two-stream", lw2_step(prob), inputs)
 
     # the staged path on the non-banded configuration: the plain lane
     # solvers, against the fused path on the same problem
@@ -1130,8 +1372,10 @@ def main():
     del step
     torch.cuda.empty_cache()
 
-    # ---- 6. multi-angle and optimal-angle LW against the twins ----
+    # ---- 6. multi-angle and optimal-angle LW against the twins; the
+    # secant's forms ----
     angles_check(prob, inputs)
+    secant_check(prob, inputs)
 
     # ---- 7. result ----
     for row in rows:

@@ -34,6 +34,97 @@ __device__ __forceinline__ float level_total(const float* partial,
     return s;
 }
 
+// Per-band sums over the block's g-points (one thread each), one level at
+// a time, deterministic: every thread stores its value in a shared slot,
+// and after one barrier thread b (b < nband, strided by the block size)
+// sums the slots of band b's g-points in ascending g-point order. No
+// atomics. Band membership is read from gpt2band, so ragged or reordered
+// bands work. Two slot buffers alternate: a call overwrites the buffer of
+// the call before last only after every thread has passed the last
+// call's barrier, so one barrier per call suffices. Every thread of the
+// block must make every call. Shared memory: bytes(blockDim.x, nband).
+struct BandSums {
+    float* slots;          // 2 x blockDim.x
+    int* members;          // blockDim.x: the g-points grouped by band
+    int* first;            // nband + 1 offsets into members
+    int nband;
+    int parity;
+
+    static __host__ __device__ size_t bytes(int nthreads, int nband) {
+        return (size_t)(3 * nthreads + nband + 1) * sizeof(float);
+    }
+
+    // Carve the buffers from shared memory and build the band lists from
+    // gpt2band (ngpt entries); ends with a barrier.
+    __device__ void init(float* smem, const int* gpt2band, int ngpt,
+                         int nband_) {
+        const int n = blockDim.x;
+        slots = smem;
+        members = (int*)(smem + 2 * n);
+        first = members + n;
+        nband = nband_;
+        parity = 0;
+        int* band_of = (int*)slots;
+        for (int i = threadIdx.x; i < ngpt; i += n) band_of[i] = gpt2band[i];
+        __syncthreads();
+        // g's place: the g-points of lower bands, then those of its own
+        // band with a lower index
+        for (int g = threadIdx.x; g < ngpt; g += n) {
+            int b = band_of[g], pos = 0;
+            for (int h = 0; h < ngpt; ++h) {
+                int bh = band_of[h];
+                pos += bh < b || (bh == b && h < g);
+            }
+            members[pos] = g;
+        }
+        for (int b = threadIdx.x; b <= nband; b += n) {
+            int cnt = 0;
+            for (int h = 0; h < ngpt; ++h) cnt += band_of[h] < b;
+            first[b] = cnt;
+        }
+        __syncthreads();
+    }
+
+    // scale * (band b's sum of v) (+ add[b * stride]) to out[b * stride].
+    __device__ void put(float v, float* out, long long stride, float scale,
+                        const float* add) {
+        float* s = slots + parity * blockDim.x;
+        parity ^= 1;
+        s[threadIdx.x] = v;
+        __syncthreads();
+        for (int b = threadIdx.x; b < nband; b += blockDim.x) {
+            float t = 0.0f;
+            for (int k = first[b]; k < first[b + 1]; ++k) t += s[members[k]];
+            t *= scale;
+            if (add) t += add[b * stride];
+            out[b * stride] = t;
+        }
+    }
+};
+
+// One flux field summed over g-points at each level: broadband into the
+// warp partials (reduce_level; level_total once the sweeps are done), or,
+// when ``band`` is set, per band straight into the output, element (lev,
+// b) at band[lev * s_lev + b * s_band], scaled, plus the same element of
+// ``add`` when that is set (the SW total down: diffuse + direct).
+struct LevelSink {
+    float* partial;        // broadband: (nwarps, nlev) in shared memory
+    int nlev;
+    float* band;           // by band: null for broadband
+    long long s_lev, s_band;
+    float scale;
+    const float* add;
+
+    __device__ __forceinline__ void put(BandSums& bs, float v,
+                                        int lev) const {
+        if (band)
+            bs.put(v, band + lev * s_lev, s_band, scale,
+                   add ? add + lev * s_lev : nullptr);
+        else
+            reduce_level(v, partial, nlev, lev);
+    }
+};
+
 // Fields read through element strides, so that a permuted or broadcast
 // tensor view needs no copy: Field2 is (i, column), Field3 (i, layer,
 // column), i a g-point or a band. A null p marks an absent field. They

@@ -26,7 +26,10 @@
 //
 // Broadband sums are deterministic: at each level a warp-shuffle sum per
 // warp into shared memory, then a fixed-order sum of the warp partials,
-// times pi * weight. No atomics.
+// times pi * weight. No atomics. With band_up/band_dn the kernel gives
+// per-band sums (band, level, column) instead (common.cuh::BandSums,
+// gpt2band). The down sweep starts from the incident flux inc
+// (g-point, column).
 //
 // Contract (checked by the Python wrapper): float32 data, int32 indices,
 // contiguous, ngpt <= 1024; descriptors layer-major (nlay, ncol).
@@ -69,9 +72,10 @@ __global__ void fused_lw_kernel(
         const int* __restrict__ gflav, const int* __restrict__ gpt2band,
         const float* __restrict__ totplnk, const float* __restrict__ tlay,
         const float* __restrict__ tlev, const float* __restrict__ tsfc,
-        const float* __restrict__ emis, const float* __restrict__ cloud,
-        float* __restrict__ scratch, float* __restrict__ up,
-        float* __restrict__ dn,
+        const float* __restrict__ emis, const float* __restrict__ inc,
+        const float* __restrict__ cloud, float* __restrict__ scratch,
+        float* __restrict__ up, float* __restrict__ dn,
+        float* __restrict__ band_up, float* __restrict__ band_dn,
         int ncol, int nlay, int ngpt, int neta, int npres1, int nflav,
         int nminor, int ncl, int ncu, int ntot, int nbnd,
         float tp_min, float tp_delta, float ds, float piw) {
@@ -84,6 +88,11 @@ __global__ void fused_lw_kernel(
     for (int i = threadIdx.x; i < nminor * rte::kMetaFields; i += blockDim.x)
         meta[i] = minor_meta[i];
     __syncthreads();
+    const bool byband = band_up != nullptr;
+    rte::BandSums bands = {};
+    if (byband)
+        bands.init((float*)(meta + nminor * rte::kMetaFields), gpt2band, ngpt,
+                   nbnd);
 
     const int c = blockIdx.x;
     const int g = threadIdx.x;
@@ -93,6 +102,12 @@ __global__ void fused_lw_kernel(
     float* tau_s = scratch + (long long)c * nlay * ngpt + g;  // tau, then trans
     float* src_s = tau_s + plane;             // Planck fraction, then source_up
     const int band = active ? gpt2band[g] : 0;
+    // by band: output (band, level, column)
+    const long long bs = (long long)nlev * ncol;
+    const rte::LevelSink up_s{p_up, nlev, byband ? band_up + c : nullptr,
+                              ncol, bs, piw, nullptr};
+    const rte::LevelSink dn_s{p_dn, nlev, byband ? band_dn + c : nullptr,
+                              ncol, bs, piw, nullptr};
 
     // ---- pass 1: gas optics per layer ----
     if (active) {
@@ -114,14 +129,14 @@ __global__ void fused_lw_kernel(
     }
 
     // ---- pass 2: sources + down sweep (reference :51-240, :620-745) ----
-    float rdn = 0.0f;
+    float rdn = active ? inc[(long long)g * ncol + c] / piw : 0.0f;
     float pf_cur = 0.0f, lev_top = 0.0f;
     if (active) {
         pf_cur = src_s[0];
         lev_top = pf_cur * planck_band(tlev[c], totplnk, ntot, nbnd, band,
                                        tp_min, tp_delta);
     }
-    rte::reduce_level(rdn, p_dn, nlev, 0);
+    dn_s.put(bands, rdn, 0);
     float pf_sfc = 0.0f;
     for (int l = 0; l < nlay; ++l) {
         if (active) {
@@ -144,7 +159,7 @@ __global__ void fused_lw_kernel(
             if (l + 1 == nlay) pf_sfc = pf_cur;
             pf_cur = pf_next;
         }
-        rte::reduce_level(rdn, p_dn, nlev, l + 1);
+        dn_s.put(bands, rdn, l + 1);
     }
 
     // ---- surface emission + reflection, then the up sweep ----
@@ -155,13 +170,14 @@ __global__ void fused_lw_kernel(
                                          tp_min, tp_delta);
         rup = rdn * (1.0f - e) + e * sfc;
     }
-    rte::reduce_level(rup, p_up, nlev, nlay);
+    up_s.put(bands, rup, nlay);
     for (int l = nlay - 1; l >= 0; --l) {
         if (active)
             rup = tau_s[(long long)l * ngpt] * rup
                 + src_s[(long long)l * ngpt];
-        rte::reduce_level(rup, p_up, nlev, l);
+        up_s.put(bands, rup, l);
     }
+    if (byband) return;
 
     __syncthreads();
     for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
@@ -180,7 +196,8 @@ extern "C" int launch_fused_lw(
         const void* klo, const void* kup, const void* gflav,
         const void* gpt2band, const void* totplnk, const void* tlay,
         const void* tlev, const void* tsfc, const void* emis,
-        const void* cloud, void* scratch, void* up, void* dn,
+        const void* inc, const void* cloud, void* scratch, void* up,
+        void* dn, void* band_up, void* band_dn,
         int ncol, int nlay, int ngpt, int neta, int npres1,
         int nflav, int nminor, int ncl, int ncu, int ntot, int nbnd,
         float tp_min, float tp_delta, float ds, float piw,
@@ -188,7 +205,8 @@ extern "C" int launch_fused_lw(
     if (ncol == 0) return 0;
     int threads = (ngpt + 31) / 32 * 32;
     size_t smem = (size_t)2 * (threads / 32) * (nlay + 1) * sizeof(float)
-        + (size_t)nminor * rte::kMetaFields * sizeof(int);
+        + (size_t)nminor * rte::kMetaFields * sizeof(int)
+        + (band_up ? rte::BandSums::bytes(threads, nbnd) : 0);
     cudaError_t err = rte::allow_smem(fused_lw_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     fused_lw_kernel<<<ncol, threads, smem, (cudaStream_t)stream>>>(
@@ -199,9 +217,9 @@ extern "C" int launch_fused_lw(
         (const float*)pfrac_tab, (const float*)klo, (const float*)kup,
         (const int*)gflav, (const int*)gpt2band, (const float*)totplnk,
         (const float*)tlay, (const float*)tlev, (const float*)tsfc,
-        (const float*)emis, (const float*)cloud, (float*)scratch,
-        (float*)up, (float*)dn,
-        ncol, nlay, ngpt, neta, npres1, nflav, nminor, ncl, ncu, ntot, nbnd,
-        tp_min, tp_delta, ds, piw);
+        (const float*)emis, (const float*)inc, (const float*)cloud,
+        (float*)scratch, (float*)up, (float*)dn, (float*)band_up,
+        (float*)band_dn, ncol, nlay, ngpt, neta, npres1, nflav, nminor, ncl,
+        ncu, ntot, nbnd, tp_min, tp_delta, ds, piw);
     return (int)cudaGetLastError();
 }

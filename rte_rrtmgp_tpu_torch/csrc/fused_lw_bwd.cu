@@ -12,7 +12,8 @@
 //     fraction, the minors and the band's cloud absorption, into scratch.
 //   Phase A: the transport adjoint (transport_bwd.cuh::lw_adjoint) with
 //     the sources formed from the Planck fractions and the totplnk lerp,
-//     as the forward forms them. On the way up each layer's cotangents
+//     as the forward forms them, from the incident flux inc; its
+//     cotangent goes to inc_b. On the way up each layer's cotangents
 //     become those of the total tau, of the Planck fraction (the layer
 //     source, the geometric-mean level sources of the two adjacent
 //     levels and, for the last layer, the surface source) and of the
@@ -113,6 +114,7 @@ struct Sink {
     float ds;
     Planck pb;
     float* emis_b;
+    float* inc_b;
     float* p_tlay;          // (nwarps, nlay)
     float* p_tlev;          // (nwarps, nlay+1)
     float* p_tsfc;          // (nwarps, 1)
@@ -168,9 +170,10 @@ struct Sink {
         rte::reduce_level(part_lev, p_tlev, nlay + 1, l + 1);
     }
 
-    __device__ void top(float) {
+    __device__ void top(float ib) {
         float part = 0.0f;
         if (active) {
+            *inc_b = ib;
             float b, db;
             pb.at(__ldg(tlev + c), &b, &db);
             pfb_next += levt_next * b;
@@ -192,10 +195,11 @@ __global__ void fused_lw_bwd_kernel(
         const int* __restrict__ gflav, const int* __restrict__ gpt2band,
         const float* __restrict__ totplnk, const float* __restrict__ tlay,
         const float* __restrict__ tlev, const float* __restrict__ tsfc,
-        const float* __restrict__ emis, const float* __restrict__ cloud,
-        const float* __restrict__ gup, const float* __restrict__ gdn,
-        float* scratch, rte::GasBarsOut out, float* tlay_b, float* tlev_b,
-        float* tsfc_b, float* emis_b,
+        const float* __restrict__ emis, const float* __restrict__ inc,
+        const float* __restrict__ cloud, const float* __restrict__ gup,
+        const float* __restrict__ gdn, float* scratch, rte::GasBarsOut out,
+        float* tlay_b, float* tlev_b, float* tsfc_b, float* emis_b,
+        float* inc_b,
         int ncol, int nlay, int ngpt, int neta, int npres1, int nflav,
         int nminor, int ncl, int ncu, int ntot, int nbnd,
         float tp_min, float tp_delta, float ds, float piw) {
@@ -248,13 +252,14 @@ __global__ void fused_lw_bwd_kernel(
 
     // ---- phase A: the transport adjoint and the Planck sources' ----
     Col col{TAU, PF, ls, tlay, tlev, nlay, ncol, c, ds, pb};
+    const long long gc = (long long)g * ncol + c;
     Sink sink{active, TB, PB, PF, ls, tlay, tlev, tsfc, nlay, ncol, c, ds,
-              pb, emis_b + (long long)g * ncol + c, p_tlay, p_tlev, p_tsfc};
-    float e = active ? __ldg(emis + (long long)g * ncol + c) : 0.0f;
+              pb, emis_b + gc, inc_b + gc, p_tlay, p_tlev, p_tsfc};
+    float e = active ? __ldg(emis + gc) : 0.0f;
     float ssrc = 0.0f;
     if (active) ssrc = PF[(nlay - 1) * ls] * pb(__ldg(tsfc + c));
-    rte::lw_adjoint(active, col, nlay, piw, 0.0f, e, ssrc, gup + c, gdn + c,
-                    ncol, TB, PB, ls, sink);
+    rte::lw_adjoint(active, col, nlay, piw, active ? __ldg(inc + gc) : 0.0f,
+                    e, ssrc, gup + c, gdn + c, ncol, TB, PB, ls, sink);
     __syncthreads();
     for (int i = threadIdx.x; i < nlev; i += blockDim.x) {
         if (i < nlay)
@@ -299,10 +304,10 @@ extern "C" int launch_fused_lw_bwd(
         const void* klo, const void* kup, const void* gflav,
         const void* gpt2band, const void* totplnk, const void* tlay,
         const void* tlev, const void* tsfc, const void* emis,
-        const void* cloud, const void* gup, const void* gdn, void* scratch,
-        void* ftemp_b, void* fpress_b, void* feta_b, void* col_mix_b,
-        void* msc_b, void* cloud_b, void* tlay_b, void* tlev_b,
-        void* tsfc_b, void* emis_b,
+        const void* inc, const void* cloud, const void* gup,
+        const void* gdn, void* scratch, void* ftemp_b, void* fpress_b,
+        void* feta_b, void* col_mix_b, void* msc_b, void* cloud_b,
+        void* tlay_b, void* tlev_b, void* tsfc_b, void* emis_b, void* inc_b,
         int ncol, int nlay, int ngpt, int neta, int npres1,
         int nflav, int nminor, int ncl, int ncu, int ntot, int nbnd,
         float tp_min, float tp_delta, float ds, float piw,
@@ -327,9 +332,10 @@ extern "C" int launch_fused_lw_bwd(
         (const float*)pfrac_tab, (const float*)klo, (const float*)kup,
         (const int*)gflav, (const int*)gpt2band, (const float*)totplnk,
         (const float*)tlay, (const float*)tlev, (const float*)tsfc,
-        (const float*)emis, (const float*)cloud, (const float*)gup,
-        (const float*)gdn, (float*)scratch, out, (float*)tlay_b,
-        (float*)tlev_b, (float*)tsfc_b, (float*)emis_b,
+        (const float*)emis, (const float*)inc, (const float*)cloud,
+        (const float*)gup, (const float*)gdn, (float*)scratch, out,
+        (float*)tlay_b, (float*)tlev_b, (float*)tsfc_b, (float*)emis_b,
+        (float*)inc_b,
         ncol, nlay, ngpt, neta, npres1, nflav, nminor, ncl, ncu, ntot, nbnd,
         tp_min, tp_delta, ds, piw);
     return (int)cudaGetLastError();

@@ -12,9 +12,11 @@
 // minor absorption, Rayleigh, the absorption/Rayleigh combine and the
 // cloud 2-stream increment, the two-stream coefficients with the
 // reference's clamps, min_mu0 and night masking, and the direct beam.
-// Pass 2, bottom up: the adding albedo/source build. Pass 3, top down:
-// the diffuse fluxes. Per-thread layer columns live in wrapper-allocated
-// scratch laid out (field, column, level, g-point).
+// Passes 2 and 3: the adding albedo/source build bottom up, then the
+// diffuse fluxes top down from the diffuse incident flux incdif (g-point,
+// column; zero when null) (transport.cuh::adding). Per-thread layer
+// columns live in wrapper-allocated scratch laid out (field, column,
+// level, g-point).
 //
 // What bounds it on this card: the table gathers (8 kmajor and 4 krayl
 // reads per cell and g-point, tables resident in L2) and the scratch
@@ -24,6 +26,8 @@
 //
 // Broadband sums are deterministic: warp-shuffle sums per level into
 // shared memory, then fixed-order sums of the warp partials. No atomics.
+// With band_out the kernel gives per-band sums (3, band, level, column)
+// instead (common.cuh::BandSums, gpt2band).
 //
 // Contract (checked by the Python wrapper): float32 data, int32 indices,
 // contiguous, ngpt <= 1024; descriptors layer-major (nlay, ncol).
@@ -50,9 +54,10 @@ __global__ void fused_sw_kernel(
         const float* __restrict__ rayscale, const float* __restrict__ cloud,
         const float* __restrict__ mu0, const float* __restrict__ alb_dir,
         const float* __restrict__ alb_dif, const float* __restrict__ inc,
-        float* __restrict__ scratch, float* __restrict__ out,
+        const float* __restrict__ incdif, float* __restrict__ scratch,
+        float* __restrict__ out, float* __restrict__ band_out,
         int ncol, int nlay, int ngpt, int neta, int npres1, int nflav,
-        int nminor, int ncl, int ncu, int nbnd) {
+        int nminor, int ncl, int ncu, int nbnd, int nband) {
     extern __shared__ float smem[];
     const int nlev = nlay + 1;
     const int nwarps = blockDim.x >> 5;
@@ -63,6 +68,11 @@ __global__ void fused_sw_kernel(
     for (int i = threadIdx.x; i < nminor * rte::kMetaFields; i += blockDim.x)
         meta[i] = minor_meta[i];
     __syncthreads();
+    const bool byband = band_out != nullptr;
+    rte::BandSums bands = {};
+    if (byband)
+        bands.init((float*)(meta + nminor * rte::kMetaFields), gpt2band, ngpt,
+                   nband);
 
     const int c = blockIdx.x;
     const int g = threadIdx.x;
@@ -78,10 +88,19 @@ __global__ void fused_sw_kernel(
     const int band = active ? gpt2band[g] : 0;
 
     const float tiny = FLT_MIN;
+    // by band: planes up, dn total, dir of (band, level, column)
+    const long long bs = (long long)nlev * ncol;
+    const long long bplane = (long long)nband * bs;
+    float* bup = byband ? band_out + c : nullptr;
+    float* bdn = byband ? bup + bplane : nullptr;
+    float* bdir = byband ? bup + 2 * bplane : nullptr;
+    const rte::LevelSink dir_s{p_dir, nlev, bdir, ncol, bs, 1.0f, nullptr};
+    const rte::LevelSink up_s{p_up, nlev, bup, ncol, bs, 1.0f, nullptr};
+    const rte::LevelSink dn_s{p_dn, nlev, bdn, ncol, bs, 1.0f, bdir};
 
     // ---- pass 1: optics, two-stream coefficients, direct beam ----
     float dir = active ? inc[(long long)g * ncol + c] * mu0[c] : 0.0f;
-    rte::reduce_level(dir, p_dir, nlev, 0);
+    dir_s.put(bands, dir, 0);
     for (int l = 0; l < nlay; ++l) {
         if (active) {
             int cell = l * ncol + c;
@@ -125,18 +144,20 @@ __global__ void fused_sw_kernel(
             SDN[o] = day ? s.tdir * dir : 0.0f;
             dir = dir * s.tns;
         }
-        rte::reduce_level(dir, p_dir, nlev, l + 1);
+        dir_s.put(bands, dir, l + 1);
     }
 
-    // ---- passes 2 and 3: adding (Eqs 9-13), no diffuse flux at TOA ----
-    float alb_sfc = 0.0f, src_sfc = 0.0f;
+    // ---- passes 2 and 3: adding (Eqs 9-13) from the diffuse TOA flux ----
+    float alb_sfc = 0.0f, src_sfc = 0.0f, top = 0.0f;
     if (active) {
         alb_sfc = alb_dif[(long long)g * ncol + c];
         src_sfc = mu0[(nlay - 1) * ncol + c] > 0.0f
             ? dir * alb_dir[(long long)g * ncol + c] : 0.0f;
+        top = incdif ? incdif[(long long)g * ncol + c] : 0.0f;
     }
-    rte::sw_adding(active, R, T, SDN, SUP, ALB, SRC, nlay, ngpt, alb_sfc,
-                   src_sfc, 0.0f, p_up, p_dn);
+    rte::adding(active, R, T, SDN, SUP, ALB, SRC, nlay, ngpt, alb_sfc,
+                src_sfc, top, up_s, dn_s, bands);
+    if (byband) return;
 
     __syncthreads();
     const long long oplane = (long long)nlev * ncol;
@@ -159,14 +180,15 @@ extern "C" int launch_fused_sw(
         const void* kup, const void* krayl, const void* gflav,
         const void* gpt2band, const void* rayscale, const void* cloud,
         const void* mu0, const void* alb_dir, const void* alb_dif,
-        const void* inc, void* scratch, void* out,
-        int ncol, int nlay, int ngpt, int neta, int npres1, int nflav,
-        int nminor, int ncl, int ncu, int nbnd,
+        const void* inc, const void* incdif, void* scratch, void* out,
+        void* band_out, int ncol, int nlay, int ngpt, int neta, int npres1,
+        int nflav, int nminor, int ncl, int ncu, int nbnd, int nband,
         void* stream) {
     if (ncol == 0) return 0;
     int threads = (ngpt + 31) / 32 * 32;
     size_t smem = (size_t)3 * (threads / 32) * (nlay + 1) * sizeof(float)
-        + (size_t)nminor * rte::kMetaFields * sizeof(int);
+        + (size_t)nminor * rte::kMetaFields * sizeof(int)
+        + (band_out ? rte::BandSums::bytes(threads, nband) : 0);
     cudaError_t err = rte::allow_smem(fused_sw_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     fused_sw_kernel<<<ncol, threads, smem, (cudaStream_t)stream>>>(
@@ -177,7 +199,8 @@ extern "C" int launch_fused_sw(
         (const float*)kup, (const float*)krayl, (const int*)gflav,
         (const int*)gpt2band, (const float*)rayscale, (const float*)cloud,
         (const float*)mu0, (const float*)alb_dir, (const float*)alb_dif,
-        (const float*)inc, (float*)scratch, (float*)out,
-        ncol, nlay, ngpt, neta, npres1, nflav, nminor, ncl, ncu, nbnd);
+        (const float*)inc, (const float*)incdif, (float*)scratch,
+        (float*)out, (float*)band_out, ncol, nlay, ngpt, neta, npres1, nflav,
+        nminor, ncl, ncu, nbnd, nband);
     return (int)cudaGetLastError();
 }

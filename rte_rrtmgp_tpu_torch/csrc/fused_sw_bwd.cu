@@ -12,7 +12,9 @@
 //     Rayleigh combine and cloud increment per layer; the layer optics
 //     (tau, ssa, g) go to scratch.
 //   Phase A (P-0, A-F, A-U, A-S, A-C): the two-stream + adding adjoint
-//     (transport_bwd.cuh::sw_adjoint) on those optics and mu0; the
+//     (transport_bwd.cuh::sw_adjoint) on those optics and mu0, from the
+//     diffuse incident flux incdif (zero when null; its cotangent to
+//     incdif_b when that is set); the
 //     optics' cotangents overwrite them in scratch, and mu0's are summed
 //     over the g-points per layer (warp shuffles, then a fixed-order sum
 //     of the warp partials).
@@ -86,9 +88,10 @@ __global__ void fused_sw_bwd_kernel(
         const float* __restrict__ rayscale, const float* __restrict__ cloud,
         const float* __restrict__ mu0, const float* __restrict__ alb_dir,
         const float* __restrict__ alb_dif, const float* __restrict__ inc,
-        const float* __restrict__ gup, const float* __restrict__ gdn,
-        const float* __restrict__ gdir, float* scratch, rte::GasBarsOut out,
-        float* mu0_b, float* alb_dir_b, float* alb_dif_b, float* inc_b,
+        const float* __restrict__ incdif, const float* __restrict__ gup,
+        const float* __restrict__ gdn, const float* __restrict__ gdir,
+        float* scratch, rte::GasBarsOut out, float* mu0_b, float* alb_dir_b,
+        float* alb_dif_b, float* inc_b, float* incdif_b,
         int ncol, int nlay, int ngpt, int neta, int npres1, int nflav,
         int nminor, int ncl, int ncu, int nbnd) {
     extern __shared__ float smem[];
@@ -162,12 +165,14 @@ __global__ void fused_sw_bwd_kernel(
     rte::SwBoundaryBars bb = rte::sw_adjoint(
         active, col, nlay, active ? __ldg(inc + gc) : 0.0f,
         active ? __ldg(alb_dir + gc) : 0.0f,
-        active ? __ldg(alb_dif + gc) : 0.0f, 0.0f, gup + c, gdn + c,
+        active ? __ldg(alb_dif + gc) : 0.0f,
+        active && incdif ? __ldg(incdif + gc) : 0.0f, gup + c, gdn + c,
         gdir + c, ncol, S, fs, ls, sink);
     if (active) {
         alb_dir_b[gc] = bb.alb_dir;
         alb_dif_b[gc] = bb.alb_dif;
         inc_b[gc] = bb.inc;
+        if (incdif_b) incdif_b[gc] = bb.inc_dif;
     }
     rte::reduce_level(bb.mu_top, p_seed, 1, 0);
     __syncthreads();
@@ -270,10 +275,11 @@ extern "C" int launch_fused_sw_bwd(
         const void* kup, const void* krayl, const void* gflav,
         const void* gpt2band, const void* rayscale, const void* cloud,
         const void* mu0, const void* alb_dir, const void* alb_dif,
-        const void* inc, const void* gup, const void* gdn, const void* gdir,
-        void* scratch, void* ftemp_b, void* fpress_b, void* feta_b,
-        void* col_mix_b, void* msc_b, void* rayscale_b, void* cloud_b,
-        void* mu0_b, void* alb_dir_b, void* alb_dif_b, void* inc_b,
+        const void* inc, const void* incdif, const void* gup,
+        const void* gdn, const void* gdir, void* scratch, void* ftemp_b,
+        void* fpress_b, void* feta_b, void* col_mix_b, void* msc_b,
+        void* rayscale_b, void* cloud_b, void* mu0_b, void* alb_dir_b,
+        void* alb_dif_b, void* inc_b, void* incdif_b,
         int ncol, int nlay, int ngpt, int neta, int npres1, int nflav,
         int nminor, int ncl, int ncu, int nbnd, void* stream) {
     if (ncol == 0) return 0;
@@ -296,9 +302,10 @@ extern "C" int launch_fused_sw_bwd(
         (const float*)kup, (const float*)krayl, (const int*)gflav,
         (const int*)gpt2band, (const float*)rayscale, (const float*)cloud,
         (const float*)mu0, (const float*)alb_dir, (const float*)alb_dif,
-        (const float*)inc, (const float*)gup, (const float*)gdn,
-        (const float*)gdir, (float*)scratch, out, (float*)mu0_b,
-        (float*)alb_dir_b, (float*)alb_dif_b, (float*)inc_b,
+        (const float*)inc, (const float*)incdif, (const float*)gup,
+        (const float*)gdn, (const float*)gdir, (float*)scratch, out,
+        (float*)mu0_b, (float*)alb_dir_b, (float*)alb_dif_b, (float*)inc_b,
+        (float*)incdif_b,
         ncol, nlay, ngpt, neta, npres1, nflav, nminor, ncl, ncu, nbnd);
     return (int)cudaGetLastError();
 }

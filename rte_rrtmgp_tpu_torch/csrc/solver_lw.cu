@@ -43,7 +43,10 @@
 //
 // Broadband sums are deterministic: warp-shuffle sums per level into
 // shared memory, then fixed-order sums of the warp partials, times
-// pi * weight. No atomics.
+// pi * weight. No atomics. launch_solver_lw can give per-band sums
+// instead (common.cuh::BandSums: per level, each band's g-points summed
+// in g-point order by one thread), as the TPU kernel does for uniform
+// bands; here any gpt2band works.
 //
 // Contract (checked by the Python wrappers): float32, ngpt <= 1024,
 // offsets within 32-bit strides, top of the atmosphere at layer 0.
@@ -64,13 +67,15 @@ struct LwArgs {
     Field3 pfrac, pb_lay, pb_lev, cld;   // PFRAC; cld.p null: no cloud
     Field2 emis, sfc, sfc_jac, inc;      // sfc: without PFRAC
     Field2 ds, pb_sfc;                   // ds.p null: ds_scalar
-    const int* gpt2band;                 // PFRAC
+    const int* gpt2band;                 // PFRAC, or by-band output
     float* scratch;                      // RESCALE: (column, layer, g-point)
     float* up;
     float* dn;
     float* jac;
+    float* band_up;                      // by band: (column, level, band);
+    float* band_dn;                      // null: broadband up/dn
     int out_sl, out_sc;                  // output strides of (level, column)
-    int nlay, ngpt;
+    int nlay, ngpt, nband;
     float ds_scalar, piw;
 };
 
@@ -144,6 +149,9 @@ __global__ void solver_lw_kernel(const LwArgs a) {
     float* p_up = smem;                       // (nwarps, nlev) each
     float* p_dn = p_up + nwarps * nlev;
     float* p_jac = p_dn + nwarps * nlev;
+    const bool byband = a.band_up != nullptr;
+    rte::BandSums bands = {};
+    if (byband) bands.init(p_jac + nwarps * nlev, a.gpt2band, ngpt, a.nband);
 
     const int c = blockIdx.x;
     const bool active = threadIdx.x < ngpt;
@@ -155,17 +163,22 @@ __global__ void solver_lw_kernel(const LwArgs a) {
     LwColumn<RESCALE, PFRAC> col(a, g, c, ds);
     float rdn_top = active ? a.inc.at(g, c) / a.piw : 0.0f;
     float t = 0.0f, sdn = 0.0f, sup = 0.0f, an = 0.0f, cn = 0.0f;
+    const long long bo = (long long)c * nlev * a.nband;
+    const rte::LevelSink up_s{p_up, nlev, byband ? a.band_up + bo : nullptr,
+                              a.nband, 1, a.piw, nullptr};
+    const rte::LevelSink dn_s{p_dn, nlev, byband ? a.band_dn + bo : nullptr,
+                              a.nband, 1, a.piw, nullptr};
 
     // ---- down sweep (reference lw_transport_noscat_dn :681-708) ----
     float rdn = rdn_top;
-    if (!RESCALE) rte::reduce_level(rdn, p_dn, nlev, 0);
+    if (!RESCALE) dn_s.put(bands, rdn, 0);
     for (int l = 0; l < nlay; ++l) {
         if (active) {
             col.layer(l, &t, &sdn, &sup, &an, &cn);
             if (RESCALE) rad[(long long)l * ngpt] = rdn;
             rdn = t * rdn + sdn;
         }
-        if (!RESCALE) rte::reduce_level(rdn, p_dn, nlev, l + 1);
+        if (!RESCALE) dn_s.put(bands, rdn, l + 1);
     }
 
     // ---- surface emission + reflection (:198-202), then the up sweep ----
@@ -177,7 +190,7 @@ __global__ void solver_lw_kernel(const LwArgs a) {
         rup = rdn * (1.0f - e) + e * src;
         if (JAC) rjac = e * a.sfc_jac.at(g, c);
     }
-    rte::reduce_level(rup, p_up, nlev, nlay);
+    up_s.put(bands, rup, nlay);
     if (JAC) rte::reduce_level(rjac, p_jac, nlev, nlay);
     for (int l = nlay - 1; l >= 0; --l) {
         if (active) {
@@ -192,14 +205,14 @@ __global__ void solver_lw_kernel(const LwArgs a) {
             }
             if (JAC) rjac = t * rjac;
         }
-        rte::reduce_level(rup, p_up, nlev, l);
+        up_s.put(bands, rup, l);
         if (JAC) rte::reduce_level(rjac, p_jac, nlev, l);
     }
 
     if (RESCALE) {
         // ---- second down sweep, adjusted from the upwelling field ----
         rdn = rdn_top;
-        rte::reduce_level(rdn, p_dn, nlev, 0);
+        dn_s.put(bands, rdn, 0);
         for (int l = 0; l < nlay; ++l) {
             if (active) {
                 col.layer(l, &t, &sdn, &sup, &an, &cn);
@@ -207,15 +220,17 @@ __global__ void solver_lw_kernel(const LwArgs a) {
                                   - sdn);
                 rdn = t * rdn + sdn + adj;
             }
-            rte::reduce_level(rdn, p_dn, nlev, l + 1);
+            dn_s.put(bands, rdn, l + 1);
         }
     }
 
     __syncthreads();
     for (int lev_i = threadIdx.x; lev_i < nlev; lev_i += blockDim.x) {
         long long o = (long long)lev_i * a.out_sl + (long long)c * a.out_sc;
-        a.up[o] = a.piw * rte::level_total(p_up, nwarps, nlev, lev_i);
-        a.dn[o] = a.piw * rte::level_total(p_dn, nwarps, nlev, lev_i);
+        if (!byband) {
+            a.up[o] = a.piw * rte::level_total(p_up, nwarps, nlev, lev_i);
+            a.dn[o] = a.piw * rte::level_total(p_dn, nwarps, nlev, lev_i);
+        }
         if (JAC)
             a.jac[o] = a.piw * rte::level_total(p_jac, nwarps, nlev, lev_i);
     }
@@ -224,7 +239,8 @@ __global__ void solver_lw_kernel(const LwArgs a) {
 template <bool RESCALE, bool JAC, bool PFRAC>
 cudaError_t run(const LwArgs& a, int ncol, cudaStream_t stream) {
     int threads = (a.ngpt + 31) / 32 * 32;
-    size_t smem = (size_t)3 * (threads / 32) * (a.nlay + 1) * sizeof(float);
+    size_t smem = (size_t)3 * (threads / 32) * (a.nlay + 1) * sizeof(float)
+        + (a.band_up ? rte::BandSums::bytes(threads, a.nband) : 0);
     cudaError_t err = rte::allow_smem(solver_lw_kernel<RESCALE, JAC, PFRAC>,
                                       smem);
     if (err != cudaSuccess) return err;
@@ -246,15 +262,21 @@ int dispatch(const LwArgs& a, int ncol, void* stream) {
 
 }  // namespace
 
-// The public layout: (column, layer, g-point) contiguous fields.
+// The public layout: (column, layer, g-point) contiguous fields; with
+// band_up/band_dn (column, level, band) per-band sums there (gpt2band)
+// instead of the broadband up/dn (the Jacobian stays broadband).
 extern "C" int launch_solver_lw(
         const void* tau, const void* lay, const void* lev, const void* ssa,
         const void* asy, const void* emis, const void* sfc,
         const void* sfc_jac, const void* inc, const void* ds_field,
-        void* scratch, void* up, void* dn, void* jac,
-        int ncol, int nlay, int ngpt, float ds_scalar, float piw,
-        void* stream) {
+        const void* gpt2band, void* scratch, void* up, void* dn, void* jac,
+        void* band_up, void* band_dn, int ncol, int nlay, int ngpt,
+        int nband, float ds_scalar, float piw, void* stream) {
     LwArgs a = {};
+    a.gpt2band = (const int*)gpt2band;
+    a.band_up = (float*)band_up;
+    a.band_dn = (float*)band_dn;
+    a.nband = nband;
     const int sl = ngpt, sc = nlay * ngpt;
     a.tau = f3(tau, 1, sl, sc);
     a.lay = f3(lay, 1, sl, sc);

@@ -30,7 +30,7 @@
 // guards as in the TPU kernel), the Meador-Weaver coefficients with the
 // reference's clamps (transport.cuh::sw_layer, the code of the fused SW
 // kernel), night masking by mu0 > 0 per layer, and the direct beam.
-// Passes 2 and 3: the adding sweeps (transport.cuh::sw_adding) from the
+// Passes 2 and 3: the adding sweeps (transport.cuh::adding) from the
 // diffuse flux at the top, over per-thread layer columns in
 // wrapper-allocated scratch laid out (field, column, level, g-point).
 // Total down = diffuse + direct.
@@ -42,6 +42,9 @@
 //
 // Broadband sums are deterministic: warp-shuffle sums per level into
 // shared memory, then fixed-order sums of the warp partials. No atomics.
+// launch_solver_sw can give per-band sums instead (common.cuh::BandSums:
+// per level, each band's g-points summed in g-point order by one thread),
+// as the TPU kernel does for uniform bands; here any gpt2band works.
 //
 // Contract (checked by the Python wrappers): float32, ngpt <= 1024,
 // offsets within 32-bit strides, top of the atmosphere at layer 0.
@@ -62,12 +65,13 @@ struct SwArgs {
     Field3 ct, cs, cg;           // COMBINED: cloud by band; ct.p null: none
     Field2 mu0;                  // (layer, column)
     Field2 alb_dir, alb_dif, inc, inc_dif;   // inc_dif.p null: no diffuse
-    const int* gpt2band;         // COMBINED
+    const int* gpt2band;         // COMBINED, or by-band output
     float* scratch;              // 6 x (column, level, g-point)
     float* out;                  // up, dn total, dir planes
     long long out_plane;
     int out_sl, out_sc;          // output strides of (level, column)
-    int ncol, nlay, ngpt;
+    float* band_out;             // by band: (3, column, level, band); or null
+    int ncol, nlay, ngpt, nband;
 };
 
 // The layer optics of one thread's (column, g-point).
@@ -119,7 +123,10 @@ struct SwColumn {
     }
 };
 
-template <bool COMBINED>
+// BYBAND is a template argument, not a test of a.band_out, so that the
+// broadband kernels hold no by-band state in registers (a run-time test
+// costs them a third more registers and a block per SM).
+template <bool COMBINED, bool BYBAND>
 __global__ void solver_sw_kernel(const SwArgs a) {
     extern __shared__ float smem[];
     const int nlay = a.nlay, ngpt = a.ngpt;
@@ -128,6 +135,8 @@ __global__ void solver_sw_kernel(const SwArgs a) {
     float* p_up = smem;                       // (nwarps, nlev) each
     float* p_dn = p_up + nwarps * nlev;
     float* p_dir = p_dn + nwarps * nlev;
+    rte::BandSums bands = {};
+    if (BYBAND) bands.init(p_dir + nwarps * nlev, a.gpt2band, ngpt, a.nband);
 
     const int c = blockIdx.x;
     const bool active = threadIdx.x < ngpt;
@@ -140,10 +149,19 @@ __global__ void solver_sw_kernel(const SwArgs a) {
     float* ALB = SUP + field;                                // albedo at levels
     float* SRC = ALB + field;                                // source at levels
     SwColumn<COMBINED> col(a, g, c);
+    // by band: the (level, band) planes of this column
+    const long long bplane = (long long)a.ncol * nlev * a.nband;
+    float* bup = BYBAND ? a.band_out + (long long)c * nlev * a.nband
+                        : nullptr;
+    float* bdn = BYBAND ? bup + bplane : nullptr;
+    float* bdir = BYBAND ? bup + 2 * bplane : nullptr;
+    const rte::LevelSink dir_s{p_dir, nlev, bdir, a.nband, 1, 1.0f, nullptr};
+    const rte::LevelSink up_s{p_up, nlev, bup, a.nband, 1, 1.0f, nullptr};
+    const rte::LevelSink dn_s{p_dn, nlev, bdn, a.nband, 1, 1.0f, bdir};
 
     // ---- pass 1: two-stream coefficients, direct beam ----
     float dir = active ? a.inc.at(g, c) * a.mu0.at(0, c) : 0.0f;
-    rte::reduce_level(dir, p_dir, nlev, 0);
+    dir_s.put(bands, dir, 0);
     for (int l = 0; l < nlay; ++l) {
         if (active) {
             float mu = a.mu0.at(l, c);
@@ -158,7 +176,7 @@ __global__ void solver_sw_kernel(const SwArgs a) {
             SDN[o] = day ? s.tdir * dir : 0.0f;
             dir = dir * s.tns;
         }
-        rte::reduce_level(dir, p_dir, nlev, l + 1);
+        dir_s.put(bands, dir, l + 1);
     }
 
     // ---- passes 2 and 3: adding (Eqs 9-13) from the diffuse TOA flux ----
@@ -169,8 +187,9 @@ __global__ void solver_sw_kernel(const SwArgs a) {
                                                : 0.0f;
         top = a.inc_dif.p ? a.inc_dif.at(g, c) : 0.0f;
     }
-    rte::sw_adding(active, R, T, SDN, SUP, ALB, SRC, nlay, ngpt, alb_sfc,
-                   src_sfc, top, p_up, p_dn);
+    rte::adding(active, R, T, SDN, SUP, ALB, SRC, nlay, ngpt, alb_sfc,
+                src_sfc, top, up_s, dn_s, bands);
+    if (BYBAND) return;
 
     __syncthreads();
     for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
@@ -183,15 +202,17 @@ __global__ void solver_sw_kernel(const SwArgs a) {
     }
 }
 
-template <bool COMBINED>
+template <bool COMBINED, bool BYBAND = false>
 int run(const SwArgs& a, void* stream) {
     if (a.ncol == 0) return 0;
     int threads = (a.ngpt + 31) / 32 * 32;
-    size_t smem = (size_t)3 * (threads / 32) * (a.nlay + 1) * sizeof(float);
-    cudaError_t err = rte::allow_smem(solver_sw_kernel<COMBINED>, smem);
+    size_t smem = (size_t)3 * (threads / 32) * (a.nlay + 1) * sizeof(float)
+        + (BYBAND ? rte::BandSums::bytes(threads, a.nband) : 0);
+    cudaError_t err = rte::allow_smem(solver_sw_kernel<COMBINED, BYBAND>,
+                                      smem);
     if (err != cudaSuccess) return (int)err;
-    solver_sw_kernel<COMBINED><<<a.ncol, threads, smem,
-                                 (cudaStream_t)stream>>>(a);
+    solver_sw_kernel<COMBINED, BYBAND><<<a.ncol, threads, smem,
+                                         (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -211,13 +232,19 @@ SwArgs base(void* scratch, void* out, int ncol, int nlay, int ngpt,
 
 }  // namespace
 
-// The public layout: (column, layer, g-point) contiguous fields.
+// The public layout: (column, layer, g-point) contiguous fields; with
+// band_out (3, column, level, band) per-band sums there (gpt2band) instead
+// of the broadband ``out``.
 extern "C" int launch_solver_sw(
         const void* tau, const void* ssa, const void* asy, const void* mu0,
         const void* alb_dir, const void* alb_dif, const void* inc,
-        const void* inc_dif, void* scratch, void* out, int ncol, int nlay,
-        int ngpt, void* stream) {
+        const void* inc_dif, const void* gpt2band, void* scratch, void* out,
+        void* band_out, int ncol, int nlay, int ngpt, int nband,
+        void* stream) {
     SwArgs a = base(scratch, out, ncol, nlay, ngpt, false);
+    a.gpt2band = (const int*)gpt2band;
+    a.band_out = (float*)band_out;
+    a.nband = nband;
     const int sl = ngpt, sc = nlay * ngpt;
     a.tau = f3(tau, 1, sl, sc);
     a.ssa = f3(ssa, 1, sl, sc);
@@ -227,7 +254,7 @@ extern "C" int launch_solver_sw(
     a.alb_dif = f2(alb_dif, 1, ngpt);
     a.inc = f2(inc, 1, ngpt);
     a.inc_dif = f2(inc_dif, 1, ngpt);
-    return run<false>(a, stream);
+    return band_out ? run<false, true>(a, stream) : run<false>(a, stream);
 }
 
 // The lane layout: (g-point, layer, column) fields, mu0 (layer, column),

@@ -1,6 +1,7 @@
 // Radiative transfer shared by the fused kernels and the stand-alone
 // solvers: the LW linear-in-tau layer source, the SW Meador-Weaver layer
-// coefficients, and the SW adding sweeps over per-thread layer columns.
+// coefficients, the LW two-stream layer coefficients and sources, and the
+// adding sweeps over per-thread layer columns (SW and LW two-stream).
 #pragma once
 
 #include <cfloat>
@@ -73,18 +74,51 @@ __device__ __forceinline__ SwLayer sw_layer(float t, float w0, float asym,
     return s;
 }
 
-// Shonk-Hogan adding (Eqs 9-13) over one thread's layer columns, stride
-// ngpt: R, T, SDN, SUP per layer in; SUP is overwritten with
-// 1 / (1 - R * albedo below), ALB and SRC receive the albedo and upward
-// source at the levels. Then the top-down sweep from the diffuse flux
-// fdn_top; the diffuse up and down fluxes of every level go to the block
-// sums p_up/p_dn (every thread of the block must call this).
-__device__ __forceinline__ void sw_adding(
+// LW two-stream coefficients and sources of one layer, top and bottom
+// level Planck sources top/bot: Meador-Weaver Rdif/Tdif with the LW
+// diffusivity secant 1.66 (Fu et al. 1997; reference lw_two_stream
+// :854-909) and the Toon et al. 1989 linear-in-B sources times pi
+// (reference lw_source_2str :917-967), zero where tau <= 1e-8. The layer
+// Planck source is not used by the linear-in-B form.
+struct Lw2Layer {
+    float rdif, tdif, sdn, sup;
+};
+
+__device__ __forceinline__ Lw2Layer lw2_layer(float t, float w0, float asym,
+                                              float top, float bot) {
+    const float pi = 3.14159265358979f;
+    float g1 = 1.66f * (1.0f - 0.5f * w0 * (1.0f + asym));
+    float g2 = 1.66f * 0.5f * w0 * (1.0f - asym);
+    float k = sqrtf(fmaxf((g1 - g2) * (g1 + g2), 1.0e-12f));
+    float e1 = expf(-t * k);
+    float e2 = e1 * e1;
+    float rt = 1.0f / (k * (1.0f + e2) + g1 * (1.0f - e2));
+    Lw2Layer s;
+    s.rdif = rt * g2 * (1.0f - e2);
+    s.tdif = rt * 2.0f * k * e1;
+    float safe = t * (g1 + g2);
+    float z = (bot - top) / (safe > 0.0f ? safe : 1.0f);
+    bool thin = t <= 1.0e-8f;
+    s.sup = thin ? 0.0f
+                 : pi * ((z + top) - s.rdif * (-z + top) - s.tdif * (z + bot));
+    s.sdn = thin ? 0.0f
+                 : pi * ((-z + bot) - s.rdif * (z + bot) - s.tdif * (-z + top));
+    return s;
+}
+
+// Shonk-Hogan adding (Eqs 9-13; reference adding :1135-1245) over one
+// thread's layer columns, stride ngpt, from any surface albedo and
+// source: the SW diffuse solve and the LW two-stream one. R, T, SDN, SUP
+// per layer in; SUP is overwritten with 1 / (1 - R * albedo below), ALB
+// and SRC receive the albedo and upward source at the levels. Then the
+// top-down sweep from the diffuse flux fdn_top; the up and down fluxes of
+// every level go to the sinks ``up``/``dn`` (broadband or by band; every
+// thread of the block must call this).
+__device__ __forceinline__ void adding(
         bool active, const float* R, const float* T, const float* SDN,
         float* SUP, float* ALB, float* SRC, int nlay, int ngpt,
-        float alb_sfc, float src_sfc, float fdn_top, float* p_up,
-        float* p_dn) {
-    const int nlev = nlay + 1;
+        float alb_sfc, float src_sfc, float fdn_top, const LevelSink& up,
+        const LevelSink& dn, BandSums& bands) {
     float alb = 0.0f, src = 0.0f;
     if (active) {
         alb = alb_sfc;
@@ -107,8 +141,8 @@ __device__ __forceinline__ void sw_adding(
     }
     float fdn = active ? fdn_top : 0.0f;
     float fup = active ? fdn * alb + src : 0.0f;
-    reduce_level(fup, p_up, nlev, 0);
-    reduce_level(fdn, p_dn, nlev, 0);
+    up.put(bands, fup, 0);
+    dn.put(bands, fdn, 0);
     for (int v = 0; v < nlay; ++v) {
         if (active) {
             long long ov = (long long)v * ngpt;
@@ -117,8 +151,8 @@ __device__ __forceinline__ void sw_adding(
             fdn = (T[ov] * fdn + R[ov] * src_n + SDN[ov]) * SUP[ov];
             fup = fdn * ALB[on] + src_n;
         }
-        reduce_level(fup, p_up, nlev, v + 1);
-        reduce_level(fdn, p_dn, nlev, v + 1);
+        up.put(bands, fup, v + 1);
+        dn.put(bands, fdn, v + 1);
     }
 }
 

@@ -348,7 +348,7 @@ __device__ __forceinline__ SwBoundaryBars sw_adjoint(
             if (l == nlay - 1) day_sfc = day;
         }
         at(kDir, nlay) = dir;
-        // ---- P0: the adding build, bottom up (transport.cuh::sw_adding)
+        // ---- P0: the adding build, bottom up (transport.cuh::adding)
         float alb = alb_dif;
         float src = day_sfc ? dir * alb_dir : 0.0f;
         at(kAlb, nlay) = alb;

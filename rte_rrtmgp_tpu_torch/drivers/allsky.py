@@ -2,7 +2,8 @@
 
 Counterpart of ``rte_rrtmgp_tpu.drivers.allsky`` (reference
 examples/all-sky/rrtmgp_allsky.F90), three ways, each with clouds and
-aerosols on or off (``use_clouds``, ``use_aerosols``):
+aerosols on or off (``use_clouds``, ``use_aerosols``), the fused and
+public-API branches with broadband or by-band fluxes (``byband``):
 
   * the fused branch (``allsky_step_lw/sw``): per step, cloud optics
     (``ops/kernels/cloud_props``) and aerosol optics, then the fused LW
@@ -34,7 +35,7 @@ from ..gas_concs import GasConcs
 from ..models.rrtmgp.aerosol_optics import MERRA_AERO_DUST, MERRA_AERO_SULF
 from ..models.rrtmgp.gas_optics import GasOpticsRRTMGP
 from ..optical_props import delta_scale, increment
-from ..ops.kernels.fused_lw import LWFusedInputs, lw_fused
+from ..ops.kernels.fused_lw import LWFusedInputs, lw_fused, reverse_axes
 from ..ops.kernels.fused_sw import SWFusedInputs, sw_fused
 from ..ops.kernels.solver_lanes import (increment_2str_bybnd,
                                         lw_noscat_lanes,
@@ -218,10 +219,10 @@ def _scattering_lanes(inputs: AllSkyInputs, cloud_optics, use_clouds,
 
 def allsky_lw_inputs(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
                      cloud_optics=None, use_clouds=True, aerosol_optics=None,
-                     use_aerosols=False) -> LWFusedInputs:
+                     use_aerosols=False, byband=False) -> LWFusedInputs:
     """The fused LW kernel's inputs for one all-sky step: the
     absorption-only by-band increment of clouds and aerosols and the
-    descriptor prep."""
+    descriptor prep; no incident flux."""
     cld_abs = _absorption_lanes(inputs, cloud_optics, use_clouds,
                                 aerosol_optics, use_aerosols)
     ncol = inputs.play.shape[0]
@@ -230,15 +231,15 @@ def allsky_lw_inputs(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
         inputs.play, inputs.plev, inputs.tlay, inputs.tsfc, inputs.gas_concs,
         sfc_emis=emis, tlev=inputs.tlev,
         cloud_tau_abs=None if cld_abs is None else cld_abs.contiguous(),
-        ds=GAUSS_DS[0][0], weight=GAUSS_WTS[0][0])
+        ds=GAUSS_DS[0][0], weight=GAUSS_WTS[0][0], byband=byband)
 
 
 def allsky_sw_inputs(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
                      cloud_optics=None, use_clouds=True, aerosol_optics=None,
-                     use_aerosols=False) -> SWFusedInputs:
+                     use_aerosols=False, byband=False) -> SWFusedInputs:
     """The fused SW kernel's inputs for one all-sky step: the
     delta-scaled by-band increment of clouds and aerosols and the
-    descriptor prep."""
+    descriptor prep; the solar source at the top, no diffuse flux."""
     cloud = _scattering_lanes(inputs, cloud_optics, use_clouds,
                               aerosol_optics, use_aerosols)
     ncol, nlay = inputs.play.shape
@@ -246,32 +247,35 @@ def allsky_sw_inputs(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
     alb = inputs.sfc_alb[:, 0][None, :].expand(gas_optics.ngpt, ncol)
     return gas_optics.sw_fused_inputs(
         inputs.play, inputs.plev, inputs.tlay, inputs.gas_concs, mu0=mu0,
-        sfc_alb_dir=alb, sfc_alb_dif=alb, cloud=cloud)
+        sfc_alb_dir=alb, sfc_alb_dif=alb, cloud=cloud, byband=byband)
 
 
 def allsky_step_lw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
                    cloud_optics=None, use_clouds=True, aerosol_optics=None,
-                   use_aerosols=False) -> Fluxes:
+                   use_aerosols=False, byband=False) -> Fluxes:
     """One LW all-sky step (reference timed loop :368-380): cloud and
     aerosol optics, then gas optics + no-scattering solve in one fused
-    kernel."""
-    up, dn = lw_fused(allsky_lw_inputs(
+    kernel. Broadband (ncol, nlay+1) fluxes, or with ``byband`` per-band
+    sums (ncol, nlay+1, nband) (uniform bands only, as in the JAX
+    package)."""
+    up, dn = (reverse_axes(f) for f in lw_fused(allsky_lw_inputs(
         inputs, gas_optics, cloud_optics=cloud_optics, use_clouds=use_clouds,
-        aerosol_optics=aerosol_optics, use_aerosols=use_aerosols))
-    up, dn = up.T, dn.T
+        aerosol_optics=aerosol_optics, use_aerosols=use_aerosols,
+        byband=byband)))
     return Fluxes(flux_up=up, flux_dn=dn, flux_net=dn - up)
 
 
 def allsky_step_sw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
                    cloud_optics=None, use_clouds=True, aerosol_optics=None,
-                   use_aerosols=False) -> Fluxes:
+                   use_aerosols=False, byband=False) -> Fluxes:
     """One SW all-sky step (reference :388-404): cloud and aerosol
     optics, then gas optics + Rayleigh + two-stream solve in one fused
-    kernel."""
-    up, dn, fdir = sw_fused(allsky_sw_inputs(
+    kernel. Broadband or, with ``byband``, per-band fluxes, as
+    :func:`allsky_step_lw`."""
+    up, dn, fdir = (reverse_axes(f) for f in sw_fused(allsky_sw_inputs(
         inputs, gas_optics, cloud_optics=cloud_optics, use_clouds=use_clouds,
-        aerosol_optics=aerosol_optics, use_aerosols=use_aerosols))
-    up, dn, fdir = up.T, dn.T, fdir.T
+        aerosol_optics=aerosol_optics, use_aerosols=use_aerosols,
+        byband=byband)))
     return Fluxes(flux_up=up, flux_dn=dn, flux_net=dn - up, flux_dn_dir=fdir)
 
 
@@ -356,11 +360,11 @@ def allsky_staged_sw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
 
 def allsky_api_lw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
                   cloud_optics=None, use_clouds=True, aerosol_optics=None,
-                  use_aerosols=False) -> Fluxes:
+                  use_aerosols=False, byband=False) -> Fluxes:
     """One LW all-sky step through the public API (the JAX driver's
     generic branch, drivers/allsky.py:393-411): gas optics and Planck
     sources, the absorption-only cloud and aerosol increments, then
-    ``rte_lw``."""
+    ``rte_lw`` (``byband``: per-band sums)."""
     i = inputs
     props, sources = gas_optics.gas_optics_lw(
         i.play, i.plev, i.tlay, i.tsfc, i.gas_concs, tlev=i.tlev,
@@ -372,15 +376,15 @@ def allsky_api_lw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
         props = increment(props, aerosol_optics.aerosol_optics(
             i.aero_type, i.aero_size, i.aero_mass, i.relhum,
             scattering=False))
-    return rte_lw(props, sources, i.sfc_emis)
+    return rte_lw(props, sources, i.sfc_emis, byband=byband)
 
 
 def allsky_api_sw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
                   cloud_optics=None, use_clouds=True, aerosol_optics=None,
-                  use_aerosols=False) -> Fluxes:
+                  use_aerosols=False, byband=False) -> Fluxes:
     """One SW all-sky step through the public API (drivers/allsky.py:
     431-446): gas optics, the delta-scaled cloud and aerosol increments,
-    then ``rte_sw``."""
+    then ``rte_sw`` (``byband``: per-band sums)."""
     i = inputs
     props, toa = gas_optics.gas_optics_sw(i.play, i.plev, i.tlay,
                                           i.gas_concs, top_at_1=True)
@@ -390,7 +394,7 @@ def allsky_api_sw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
     if use_aerosols:
         props = increment(props, delta_scale(aerosol_optics.aerosol_optics(
             i.aero_type, i.aero_size, i.aero_mass, i.relhum)))
-    return rte_sw(props, i.mu0, toa, i.sfc_alb, i.sfc_alb)
+    return rte_sw(props, i.mu0, toa, i.sfc_alb, i.sfc_alb, byband=byband)
 
 
 class AllSkyProblem(NamedTuple):

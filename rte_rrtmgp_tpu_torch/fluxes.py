@@ -13,8 +13,8 @@ import torch
 
 from .spectral import SpectralGrid
 
-__all__ = ["Fluxes", "sum_broadband", "net_broadband", "sum_byband",
-           "net_byband"]
+__all__ = ["Fluxes", "sum_broadband", "net_broadband", "sum_bands",
+           "sum_byband", "net_byband"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,19 +37,23 @@ def net_broadband(spectral_dn: torch.Tensor,
     return (spectral_dn - spectral_up).sum(-1)
 
 
-def _band_matrix(grid: SpectralGrid, dtype, device) -> torch.Tensor:
-    """One-hot (ngpt, nband) projection."""
-    m = torch.zeros((grid.ngpt, grid.nband), dtype=dtype, device=device)
-    m[torch.arange(grid.ngpt), torch.as_tensor(grid.gpt2band).long()] = 1.0
-    return m
+def sum_bands(spectral_flux: torch.Tensor, gpt2band,
+              nband: int) -> torch.Tensor:
+    """(..., ngpt) -> (..., nband): the sums over each band's g-points,
+    band b's g-points those with gpt2band == b (0-based)."""
+    ngpt = spectral_flux.shape[-1]
+    m = torch.zeros((ngpt, nband), dtype=spectral_flux.dtype,
+                    device=spectral_flux.device)
+    band = torch.as_tensor(gpt2band, device=spectral_flux.device).long()
+    m[torch.arange(ngpt, device=m.device), band] = 1.0
+    return spectral_flux @ m
 
 
 def sum_byband(spectral_flux: torch.Tensor,
                grid: SpectralGrid) -> torch.Tensor:
     """Per-band sums (reference ``sum_byband``, mo_fluxes_byband.F90:
     159-190): (..., ngpt) -> (..., nband)."""
-    return spectral_flux @ _band_matrix(grid, spectral_flux.dtype,
-                                        spectral_flux.device)
+    return sum_bands(spectral_flux, grid.gpt2band, grid.nband)
 
 
 def net_byband(spectral_dn: torch.Tensor, spectral_up: torch.Tensor,

@@ -22,6 +22,7 @@ plain PyTorch as it is plain JAX in the JAX package), then three routes:
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ... import constants
@@ -334,11 +335,12 @@ class GasOpticsRRTMGP:
     # ------------------------------------------------------------------
     # the fused kernels' inputs
     # ------------------------------------------------------------------
-    def _descriptors(self, play, plev, tlay, gas_concs):
+    def _descriptors(self, play, plev, tlay, gas_concs, col_dry=None):
         """Layer-major interpolation state and minor scaling rows."""
         self._check_key_species_present(gas_concs)
         kd = self.kdist
-        col_gas, col_dry, idx_h2o = self.col_gas(play, plev, gas_concs)
+        col_gas, col_dry, idx_h2o = self.col_gas(play, plev, gas_concs,
+                                                 col_dry)
         play_c, tlay_c = play.T, tlay.T
         col_gas_c = col_gas.transpose(1, 2)
         co = self.interp(play_c, tlay_c, col_gas_c)
@@ -349,17 +351,33 @@ class GasOpticsRRTMGP:
                          minor_scaling(co, kd.minor_upper, lower=False, **kw)])
         return co, msc.contiguous(), col_gas_c, col_dry.T, idx_h2o
 
+    def _check_byband(self, byband: bool) -> None:
+        """The fused solves' by-band output needs uniform band widths (the
+        JAX package's rule, models/rrtmgp/gas_optics.py:42-50)."""
+        lims = np.asarray(self.kdist.grid.band_lims_gpt_array)
+        widths = lims[:, 1] - lims[:, 0] + 1
+        if byband and not (widths == widths[0]).all():
+            raise ValueError("fused by-band path requires uniform band "
+                             f"widths; got {widths.tolist()}")
+
     def lw_fused_inputs(self, play, plev, tlay, tsfc, gas_concs, *,
-                        sfc_emis, tlev=None, cloud_tau_abs=None, ds,
-                        weight) -> LWFusedInputs:
-        """Descriptor prep for the fused LW kernel. sfc_emis (ngpt, ncol);
-        cloud_tau_abs optional (nbnd, nlay, ncol) by-band absorption."""
+                        sfc_emis, inc_flux=None, tlev=None, col_dry=None,
+                        cloud_tau_abs=None, ds, weight,
+                        byband: bool = False) -> LWFusedInputs:
+        """Descriptor prep for the fused LW kernel. sfc_emis and inc_flux
+        (ngpt, ncol), the incident flux zero when None; col_dry optional
+        (ncol, nlay) dry-air columns; cloud_tau_abs optional (nbnd, nlay,
+        ncol) by-band absorption; ``byband`` asks for per-band sums."""
         kd = self.kdist
         if not kd.source_is_internal():
             raise ValueError("rrtmgp gas optics: k-distribution is SW")
-        co, msc, _, _, _ = self._descriptors(play, plev, tlay, gas_concs)
+        self._check_byband(byband)
+        co, msc, _, _, _ = self._descriptors(play, plev, tlay, gas_concs,
+                                             col_dry)
         if tlev is None:
             tlev = interp_tlev(tlay, play, plev)
+        if inc_flux is None:
+            inc_flux = play.new_zeros(()).expand(kd.ngpt, play.shape[0])
         return LWFusedInputs(
             co=co, minor_scale=msc, minors=self.minors,
             minor_meta=self.minor_meta, kmajor=kd.kmajor,
@@ -369,34 +387,42 @@ class GasOpticsRRTMGP:
             tp_min=kd.temp_ref_min, tp_delta=kd.totplnk_delta,
             tlay=tlay.T.contiguous(), tlev=tlev.T.contiguous(),
             tsfc=tsfc.to(play.dtype).contiguous(),
-            sfc_emis=sfc_emis.contiguous(), cloud_tau_abs=cloud_tau_abs,
-            ds=float(ds), weight=float(weight))
+            sfc_emis=sfc_emis.contiguous(), inc=inc_flux.contiguous(),
+            cloud_tau_abs=cloud_tau_abs, ds=float(ds), weight=float(weight),
+            byband=bool(byband))
 
     def lw_fused_solve(self, play, plev, tlay, tsfc, gas_concs, **kw):
-        """Gas optics + no-scattering solve in one fused kernel call.
-        Returns broadband (flux_up, flux_dn), each (nlay+1, ncol)."""
+        """Gas optics + no-scattering solve in one fused kernel call
+        (keywords of :meth:`lw_fused_inputs`). Returns (flux_up, flux_dn):
+        broadband, each (nlay+1, ncol), or by band, (nbnd, nlay+1,
+        ncol)."""
         return lw_fused(self.lw_fused_inputs(play, plev, tlay, tsfc,
                                              gas_concs, **kw))
 
     def sw_fused_inputs(self, play, plev, tlay, gas_concs, *, mu0,
-                        sfc_alb_dir, sfc_alb_dif, cloud=None
-                        ) -> SWFusedInputs:
+                        sfc_alb_dir, sfc_alb_dif, inc_flux=None,
+                        inc_flux_dif=None, col_dry=None, cloud=None,
+                        byband: bool = False) -> SWFusedInputs:
         """Descriptor prep for the fused SW kernel. mu0 (nlay, ncol);
-        sfc_alb_* (ngpt, ncol); cloud optional by-band delta-scaled
-        (tau, ssa, g), each (nbnd, nlay, ncol). The TOA flux is the
-        k-distribution's solar source."""
+        sfc_alb_*, inc_flux and inc_flux_dif (ngpt, ncol): the direct TOA
+        flux the k-distribution's solar source when None, the diffuse one
+        zero; col_dry optional (ncol, nlay) dry-air columns; cloud
+        optional by-band delta-scaled (tau, ssa, g), each (nbnd, nlay,
+        ncol); ``byband`` asks for per-band sums."""
         kd = self.kdist
         if not kd.source_is_external():
             raise ValueError("rrtmgp gas optics: k-distribution is LW")
+        self._check_byband(byband)
         co, msc, col_gas_c, col_dry_c, idx_h2o = self._descriptors(
-            play, plev, tlay, gas_concs)
+            play, plev, tlay, gas_concs, col_dry)
         if cloud is not None:
             cloud = torch.stack(cloud)
             if cloud.shape[1] != kd.grid.nband:
                 raise ValueError(f"sw cloud has {cloud.shape[1]} bands, the "
                                  f"k-distribution {kd.grid.nband}")
-        ncol = play.shape[0]
-        inc = kd.solar_source.to(play.dtype)[:, None].expand(kd.ngpt, ncol)
+        if inc_flux is None:
+            inc_flux = kd.solar_source.to(play.dtype)[:, None].expand(
+                kd.ngpt, play.shape[0])
         return SWFusedInputs(
             co=co, minor_scale=msc, minors=self.minors,
             minor_meta=self.minor_meta, kmajor=kd.kmajor,
@@ -406,10 +432,15 @@ class GasOpticsRRTMGP:
             rayscale=(col_gas_c[idx_h2o] + col_dry_c).contiguous(),
             cloud=cloud, mu0=mu0.contiguous(),
             sfc_alb_dir=sfc_alb_dir.contiguous(),
-            sfc_alb_dif=sfc_alb_dif.contiguous(), inc=inc.contiguous())
+            sfc_alb_dif=sfc_alb_dif.contiguous(), inc=inc_flux.contiguous(),
+            incdif=(None if inc_flux_dif is None
+                    else inc_flux_dif.contiguous()),
+            byband=bool(byband), nband=kd.grid.nband)
 
     def sw_fused_solve(self, play, plev, tlay, gas_concs, **kw):
-        """Gas optics + two-stream solve in one fused kernel call. Returns
-        broadband (flux_up, flux_dn total, flux_dir), each (nlay+1, ncol)."""
+        """Gas optics + two-stream solve in one fused kernel call
+        (keywords of :meth:`sw_fused_inputs`). Returns (flux_up, flux_dn
+        total, flux_dir): broadband, each (nlay+1, ncol), or by band,
+        (nbnd, nlay+1, ncol)."""
         return sw_fused(self.sw_fused_inputs(play, plev, tlay, gas_concs,
                                              **kw))

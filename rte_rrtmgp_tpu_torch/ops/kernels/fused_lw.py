@@ -7,16 +7,22 @@ lw_fused_gas_optics_solve`` (semantics of ``_lw_fused_xla_ref``,
 models/rrtmgp/gas_optics.py:605-633): per (column, g-point) the 8-corner
 major tau and Planck fraction, the minor gases whose window holds the
 g-point, the by-band cloud absorption, the Planck lay/lev/sfc sources
-from the ``totplnk`` lerp, the down and up sweeps, and the broadband
-sum times pi * weight.
+from the ``totplnk`` lerp, the down sweep from the incident flux, the up
+sweep, and the broadband sum times pi * weight, or with ``byband`` the
+per-band sums (band, level, column). The TPU kernel needs uniform bands
+whose width divides 128 for those; the CUDA kernel sums each band's
+g-points through ``gpt2band``, and the callers keep the JAX package's
+rule of uniform bands.
 
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
 CPU tensor to :func:`lw_fused_plain`. :func:`lw_fused` is differentiable:
-its backward is the adjoint kernel ``csrc/fused_lw_bwd.cu``
+its broadband backward is the adjoint kernel ``csrc/fused_lw_bwd.cu``
 (:func:`lw_fused_bwd`, replacing the TPU kernel ``ops/pallas/
 fused_lw_bwd.py::_lw_fused_bwd``) on CUDA tensors and the twin's gradient
 on CPU tensors, with respect to the fields of :data:`LW_DIFF`; the
-tables, the integer indices and ``tropo`` are constants.
+by-band solve's backward is the twin's gradient on both (the JAX rule,
+models/rrtmgp/gas_optics.py:567-570). The tables, the integer indices and
+``tropo`` are constants.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import torch
 
 from ..gas_optics import InterpCoeffs, planck_sources, tau_major, tau_minor
 from ._build import check_args, launch, on_cpu
-from .autodiff import none_like, refuse_grad, with_adjoint
+from .autodiff import none_like, refuse_grad, with_adjoint, with_twin_grad
 from .solver_lw import lw_noscat_plain
 
 __all__ = ["LWFusedInputs", "LW_DIFF", "lw_fused", "lw_fused_plain",
@@ -52,9 +58,11 @@ class LWFusedInputs(NamedTuple):
     tlev: torch.Tensor             # (nlay+1, ncol)
     tsfc: torch.Tensor             # (ncol,)
     sfc_emis: torch.Tensor         # (ngpt, ncol)
+    inc: torch.Tensor              # (ngpt, ncol) incident flux at the top
     cloud_tau_abs: Optional[torch.Tensor]  # (nbnd, nlay, ncol) or None
     ds: float                      # secant of the quadrature angle
     weight: float                  # quadrature weight
+    byband: bool = False           # per-band sums instead of broadband
 
 
 def _split_minors(minors):
@@ -63,8 +71,15 @@ def _split_minors(minors):
     return lo, up
 
 
+def reverse_axes(a: torch.Tensor) -> torch.Tensor:
+    """The public (ncol, nlev[, nband]) fluxes as the fused kernels'
+    ([nband,] nlev, ncol), and back."""
+    return a.permute(*range(a.ndim - 1, -1, -1))
+
+
 def lw_fused_plain(x: LWFusedInputs):
-    """Returns broadband (flux_up, flux_dn), each (nlay+1, ncol)."""
+    """Returns (flux_up, flux_dn): broadband, each (nlay+1, ncol), or with
+    ``x.byband`` the per-band sums, each (nbnd, nlay+1, ncol)."""
     co = x.co
     tau, pfrac = tau_major(co, x.kmajor, x.planck_frac, x.gpoint_flavor)
     lo, up = _split_minors(x.minors)
@@ -78,15 +93,16 @@ def lw_fused_plain(x: LWFusedInputs):
         pub(pfrac), totplnk=x.totplnk, totplnk_delta=x.tp_delta,
         temp_ref_min=x.tp_min, gpt2band=x.gpt2band, tlay=x.tlay.T,
         tlev=x.tlev.T, tsfc=x.tsfc, top_at_1=True)
+    bands = (dict(gpt2band=x.gpt2band, nband=x.totplnk.shape[1])
+             if x.byband else {})
     up, dn, _ = lw_noscat_plain(pub(tau), lay, lev, x.sfc_emis.T, sfc,
-                                torch.zeros_like(sfc), ds=x.ds,
-                                weight=x.weight)
-    return up.T, dn.T
+                                x.inc.T, ds=x.ds, weight=x.weight, **bands)
+    return reverse_axes(up), reverse_axes(dn)
 
 
 # the differentiable inputs, in the order of lw_fused_bwd's cotangents
 LW_DIFF = ("co.ftemp", "co.fpress", "co.feta", "co.col_mix", "minor_scale",
-           "tlay", "tlev", "tsfc", "sfc_emis", "cloud_tau_abs")
+           "tlay", "tlev", "tsfc", "sfc_emis", "inc", "cloud_tau_abs")
 
 
 def _field(x, name):
@@ -154,7 +170,8 @@ def _check(x: LWFusedInputs, what: str) -> dict:
         "totplnk": (x.totplnk, (x.totplnk.shape[0], nbnd), f32),
         "tlay": (x.tlay, cell, f32), "tlev": (x.tlev, (nlay + 1, ncol), f32),
         "tsfc": (x.tsfc, (ncol,), f32),
-        "sfc_emis": (x.sfc_emis, (ngpt, ncol), f32)}
+        "sfc_emis": (x.sfc_emis, (ngpt, ncol), f32),
+        "inc": (x.inc, (ngpt, ncol), f32)}
     if x.cloud_tau_abs is not None:
         specs["cloud_tau_abs"] = (x.cloud_tau_abs, (nbnd,) + cell, f32)
     check_args(what, x.tlay.device, specs)
@@ -169,7 +186,7 @@ def _inputs(x: LWFusedInputs):
             co.jeta, co.feta, co.col_mix, x.minor_scale, x.minor_meta,
             x.kmajor, x.planck_frac, x.kminor_lower, x.kminor_upper,
             x.gpoint_flavor, x.gpt2band, x.totplnk, x.tlay, x.tlev, x.tsfc,
-            x.sfc_emis, x.cloud_tau_abs)
+            x.sfc_emis, x.inc, x.cloud_tau_abs)
 
 
 def _sizes(x: LWFusedInputs, n: dict) -> tuple:
@@ -189,11 +206,13 @@ def _lw_fused_kernel(x: LWFusedInputs):
     # Planck fraction then upward source
     scratch = torch.empty((2, n["ncol"], n["nlay"], n["ngpt"]),
                           dtype=torch.float32, device=dev)
-    up = torch.empty((n["nlay"] + 1, n["ncol"]), dtype=torch.float32,
-                     device=dev)
+    shape = ((n["nbnd"],) if x.byband else ()) + (n["nlay"] + 1, n["ncol"])
+    up = torch.empty(shape, dtype=torch.float32, device=dev)
     dn = torch.empty_like(up)
+    bb, band = (None, up) if x.byband else (up, None)
     launch("fused_lw", "launch_fused_lw", "lw_fused", *_inputs(x), scratch,
-           up, dn, *_sizes(x, n))
+           bb, None if x.byband else dn, band, dn if x.byband else None,
+           *_sizes(x, n))
     lw_fused.launches += 1
     return up, dn
 
@@ -201,7 +220,7 @@ def _lw_fused_kernel(x: LWFusedInputs):
 def lw_fused_bwd_plain(x: LWFusedInputs, g_up, g_dn):
     """Cotangents of the :data:`LW_DIFF` fields of ``x`` (None for an
     absent cloud) for the cotangents g_up, g_dn (nlay+1, ncol) of
-    :func:`lw_fused_plain`'s fluxes: its autograd, recomputed."""
+    :func:`lw_fused_plain`'s broadband fluxes: its autograd, recomputed."""
     return _fields_grad(lw_fused_plain, x, LW_DIFF, (g_up, g_dn))
 
 
@@ -212,6 +231,9 @@ def lw_fused_bwd(x: LWFusedInputs, g_up, g_dn):
         return lw_fused_bwd_plain(x, g_up, g_dn)
     refuse_grad("lw_fused_bwd", x, g_up, g_dn,
                 hint="the adjoints have no backward of their own")
+    if x.byband:
+        raise ValueError("lw_fused_bwd: the adjoint kernel takes the "
+                         "broadband solve's cotangents")
     n = _check(x, "lw_fused_bwd")
     nlay, ncol, ngpt = n["nlay"], n["ncol"], n["ngpt"]
     dev = x.tlay.device
@@ -227,13 +249,13 @@ def lw_fused_bwd(x: LWFusedInputs, g_up, g_dn):
             torch.empty_like(co.feta), torch.empty_like(co.col_mix),
             torch.empty_like(x.minor_scale), torch.empty_like(x.tlay),
             torch.empty_like(x.tlev), torch.empty_like(x.tsfc),
-            torch.empty_like(x.sfc_emis),
+            torch.empty_like(x.sfc_emis), torch.empty_like(x.inc),
             None if x.cloud_tau_abs is None
             else torch.empty_like(x.cloud_tau_abs))
-    ft, fp, fe, cm, ms, tl, tv, ts, em, cl = bars
+    ft, fp, fe, cm, ms, tl, tv, ts, em, ib, cl = bars
     launch("fused_lw_bwd", "launch_fused_lw_bwd", "lw_fused_bwd",
            *_inputs(x), g_up, g_dn, scratch, ft, fp, fe, cm, ms, cl, tl, tv,
-           ts, em, *_sizes(x, n))
+           ts, em, ib, *_sizes(x, n))
     lw_fused_bwd.launches += 1
     return bars
 
@@ -244,9 +266,12 @@ lw_fused_bwd.launches = 0
 def lw_fused(x: LWFusedInputs):
     """:func:`lw_fused_plain` semantics; on CUDA, one launch of the
     hand-written kernel (counted in ``lw_fused.launches``). Differentiable
-    with respect to the :data:`LW_DIFF` fields: the backward is one launch
-    of the adjoint kernel on CUDA (:func:`lw_fused_bwd`), the twin's
-    gradient on the CPU."""
+    with respect to the :data:`LW_DIFF` fields: the broadband backward is
+    one launch of the adjoint kernel on CUDA (:func:`lw_fused_bwd`), the
+    twin's gradient on the CPU; the by-band backward the twin's gradient on
+    both."""
+    if x.byband:
+        return with_twin_grad(_lw_fused_kernel, lw_fused_plain, x)
     return with_adjoint(
         _lw_fused_kernel, lw_fused_plain,
         lambda a, *g: (_fused_adjoint(lw_fused_bwd, LW_DIFF, *a, *g),), x)

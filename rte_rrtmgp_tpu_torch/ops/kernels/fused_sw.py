@@ -9,15 +9,22 @@ minor absorption, Rayleigh scaled by (col_h2o + col_dry), the
 absorption/Rayleigh combine, the by-band delta-scaled cloud 2-stream
 increment (with the float32 ``tiny`` guards of the TPU kernel in every
 dtype), Meador-Weaver two-stream with the reference's clamps and night
-masking, the direct beam, Shonk-Hogan adding, and the broadband sums.
+masking, the direct beam, Shonk-Hogan adding from the diffuse incident
+flux, and the broadband sums, or with ``byband`` the per-band sums (band,
+level, column). The TPU kernel needs uniform bands whose width divides
+128 for those; the CUDA kernel sums each band's g-points through
+``gpt2band``, and the callers keep the JAX package's rule of uniform
+bands.
 
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
 CPU tensor to :func:`sw_fused_plain`. :func:`sw_fused` is differentiable:
-its backward is the adjoint kernel ``csrc/fused_sw_bwd.cu``
+its broadband backward is the adjoint kernel ``csrc/fused_sw_bwd.cu``
 (:func:`sw_fused_bwd`, replacing the TPU kernel ``ops/pallas/
 fused_sw_bwd.py::_sw_fused_bwd``) on CUDA tensors and the twin's gradient
 on CPU tensors, with respect to the fields of :data:`SW_DIFF`; the
-tables, the integer indices and ``tropo`` are constants.
+by-band solve's backward is the twin's gradient on both (the JAX rule,
+models/rrtmgp/gas_optics.py:674-677). The tables, the integer indices and
+``tropo`` are constants.
 """
 from __future__ import annotations
 
@@ -28,8 +35,9 @@ import torch
 
 from ..gas_optics import InterpCoeffs, tau_major, tau_minor, tau_rayleigh
 from ._build import check_args, launch, on_cpu
-from .autodiff import refuse_grad, with_adjoint
-from .fused_lw import _fields_grad, _fused_adjoint, _split_minors
+from .autodiff import refuse_grad, with_adjoint, with_twin_grad
+from .fused_lw import (_fields_grad, _fused_adjoint, _split_minors,
+                       reverse_axes)
 from .solver_lanes import increment_2str_bybnd
 from .solver_sw import sw_2stream_plain
 
@@ -59,11 +67,15 @@ class SWFusedInputs(NamedTuple):
     sfc_alb_dir: torch.Tensor      # (ngpt, ncol)
     sfc_alb_dif: torch.Tensor      # (ngpt, ncol)
     inc: torch.Tensor              # (ngpt, ncol) TOA direct flux
+    incdif: Optional[torch.Tensor]  # (ngpt, ncol) TOA diffuse flux or None
+    byband: bool = False           # per-band sums instead of broadband
+    nband: int = 0                 # the bands of gpt2band (by-band output)
 
 
 def sw_fused_plain(x: SWFusedInputs):
-    """Returns broadband (flux_up, flux_dn total, flux_dir), each
-    (nlay+1, ncol)."""
+    """Returns (flux_up, flux_dn total, flux_dir): broadband, each
+    (nlay+1, ncol), or with ``x.byband`` the per-band sums, each (nband,
+    nlay+1, ncol)."""
     co = x.co
     tau, _ = tau_major(co, x.kmajor, None, x.gpoint_flavor)
     lo, up = _split_minors(x.minors)
@@ -78,14 +90,17 @@ def sw_fused_plain(x: SWFusedInputs):
     t, ssa, g = increment_2str_bybnd(t, ssa, x.cloud, x.gpt2band, _TINY32)
     # lane layout (ngpt, nlay, ncol) -> the public (ncol, nlay, ngpt)
     pub = lambda a: a.permute(2, 1, 0)
-    up, dn, fdir = sw_2stream_plain(pub(t), pub(ssa), pub(g), x.mu0.T,
-                                    x.sfc_alb_dir.T, x.sfc_alb_dif.T, x.inc.T)
-    return up.T, dn.T, fdir.T
+    bands = dict(gpt2band=x.gpt2band, nband=x.nband) if x.byband else {}
+    out = sw_2stream_plain(pub(t), pub(ssa), pub(g), x.mu0.T,
+                           x.sfc_alb_dir.T, x.sfc_alb_dif.T, x.inc.T,
+                           None if x.incdif is None else x.incdif.T, **bands)
+    return tuple(reverse_axes(a) for a in out)
 
 
 # the differentiable inputs, in the order of sw_fused_bwd's cotangents
 SW_DIFF = ("co.ftemp", "co.fpress", "co.feta", "co.col_mix", "minor_scale",
-           "rayscale", "cloud", "mu0", "sfc_alb_dir", "sfc_alb_dif", "inc")
+           "rayscale", "cloud", "mu0", "sfc_alb_dir", "sfc_alb_dif", "inc",
+           "incdif")
 
 
 def _check(x: SWFusedInputs, what: str) -> dict:
@@ -121,6 +136,10 @@ def _check(x: SWFusedInputs, what: str) -> dict:
         "inc": (x.inc, (ngpt, ncol), f32)}
     if x.cloud is not None:
         specs["cloud"] = (x.cloud, (3, x.cloud.shape[1]) + cell, f32)
+    if x.incdif is not None:
+        specs["incdif"] = (x.incdif, (ngpt, ncol), f32)
+    if x.byband and x.nband < 1:
+        raise ValueError(f"{what}: by-band output needs nband >= 1")
     check_args(what, x.mu0.device, specs)
     return dict(nlay=nlay, ncol=ncol, ngpt=ngpt, neta=neta, npres1=npres1,
                 nflav=nflav, nminor=nminor, ncl=ncl, ncu=ncu,
@@ -134,7 +153,7 @@ def _inputs(x: SWFusedInputs):
             co.jeta, co.feta, co.col_mix, x.minor_scale, x.minor_meta,
             x.kmajor, x.kminor_lower, x.kminor_upper, x.krayl,
             x.gpoint_flavor, x.gpt2band, x.rayscale, x.cloud, x.mu0,
-            x.sfc_alb_dir, x.sfc_alb_dif, x.inc)
+            x.sfc_alb_dir, x.sfc_alb_dif, x.inc, x.incdif)
 
 
 def _sizes(n: dict) -> tuple:
@@ -153,17 +172,20 @@ def _sw_fused_kernel(x: SWFusedInputs):
     # source_up (then the adding denominator), albedo, source
     scratch = torch.empty((6, ncol, nlay + 1, n["ngpt"]),
                           dtype=torch.float32, device=dev)
-    out = torch.empty((3, nlay + 1, ncol), dtype=torch.float32, device=dev)
+    out = torch.empty((3,) + ((x.nband,) if x.byband else ())
+                      + (nlay + 1, ncol), dtype=torch.float32, device=dev)
     launch("fused_sw", "launch_fused_sw", "sw_fused", *_inputs(x), scratch,
-           out, *_sizes(n))
+           None if x.byband else out, out if x.byband else None,
+           *_sizes(n), int(x.nband))
     sw_fused.launches += 1
     return out[0], out[1], out[2]
 
 
 def sw_fused_bwd_plain(x: SWFusedInputs, g_up, g_dn, g_dir):
     """Cotangents of the :data:`SW_DIFF` fields of ``x`` (None for an
-    absent cloud) for the cotangents g_up, g_dn, g_dir (nlay+1, ncol) of
-    :func:`sw_fused_plain`'s fluxes: its autograd, recomputed."""
+    absent cloud or diffuse flux) for the cotangents g_up, g_dn, g_dir
+    (nlay+1, ncol) of :func:`sw_fused_plain`'s broadband fluxes: its
+    autograd, recomputed."""
     return _fields_grad(sw_fused_plain, x, SW_DIFF, (g_up, g_dn, g_dir))
 
 
@@ -174,6 +196,9 @@ def sw_fused_bwd(x: SWFusedInputs, g_up, g_dn, g_dir):
         return sw_fused_bwd_plain(x, g_up, g_dn, g_dir)
     refuse_grad("sw_fused_bwd", x, g_up, g_dn, g_dir,
                 hint="the adjoints have no backward of their own")
+    if x.byband:
+        raise ValueError("sw_fused_bwd: the adjoint kernel takes the "
+                         "broadband solve's cotangents")
     n = _check(x, "sw_fused_bwd")
     nlay, ncol, ngpt = n["nlay"], n["ncol"], n["ngpt"]
     dev = x.mu0.device
@@ -192,7 +217,8 @@ def sw_fused_bwd(x: SWFusedInputs, g_up, g_dn, g_dir):
             torch.empty_like(x.minor_scale), torch.empty_like(x.rayscale),
             None if x.cloud is None else torch.empty_like(x.cloud),
             torch.empty_like(x.mu0), torch.empty_like(x.sfc_alb_dir),
-            torch.empty_like(x.sfc_alb_dif), torch.empty_like(x.inc))
+            torch.empty_like(x.sfc_alb_dif), torch.empty_like(x.inc),
+            None if x.incdif is None else torch.empty_like(x.incdif))
     launch("fused_sw_bwd", "launch_fused_sw_bwd", "sw_fused_bwd",
            *_inputs(x), *gs, scratch, *bars, *_sizes(n))
     sw_fused_bwd.launches += 1
@@ -205,9 +231,12 @@ sw_fused_bwd.launches = 0
 def sw_fused(x: SWFusedInputs):
     """:func:`sw_fused_plain` semantics; on CUDA, one launch of the
     hand-written kernel (counted in ``sw_fused.launches``). Differentiable
-    with respect to the :data:`SW_DIFF` fields: the backward is one launch
-    of the adjoint kernel on CUDA (:func:`sw_fused_bwd`), the twin's
-    gradient on the CPU."""
+    with respect to the :data:`SW_DIFF` fields: the broadband backward is
+    one launch of the adjoint kernel on CUDA (:func:`sw_fused_bwd`), the
+    twin's gradient on the CPU; the by-band backward the twin's gradient on
+    both."""
+    if x.byband:
+        return with_twin_grad(_sw_fused_kernel, sw_fused_plain, x)
     return with_adjoint(
         _sw_fused_kernel, sw_fused_plain,
         lambda a, *g: (_fused_adjoint(sw_fused_bwd, SW_DIFF, *a, *g),), x)

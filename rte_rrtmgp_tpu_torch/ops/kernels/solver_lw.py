@@ -1,12 +1,15 @@
-"""One-angle LW no-scattering solve with broadband output: the CUDA kernel
-``csrc/solver_lw.cu`` and its plain-PyTorch twin.
+"""One-angle LW no-scattering solve with broadband or per-band output: the
+CUDA kernel ``csrc/solver_lw.cu`` and its plain-PyTorch twin.
 
 Replaces the TPU kernel ``rte_rrtmgp_tpu/ops/pallas/solver_lw_kernel.py::
 lw_noscat_broadband_lane`` (semantics of ``ops/solver_lw.py::_oneangle``,
 reference mo_rte_solver_kernels.F90:51-240): per (column, g-point) the
 transmittance and linear-in-tau sources, the down sweep from the incident
 flux, the surface term, the up sweep, optionally Tang rescaling (ssa, g)
-and the surface Jacobian, and the broadband sum times pi * weight.
+and the surface Jacobian, and the broadband sum, or with ``gpt2band`` the
+per-band sums, times pi * weight (the Jacobian always broadband). The TPU
+kernel sums bands only when they are uniform and their width divides
+128; here any band of each g-point works.
 
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
 CPU tensor to :func:`lw_noscat_plain`. The kernel has no backward of its
@@ -19,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ...constants import PI
+from ...fluxes import sum_bands
 from ..solver_lw import _oneangle
 from ._build import check_args, launch, on_cpu
 from .autodiff import refuse_grad
@@ -27,27 +31,34 @@ __all__ = ["lw_noscat", "lw_noscat_plain"]
 
 
 def lw_noscat_plain(tau, lay, lev, sfc_emis, sfc_src, inc_flux, *, ds,
-                    weight: float, sfc_src_jac=None, ssa=None, g=None):
+                    weight: float, sfc_src_jac=None, ssa=None, g=None,
+                    gpt2band=None, nband: int = 0):
     """tau/lay (ncol, nlay, ngpt), lev (ncol, nlay+1, ngpt), sfc_emis/
-    sfc_src/inc_flux (ncol, ngpt), top at layer 0; ``ds`` a secant or
-    (ncol, ngpt) secants. With ssa and g (ncol, nlay, ngpt), Tang
-    rescaling; with sfc_src_jac (ncol, ngpt), the Jacobian. Returns
-    broadband (flux_up, flux_dn, flux_up_jac or None), each (ncol, nlay+1)
-    in W/m2."""
+    sfc_src/inc_flux (ncol, ngpt), top at layer 0; ``ds`` a secant (a
+    float or a 0-d tensor) or (ncol, ngpt) secants. With ssa and g (ncol,
+    nlay, ngpt), Tang rescaling; with sfc_src_jac (ncol, ngpt), the
+    Jacobian. Returns (flux_up, flux_dn, flux_up_jac or None) in W/m2:
+    broadband, each (ncol, nlay+1), or with ``gpt2band`` (ngpt,) the
+    fluxes' per-band sums (ncol, nlay+1, nband) and the broadband
+    Jacobian."""
     up, dn, jac = _oneangle(tau, lay, lev, sfc_emis, sfc_src, inc_flux, ds,
-                            weight, sfc_src_jac, ssa, g)
+                            weight, sfc_src_jac, ssa, g,
+                            spectral=gpt2band is not None)
+    if gpt2band is not None:
+        up, dn = sum_bands(up, gpt2band, nband), sum_bands(dn, gpt2band, nband)
     piw = PI * weight
     return up * piw, dn * piw, None if jac is None else jac * piw
 
 
 def lw_noscat(tau, lay, lev, sfc_emis, sfc_src, inc_flux, *, ds,
-              weight: float, sfc_src_jac=None, ssa=None, g=None):
+              weight: float, sfc_src_jac=None, ssa=None, g=None,
+              gpt2band=None, nband: int = 0):
     """:func:`lw_noscat_plain` semantics; on CUDA, one launch of the
     hand-written kernel (counted in ``lw_noscat.launches``)."""
     if on_cpu(tau, "lw_noscat"):
         return lw_noscat_plain(tau, lay, lev, sfc_emis, sfc_src, inc_flux,
                                ds=ds, weight=weight, sfc_src_jac=sfc_src_jac,
-                               ssa=ssa, g=g)
+                               ssa=ssa, g=g, gpt2band=gpt2band, nband=nband)
     refuse_grad("lw_noscat", tau, lay, lev, sfc_emis, sfc_src, inc_flux, ds,
                 sfc_src_jac, ssa, g, hint="ops/solver_lw.lw_solver_noscat "
                 "differentiates it (solver_lw_bwd.lw_noscat_vjp)")
@@ -66,24 +77,31 @@ def lw_noscat(tau, lay, lev, sfc_emis, sfc_src, inc_flux, *, ds,
         specs.update(ssa=(ssa, lay3, f32), g=(g, lay3, f32))
     if sfc_src_jac is not None:
         specs["sfc_src_jac"] = (sfc_src_jac, bc, f32)
-    ds_field, ds_scalar = (ds, 0.0) if isinstance(ds, torch.Tensor) \
-        else (None, float(ds))
-    if ds_field is not None:
+    # a secant field is (ncol, ngpt); a 0-d tensor is one secant
+    field = isinstance(ds, torch.Tensor) and ds.ndim == 2
+    ds_field, ds_scalar = (ds, 0.0) if field else (None, float(ds))
+    if field:
         specs["ds"] = (ds_field, bc, f32)
+    if gpt2band is not None:
+        specs["gpt2band"] = (gpt2band, (ngpt,), torch.int32)
     dev = tau.device
     check_args("lw_noscat", dev, specs)
     # rescaling keeps each thread's radiances at the layer tops
     scratch = (None if ssa is None
                else torch.empty(lay3, dtype=f32, device=dev))
-    up = torch.empty((ncol, nlay + 1), dtype=f32, device=dev)
-    dn = torch.empty_like(up)
-    jac = None if sfc_src_jac is None else torch.empty_like(up)
+    lev2 = (ncol, nlay + 1)
+    new = lambda shape: torch.empty(shape, dtype=f32, device=dev)
+    byband = gpt2band is not None
+    up, dn = (None, None) if byband else (new(lev2), new(lev2))
+    band_up, band_dn = ((new(lev2 + (nband,)), new(lev2 + (nband,)))
+                        if byband else (None, None))
+    jac = None if sfc_src_jac is None else new(lev2)
     launch("solver_lw", "launch_solver_lw", "lw_noscat",
            tau, lay, lev, ssa, g, sfc_emis, sfc_src, sfc_src_jac, inc_flux,
-           ds_field, scratch, up, dn, jac, ncol, nlay, ngpt, ds_scalar,
-           PI * float(weight))
+           ds_field, gpt2band, scratch, up, dn, jac, band_up, band_dn, ncol,
+           nlay, ngpt, int(nband), ds_scalar, PI * float(weight))
     lw_noscat.launches += 1
-    return up, dn, jac
+    return (band_up, band_dn, jac) if byband else (up, dn, jac)
 
 
 lw_noscat.launches = 0

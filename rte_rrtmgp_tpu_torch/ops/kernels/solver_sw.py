@@ -1,4 +1,4 @@
-"""SW two-stream solve with broadband output: the CUDA kernel
+"""SW two-stream solve with broadband or per-band output: the CUDA kernel
 ``csrc/solver_sw.cu`` and its plain-PyTorch twin.
 
 Replaces the TPU kernel ``rte_rrtmgp_tpu/ops/pallas/solver_sw_kernel.py::
@@ -6,7 +6,10 @@ sw_two_stream_broadband_lane`` (semantics of ``ops/solver_sw.py``'s XLA
 two-stream, reference mo_rte_solver_kernels.F90:503-609, 985-1127): per
 (column, g-point) the Meador-Weaver coefficients with the reference's
 clamps, night masking by mu0 > 0 per layer, the direct beam, Shonk-Hogan
-adding from the diffuse flux at the top, and the broadband sums.
+adding from the diffuse flux at the top, and the broadband sums, or with
+``gpt2band`` the per-band sums. The TPU kernel sums bands only when they
+are uniform and their width divides 128; here any band of each g-point
+works.
 
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
 CPU tensor to :func:`sw_2stream_plain`. The kernel has no backward of its
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ...fluxes import sum_bands
 from ..solver_sw import two_stream
 from ._build import check_args, launch, on_cpu
 from .autodiff import refuse_grad
@@ -25,22 +29,29 @@ __all__ = ["sw_2stream", "sw_2stream_plain"]
 
 
 def sw_2stream_plain(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
-                     inc_flux_dir, inc_flux_dif=None):
+                     inc_flux_dir, inc_flux_dif=None, gpt2band=None, *,
+                     nband: int = 0):
     """tau/ssa/g (ncol, nlay, ngpt), top at layer 0; mu0 (ncol, nlay);
     albedos and incident fluxes (ncol, ngpt), inc_flux_dif None for zero.
-    Returns broadband (flux_up, flux_dn total = diffuse + direct,
-    flux_dir), each (ncol, nlay+1)."""
-    return two_stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
-                      inc_flux_dir, inc_flux_dif)
+    Returns (flux_up, flux_dn total = diffuse + direct, flux_dir):
+    broadband, each (ncol, nlay+1), or with ``gpt2band`` (ngpt,) the
+    per-band sums (ncol, nlay+1, nband)."""
+    if gpt2band is None:
+        return two_stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
+                          inc_flux_dir, inc_flux_dif)
+    return tuple(sum_bands(f, gpt2band, nband) for f in two_stream(
+        tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
+        inc_flux_dif, spectral=True))
 
 
 def sw_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
-               inc_flux_dif=None):
+               inc_flux_dif=None, gpt2band=None, *, nband: int = 0):
     """:func:`sw_2stream_plain` semantics; on CUDA, one launch of the
     hand-written kernel (counted in ``sw_2stream.launches``)."""
     if on_cpu(tau, "sw_2stream"):
         return sw_2stream_plain(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
-                                inc_flux_dir, inc_flux_dif)
+                                inc_flux_dir, inc_flux_dif, gpt2band,
+                                nband=nband)
     refuse_grad("sw_2stream", tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
                 inc_flux_dir, inc_flux_dif, hint="ops/solver_sw."
                 "sw_solver_2stream differentiates it (solver_sw_bwd."
@@ -57,15 +68,22 @@ def sw_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
              "inc_flux_dir": (inc_flux_dir, bc, f32)}
     if inc_flux_dif is not None:
         specs["inc_flux_dif"] = (inc_flux_dif, bc, f32)
+    byband = gpt2band is not None
+    if byband:
+        if nband < 1:
+            raise ValueError("sw_2stream: by-band output needs nband >= 1")
+        specs["gpt2band"] = (gpt2band, (ngpt,), torch.int32)
     dev = tau.device
     check_args("sw_2stream", dev, specs)
     # per-(column, level, g-point) scratch: rdif, tdif, source_dn,
     # source_up (then the adding denominator), albedo, source
     scratch = torch.empty((6, ncol, nlay + 1, ngpt), dtype=f32, device=dev)
-    out = torch.empty((3, ncol, nlay + 1), dtype=f32, device=dev)
+    out = torch.empty((3, ncol, nlay + 1) + ((nband,) if byband else ()),
+                      dtype=f32, device=dev)
     launch("solver_sw", "launch_solver_sw", "sw_2stream",
            tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
-           inc_flux_dif, scratch, out, ncol, nlay, ngpt)
+           inc_flux_dif, gpt2band, scratch, None if byband else out,
+           out if byband else None, ncol, nlay, ngpt, int(nband))
     sw_2stream.launches += 1
     return out[0], out[1], out[2]
 

@@ -8,7 +8,7 @@ night masking) and ``sw_solver_2stream`` (:503-609, with the adding method
 of ``solver_lw.adding``).
 
 Public fields are (ncol, nlay[+1], ngpt), mu0 (ncol, nlay). The
-broadband two-stream solve is the hand-written kernel
+broadband and by-band two-stream solves are the hand-written kernel
 ``ops/kernels/solver_sw`` on a CUDA tensor.
 """
 from __future__ import annotations
@@ -25,7 +25,7 @@ __all__ = ["SWFluxes", "sw_solver_noscat", "sw_dif_and_source",
 
 
 class SWFluxes(NamedTuple):
-    flux_up: torch.Tensor   # (ncol, nlev) or (ncol, nlev, ngpt)
+    flux_up: torch.Tensor   # (ncol, nlev), (ncol, nlev, nband) or ngpt
     flux_dn: torch.Tensor   # total down (diffuse + direct)
     flux_dir: torch.Tensor  # direct beam down
 
@@ -121,14 +121,21 @@ def two_stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
 
 def sw_solver_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
                       inc_flux_dir, *, top_at_1: bool, inc_flux_dif=None,
-                      spectral: bool = False) -> SWFluxes:
+                      spectral: bool = False, gpt2band=None,
+                      nband: int = 0) -> SWFluxes:
     """Two-stream SW solve (reference rte_sw_solver_2stream, :503-609).
     tau/ssa/g (ncol, nlay, ngpt); mu0 (ncol, nlay), per layer for
-    spherical geometry; boundary fields (ncol, ngpt). Broadband output
-    goes through ``ops/kernels/solver_sw`` (the CUDA kernel on a CUDA
-    tensor, its twin on a CPU one); ``spectral`` output is plain code.
-    Differentiable: the broadband solve's backward is the adjoint kernel
-    (``solver_sw_bwd.sw_2stream_vjp``, JAX ops/solver_sw.py:196-208)."""
+    spherical geometry; boundary fields (ncol, ngpt). Broadband output,
+    or per-band sums (ncol, nlay+1, nband) with ``gpt2band`` (int32,
+    0-based band of each g-point) and ``nband``, goes through
+    ``ops/kernels/solver_sw`` (the CUDA kernel on a CUDA tensor, its twin
+    on a CPU one); ``spectral`` output is plain code. Differentiable: the
+    broadband solve's backward is the adjoint kernel
+    (``solver_sw_bwd.sw_2stream_vjp``, JAX ops/solver_sw.py:196-208), the
+    by-band solve's the twin's gradient (the JAX rule: its adjoint kernel
+    is broadband only)."""
+    from .kernels.autodiff import with_twin_grad
+    from .kernels.solver_sw import sw_2stream, sw_2stream_plain
     from .kernels.solver_sw_bwd import sw_2stream_vjp
 
     if not top_at_1:
@@ -139,9 +146,15 @@ def sw_solver_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
                                   inc_flux_dir, inc_flux_dif, spectral=True)
     else:
         c = lambda x: None if x is None else x.contiguous()
-        up, dn, fdir = sw_2stream_vjp(c(tau), c(ssa), c(g), c(mu0),
-                                      c(sfc_alb_dir), c(sfc_alb_dif),
-                                      c(inc_flux_dir), c(inc_flux_dif))
+        args = tuple(c(x) for x in (tau, ssa, g, mu0, sfc_alb_dir,
+                                    sfc_alb_dif, inc_flux_dir, inc_flux_dif))
+        if gpt2band is None:
+            up, dn, fdir = sw_2stream_vjp(*args)
+        else:
+            up, dn, fdir = with_twin_grad(
+                lambda *a: sw_2stream(*a, nband=nband),
+                lambda *a: sw_2stream_plain(*a, nband=nband), *args,
+                gpt2band)
     if not top_at_1:
         up, dn, fdir = (torch.flip(x, [1]) for x in (up, dn, fdir))
     return SWFluxes(flux_up=up, flux_dn=dn, flux_dir=fdir)

@@ -3,54 +3,39 @@
 Counterpart of ``rte_rrtmgp_tpu.rte`` (reference rte/frontend/
 mo_rte_lw.F90:79-473 and mo_rte_sw.F90:56-394): check the inputs, expand
 band boundary conditions to g-points, dispatch on the optical-props
-flavor and reduce the fluxes. Broadband fluxes go through the solver
-kernels (``ops/kernels/solver_lw``, ``solver_sw``: the CUDA kernel on a
-CUDA tensor, its plain twin on a CPU one); ``spectral=True`` is plain
-tensor code on any device. Boundary fields are column-leading, (ncol, 1),
-(ncol, nband) or (ncol, ngpt), and are cast to the optical properties'
-dtype and device.
-
-Not ported yet (ROADMAP): the LW two-stream solver (``use_2stream``,
-Queue 2) and by-band output on the card (Queue 1 item 8); both raise
-NotImplementedError rather than run something else.
+flavor and reduce the fluxes. Broadband and by-band fluxes go through the
+solver kernels (``ops/kernels/solver_lw``, ``solver_lw_2str``,
+``solver_sw``: the CUDA kernel on a CUDA tensor, its plain twin on a CPU
+one), which sum each band's g-points through ``gpt2band``, so uniform and
+ragged bands take the same route; ``spectral=True`` is plain tensor code
+on any device. Boundary fields are column-leading, (ncol, 1), (ncol,
+nband) or (ncol, ngpt), and are cast to the optical properties' dtype and
+device.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .config import get_config
 from .fluxes import Fluxes, sum_byband
 from .optical_props import (OpticalProps, OpticalProps1scl, OpticalProps2str,
                             OpticalPropsNstr, validate as validate_props)
-from .ops.solver_lw import GAUSS_DS, GAUSS_WTS, lw_solver_noscat
+from .ops.solver_lw import (GAUSS_DS, GAUSS_WTS, lw_solver_2stream,
+                            lw_solver_noscat)
 from .ops.solver_sw import sw_solver_2stream, sw_solver_noscat
 from .sources import SourcesLW
 
 __all__ = ["rte_lw", "rte_sw"]
 
 
-def _uniform_band_width(grid):
-    """The common band width when every band spans the same number of
-    g-points and the bands are contiguous ascending from g-point 1, else
-    None."""
-    lims = np.asarray(grid.band_lims_gpt_array)
-    widths = lims[:, 1] - lims[:, 0] + 1
-    w = int(widths[0])
-    if not (widths == w).all():
-        return None
-    if not (lims[:, 0] == np.arange(lims.shape[0]) * w + 1).all():
-        return None
-    return w
-
-
-def _byband(spectral_flux, grid):
-    """Per-band sums: a reshape for uniform contiguous bands, else the
-    band projection of ``sum_byband``."""
-    bw = _uniform_band_width(grid)
-    if bw is None:
-        return sum_byband(spectral_flux, grid)
-    return spectral_flux.reshape(spectral_flux.shape[:-1] + (-1, bw)).sum(-1)
+def _bands(byband: bool, grid, like) -> dict:
+    """The solvers' by-band keywords: each g-point's 0-based band as int32
+    on ``like``'s device and the band count, or nothing for broadband."""
+    if not byband:
+        return {}
+    return dict(gpt2band=torch.as_tensor(grid.gpt2band, dtype=torch.int32,
+                                         device=like.device),
+                nband=grid.nband)
 
 
 def _expand_bc(arr, grid, ncol, what, like):
@@ -73,13 +58,6 @@ def _expand_bc(arr, grid, ncol, what, like):
                      f"expected nband={grid.nband} or ngpt={grid.ngpt}")
 
 
-def _no_byband_on_card(byband: bool, t: torch.Tensor, what: str) -> None:
-    if byband and t.device.type != "cpu":
-        raise NotImplementedError(
-            f"{what}: byband=True on {t.device} is not ported yet (ROADMAP "
-            "Queue 1 item 8); use the CPU or broadband output")
-
-
 def rte_lw(optical_props: OpticalProps, sources: SourcesLW, sfc_emis, *,
            inc_flux=None, n_gauss_angles: int = 1, use_2stream: bool = False,
            lw_ds=None, compute_jacobian: bool = False,
@@ -88,9 +66,11 @@ def rte_lw(optical_props: OpticalProps, sources: SourcesLW, sfc_emis, *,
 
     1scl props: no-scattering solve with 1-4 Gauss-Jacobi angles, or the
     per-(column, g-point) secants ``lw_ds``. 2str props: the Tang-rescaled
-    no-scattering solve. ``compute_jacobian`` adds d(flux_up)/dT_sfc.
-    ``spectral`` returns (ncol, nlev, ngpt) fluxes, ``byband`` per-band
-    sums (ncol, nlev, nband)."""
+    no-scattering solve, or with ``use_2stream`` the true two-stream solve
+    (no Jacobian). ``compute_jacobian`` adds d(flux_up)/dT_sfc, broadband
+    at every flux resolution but the spectral one. ``spectral`` returns
+    (ncol, nlev, ngpt) fluxes, ``byband`` per-band sums (ncol, nlev,
+    nband)."""
     grid = optical_props.grid
     tau = optical_props.tau
     ncol, nlay, ngpt = tau.shape
@@ -121,11 +101,6 @@ def rte_lw(optical_props: OpticalProps, sources: SourcesLW, sfc_emis, *,
                              "specifying n_gauss_angles")
     if byband and spectral:
         raise ValueError("rte_lw: byband and spectral are mutually exclusive")
-    if use_2stream:
-        raise NotImplementedError(
-            "rte_lw: the LW two-stream solver (use_2stream=True) is not "
-            "ported yet (ROADMAP Queue 2, lw_two_stream_broadband_lane)")
-    _no_byband_on_card(byband, tau, "rte_lw")
     if get_config().check_values:
         validate_props(optical_props)
 
@@ -133,24 +108,29 @@ def rte_lw(optical_props: OpticalProps, sources: SourcesLW, sfc_emis, *,
     inc = (torch.zeros((ncol, ngpt), dtype=tau.dtype, device=tau.device)
            if inc_flux is None
            else _expand_bc(inc_flux, grid, ncol, "inc_flux", tau))
-    if lw_ds is not None:
-        ds = (torch.as_tensor(lw_ds, dtype=tau.dtype, device=tau.device)
-              .expand(ncol, ngpt).contiguous(),)
-        weights = GAUSS_WTS[0]
+    bands = _bands(byband, grid, tau)
+    if use_2stream:
+        res = lw_solver_2stream(
+            tau, optical_props.ssa, optical_props.g, sources.lay_source,
+            sources.lev_source, emis, sources.sfc_source, inc,
+            top_at_1=optical_props.top_at_1, spectral=spectral, **bands)
     else:
-        ds, weights = GAUSS_DS[n_gauss_angles - 1], \
-            GAUSS_WTS[n_gauss_angles - 1]
-    rescale = isinstance(optical_props, OpticalProps2str)
-    res = lw_solver_noscat(
-        tau, sources.lay_source, sources.lev_source, emis,
-        sources.sfc_source, inc, top_at_1=optical_props.top_at_1, ds=ds,
-        weights=weights, sfc_src_jac=sources.sfc_source_jac,
-        ssa=optical_props.ssa if rescale else None,
-        g=optical_props.g if rescale else None, do_rescaling=rescale,
-        do_jacobians=compute_jacobian, spectral=spectral or byband)
+        if lw_ds is not None:
+            ds = (torch.as_tensor(lw_ds, dtype=tau.dtype, device=tau.device)
+                  .expand(ncol, ngpt).contiguous(),)
+            weights = GAUSS_WTS[0]
+        else:
+            ds, weights = GAUSS_DS[n_gauss_angles - 1], \
+                GAUSS_WTS[n_gauss_angles - 1]
+        rescale = isinstance(optical_props, OpticalProps2str)
+        res = lw_solver_noscat(
+            tau, sources.lay_source, sources.lev_source, emis,
+            sources.sfc_source, inc, top_at_1=optical_props.top_at_1, ds=ds,
+            weights=weights, sfc_src_jac=sources.sfc_source_jac,
+            ssa=optical_props.ssa if rescale else None,
+            g=optical_props.g if rescale else None, do_rescaling=rescale,
+            do_jacobians=compute_jacobian, spectral=spectral, **bands)
     up, dn = res.flux_up, res.flux_dn
-    if byband:
-        up, dn = _byband(up, grid), _byband(dn, grid)
     return Fluxes(flux_up=up, flux_dn=dn, flux_net=dn - up,
                   flux_up_jac=res.flux_up_jac)
 
@@ -177,7 +157,6 @@ def rte_sw(optical_props: OpticalProps, mu0, inc_flux, sfc_alb_dir,
         raise ValueError(f"rte_sw: mu0 shape {tuple(mu0.shape)} != (ncol,) "
                          "or (ncol, nlay)")
     mu0 = mu0.contiguous()
-    _no_byband_on_card(byband, tau, "rte_sw")
     if get_config().check_values:
         validate_props(optical_props)
         if bool(((mu0 < -1.0) | (mu0 > 1.0)).any()):
@@ -206,8 +185,7 @@ def rte_sw(optical_props: OpticalProps, mu0, inc_flux, sfc_alb_dir,
            else _expand_bc(inc_flux_dif, grid, ncol, "inc_flux_dif", tau))
     res = sw_solver_2stream(tau, optical_props.ssa, optical_props.g, mu0,
                             alb_dir, alb_dif, inc, top_at_1=top_at_1,
-                            inc_flux_dif=dif, spectral=spectral or byband)
+                            inc_flux_dif=dif, spectral=spectral,
+                            **_bands(byband, grid, tau))
     up, dn, fdir = res.flux_up, res.flux_dn, res.flux_dir
-    if byband:
-        up, dn, fdir = (_byband(x, grid) for x in (up, dn, fdir))
     return Fluxes(flux_up=up, flux_dn=dn, flux_net=dn - up, flux_dn_dir=fdir)

@@ -18,7 +18,11 @@ each cotangent within 5e-4 of its largest twin value (the JAX package's
 float32 bound, tests/test_fused_autodiff.py:641-642); gradient steps
 through the fused step and the public API launch each adjoint once and
 give the same bits twice; every kernel wrapper either carries a backward
-or refuses an input that requires grad.
+or refuses an input that requires grad. The LW two-stream kernel, the
+by-band output of the solvers and fused steps (uniform, ragged and
+reordered bands through gpt2band) and the incident fluxes of the fused
+steps and their adjoints (inc_b, incdif_b) against their twins, the
+two-stream path's launches, and the secant forms on the card.
 """
 import pytest
 
@@ -41,6 +45,8 @@ from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (  # noqa: E402
     gas_minor, gas_minor_plain, gas_rayleigh, gas_rayleigh_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import (  # noqa: E402
     lw_noscat, lw_noscat_plain)
+from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_2str import (  # noqa: E402
+    lw_2stream, lw_2stream_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.solver_lanes import (  # noqa: E402
     lw_noscat_lanes, lw_noscat_lanes_pfrac, lw_noscat_lanes_pfrac_plain,
     lw_noscat_lanes_plain, sw_2stream_lanes, sw_2stream_lanes_combined,
@@ -625,3 +631,244 @@ def test_kernel_wrappers_carry_a_backward_or_raise(cuda):
     for call in raw:
         with pytest.raises(ValueError, match="no backward"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# the LW two-stream kernel, by-band output and incident fluxes
+# ---------------------------------------------------------------------------
+
+def _bands(ngpt, nband, kind, cuda):
+    """gpt2band (int32) and the band count: the k-distribution's uniform
+    contiguous bands, or three ragged bands whose g-points interleave."""
+    if kind == "uniform":
+        return torch.arange(ngpt, device=cuda, dtype=torch.int32) // (
+            ngpt // nband), nband
+    return torch.tensor([(g * g + g // 5) % 3 for g in range(ngpt)],
+                        dtype=torch.int32, device=cuda), 3
+
+
+def _lw2_args(p, cuda, seed=8):
+    """The two-stream path's inputs: scattering gas optics with the
+    2-stream clouds, and seeded emissivity and incident flux."""
+    inp = p.inputs
+    props, src = p.gas_lw.gas_optics_lw(inp.play, inp.plev, inp.tlay,
+                                        inp.tsfc, inp.gas_concs,
+                                        tlev=inp.tlev, scattering=True,
+                                        top_at_1=True)
+    props = increment(props, p.cld_lw.cloud_optics(
+        inp.lwp, inp.iwp, inp.rel, inp.dei, scattering=True))
+    ncol, _, ngpt = props.tau.shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rand = lambda *s: torch.rand(s, generator=gen, device=cuda)
+    c = lambda x: x.contiguous()
+    return (c(props.tau), c(props.ssa), c(props.g), src.lay_source,
+            src.lev_source, 0.8 + 0.2 * rand(ncol, ngpt), src.sfc_source,
+            2.0 * rand(ncol, ngpt))
+
+
+@pytest.mark.parametrize("output", ["broadband", "uniform", "ragged"])
+@pytest.mark.parametrize("dims", sorted(DIMS))
+def test_lw_2stream_matches_twin(cuda, dims, output):
+    p = build_allsky(*DIMS[dims], device=cuda)
+    args = _lw2_args(p, cuda)
+    kw = {}
+    if output != "broadband":
+        gpt2band, nband = _bands(args[0].shape[2], DIMS[dims][3], output,
+                                 cuda)
+        args, kw = args + (gpt2band,), dict(nband=nband)
+    n0 = lw_2stream.launches
+    got = lw_2stream(*args, **kw)
+    assert lw_2stream.launches == n0 + 1
+    _close(got, lw_2stream_plain(*args, **kw), 2e-6)
+    if output != "broadband":
+        bb = lw_2stream(*args[:-1])
+        _close(tuple(x.sum(-1) for x in got), bb, 2e-6)
+
+
+@pytest.mark.parametrize("bands", ["uniform", "ragged"])
+@pytest.mark.parametrize("dims", sorted(DIMS))
+def test_solvers_byband_match_twins(cuda, dims, bands):
+    """lw_noscat (plain, and rescaled with a secant field) and sw_2stream
+    with per-band sums, against their twins."""
+    p = build_allsky(*DIMS[dims], device=cuda)
+    inp = p.inputs
+    props, src = p.gas_lw.gas_optics_lw(inp.play, inp.plev, inp.tlay,
+                                        inp.tsfc, inp.gas_concs,
+                                        tlev=inp.tlev)
+    ncol, nlay, ngpt = props.tau.shape
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    rand = lambda *s: torch.rand(s, generator=gen, device=cuda)
+    gpt2band, nband = _bands(ngpt, DIMS[dims][3], bands, cuda)
+    args = (props.tau, src.lay_source, src.lev_source,
+            0.8 + 0.2 * rand(ncol, ngpt), src.sfc_source, rand(ncol, ngpt))
+    for kw in (dict(ds=1.66, weight=1.0),
+               dict(ds=p.gas_lw.compute_optimal_angles(props), weight=1.0,
+                    sfc_src_jac=src.sfc_source_jac,
+                    ssa=0.6 * rand(ncol, nlay, ngpt),
+                    g=0.9 * rand(ncol, nlay, ngpt))):
+        kw.update(gpt2band=gpt2band, nband=nband)
+        n0 = lw_noscat.launches
+        got = tuple(x for x in lw_noscat(*args, **kw) if x is not None)
+        assert lw_noscat.launches == n0 + 1
+        assert got[0].shape == (ncol, nlay + 1, nband)
+        _close(got, tuple(x for x in lw_noscat_plain(*args, **kw)
+                          if x is not None), 2e-6)
+    sprops, toa = p.gas_sw.gas_optics_sw(inp.play, inp.plev, inp.tlay,
+                                         inp.gas_concs)
+    ngs = sprops.tau.shape[2]
+    gpt2band, nband = _bands(ngs, DIMS[dims][5], bands, cuda)
+    mu = torch.tensor([-0.3, 0.0, 1e-4, 3e-4, 1e-3, 0.05, 0.3, 0.6, 0.86,
+                       1.0], device=cuda)[torch.arange(ncol) % 10]
+    mu0 = (mu[:, None] * torch.linspace(1.0, 0.95, nlay, device=cuda)
+           ).contiguous()
+    inc = toa.contiguous()
+    sargs = (sprops.tau, 0.99 * rand(ncol, nlay, ngs),
+             0.85 * rand(ncol, nlay, ngs), mu0, 0.3 * rand(ncol, ngs),
+             0.3 * rand(ncol, ngs), inc, 0.05 * inc, gpt2band)
+    n0 = sw_2stream.launches
+    got = sw_2stream(*sargs, nband=nband)
+    assert sw_2stream.launches == n0 + 1
+    _close(got, sw_2stream_plain(*sargs, nband=nband), 2e-6)
+
+
+@pytest.mark.parametrize("dims", sorted(DIMS))
+def test_fused_inc_and_byband_match_twins(cuda, dims):
+    """The fused LW step with an incident flux and the fused SW step with
+    a diffuse one, broadband and by band, against their twins; the band
+    sums equal the broadband fluxes."""
+    p = build_allsky(*DIMS[dims], device=cuda)
+    inp = p.inputs
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    for fused, plain, make in ((lw_fused, lw_fused_plain, allsky_lw_inputs),
+                               (sw_fused, sw_fused_plain, allsky_sw_inputs)):
+        gas = p.gas_lw if fused is lw_fused else p.gas_sw
+        cld = p.cld_lw if fused is lw_fused else p.cld_sw
+        x = make(inp, gas, cloud_optics=cld)
+        inc = 3.0 * torch.rand(x.sfc_emis.shape if fused is lw_fused
+                               else x.inc.shape, generator=gen, device=cuda)
+        x = (x._replace(inc=inc) if fused is lw_fused
+             else x._replace(incdif=0.05 * inc * x.inc))
+        bb = None
+        for byband in (False, True):
+            xb = x._replace(byband=byband)
+            n0 = fused.launches
+            got = fused(xb)
+            assert fused.launches == n0 + 1
+            _close(got, plain(xb), 2e-6)
+            if byband:
+                _close(tuple(g.sum(0) for g in got), bb, 2e-6)
+            bb = got
+
+
+def test_fused_adjoints_give_inc_cotangents(cuda):
+    """The fused adjoint kernels with a non-zero incident flux (LW) and a
+    diffuse incident flux (SW): every cotangent, inc_b and incdif_b
+    included, within TOL_ADJ of its twin's autograd."""
+    p = build_allsky(*DIMS["g24"], device=cuda)
+    inp = p.inputs
+    ncol, nlay = inp.play.shape
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    cot = lambda *s: 0.5 + torch.rand(s, generator=gen, device=cuda)
+    x = allsky_lw_inputs(inp, p.gas_lw, cloud_optics=p.cld_lw)
+    x = x._replace(inc=cot(*x.sfc_emis.shape))
+    lw = (x, cot(nlay + 1, ncol), cot(nlay + 1, ncol))
+    x = allsky_sw_inputs(inp, p.gas_sw, cloud_optics=p.cld_sw)
+    x = x._replace(incdif=0.05 * x.inc * cot(*x.inc.shape))
+    sw = (x,) + tuple(cot(nlay + 1, ncol) for _ in range(3))
+    for kernel, plain, args, idx in ((lw_fused_bwd, lw_fused_bwd_plain, lw,
+                                      9), (sw_fused_bwd, sw_fused_bwd_plain,
+                                           sw, 11)):
+        n0 = kernel.launches
+        got = kernel(*args)
+        assert kernel.launches == n0 + 1
+        ref = plain(*args)
+        assert len(got) == len(ref) and got[idx] is not None
+        for g, r in zip(got, ref):
+            assert (g is None) == (r is None)
+            if r is None:
+                continue
+            assert g.shape == r.shape and bool(torch.isfinite(g).all())
+            assert float((g - r).abs().max()) <= TOL_ADJ * float(
+                r.abs().max())
+        assert bool((got[idx] != 0).any())
+
+
+def test_two_stream_path_runs_on_kernels(cuda):
+    """rte_lw(use_2stream=True) on CUDA tensors: one two-stream launch per
+    call, broadband or by band, no no-scattering launch, the CPU twins'
+    fluxes."""
+    import dataclasses
+    from rte_rrtmgp_tpu_torch.rte import rte_lw
+    p = build_allsky(*DIMS["g32"], device=cuda)
+    inp = p.inputs
+    props, src = p.gas_lw.gas_optics_lw(inp.play, inp.plev, inp.tlay,
+                                        inp.tsfc, inp.gas_concs,
+                                        tlev=inp.tlev, scattering=True)
+    props = increment(props, p.cld_lw.cloud_optics(
+        inp.lwp, inp.iwp, inp.rel, inp.dei, scattering=True))
+    cpu = lambda o: dataclasses.replace(o, **{
+        f.name: getattr(o, f.name).cpu() for f in dataclasses.fields(o)
+        if isinstance(getattr(o, f.name), torch.Tensor)})
+    for byband in (False, True):
+        n0, m0 = lw_2stream.launches, lw_noscat.launches
+        got = rte_lw(props, src, inp.sfc_emis, use_2stream=True,
+                     byband=byband)
+        torch.cuda.synchronize()
+        assert (lw_2stream.launches, lw_noscat.launches) == (n0 + 1, m0)
+        ref = rte_lw(cpu(props), cpu(src), inp.sfc_emis.cpu(),
+                     use_2stream=True, byband=byband)
+        _close((got.flux_up.cpu(), got.flux_dn.cpu()),
+               (ref.flux_up, ref.flux_dn), 2e-6)
+
+
+def test_secant_forms_agree_on_card(cuda):
+    """A tuple of floats, a 0-d tensor, a 1-D tensor and a tuple holding a
+    0-d tensor give bit-identical fluxes on the card (one kernel launch
+    each); a 0-d secant that requires grad gets a finite gradient."""
+    from rte_rrtmgp_tpu_torch.ops.solver_lw import lw_solver_noscat
+    p = build_allsky(*DIMS["g24"], device=cuda)
+    inp = p.inputs
+    props, src = p.gas_lw.gas_optics_lw(inp.play, inp.plev, inp.tlay,
+                                        inp.tsfc, inp.gas_concs,
+                                        tlev=inp.tlev)
+    emis = inp.sfc_emis.expand(-1, props.tau.shape[2]).contiguous()
+    args = (props.tau, src.lay_source, src.lev_source, emis, src.sfc_source,
+            torch.zeros_like(emis))
+    kw = dict(top_at_1=True, weights=(0.5,))
+    d = torch.tensor(1.66, device=cuda)
+    outs = []
+    for ds in ((1.66,), d, d[None], (d,)):
+        n0 = lw_noscat.launches
+        outs.append(lw_solver_noscat(*args, ds=ds, **kw))
+        assert lw_noscat.launches == n0 + 1
+    for f in outs[1:]:
+        assert torch.equal(f.flux_up, outs[0].flux_up)
+        assert torch.equal(f.flux_dn, outs[0].flux_dn)
+    dg = d.clone().requires_grad_()
+    f = lw_solver_noscat(*args, ds=(dg,), **kw)
+    assert torch.equal(f.flux_up, outs[0].flux_up)
+    g, = torch.autograd.grad(f.flux_up.sum(), dg)
+    assert bool(torch.isfinite(g)) and float(g) != 0.0
+
+
+def test_new_wrappers_refuse_float64_and_grad(cuda):
+    """The two-stream kernel and the by-band solvers take float32 only,
+    and the raw two-stream wrapper refuses an input that requires grad;
+    nothing is launched."""
+    p = build_allsky(*DIMS["g32"], device=cuda)
+    args = _lw2_args(p, cuda)
+    ngpt = args[0].shape[2]
+    gpt2band, nband = _bands(ngpt, 4, "uniform", cuda)
+    counts = [f.launches for f in (lw_2stream, lw_noscat, sw_2stream)]
+    f64 = tuple(a.double() for a in args)
+    with pytest.raises(ValueError, match="dtype"):
+        lw_2stream(*f64)
+    with pytest.raises(ValueError, match="dtype"):
+        lw_2stream(*f64, gpt2band, nband=nband)
+    with pytest.raises(ValueError, match="dtype"):
+        lw_noscat(f64[0], *f64[3:5], f64[5], f64[6], f64[7], ds=1.66,
+                  weight=1.0, gpt2band=gpt2band, nband=nband)
+    with pytest.raises(ValueError, match="no backward"):
+        lw_2stream(args[0].detach().clone().requires_grad_(), *args[1:])
+    assert [f.launches for f in (lw_2stream, lw_noscat, sw_2stream)] \
+        == counts

@@ -88,7 +88,7 @@ def test_check_args_refuses_what_kernels_do_not_take():
 
 
 WRAPPERS = ["cloud_props", "lw_fused", "sw_fused", "gas_major", "gas_minor",
-            "gas_rayleigh", "lw_noscat", "sw_2stream"]
+            "gas_rayleigh", "lw_noscat", "sw_2stream", "lw_2stream"]
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
@@ -100,7 +100,7 @@ def test_wrappers_refuse_other_devices(name):
     from rte_rrtmgp_tpu_torch.ops.kernels import (cloud_props, fused_lw,
                                                   fused_sw, gas_major,
                                                   gas_minor, solver_lw,
-                                                  solver_sw)
+                                                  solver_lw_2str, solver_sw)
     meta = torch.empty((2, 3), device="meta")
     co = InterpCoeffs(*[meta] * len(InterpCoeffs._fields))
     calls = {
@@ -119,6 +119,7 @@ def test_wrappers_refuse_other_devices(name):
         "lw_noscat": lambda: solver_lw.lw_noscat(*[meta] * 6, ds=1.0,
                                                  weight=1.0),
         "sw_2stream": lambda: solver_sw.sw_2stream(*[meta] * 7),
+        "lw_2stream": lambda: solver_lw_2str.lw_2stream(*[meta] * 8),
     }
     with pytest.raises(ValueError, match="on meta"):
         calls[name]()

@@ -14,8 +14,9 @@ increment -> rte_lw/rte_sw (``drivers/allsky.allsky_api_lw/sw``).
   * Against the port's fused step on the same float32 inputs (the JAX
     package's own fused-vs-generic bound, rtol 3e-5 / atol 5e-4 W/m2,
     tests/test_pallas_gas_optics.py:275).
-  * By-band output and the LW two-stream solver are not ported to the
-    card: on a tensor that is not on the CPU they raise, and run nothing.
+  * By-band output off the CPU goes to the kernel wrappers, never to the
+    twins: a float64 or wrongly shaped tensor there raises from the
+    wrapper's argument checks, and runs nothing.
 """
 import dataclasses
 import os
@@ -164,10 +165,35 @@ def test_public_path_matches_fused_step_float32(band):
                                    atol=5e-4, err_msg=n)
 
 
-def test_byband_off_the_cpu_raises(problems):
-    """by-band output is not ported to the card (ROADMAP Queue 1 item 8):
-    on a tensor that is not on the CPU, rte_lw and rte_sw raise instead of
-    running the twin."""
+def _off_the_cpu(monkeypatch):
+    """Send the meta device to the solver wrappers' kernel branch, as a
+    CUDA tensor goes (no card here), with the twins made to fail if
+    reached."""
+    from rte_rrtmgp_tpu_torch.ops.kernels import (solver_lw, solver_lw_2str,
+                                                  solver_sw)
+    on_card = lambda t, what: t.device.type == "cpu"
+
+    def no_twin(*a, **k):
+        raise AssertionError("the twin ran on a tensor off the CPU")
+    for mod, twin in ((solver_lw, "lw_noscat_plain"),
+                      (solver_lw_2str, "lw_2stream_plain"),
+                      (solver_sw, "sw_2stream_plain")):
+        monkeypatch.setattr(mod, "on_cpu", on_card)
+        monkeypatch.setattr(mod, twin, no_twin)
+    return solver_lw.lw_noscat, solver_lw_2str.lw_2stream, \
+        solver_sw.sw_2stream
+
+
+def test_byband_off_the_cpu_raises(problems, monkeypatch):
+    """by-band output off the CPU reaches the kernel wrappers: rte_lw (the
+    no-scattering and the two-stream solve) and rte_sw with float64
+    tensors raise from the wrappers' dtype checks, and a gpt2band of the
+    wrong length from their shape checks; no twin runs and nothing is
+    launched."""
+    from rte_rrtmgp_tpu_torch.config import checks_disabled
+    from rte_rrtmgp_tpu_torch.optical_props import OpticalProps2str
+    kernels = _off_the_cpu(monkeypatch)
+    counts = [k.launches for k in kernels]
     p = problems["allsky"]
     i = p.inputs
     props, src = p.gas_lw.gas_optics_lw(i.play, i.plev, i.tlay, i.tsfc,
@@ -176,10 +202,33 @@ def test_byband_off_the_cpu_raises(problems):
     props_m = dataclasses.replace(props, tau=meta(props.tau))
     src_m = dataclasses.replace(src, **{f: meta(getattr(src, f)) for f in (
         "lay_source", "lev_source", "sfc_source", "sfc_source_jac")})
-    with pytest.raises(NotImplementedError, match="byband"):
-        rte_lw(props_m, src_m, i.sfc_emis, byband=True)
+    props2_m = OpticalProps2str(tau=props_m.tau, ssa=0 * props_m.tau,
+                                g=0 * props_m.tau, grid=props.grid)
     sprops, toa = p.gas_sw.gas_optics_sw(i.play, i.plev, i.tlay, i.gas_concs)
     sprops_m = dataclasses.replace(sprops, tau=meta(sprops.tau),
                                    ssa=meta(sprops.ssa), g=meta(sprops.g))
-    with pytest.raises(NotImplementedError, match="byband"):
-        rte_sw(sprops_m, i.mu0, toa, i.sfc_alb, i.sfc_alb, byband=True)
+    with checks_disabled():
+        with pytest.raises(ValueError, match="dtype torch.float64"):
+            rte_lw(props_m, src_m, i.sfc_emis, byband=True)
+        with pytest.raises(ValueError, match="dtype torch.float64"):
+            rte_lw(props2_m, src_m, i.sfc_emis, byband=True,
+                   use_2stream=True)
+        with pytest.raises(ValueError, match="dtype torch.float64"):
+            rte_sw(sprops_m, i.mu0, toa, i.sfc_alb, i.sfc_alb, byband=True)
+    f32 = lambda x: meta(x).float()
+    ncol, nlay, ngpt = props.tau.shape
+    lay, lev = f32(props.tau), f32(src.lev_source)
+    bc = f32(src.sfc_source)
+    bad = torch.zeros(ngpt + 1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="gpt2band has shape"):
+        kernels[0](lay, lay, lev, bc, bc, bc, ds=1.66, weight=1.0,
+                   gpt2band=bad, nband=4)
+    with pytest.raises(ValueError, match="gpt2band has shape"):
+        kernels[1](lay, lay, lay, lay, lev, bc, bc, bc, bad, nband=4)
+    stau = f32(sprops.tau)
+    sbc = f32(toa)
+    with pytest.raises(ValueError, match="gpt2band has shape"):
+        kernels[2](stau, stau, stau, f32(i.mu0[:, None].expand(ncol, nlay)),
+                   sbc, sbc, sbc, None, bad[:-1].new_zeros(sbc.shape[1] + 1),
+                   nband=4)
+    assert [k.launches for k in kernels] == counts

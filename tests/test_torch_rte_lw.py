@@ -5,8 +5,9 @@
     handed to the port's containers): the analytic OLR, invariances, the
     surface Jacobian against a finite difference and against autograd,
     Tang rescaling with ssa = 0, explicit secants, multi-angle quadrature,
-    spectral output, float32. The LW two-stream solver is not ported yet
-    and must raise.
+    spectral output, float32. The LW two-stream solver runs through its
+    kernel wrapper (the twin on the CPU); with absorption-only props it
+    must raise.
   * The one-angle twin (``lw_noscat_plain``, reached through the port's
     ``lw_solver_noscat`` on CPU tensors) against the JAX package on the
     same numpy-seeded inputs, with and without rescaling, Jacobian and
@@ -31,6 +32,8 @@ from rte_rrtmgp_tpu import rte_lw as jrte_lw  # noqa: E402
 from rte_rrtmgp_tpu.config import set_use_pallas  # noqa: E402
 from rte_rrtmgp_tpu.ops import solver_lw as jsolver  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import lw_noscat  # noqa: E402
+from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_2str import (  # noqa: E402
+    lw_2stream, lw_2stream_plain)
 from rte_rrtmgp_tpu_torch.ops.solver_lw import (GAUSS_DS,  # noqa: E402
                                                 GAUSS_WTS, lw_solver_noscat)
 from rte_rrtmgp_tpu_torch.optical_props import (  # noqa: E402
@@ -151,13 +154,21 @@ def test_multi_angle_quadrature_converges():
 
 
 def test_two_stream_solver_not_ported_raises():
-    """The LW two-stream solver is queued (ROADMAP Queue 2): asking for it
-    raises instead of running another solver."""
+    """The LW two-stream solver runs: use_2stream with 2str props goes
+    through the kernel wrapper ``lw_2stream`` (its twin on the CPU, no
+    launch) and gives the twin's broadband fluxes; with absorption-only
+    props it raises instead of running another solver."""
     props, src = gray()
     props2 = OpticalProps2str(tau=props.tau, ssa=torch.zeros_like(props.tau),
                               g=torch.zeros_like(props.tau), grid=props.grid)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rte_lw(props2, src, SFC_EMIS, use_2stream=True)
+    n0 = lw_2stream.launches
+    f = rte_lw(props2, src, SFC_EMIS, use_2stream=True)
+    assert lw_2stream.launches == n0
+    emis = torch.ones((NCOL, 1), dtype=F64)
+    up, dn = lw_2stream_plain(props.tau, props2.ssa, props2.g,
+                              src.lay_source, src.lev_source, emis,
+                              src.sfc_source, torch.zeros_like(emis))
+    assert torch.equal(f.flux_up, up) and torch.equal(f.flux_dn, dn)
     with pytest.raises(ValueError, match="absorption"):
         rte_lw(props, src, SFC_EMIS, use_2stream=True)
 
