@@ -22,7 +22,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
      not in the kernels line: by-band output of the fused LW and SW steps
      and of the LW no-scattering, LW two-stream and SW solvers, the fused
      steps with an incident flux (LW) and a diffuse one (SW), and their
-     adjoints with the same;
+     adjoints with the same; for the four adjoints their ptxas registers
+     and spills, resident blocks per SM and scratch bytes;
   4. golden gates at the production configuration (256 x 72): the float32
      fused step, public-API path and staged path against
      tests/golden/production.npz, and the float32 aerosols step (fused)
@@ -56,8 +57,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
      (forward + backward of a weighted flux loss) on the fused path with
      clouds, then with aerosols, and on the public-API path, with the
      adjoint kernels each launched once per step, gradients finite and
-     bit-identical over the two, the step time beside the forward's and
-     the fused step's profile;
+     bit-identical over the two, the step time beside the forward's, the
+     fused step's peak device memory and its profile;
   6. rte_lw with 3 quadrature angles and with compute_optimal_angles
      secants, on the card against the twins on the CPU (512 columns); the
      secant of lw_solver_noscat as a tuple, a 0-d tensor, a 1-D tensor and
@@ -823,6 +824,43 @@ def adjoint_rows(prob, dev, variants):
     ]
 
 
+def adjoint_report(prob, reports):
+    """Phase 3, the adjoint kernels' resources at the main path's shapes:
+    ptxas registers and spills of each instantiation, resident blocks per
+    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, from the kernels'
+    own libraries) and the device scratch of one launch."""
+    from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
+                                                     allsky_sw_inputs)
+    from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw as flw
+    from rte_rrtmgp_tpu_torch.ops.kernels import fused_sw as fsw
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_bwd as slw
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd as ssw
+    from rte_rrtmgp_tpu_torch.ops.kernels._build import ptxas_usage
+    inp = prob.inputs
+    ncol, nlay = inp.play.shape
+    ngl, ngs = prob.gas_lw.ngpt, prob.gas_sw.ngpt
+    xl = allsky_lw_inputs(inp, prob.gas_lw, cloud_optics=prob.cld_lw)
+    xs = allsky_sw_inputs(inp, prob.gas_sw, cloud_optics=prob.cld_sw)
+    for name, blocks, scratch in (
+            ("fused_lw_bwd", flw.lw_fused_bwd_occupancy(xl),
+             flw.lw_fused_bwd_scratch_bytes(ncol, nlay, ngl)),
+            ("fused_sw_bwd", fsw.sw_fused_bwd_occupancy(xs),
+             fsw.sw_fused_bwd_scratch_bytes(ncol, nlay, ngs)),
+            ("solver_lw_bwd", slw.lw_noscat_bwd_occupancy(ngl), 0),
+            ("solver_sw_bwd", ssw.sw_2stream_bwd_occupancy(ngs, nlay),
+             ssw.sw_2stream_bwd_scratch_bytes(ncol, nlay, ngs))):
+        rep = reports.get(name)
+        regs = ("not rebuilt in this run" if rep is None else ", ".join(
+            f"{r} registers, {ss} B spill stores, {sl} B spill loads"
+            for r, ss, sl in ptxas_usage(rep)))
+        log(f"adjoint {name}: ptxas {regs}; {blocks} resident blocks per SM"
+            f" at {ncol} x {nlay}; scratch {scratch} B "
+            f"({scratch / 1e9:.3f} GB)")
+        if blocks < 1:
+            raise SystemExit(f"{name}: no block fits an SM ({blocks})")
+    del xl, xs
+
+
 def train_loss(step, inputs):
     """One training step's loss and its gradients with respect to (tlay,
     tsfc, lwp, rel, h2o vmr): sum(w_lev up) + 0.5 sum(w_lev dn) for LW and
@@ -1216,6 +1254,7 @@ def main():
             + lw2_rows(prob, dev, variants) + lanes_rows(prob, nonbanded))
     torch.cuda.empty_cache()
     rows += adjoint_rows(prob, dev, variants)
+    adjoint_report(prob, reports)
     log(f"variants checked against their twins: "
         f"{', '.join(v['name'] for v in variants)}")
     solar = float(prob.gas_sw.kdist.solar_source.double().sum())
@@ -1358,6 +1397,15 @@ def main():
                   "fused_sw_bwd": 1, "cloud_props": 2}
     step, _ = build_allsky_step(**MAIN, device=dev)
     got = training_steps("fused", step, inputs, counters, fused_step, ())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    train_loss(step, inputs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"fused training step: peak device memory {peak} B "
+        f"({peak / 1e9:.3f} GB; {(peak - base) / 1e9:.3f} GB above the "
+        f"{base / 1e9:.3f} GB held before the step)")
     launches.update({k: got[k] for k in ("fused_lw_bwd", "fused_sw_bwd")})
     profile_path("fused training step", lambda i: train_loss(step, i),
                  inputs)

@@ -38,6 +38,7 @@ struct Col {
     const float* lev;
     int ls;
     float ds;
+    float ssrc;
     __device__ void layer(int l, float* tl, float* ly, float* top,
                           float* bot) const {
         *tl = __ldg(tau + (long long)l * ls) * ds;
@@ -45,6 +46,15 @@ struct Col {
         *top = __ldg(lev + (long long)l * ls);
         *bot = __ldg(lev + (long long)(l + 1) * ls);
     }
+    __device__ void down(int l, float* tl, float* ly, float* top,
+                         float* bot) const {
+        layer(l, tl, ly, top, bot);
+    }
+    __device__ void up(int l, float* tl, float* ly, float* top,
+                       float* bot) const {
+        layer(l, tl, ly, top, bot);
+    }
+    __device__ float surface_source() const { return ssrc; }
 };
 
 struct Sink {
@@ -92,20 +102,29 @@ __global__ void solver_lw_bwd_kernel(
     const long long lay0 = (long long)c * nlay * ngpt + g;
     const long long lev0 = (long long)c * (nlay + 1) * ngpt + g;
     const long long bc = (long long)c * ngpt + g;
-    Col col{tau + lay0, lay + lay0, lev + lev0, ngpt, ds};
-    Sink sink{tau_b + lay0, lay_b + lay0, lev_b + lev0, emis_b + bc,
-              ssrc_b + bc, inc_b + bc, ngpt, ds, active, 0.0f};
     float e = active ? __ldg(emis + bc) : 0.0f;
     float s = active ? __ldg(ssrc + bc) : 0.0f;
     float i = active ? __ldg(inc + bc) : 0.0f;
+    Col col{tau + lay0, lay + lay0, lev + lev0, ngpt, ds, s};
+    Sink sink{tau_b + lay0, lay_b + lay0, lev_b + lev0, emis_b + bc,
+              ssrc_b + bc, inc_b + bc, ngpt, ds, active, 0.0f};
     // the kept radiances in the tau and lay_source cotangents
-    rte::lw_adjoint(active, col, nlay, piw, i, e, s,
+    rte::lw_adjoint(active, col, nlay, piw, i, e,
                     gup + (long long)c * (nlay + 1),
                     gdn + (long long)c * (nlay + 1), 1, tau_b + lay0,
                     lay_b + lay0, ngpt, sink);
 }
 
 }  // namespace
+
+// Resident blocks per SM of the kernel for ngpt g-points, or a negative
+// CUDA error.
+extern "C" int occupancy_solver_lw_bwd(int ngpt) {
+    int n = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, solver_lw_bwd_kernel, (ngpt + 31) / 32 * 32, 0);
+    return err == cudaSuccess ? n : -(int)err;
+}
 
 extern "C" int launch_solver_lw_bwd(
         const void* tau, const void* lay, const void* lev, const void* emis,

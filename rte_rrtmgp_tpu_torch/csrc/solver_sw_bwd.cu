@@ -9,18 +9,21 @@
 //
 // Layout: one block per column, one thread per g-point, as the forward
 // kernel. Per thread (transport_bwd.cuh::sw_adjoint): three passes
-// recompute the layer coefficients, the direct beam, the adding build and
-// the diffuse flux, keeping them in scratch; then the adjoints of the
-// diffuse sweep (up), of the adding build (down) and of the beam with the
-// Meador-Weaver chain (up). The cotangents of tau, ssa and g have one
-// owner each. The mu0 cotangent of a layer is a sum over the column's
-// g-points: warp-shuffle sums into shared memory, then a fixed-order sum
-// of the warp partials (deterministic, no atomics).
+// compute the direct beam, the adding build and the diffuse flux; then
+// the adjoints of the diffuse sweep (up), of the adding build (down) and
+// of the beam with the Meador-Weaver chain (up). Every pass recomputes
+// the layer coefficients it needs from tau, ssa, g and mu0 and loads the
+// next level's values before it works on the current one. The cotangents
+// of tau, ssa and g have one owner each. The mu0 cotangent of a layer is
+// a sum over the column's g-points: warp-shuffle sums into shared
+// memory, then a fixed-order sum of the warp partials (deterministic, no
+// atomics).
 //
-// What bounds it on this card: the scratch traffic, 13 float fields of
-// (column, level, g-point) written once and read once or twice (about
-// 110 B per (column, layer, g-point)) against the 36 B the function must
-// move; the Meador-Weaver chain's about 200 operations per (column,
+// What bounds it on this card: the scratch traffic and its latency, five
+// float fields of (column, level, g-point) (transport_bwd.cuh::
+// SwScratch) written once and read two or three times, against the 36 B
+// per (column, layer, g-point) the function must move, in six dependent
+// sweeps; the Meador-Weaver chain's about 300 operations per (column,
 // layer, g-point) stay below the float32 rate.
 //
 // Contract (checked by the Python wrapper): float32, contiguous, ngpt <=
@@ -86,18 +89,21 @@ __global__ void solver_sw_bwd_kernel(
     const long long lay0 = (long long)c * nlay * ngpt + g;
     const long long bc = (long long)c * ngpt + g;
     const long long field = (long long)ncol * nlev * ngpt;
+    float* lev0 = scratch + (long long)c * nlev * ngpt + g;
+    const rte::SwScratch S{lev0, lev0 + field, lev0 + 2 * field,
+                           lev0 + 3 * field, scratch + 4 * field + lay0,
+                           ngpt};
     Col col{tau + lay0, ssa + lay0, asy + lay0, mu0 + (long long)c * nlay,
             ngpt};
     Sink sink{tau_b + lay0, ssa_b + lay0, g_b + lay0, p_mu, ngpt, nlay,
               active};
-    float* S = scratch + (long long)c * nlev * ngpt + g;
     const long long cl = (long long)c * nlev;
-    rte::SwBoundaryBars bb = rte::sw_adjoint(
+    rte::SwBoundaryBars bb = rte::sw_adjoint<true>(
         active, col, nlay, active ? __ldg(inc + bc) : 0.0f,
         active ? __ldg(alb_dir + bc) : 0.0f,
         active ? __ldg(alb_dif + bc) : 0.0f,
         active ? __ldg(inc_dif + bc) : 0.0f, gup + cl, gdn + cl, gdir + cl,
-        1, S, field, ngpt, sink);
+        1, S, sink);
     if (active) {
         alb_dir_b[bc] = bb.alb_dir;
         alb_dif_b[bc] = bb.alb_dif;
@@ -114,6 +120,19 @@ __global__ void solver_sw_bwd_kernel(
 }
 
 }  // namespace
+
+// Resident blocks per SM of the kernel for ngpt g-points and nlay
+// layers, or a negative CUDA error.
+extern "C" int occupancy_solver_sw_bwd(int ngpt, int nlay) {
+    int threads = (ngpt + 31) / 32 * 32;
+    size_t smem = (size_t)(threads / 32) * (nlay + 1) * sizeof(float);
+    cudaError_t err = rte::allow_smem(solver_sw_bwd_kernel, smem);
+    int n = 0;
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, solver_sw_bwd_kernel, threads, smem);
+    return err == cudaSuccess ? n : -(int)err;
+}
 
 extern "C" int launch_solver_sw_bwd(
         const void* tau, const void* ssa, const void* asy, const void* mu0,

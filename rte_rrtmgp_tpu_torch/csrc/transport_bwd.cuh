@@ -13,11 +13,14 @@
 // used in every dtype.
 //
 // Each driver walks one thread's layers. The caller's Col gives a layer's
-// inputs (recomputed on every read, nothing of the forward is kept but
-// the few per-level values below) and its Sink takes the cotangents, one
-// layer at a time from the surface up. Every thread of a block must call
-// a driver (``active`` false for the idle lanes), because a Sink may sum
-// over the block at each layer.
+// inputs (read again on every pass; the drivers keep only the few fields
+// named below in device memory, and recompute the rest) and its Sink
+// takes the cotangents, one layer at a time from the surface up. The
+// passes load the next layer's values before they work on the current
+// one, so that a level's loads overlap the last level's arithmetic: the
+// sweeps are dependent over the levels and wait on memory otherwise.
+// Every thread of a block must call a driver (``active`` false for the
+// idle lanes), because a Sink may sum over the block at each layer.
 #pragma once
 
 #include <cfloat>
@@ -73,20 +76,24 @@ __device__ __forceinline__ LwBars lw_source_adjoint(float tl, float lay,
     return b;
 }
 
-// The one-angle no-scattering solve's adjoint (steps A2-A5). Col::layer(l,
-// &tl, &lay, &top, &bot) gives layer l's optical depth along the ray and
-// sources; gup/gdn are the column's broadband flux cotangents by level
+// The one-angle no-scattering solve's adjoint (steps A2-A5). The Col
+// gives layer l's optical depth along the ray and sources:
+// col.down(l, &tl, &lay, &top, &bot) on the down pass (l = 0 .. nlay-1
+// in order, so a Col may compute its layers there), col.up(l, ...) on
+// the up pass (l = nlay-1 .. 0), and col.surface_source() after the down
+// pass. gup/gdn are the column's broadband flux cotangents by level
 // (stride gs). RDN/RR are this thread's layer scratch (stride ls): the
 // downward radiance and the up-sweep cotangent at each layer's top, kept
-// from the down pass (the only forward state kept). Sink::surface(emis_b,
-// ssrc_b) is called once, Sink::layer(l, bars) for l = nlay-1 .. 0 after
-// RDN[l] and RR[l] have been read (so the Sink may overwrite them), and
+// from the down pass (the only forward state kept); the up pass reads
+// layer l-1's while it works on layer l. Sink::surface(emis_b, ssrc_b) is
+// called once, Sink::layer(l, bars) for l = nlay-1 .. 0 after RDN[l] and
+// RR[l] have been read (so the Sink may overwrite them), and
 // Sink::top(inc_b) last.
 template <class Col, class Sink>
 __device__ __forceinline__ void lw_adjoint(
-        bool active, const Col& col, int nlay, float piw, float inc,
-        float emis, float ssrc, const float* gup, const float* gdn, int gs,
-        float* RDN, float* RR, long long ls, Sink& sink) {
+        bool active, Col& col, int nlay, float piw, float inc, float emis,
+        const float* gup, const float* gdn, int gs, float* RDN, float* RR,
+        long long ls, Sink& sink) {
     float rdn = 0.0f, R = 0.0f;
     if (active) {
         // down pass: rdn[l+1] = t rdn[l] + sdn; R[l+1] = piw gup[l+1] + t R[l]
@@ -94,7 +101,7 @@ __device__ __forceinline__ void lw_adjoint(
         R = piw * __ldg(gup);
         for (int l = 0; l < nlay; ++l) {
             float tl, lay, top, bot, t, sdn, sup;
-            col.layer(l, &tl, &lay, &top, &bot);
+            col.down(l, &tl, &lay, &top, &bot);
             lw_source(tl, lay, top, bot, &t, &sdn, &sup);
             RDN[l * ls] = rdn;
             RR[l * ls] = R;
@@ -103,19 +110,29 @@ __device__ __forceinline__ void lw_adjoint(
         }
     }
     // surface (A3): rup[N] = (1 - emis) rdn[N] + emis ssrc
+    float ssrc = active ? col.surface_source() : 0.0f;
     float rup = rdn * (1.0f - emis) + emis * ssrc;
     float D = 0.0f;
     if (active) D = piw * __ldg(gdn + (long long)nlay * gs)
                     + (1.0f - emis) * R;
     sink.surface(active ? R * (ssrc - rdn) : 0.0f, active ? emis * R : 0.0f);
     // up pass: the up sweep forward with A4's and A2's cotangents
+    float rdn_n = 0.0f, R_n = 0.0f;
+    if (active) {
+        rdn_n = RDN[(nlay - 1) * ls];
+        R_n = RR[(nlay - 1) * ls];
+    }
     for (int l = nlay - 1; l >= 0; --l) {
         LwBars b = {0.0f, 0.0f, 0.0f, 0.0f};
         if (active) {
+            float rdn_l = rdn_n, R_l = R_n;
+            if (l > 0) {
+                rdn_n = RDN[(l - 1) * ls];
+                R_n = RR[(l - 1) * ls];
+            }
             float tl, lay, top, bot, t, sdn, sup;
-            col.layer(l, &tl, &lay, &top, &bot);
+            col.up(l, &tl, &lay, &top, &bot);
             lw_source(tl, lay, top, bot, &t, &sdn, &sup);
-            float rdn_l = RDN[l * ls], R_l = RR[l * ls];
             float trans_b = R_l * rup + rdn_l * D;
             rup = t * rup + sup;
             float sdn_b = D;
@@ -188,7 +205,11 @@ struct SwBars {
 
 // Phase A-C (solver_sw_bwd.py:260-362): the Meador-Weaver/PIFM chain
 // transposed, from the cotangents of rdif, tdif, rdir, tdir and the
-// direct transmittance tns.
+// direct transmittance tns. Divisions by den and mu_s are products with
+// their reciprocals: a float32 division is a sequence of instructions,
+// and this chain runs once per (column, layer, g-point) in a
+// latency-bound sweep (measured faster on an H100: PERF.md's findings on
+// rows 15 and 17).
 __device__ __forceinline__ SwBars sw_layer_adjoint(
         const SwLayerAD& s, float t, float w0, float asym, float mu,
         float rdif_b, float tdif_b, float rdir_b, float tdir_b,
@@ -241,9 +262,10 @@ __device__ __forceinline__ SwBars sw_layer_adjoint(
     e1_b += tdif_b * 2.0f * s.rt * s.k;
 
     // rt2 = w0 rt / den ; den = |den0| >= eps ? den0 : eps
-    float w0_b = rt2_b * s.rt / s.den;
-    rt_b += rt2_b * w0 / s.den;
-    float den_b = -rt2_b * s.rt2 / s.den;
+    const float inv_den = 1.0f / s.den;
+    float w0_b = rt2_b * s.rt * inv_den;
+    rt_b += rt2_b * w0 * inv_den;
+    float den_b = -rt2_b * s.rt2 * inv_den;
     float den0_b = fabsf(s.den0) >= FLT_EPSILON ? den_b : 0.0f;
     kmu_b -= 2.0f * kmu * den0_b;
 
@@ -272,8 +294,9 @@ __device__ __forceinline__ SwBars sw_layer_adjoint(
 
     // e2 = e1^2 ; tns = exp(-t / mu_s) ; e1 = exp(-t k)
     e1_b += 2.0f * e1 * e2_b;
-    float t_b = -tns_b * tns / s.mu_s - e1_b * e1 * s.k;
-    mus_b += tns_b * tns * t / (s.mu_s * s.mu_s);
+    const float inv_mus = 1.0f / s.mu_s;
+    float t_b = -tns_b * tns * inv_mus - e1_b * e1 * s.k;
+    mus_b += tns_b * tns * t * inv_mus * inv_mus;
     k_b -= e1_b * e1 * t;
 
     // k = sqrt(max(karg, min_k)) ; karg = g1^2 - g2^2
@@ -294,10 +317,24 @@ __device__ __forceinline__ SwBars sw_layer_adjoint(
     return b;
 }
 
-// Scratch fields of one thread, each with nlay+1 levels.
-enum SwField {
-    kR, kT, kSdn, kSupDen, kDir, kAlb, kSrc, kFdnAlbB, kSrcB, kRb, kTdb,
-    kSdnb, kSupb, kSwFields
+// One thread's scratch for sw_adjoint: five fields, element (v) at
+// p[v * ls]. The names give the first content; each field is reused once
+// its first content is dead (A-U writes its results where it has read
+// the last value):
+//   dir (nlay+1 levels): the direct beam at the top of each level;
+//   alb (nlay+1): the adding albedo below each level, then rb of layer v
+//     at v+1;
+//   src (nlay+1): the adding upward source, then tdb of layer v at v+1;
+//   fdn (nlay+1): the diffuse downward flux, then sdnb of layer v at v;
+//   fh (nlay): the diffuse sweep's cotangent entering layer v from below
+//     (A-F), then supb of layer v.
+struct SwScratch {
+    float* dir;
+    float* alb;
+    float* src;
+    float* fdn;
+    float* fh;
+    long long ls;
 };
 
 // Boundary cotangents of the SW solve.
@@ -305,145 +342,235 @@ struct SwBoundaryBars {
     float alb_dir, alb_dif, inc, inc_dif, mu_top;   // mu_top: mu0 of layer 0
 };
 
-// The two-stream + adding solve's adjoint. Col::layer(l, &t, &w0, &asym,
-// &mu) gives layer l's optics and cosine; gu/gd/gr are the column's
+// Direct transmittance of a layer: sw_layer's tns, bit for bit.
+__device__ __forceinline__ float sw_tns(float t, float mu) {
+    return expf(-t / fmaxf(sqrtf(FLT_EPSILON), mu));
+}
+
+// The two-stream + adding solve's adjoint, for one thread's layers.
+// col.layer(l, &t, &w0, &asym, &mu) gives layer l's optics and cosine
+// (read on every pass: each pass recomputes the Meador-Weaver
+// coefficients it needs from them, which costs less than keeping the
+// five coefficients in device memory); gu/gd/gr are the column's
 // broadband cotangents of up, down total and direct by level (stride
-// gs); S is this thread's scratch, field f at level v at S[f * fs + v *
-// ls]. Passes (solver_sw_bwd.py): P0 recompute (down: coefficients and
-// beam; up: the adding build; down: the diffuse flux), A-F (up), A-U
-// (down), then A-S with A-C (up), where Sink::layer(l, bars) takes each
-// layer's cotangents for l = nlay-1 .. 0, after the Col has read layer l
-// for the last time. Returns the boundary cotangents.
-template <class Col, class Sink>
+// gs). With BEAM the first pass writes the direct beam to S.dir; without,
+// the caller has written it (the beam of sw_tns from inc * mu of layer
+// 0). Passes (solver_sw_bwd.py): the beam (down), the adding build (up),
+// the diffuse flux (down), A-F (up), A-U (down), then A-S with A-C (up),
+// where Sink::layer(l, bars) takes each layer's cotangents for l =
+// nlay-1 .. 0. A-F keeps only its running cotangent per layer; A-U
+// recomputes A-F's per-layer results from it. Each pass loads the next
+// layer's inputs before it works on the current one, so the loads of one
+// level overlap the arithmetic of the last. Returns the boundary
+// cotangents.
+template <bool BEAM, class Col, class Sink>
 __device__ __forceinline__ SwBoundaryBars sw_adjoint(
         bool active, const Col& col, int nlay, float inc, float alb_dir,
         float alb_dif, float top, const float* gu, const float* gd,
-        const float* gr, int gs, float* S, long long fs, long long ls,
-        Sink& sink) {
-    auto at = [&](int f, int v) -> float& {
-        return S[(long long)f * fs + (long long)v * ls];
-    };
+        const float* gr, int gs, const SwScratch& S, Sink& sink) {
+    float* __restrict__ DIR = S.dir;
+    float* __restrict__ ALB = S.alb;
+    float* __restrict__ SRC = S.src;
+    float* __restrict__ FDN = S.fdn;
+    float* __restrict__ FH = S.fh;
+    const long long ls = S.ls;
     auto cot = [&](const float* g, int v) {
         return __ldg(g + (long long)v * gs);
     };
     SwBoundaryBars bb = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    float mu_top = 0.0f, dir = 0.0f, Src_bN = 0.0f;
+    float mu_top = 0.0f, Src_bN = 0.0f, dirN = 0.0f;
     bool day_sfc = false;
+    const int N = nlay;
+    // the current and the next layer's optics
+    float t, w0, asym, mu, tn, w0n, asymn, mun;
+    auto next = [&]() { t = tn; w0 = w0n; asym = asymn; mu = mun; };
     if (active) {
-        // ---- P0: coefficients and the direct beam, top down ----
-        float t, w0, asym, mu;
         col.layer(0, &t, &w0, &asym, &mu);
         mu_top = mu;
-        dir = inc * mu_top;
-        for (int l = 0; l < nlay; ++l) {
-            col.layer(l, &t, &w0, &asym, &mu);
+        // ---- the beam, top down ----
+        if (BEAM) {
+            float dir = inc * mu_top;
+            for (int l = 0; l < N; ++l) {
+                if (l + 1 < N) col.layer(l + 1, &tn, &w0n, &asymn, &mun);
+                DIR[l * ls] = dir;
+                dir = dir * sw_tns(t, mu);
+                next();
+            }
+            DIR[N * ls] = dir;
+        }
+        // ---- the adding build, bottom up (transport.cuh::adding) ----
+        col.layer(N - 1, &t, &w0, &asym, &mu);
+        day_sfc = mu > 0.0f;
+        dirN = DIR[N * ls];
+        float alb = alb_dif;
+        float src = day_sfc ? dirN * alb_dir : 0.0f;
+        ALB[N * ls] = alb;
+        SRC[N * ls] = src;
+        float dirv = DIR[(N - 1) * ls], dirn = 0.0f;
+        for (int v = N - 1; v >= 0; --v) {
+            if (v > 0) {
+                col.layer(v - 1, &tn, &w0n, &asymn, &mun);
+                dirn = DIR[(v - 1) * ls];
+            }
             SwLayer s = sw_layer(t, w0, asym, mu);
             bool day = mu > 0.0f;
-            at(kR, l) = s.rdif;
-            at(kT, l) = s.tdif;
-            at(kSupDen, l) = day ? s.rdir * dir : 0.0f;
-            at(kSdn, l) = day ? s.tdir * dir : 0.0f;
-            at(kDir, l) = dir;
-            dir = dir * s.tns;
-            if (l == nlay - 1) day_sfc = day;
-        }
-        at(kDir, nlay) = dir;
-        // ---- P0: the adding build, bottom up (transport.cuh::adding)
-        float alb = alb_dif;
-        float src = day_sfc ? dir * alb_dir : 0.0f;
-        at(kAlb, nlay) = alb;
-        at(kSrc, nlay) = src;
-        for (int v = nlay - 1; v >= 0; --v) {
-            float r = at(kR, v), td = at(kT, v);
-            float dd = 1.0f / (1.0f - r * alb);
-            float src_v = at(kSupDen, v) + td * dd * (src + alb * at(kSdn, v));
-            alb = r + td * td * alb * dd;
+            float supdir = day ? s.rdir * dirv : 0.0f;
+            float sdn = day ? s.tdir * dirv : 0.0f;
+            float dd = 1.0f / (1.0f - s.rdif * alb);
+            float src_v = supdir + s.tdif * dd * (src + alb * sdn);
+            alb = s.rdif + s.tdif * s.tdif * alb * dd;
             src = src_v;
-            at(kSupDen, v) = dd;
-            at(kAlb, v) = alb;
-            at(kSrc, v) = src;
+            ALB[v * ls] = alb;
+            SRC[v * ls] = src;
+            next();
+            dirv = dirn;
         }
-        // ---- P0: the diffuse flux down ----
-        float fdn = top;
-        at(kFdnAlbB, 0) = fdn;
-        for (int v = 0; v < nlay; ++v) {
-            fdn = (at(kT, v) * fdn + at(kR, v) * at(kSrc, v + 1)
-                   + at(kSdn, v)) * at(kSupDen, v);
-            at(kFdnAlbB, v + 1) = fdn;
+        // ---- the diffuse flux, top down ----
+        col.layer(0, &t, &w0, &asym, &mu);
+        float fdn = top, dir = inc * mu_top;
+        FDN[0] = fdn;
+        float ab = ALB[ls], sn = SRC[ls], abn = 0.0f, snn = 0.0f;
+        for (int v = 0; v < N; ++v) {
+            if (v + 1 < N) {
+                col.layer(v + 1, &tn, &w0n, &asymn, &mun);
+                abn = ALB[(v + 2) * ls];
+                snn = SRC[(v + 2) * ls];
+            }
+            SwLayer s = sw_layer(t, w0, asym, mu);
+            float sdn = mu > 0.0f ? s.tdir * dir : 0.0f;
+            float dd = 1.0f / (1.0f - s.rdif * ab);
+            fdn = (s.tdif * fdn + s.rdif * sn + sdn) * dd;
+            FDN[(v + 1) * ls] = fdn;
+            dir = dir * s.tns;
+            next();
+            ab = abn;
+            sn = snn;
         }
-        // ---- A-F: adjoint of the diffuse sweep, bottom up. Leaves
-        // td_b, r_b, sdn_b per layer and the sweep's albedo and source
-        // cotangents per level (the albedo's over fdn) ----
-        float Ff = cot(gd, nlay) + cot(gu, nlay) * at(kAlb, nlay);
-        for (int v = nlay - 1; v >= 0; --v) {
+        // ---- A-F: adjoint of the diffuse sweep, bottom up; keeps the
+        // cotangent entering each layer from below ----
+        col.layer(N - 1, &t, &w0, &asym, &mu);
+        float alb_hi = ALB[N * ls];
+        float Ff = cot(gd, N) + cot(gu, N) * alb_hi;
+        float alb_v = ALB[(N - 1) * ls], albn = 0.0f;
+        for (int v = N - 1; v >= 0; --v) {
+            if (v > 0) {
+                col.layer(v - 1, &tn, &w0n, &asymn, &mun);
+                albn = ALB[(v - 1) * ls];
+            }
+            SwLayer s = sw_layer(t, w0, asym, mu);
+            float d = 1.0f / (1.0f - s.rdif * alb_hi);
             float Fh = Ff;
-            float d = at(kSupDen, v), r = at(kR, v), td = at(kT, v);
-            float fd = at(kFdnAlbB, v), sn = at(kSrc, v + 1);
-            float prod = td * fd + r * sn + at(kSdn, v);
-            float dd = Fh * prod * d * d;
-            at(kTdb, v) = Fh * d * fd;
-            at(kRb, v) = Fh * d * sn + dd * at(kAlb, v + 1);
-            at(kSdnb, v) = Fh * d;
-            at(kFdnAlbB, v + 1) = cot(gu, v + 1) * at(kFdnAlbB, v + 1)
-                                  + dd * r;
-            at(kSrcB, v + 1) = cot(gu, v + 1) + Fh * d * r;
-            Ff = cot(gd, v) + cot(gu, v) * at(kAlb, v) + td * d * Fh;
+            FH[v * ls] = Fh;
+            Ff = cot(gd, v) + cot(gu, v) * alb_v + s.tdif * d * Fh;
+            next();
+            alb_hi = alb_v;
+            alb_v = albn;
         }
-        at(kFdnAlbB, 0) = cot(gu, 0) * at(kFdnAlbB, 0);
-        at(kSrcB, 0) = cot(gu, 0);
         bb.inc_dif = Ff;
-        // ---- A-U: adjoint of the adding build, top down ----
+        // ---- A-U: adjoint of the adding build, top down, with A-F's
+        // per-layer results recomputed from its kept cotangent ----
+        col.layer(0, &t, &w0, &asym, &mu);
+        dir = inc * mu_top;
         float ab_c = 0.0f, sb_c = 0.0f;
-        for (int v = 0; v < nlay; ++v) {
-            float r = at(kR, v), td = at(kT, v), ab = at(kAlb, v + 1);
-            float d = at(kSupDen, v), sdn = at(kSdn, v);
-            float ab_h = at(kFdnAlbB, v) + ab_c;
-            float sb = at(kSrcB, v) + sb_c;
-            float inner = at(kSrc, v + 1) + ab * sdn;
-            float rb = at(kRb, v) + ab_h;
-            float tdb = at(kTdb, v) + ab_h * 2.0f * td * ab * d;
+        float fd = FDN[0];
+        float albB = cot(gu, 0) * fd, srcB = cot(gu, 0);
+        float Fh = FH[0];
+        ab = ALB[ls];
+        sn = SRC[ls];
+        float fdn_n = 0.0f, Fh_n = 0.0f;
+        for (int v = 0; v < N; ++v) {
+            fdn_n = FDN[(v + 1) * ls];
+            if (v + 1 < N) {
+                col.layer(v + 1, &tn, &w0n, &asymn, &mun);
+                Fh_n = FH[(v + 1) * ls];
+                abn = ALB[(v + 2) * ls];
+                snn = SRC[(v + 2) * ls];
+            }
+            SwLayer s = sw_layer(t, w0, asym, mu);
+            const float r = s.rdif, td = s.tdif;
+            float sdn = mu > 0.0f ? s.tdir * dir : 0.0f;
+            float d = 1.0f / (1.0f - r * ab);
+            // A-F at layer v (solver_sw_bwd.py A-F)
+            float prod = td * fd + r * sn + sdn;
+            float ddF = Fh * prod * d * d;
+            float tdb = Fh * d * fd;
+            float rb = Fh * d * sn + ddF * ab;
+            float sdnb = Fh * d;
+            // A-U at layer v
+            float ab_h = albB + ab_c;
+            float sb = srcB + sb_c;
+            float inner = sn + ab * sdn;
+            rb = rb + ab_h;
+            tdb = tdb + ab_h * 2.0f * td * ab * d;
             float d_h = ab_h * td * td * ab;
             float ab_acc = ab_h * td * td * d;
-            at(kSupb, v) = sb;
             tdb += sb * d * inner;
             d_h += sb * td * inner;
             sb_c = sb * td * d;
             ab_acc += sb * td * d * sdn;
-            float sdnb = at(kSdnb, v) + sb * td * d * ab;
+            sdnb = sdnb + sb * td * d * ab;
             float ddh = d_h * d * d;
             rb += ddh * ab;
             ab_acc += ddh * r;
             ab_c = ab_acc;
-            at(kRb, v) = rb;
-            at(kTdb, v) = tdb;
-            at(kSdnb, v) = sdnb;
+            FH[v * ls] = sb;
+            ALB[(v + 1) * ls] = rb;
+            SRC[(v + 1) * ls] = tdb;
+            FDN[v * ls] = sdnb;
+            // A-F's cotangents of the albedo and source of level v+1
+            albB = cot(gu, v + 1) * fdn_n + ddF * r;
+            srcB = cot(gu, v + 1) + Fh * d * r;
+            dir = dir * s.tns;
+            next();
+            fd = fdn_n;
+            Fh = Fh_n;
+            ab = abn;
+            sn = snn;
         }
-        bb.alb_dif = at(kFdnAlbB, nlay) + ab_c;
-        Src_bN = at(kSrcB, nlay) + sb_c;
-        bb.alb_dir = day_sfc ? Src_bN * dir : 0.0f;
+        bb.alb_dif = albB + ab_c;
+        Src_bN = srcB + sb_c;
+        bb.alb_dir = day_sfc ? Src_bN * dirN : 0.0f;
     }
     // ---- A-S and A-C: the beam's adjoint bottom up, each layer's
     // Meador-Weaver chain transposed on the way ----
     float Dh = 0.0f;
-    if (active)
-        Dh = cot(gd, nlay) + cot(gr, nlay)
-             + (day_sfc ? Src_bN * alb_dir : 0.0f);
-    for (int l = nlay - 1; l >= 0; --l) {
+    float dirl = 0.0f, supb = 0.0f, sdnb = 0.0f, rb = 0.0f, tdb = 0.0f;
+    float dirn = 0.0f, supbn = 0.0f, sdnbn = 0.0f, rbn = 0.0f, tdbn = 0.0f;
+    if (active) {
+        Dh = cot(gd, N) + cot(gr, N) + (day_sfc ? Src_bN * alb_dir : 0.0f);
+        col.layer(N - 1, &t, &w0, &asym, &mu);
+        dirl = DIR[(N - 1) * ls];
+        supb = FH[(N - 1) * ls];
+        sdnb = FDN[(N - 1) * ls];
+        rb = ALB[N * ls];
+        tdb = SRC[N * ls];
+    }
+    for (int l = N - 1; l >= 0; --l) {
         SwBars b = {0.0f, 0.0f, 0.0f, 0.0f};
         if (active) {
-            float t, w0, asym, mu;
-            col.layer(l, &t, &w0, &asym, &mu);
+            if (l > 0) {
+                col.layer(l - 1, &tn, &w0n, &asymn, &mun);
+                dirn = DIR[(l - 1) * ls];
+                supbn = FH[(l - 1) * ls];
+                sdnbn = FDN[(l - 1) * ls];
+                rbn = ALB[l * ls];
+                tdbn = SRC[l * ls];
+            }
             SwLayerAD s = sw_layer_ad(t, w0, asym, mu);
             bool day = mu > 0.0f;
-            float dirl = at(kDir, l);
-            float supb = at(kSupb, l), sdnb = at(kSdnb, l);
             float tns_b = dirl * Dh;
             float rdir_b = day ? supb * dirl : 0.0f;
             float tdir_b = day ? sdnb * dirl : 0.0f;
             float dl_src = day ? s.rdir * supb + s.tdir * sdnb : 0.0f;
             Dh = cot(gd, l) + cot(gr, l) + dl_src + s.tns * Dh;
-            b = sw_layer_adjoint(s, t, w0, asym, mu, at(kRb, l),
-                                 at(kTdb, l), rdir_b, tdir_b, tns_b);
+            b = sw_layer_adjoint(s, t, w0, asym, mu, rb, tdb, rdir_b, tdir_b,
+                                 tns_b);
+            next();
+            dirl = dirn;
+            supb = supbn;
+            sdnb = sdnbn;
+            rb = rbn;
+            tdb = tdbn;
         }
         sink.layer(l, b);
     }

@@ -13,13 +13,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "build_all", "library",
-           "on_cpu", "check_args", "check_strided", "strided", "launch"]
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "build_all", "ptxas_usage",
+           "library", "on_cpu", "check_args", "check_strided", "strided",
+           "launch", "query"]
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
@@ -81,6 +83,21 @@ def build_all(names=SOURCES) -> dict:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return reports
+
+
+def ptxas_usage(report: str) -> list:
+    """[(registers, spill store bytes, spill load bytes)] per kernel
+    instantiation in a :func:`build_all` report (``-Xptxas -v``)."""
+    out, spills = [], (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((int(m.group(1)),) + spills)
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -181,3 +198,13 @@ def launch(name: str, fn: str, what: str, *args) -> None:
     with torch.cuda.device(dev):
         status = f(*vals)
     check_status(lib, status, what)
+
+
+def query(name: str, fn: str, *ints: int) -> int:
+    """Call ``fn(int, ...) -> int`` of library ``name``: the kernels'
+    resident blocks per SM (``occupancy_*``, a negative CUDA error on
+    failure)."""
+    f = getattr(library(name), fn)
+    f.argtypes = [ctypes.c_int] * len(ints)
+    f.restype = ctypes.c_int
+    return f(*ints)

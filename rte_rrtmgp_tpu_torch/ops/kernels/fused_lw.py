@@ -32,12 +32,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..gas_optics import InterpCoeffs, planck_sources, tau_major, tau_minor
-from ._build import check_args, launch, on_cpu
+from ._build import check_args, launch, on_cpu, query
+from .adjoint_segments import segments_on
 from .autodiff import none_like, refuse_grad, with_adjoint, with_twin_grad
 from .solver_lw import lw_noscat_plain
 
 __all__ = ["LWFusedInputs", "LW_DIFF", "lw_fused", "lw_fused_plain",
-           "lw_fused_bwd", "lw_fused_bwd_plain"]
+           "lw_fused_bwd", "lw_fused_bwd_plain", "lw_fused_bwd_scratch_bytes",
+           "lw_fused_bwd_occupancy"]
 
 
 class LWFusedInputs(NamedTuple):
@@ -224,6 +226,29 @@ def lw_fused_bwd_plain(x: LWFusedInputs, g_up, g_dn):
     return _fields_grad(lw_fused_plain, x, LW_DIFF, (g_up, g_dn))
 
 
+def lw_fused_bwd_scratch_bytes(ncol: int, nlay: int, ngpt: int) -> int:
+    """Device scratch of one :func:`lw_fused_bwd` launch: four float32
+    fields of (column, layer, g-point), tau, the Planck fraction and the
+    transport adjoint's kept radiances and cotangents."""
+    return 4 * nlay * ncol * ngpt * 4
+
+
+def _segments(x):
+    """The segment table of x's k-distribution (the fused LW or SW
+    inputs) and its launch sizes."""
+    segs, table = segments_on(x.gpt2band, x.gpoint_flavor, x.minors,
+                              x.co.jeta.shape[1])
+    return table, (segs.nrun_band, segs.nrun_minor, int(segs.table[7]))
+
+
+def lw_fused_bwd_occupancy(x: LWFusedInputs) -> int:
+    """Resident blocks per SM of the adjoint kernel at x's sizes (with
+    clouds), from cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    _, (nrb, nrm, csr_len) = _segments(x)
+    return query("fused_lw_bwd", "occupancy_fused_lw_bwd", x.kmajor.shape[3],
+                 x.tlay.shape[0], len(x.minors), nrb, nrm, csr_len)
+
+
 def lw_fused_bwd(x: LWFusedInputs, g_up, g_dn):
     """:func:`lw_fused_bwd_plain` semantics; on CUDA, one launch of the
     hand-written adjoint kernel (counted in ``lw_fused_bwd.launches``)."""
@@ -241,9 +266,9 @@ def lw_fused_bwd(x: LWFusedInputs, g_up, g_dn):
     g_up, g_dn = g_up.contiguous(), g_dn.contiguous()
     check_args("lw_fused_bwd", dev, {"g_up": (g_up, (nlay + 1, ncol), f32),
                                      "g_dn": (g_dn, (nlay + 1, ncol), f32)})
-    # per-(column, layer, g-point) scratch: tau, Planck fraction, and the
-    # adjoint's kept radiances and cotangents (then tau's and pf's)
-    scratch = torch.empty((4, ncol, nlay, ngpt), dtype=f32, device=dev)
+    table, seg_sizes = _segments(x)
+    scratch = torch.empty(lw_fused_bwd_scratch_bytes(ncol, nlay, ngpt) // 4,
+                          dtype=f32, device=dev)
     co = x.co
     bars = (torch.empty_like(co.ftemp), torch.empty_like(co.fpress),
             torch.empty_like(co.feta), torch.empty_like(co.col_mix),
@@ -254,8 +279,8 @@ def lw_fused_bwd(x: LWFusedInputs, g_up, g_dn):
             else torch.empty_like(x.cloud_tau_abs))
     ft, fp, fe, cm, ms, tl, tv, ts, em, ib, cl = bars
     launch("fused_lw_bwd", "launch_fused_lw_bwd", "lw_fused_bwd",
-           *_inputs(x), g_up, g_dn, scratch, ft, fp, fe, cm, ms, cl, tl, tv,
-           ts, em, ib, *_sizes(x, n))
+           *_inputs(x), g_up, g_dn, table, scratch, ft, fp, fe, cm, ms, cl,
+           tl, tv, ts, em, ib, *_sizes(x, n), *seg_sizes)
     lw_fused_bwd.launches += 1
     return bars
 

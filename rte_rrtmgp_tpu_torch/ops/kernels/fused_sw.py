@@ -34,15 +34,16 @@ import numpy as np
 import torch
 
 from ..gas_optics import InterpCoeffs, tau_major, tau_minor, tau_rayleigh
-from ._build import check_args, launch, on_cpu
+from ._build import check_args, launch, on_cpu, query
 from .autodiff import refuse_grad, with_adjoint, with_twin_grad
-from .fused_lw import (_fields_grad, _fused_adjoint, _split_minors,
-                       reverse_axes)
+from .fused_lw import (_fields_grad, _fused_adjoint, _segments,
+                       _split_minors, reverse_axes)
 from .solver_lanes import increment_2str_bybnd
 from .solver_sw import sw_2stream_plain
 
 __all__ = ["SWFusedInputs", "SW_DIFF", "sw_fused", "sw_fused_plain",
-           "sw_fused_bwd", "sw_fused_bwd_plain"]
+           "sw_fused_bwd", "sw_fused_bwd_plain", "sw_fused_bwd_scratch_bytes",
+           "sw_fused_bwd_occupancy"]
 
 # the cloud combine's guard is float32's tiny in every dtype, as in the
 # TPU kernel (fused_sw.py:47) and its XLA reference (gas_optics.py:734)
@@ -189,6 +190,22 @@ def sw_fused_bwd_plain(x: SWFusedInputs, g_up, g_dn, g_dir):
     return _fields_grad(sw_fused_plain, x, SW_DIFF, (g_up, g_dn, g_dir))
 
 
+def sw_fused_bwd_scratch_bytes(ncol: int, nlay: int, ngpt: int) -> int:
+    """Device scratch of one :func:`sw_fused_bwd` launch: per (column,
+    g-point) the layer optics (tau, ssa, g) and the adjoint's kept
+    cotangent per layer, and its four level fields (transport_bwd.cuh::
+    SwScratch), in float32."""
+    return (4 * nlay + 4 * (nlay + 1)) * ncol * ngpt * 4
+
+
+def sw_fused_bwd_occupancy(x: SWFusedInputs) -> int:
+    """Resident blocks per SM of the adjoint kernel at x's sizes (with
+    clouds), from cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    _, (nrb, nrm, csr_len) = _segments(x)
+    return query("fused_sw_bwd", "occupancy_fused_sw_bwd", x.kmajor.shape[3],
+                 x.mu0.shape[0], len(x.minors), nrb, nrm, csr_len)
+
+
 def sw_fused_bwd(x: SWFusedInputs, g_up, g_dn, g_dir):
     """:func:`sw_fused_bwd_plain` semantics; on CUDA, one launch of the
     hand-written adjoint kernel (counted in ``sw_fused_bwd.launches``)."""
@@ -207,9 +224,8 @@ def sw_fused_bwd(x: SWFusedInputs, g_up, g_dn, g_dir):
     check_args("sw_fused_bwd", dev, {
         k: (g, (nlay + 1, ncol), f32)
         for k, g in zip(("g_up", "g_dn", "g_dir"), gs)})
-    # scratch: the layer optics (3 fields of (column, layer, g-point)) and
-    # the adjoint's 13 of (column, level, g-point)
-    scratch = torch.empty((3 * nlay + 13 * (nlay + 1)) * ncol * ngpt,
+    table, seg_sizes = _segments(x)
+    scratch = torch.empty(sw_fused_bwd_scratch_bytes(ncol, nlay, ngpt) // 4,
                           dtype=f32, device=dev)
     co = x.co
     bars = (torch.empty_like(co.ftemp), torch.empty_like(co.fpress),
@@ -220,7 +236,7 @@ def sw_fused_bwd(x: SWFusedInputs, g_up, g_dn, g_dir):
             torch.empty_like(x.sfc_alb_dif), torch.empty_like(x.inc),
             None if x.incdif is None else torch.empty_like(x.incdif))
     launch("fused_sw_bwd", "launch_fused_sw_bwd", "sw_fused_bwd",
-           *_inputs(x), *gs, scratch, *bars, *_sizes(n))
+           *_inputs(x), *gs, table, scratch, *bars, *_sizes(n), *seg_sizes)
     sw_fused_bwd.launches += 1
     return bars
 

@@ -15,11 +15,19 @@ from __future__ import annotations
 import torch
 
 from ...constants import PI
-from ._build import check_args, launch, on_cpu
+from ._build import check_args, launch, on_cpu, query
 from .autodiff import refuse_grad, with_adjoint
 from .solver_lw import lw_noscat, lw_noscat_plain
 
-__all__ = ["lw_noscat_vjp", "lw_noscat_bwd", "lw_noscat_bwd_plain"]
+__all__ = ["lw_noscat_vjp", "lw_noscat_bwd", "lw_noscat_bwd_plain",
+           "lw_noscat_bwd_occupancy"]
+
+
+def lw_noscat_bwd_occupancy(ngpt: int) -> int:
+    """Resident blocks per SM of the adjoint kernel for ngpt g-points
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); it needs no
+    scratch."""
+    return query("solver_lw_bwd", "occupancy_solver_lw_bwd", ngpt)
 
 
 def lw_noscat_bwd_plain(tau, lay, lev, sfc_emis, sfc_src, inc_flux, g_up,

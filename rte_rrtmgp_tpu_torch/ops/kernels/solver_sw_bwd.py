@@ -13,11 +13,25 @@ from __future__ import annotations
 
 import torch
 
-from ._build import check_args, launch, on_cpu
+from ._build import check_args, launch, on_cpu, query
 from .autodiff import refuse_grad, with_adjoint
 from .solver_sw import sw_2stream, sw_2stream_plain
 
-__all__ = ["sw_2stream_vjp", "sw_2stream_bwd", "sw_2stream_bwd_plain"]
+__all__ = ["sw_2stream_vjp", "sw_2stream_bwd", "sw_2stream_bwd_plain",
+           "sw_2stream_bwd_scratch_bytes", "sw_2stream_bwd_occupancy"]
+
+
+def sw_2stream_bwd_scratch_bytes(ncol: int, nlay: int, ngpt: int) -> int:
+    """Device scratch of one :func:`sw_2stream_bwd` launch: the adjoint's
+    four float32 fields of (column, level, g-point) and one of (column,
+    layer, g-point) (transport_bwd.cuh::SwScratch)."""
+    return (4 * (nlay + 1) + nlay) * ncol * ngpt * 4
+
+
+def sw_2stream_bwd_occupancy(ngpt: int, nlay: int) -> int:
+    """Resident blocks per SM of the adjoint kernel for ngpt g-points
+    and nlay layers (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    return query("solver_sw_bwd", "occupancy_solver_sw_bwd", ngpt, nlay)
 
 
 def sw_2stream_bwd_plain(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
@@ -60,9 +74,8 @@ def sw_2stream_bwd(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
         "inc_flux_dir": (inc_flux_dir, bc, f32),
         "inc_flux_dif": (inc_flux_dif, bc, f32), "g_up": (g_up, lev2, f32),
         "g_dn": (g_dn, lev2, f32), "g_dir": (g_dir, lev2, f32)})
-    # the adjoint's 13 per-(column, level, g-point) fields
-    # (transport_bwd.cuh::SwField)
-    scratch = torch.empty((13, ncol, nlay + 1, ngpt), dtype=f32, device=dev)
+    scratch = torch.empty(sw_2stream_bwd_scratch_bytes(ncol, nlay, ngpt)
+                          // 4, dtype=f32, device=dev)
     outs = (torch.empty_like(tau), torch.empty_like(tau),
             torch.empty_like(tau), torch.empty_like(mu0),
             *(torch.empty_like(inc_flux_dir) for _ in range(4)))
