@@ -23,7 +23,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
      and of the LW no-scattering, LW two-stream and SW solvers, the fused
      steps with an incident flux (LW) and a diffuse one (SW), and their
      adjoints with the same; for the four adjoints their ptxas registers
-     and spills, resident blocks per SM and scratch bytes;
+     and spills, resident blocks per SM and scratch bytes; for the two
+     kernels that hold their adding transport on chip (fused_sw,
+     solver_lw_2str) the same and their shared memory per block and
+     cluster size, broadband and by band;
   4. golden gates at the production configuration (256 x 72): the float32
      fused step, public-API path and staged path against
      tests/golden/production.npz, and the float32 aerosols step (fused)
@@ -53,7 +56,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
      band sums against the broadband fluxes; then where the time goes
      (torch.profiler over 3 steps of the fused, public-API, staged,
      aerosols fused and two-stream paths: device time by kernel, device
-     busy share); then two gradient steps
+     busy share) and the peak device memory of the fused and two-stream
+     steps; then two gradient steps
      (forward + backward of a weighted flux loss) on the fused path with
      clouds, then with aerosols, and on the public-API path, with the
      adjoint kernels each launched once per step, gradients finite and
@@ -861,6 +865,70 @@ def adjoint_report(prob, reports):
     del xl, xs
 
 
+def onchip_report(prob, reports):
+    """Phase 3, the resources of the kernels that hold their adding
+    transport on chip (rows 3 and 8) at the main path's shapes, broadband
+    and by band: ptxas registers and spills, shared memory per block and
+    cluster size (ops/kernels/onchip.py::onchip_geometry, held against the
+    launchers' own count), resident blocks per SM and clusters the card
+    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    cudaOccupancyMaxActiveClusters), and device scratch (none)."""
+    from rte_rrtmgp_tpu_torch.drivers.allsky import allsky_sw_inputs
+    from rte_rrtmgp_tpu_torch.ops.kernels import fused_sw as fsw
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_2str as l2
+    from rte_rrtmgp_tpu_torch.ops.kernels._build import (library,
+                                                         ptxas_usage)
+    inp = prob.inputs
+    ncol, nlay = inp.play.shape
+    xs = allsky_sw_inputs(inp, prob.gas_sw, cloud_optics=prob.cld_sw)
+    ngl, nbl = prob.gas_lw.ngpt, prob.gas_lw.grid.nband
+    nminor = len(xs.minors)
+    for name, nband in (("fused_sw", 0), ("fused_sw", xs.nband),
+                        ("solver_lw_2str", 0), ("solver_lw_2str", nbl)):
+        if name == "fused_sw":
+            x = xs._replace(byband=nband > 0, nband=nband)
+            geo, occ = fsw.sw_fused_geometry(x), fsw.sw_fused_occupancy(x)
+            smem_c = library(name).smem_fused_sw(nlay, geo.chunk, nminor,
+                                                 nband)
+            scratch = fsw.sw_fused_scratch_bytes(ncol, nlay,
+                                                 xs.kmajor.shape[3])
+        else:
+            geo = l2.lw_2stream_geometry(nlay, ngl, nband)
+            occ = l2.lw_2stream_occupancy(nlay, ngl, nband)
+            smem_c = library(name).smem_solver_lw_2str(nlay, geo.chunk, nband)
+            scratch = l2.lw_2stream_scratch_bytes(ncol, nlay, ngl)
+        rep = reports.get(name)
+        regs = ("not rebuilt in this run" if rep is None else ", ".join(
+            f"{r} registers, {ss} B spill stores, {sl} B spill loads"
+            for r, ss, sl in ptxas_usage(rep)))
+        log(f"on chip {name} {'by band' if nband else 'broadband'}: ptxas "
+            f"{regs}; chunk {geo.chunk} g-points, cluster of {geo.nchunk} "
+            f"blocks of {geo.threads} threads, {geo.smem} B shared memory "
+            f"per block; {occ[0]} resident blocks per SM, {occ[1]} clusters "
+            f"at once; scratch {scratch} B at {ncol} x {nlay}")
+        if smem_c != geo.smem:
+            raise SystemExit(f"{name}: onchip_geometry counts {geo.smem} B of"
+                             f" shared memory, the launcher {smem_c}")
+        if occ[0] < 1 or occ[1] < 1:
+            raise SystemExit(f"{name}: no block or cluster fits ({occ})")
+    del xs
+
+
+def peak_memory(name, fn):
+    """Peak device memory of one call of fn beyond what is held before."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{name}: peak device memory {peak} B ({peak / 1e9:.3f} GB; "
+        f"{(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB held "
+        "before the step)")
+
+
 def train_loss(step, inputs):
     """One training step's loss and its gradients with respect to (tlay,
     tsfc, lwp, rel, h2o vmr): sum(w_lev up) + 0.5 sum(w_lev dn) for LW and
@@ -1255,6 +1323,7 @@ def main():
     torch.cuda.empty_cache()
     rows += adjoint_rows(prob, dev, variants)
     adjoint_report(prob, reports)
+    onchip_report(prob, reports)
     log(f"variants checked against their twins: "
         f"{', '.join(v['name'] for v in variants)}")
     solar = float(prob.gas_sw.kdist.solar_source.double().sum())
@@ -1356,6 +1425,8 @@ def main():
     profile_path("public API", step_fn(prob, "api"), inputs)
     profile_path("staged", step_fn(prob, "staged"), inputs)
     profile_path("two-stream", lw2_step(prob), inputs)
+    peak_memory("fused step", lambda: step(inputs))
+    peak_memory("two-stream step", lambda: lw2_step(prob)(inputs))
 
     # the staged path on the non-banded configuration: the plain lane
     # solvers, against the fused path on the same problem
@@ -1397,15 +1468,7 @@ def main():
                   "fused_sw_bwd": 1, "cloud_props": 2}
     step, _ = build_allsky_step(**MAIN, device=dev)
     got = training_steps("fused", step, inputs, counters, fused_step, ())
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    train_loss(step, inputs)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    log(f"fused training step: peak device memory {peak} B "
-        f"({peak / 1e9:.3f} GB; {(peak - base) / 1e9:.3f} GB above the "
-        f"{base / 1e9:.3f} GB held before the step)")
+    peak_memory("fused training step", lambda: train_loss(step, inputs))
     launches.update({k: got[k] for k in ("fused_lw_bwd", "fused_sw_bwd")})
     profile_path("fused training step", lambda i: train_loss(step, i),
                  inputs)

@@ -1,11 +1,15 @@
 // Radiative transfer shared by the fused kernels and the stand-alone
 // solvers: the LW linear-in-tau layer source, the SW Meador-Weaver layer
-// coefficients, the LW two-stream layer coefficients and sources, and the
-// adding sweeps over per-thread layer columns (SW and LW two-stream).
+// coefficients, the LW two-stream layer coefficients and sources, the
+// adding sweeps over per-thread layer columns in device memory (the SW
+// solvers) and the on-chip adding with its cluster-wide flux sums (the
+// fused SW step and the LW two-stream solve).
 #pragma once
 
 #include <cfloat>
 #include <cmath>
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -154,6 +158,233 @@ __device__ __forceinline__ void adding(
         up.put(bands, fup, v + 1);
         dn.put(bands, fdn, v + 1);
     }
+}
+
+// ---- on-chip adding: the layer fields of one chunk of a column's
+// g-points in shared memory, the column's chunks one thread-block cluster
+// (the fused SW step, the LW two-stream solve) ----
+
+// One layer of the adding build, bottom up (Shonk-Hogan Eqs 9-13, the
+// arithmetic of ``adding``): from the layer's rdif r, tdif t and sources
+// sdn, sup and the albedo and source of the level below it (alb, src,
+// replaced by those of the level above), the four values that the down
+// sweep needs: a = t dd and b = (r src + sdn) dd with dd = 1 / (1 - r
+// alb), and the level below's alb and src. The down sweep is then fdn' =
+// a fdn + b, fup' = fdn' alb + src (adding_down).
+__device__ __forceinline__ float4 adding_up(float r, float t, float sdn,
+                                            float sup, float& alb,
+                                            float& src) {
+    float dd = 1.0f / (1.0f - r * alb);
+    float4 k = make_float4(t * dd, (r * src + sdn) * dd, alb, src);
+    float src_v = sup + t * dd * (src + alb * sdn);
+    alb = r + t * t * alb * dd;
+    src = src_v;
+    return k;
+}
+
+// The down sweep over adding_up's values k[v * stride] (v the layer, top
+// first) from the diffuse flux fdn_top and the albedo and source of the
+// top level: put(fup, fdn, level) at every level. Each layer's values
+// are loaded one layer ahead of their use. An idle lane passes 0.
+template <class Put>
+__device__ __forceinline__ void adding_down(bool active, const float4* k,
+                                            int stride, int nlay, float alb,
+                                            float src, float fdn_top,
+                                            Put&& put) {
+    float fdn = active ? fdn_top : 0.0f;
+    float fup = active ? fdn * alb + src : 0.0f;
+    put(fup, fdn, 0);
+    float4 q = k[0];
+    for (int v = 0; v < nlay; ++v) {
+        float4 n = k[(v + 1 < nlay ? v + 1 : v) * stride];
+        if (active) {
+            fdn = q.x * fdn + q.y;
+            fup = fdn * q.z + q.w;
+        }
+        put(fup, fdn, v + 1);
+        q = n;
+    }
+}
+
+// The flux sums of a column whose g-points are spread over the blocks of
+// a thread-block cluster, one chunk of ``lanes`` g-points each,
+// deterministic and without atomics. The sweeps leave each flux field's
+// value of every (level, g-point) of the chunk in shared memory (zero on
+// an idle lane); reduce() then sums them, all threads of the block
+// together: broadband per level each 32 g-points' warp-shuffle sum
+// (common.cuh::warp_sum), by band per level each band's g-points of the
+// chunk in ascending order (band membership from gpt2band, so ragged or
+// reordered bands work; a band with none of them sums to 0), into
+// ``part`` at the same offset in every block. finalize() sums the blocks'
+// parts over the cluster's distributed shared memory, ranks in order and
+// within a rank its warps in order (so broadband, with 32-wide chunks, in
+// the warp order of a block that held the whole column), each block
+// taking a share of the outputs, between two cluster barriers.
+struct ClusterSums {
+    float* part;           // nf x (nw or nband) x nlev
+    int* members;          // lanes: the chunk's g-points grouped by band
+    int* first;            // nband + 1 offsets into members
+    int* band_of;          // lanes: each g-point's band
+    int nf, nw, nlev, nband;
+    bool byband;
+
+    static __host__ __device__ size_t bytes(int nf, int lanes, int nlev,
+                                            int nband) {
+        return nband > 0
+            ? (size_t)(nf * nband * nlev + 2 * lanes + nband + 1)
+                  * sizeof(float)
+            : (size_t)nf * (lanes / 32) * nlev * sizeof(float);
+    }
+
+    // smem: bytes(nf, lanes, nlev, nband) of shared memory, nband 0 for
+    // broadband sums; by band the chunk's band lists from gpt2band (the
+    // chunk's g-points g0 .. g0 + lanes - 1 below ngpt). Every thread of
+    // the block calls it; by band it ends with a block barrier.
+    __device__ void init(float* smem, int nf_, int lanes, int nlev_,
+                         int nband_, const int* gpt2band, int g0,
+                         int ngpt) {
+        nf = nf_;
+        nw = lanes / 32;
+        nlev = nlev_;
+        nband = nband_;
+        byband = nband_ > 0;
+        part = smem;
+        if (!byband) return;
+        members = (int*)(smem + nf * nband * nlev);
+        band_of = members + lanes;
+        first = band_of + lanes;
+        const int m = ngpt - g0 < lanes ? ngpt - g0 : lanes;
+        for (int i = threadIdx.x; i < m; i += blockDim.x)
+            band_of[i] = __ldg(gpt2band + g0 + i);
+        __syncthreads();
+        for (int i = threadIdx.x; i < m; i += blockDim.x) {
+            int b = band_of[i], pos = 0;
+            for (int h = 0; h < m; ++h) {
+                int bh = band_of[h];
+                pos += bh < b || (bh == b && h < i);
+            }
+            members[pos] = i;
+        }
+        for (int b = threadIdx.x; b <= nband; b += blockDim.x) {
+            int cnt = 0;
+            for (int h = 0; h < m; ++h) cnt += band_of[h] < b;
+            first[b] = cnt;
+        }
+        __syncthreads();
+    }
+
+    // After the sweeps and a block barrier, every thread of the block:
+    // the chunk's sums of val(f, lev, lane), field f's value of g-point
+    // g0 + lane at level lev, into part.
+    template <class Val>
+    __device__ void reduce(Val&& val) {
+        if (byband) {
+            for (int it = threadIdx.x; it < nf * nband * nlev;
+                 it += blockDim.x) {
+                int f = it / (nband * nlev);
+                int r = it - f * nband * nlev;
+                int b = r / nlev, lev = r - b * nlev;
+                float t = 0.0f;
+                for (int k = first[b]; k < first[b + 1]; ++k)
+                    t += val(f, lev, members[k]);
+                part[it] = t;
+            }
+            return;
+        }
+        const int lane = threadIdx.x & 31;
+        for (int it = threadIdx.x >> 5; it < nf * nw * nlev;
+             it += blockDim.x >> 5) {
+            int f = it / (nw * nlev);
+            int r = it - f * nw * nlev;
+            int w = r / nlev, lev = r - w * nlev;
+            float s = warp_sum(val(f, lev, w * 32 + lane));
+            if (lane == 0) part[it] = s;
+        }
+    }
+
+    // After reduce, every thread of every block of the cluster: emit(i,
+    // total) for each output item i (broadband the level, by band band *
+    // nlev + level) of this block's share, total(f) the cluster's sum of
+    // field f for it.
+    template <class Emit>
+    __device__ void finalize(Emit&& emit) {
+        namespace cg = cooperative_groups;
+        cg::cluster_group cluster = cg::this_cluster();
+        cluster.sync();
+        const int nr = (int)cluster.num_blocks();
+        const int rank = (int)cluster.block_rank();
+        const int items = byband ? nband * nlev : nlev;
+        const int rows = byband ? nband : nw;
+        for (int i = rank * blockDim.x + threadIdx.x; i < items;
+             i += nr * blockDim.x) {
+            auto total = [&](int f) {
+                float s = 0.0f;
+                for (int q = 0; q < nr; ++q) {
+                    const float* p = cluster.map_shared_rank(part, q)
+                        + f * rows * nlev;
+                    if (byband)
+                        s += p[i];
+                    else
+                        for (int w = 0; w < nw; ++w) s += p[w * nlev + i];
+                }
+                return s;
+            };
+            emit(i, total);
+        }
+        cluster.sync();   // no block leaves while another reads its part
+    }
+};
+
+// Launch ``kernel`` on ncol clusters of nchunk blocks each (block
+// c * nchunk + rank holds chunk ``rank`` of column c), dynamic shared
+// memory smem, and return the launch error.
+template <typename K, typename... Args>
+cudaError_t launch_clusters(K kernel, int ncol, int nchunk, int threads,
+                            size_t smem, cudaStream_t stream,
+                            Args... args) {
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(ncol * nchunk));
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)nchunk;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Resident blocks per SM of ``kernel`` and the clusters of nchunk blocks
+// that the card holds at once (both at shared memory smem), packed as
+// blocks * 65536 + clusters, or a negative CUDA error.
+template <typename K>
+int cluster_occupancy(K kernel, int nchunk, int threads, size_t smem) {
+    cudaError_t err = allow_smem(kernel, smem);
+    int blocks = 0, clusters = 0;
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, kernel, threads, smem);
+    if (err == cudaSuccess) {
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3((unsigned)(nchunk * 1024));
+        cfg.blockDim = dim3((unsigned)threads);
+        cfg.dynamicSmemBytes = smem;
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = (unsigned)nchunk;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+        err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    }
+    return err == cudaSuccess ? blocks * 65536 + clusters : -(int)err;
 }
 
 }  // namespace rte

@@ -38,12 +38,14 @@ from ._build import check_args, launch, on_cpu, query
 from .autodiff import refuse_grad, with_adjoint, with_twin_grad
 from .fused_lw import (_fields_grad, _fused_adjoint, _segments,
                        _split_minors, reverse_axes)
+from .onchip import Geometry, onchip_geometry
 from .solver_lanes import increment_2str_bybnd
 from .solver_sw import sw_2stream_plain
 
 __all__ = ["SWFusedInputs", "SW_DIFF", "sw_fused", "sw_fused_plain",
-           "sw_fused_bwd", "sw_fused_bwd_plain", "sw_fused_bwd_scratch_bytes",
-           "sw_fused_bwd_occupancy"]
+           "sw_fused_geometry", "sw_fused_scratch_bytes",
+           "sw_fused_occupancy", "sw_fused_bwd", "sw_fused_bwd_plain",
+           "sw_fused_bwd_scratch_bytes", "sw_fused_bwd_occupancy"]
 
 # the cloud combine's guard is float32's tiny in every dtype, as in the
 # TPU kernel (fused_sw.py:47) and its XLA reference (gas_optics.py:734)
@@ -162,22 +164,44 @@ def _sizes(n: dict) -> tuple:
             n["nflav"], n["nminor"], n["ncl"], n["ncu"], n["nbnd"])
 
 
+def sw_fused_geometry(x: SWFusedInputs) -> Geometry:
+    """Chunk width, cluster size, threads and shared memory per block of
+    the forward kernel at x's sizes (:func:`onchip.onchip_geometry`);
+    raises ValueError where a column's layer fields do not fit on chip."""
+    nlay = x.mu0.shape[0]
+    return onchip_geometry("fused_sw", nlay, x.kmajor.shape[3],
+                           x.nband if x.byband else 0, len(x.minors))
+
+
+def sw_fused_scratch_bytes(ncol: int, nlay: int, ngpt: int) -> int:
+    """Device scratch of one forward launch: none, the layer fields stay
+    in shared memory."""
+    return 0
+
+
+def sw_fused_occupancy(x: SWFusedInputs) -> tuple:
+    """(resident blocks per SM, clusters the card holds at once) of the
+    forward kernel at x's sizes, from cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor and cudaOccupancyMaxActiveClusters."""
+    geo = sw_fused_geometry(x)
+    n = query("fused_sw", "occupancy_fused_sw", x.mu0.shape[0], geo.chunk,
+              geo.nchunk, len(x.minors), x.nband if x.byband else 0)
+    return (n // 65536, n % 65536) if n >= 0 else (n, n)
+
+
 def _sw_fused_kernel(x: SWFusedInputs):
     """One launch of the forward kernel (or the twin on CPU tensors)."""
     if on_cpu(x.mu0, "sw_fused"):
         return sw_fused_plain(x)
     n = _check(x, "sw_fused")
+    geo = sw_fused_geometry(x)
     dev = x.mu0.device
     nlay, ncol = n["nlay"], n["ncol"]
-    # per-(column, level, g-point) scratch: rdif, tdif, source_dn,
-    # source_up (then the adding denominator), albedo, source
-    scratch = torch.empty((6, ncol, nlay + 1, n["ngpt"]),
-                          dtype=torch.float32, device=dev)
     out = torch.empty((3,) + ((x.nband,) if x.byband else ())
                       + (nlay + 1, ncol), dtype=torch.float32, device=dev)
-    launch("fused_sw", "launch_fused_sw", "sw_fused", *_inputs(x), scratch,
+    launch("fused_sw", "launch_fused_sw", "sw_fused", *_inputs(x),
            None if x.byband else out, out if x.byband else None,
-           *_sizes(n), int(x.nband))
+           *_sizes(n), int(x.nband), geo.chunk)
     sw_fused.launches += 1
     return out[0], out[1], out[2]
 

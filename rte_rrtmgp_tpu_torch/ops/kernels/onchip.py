@@ -1,0 +1,97 @@
+"""The on-chip geometry of the kernels that hold their adding transport in
+shared memory: the fused SW step (``csrc/fused_sw.cu``) and the LW
+two-stream solve (``csrc/solver_lw_2str.cu``).
+
+A column's g-points are cut into chunks of ``chunk`` g-points, one thread
+block per chunk, and the column's chunks form one thread-block cluster
+(at most 8 blocks, the portable cluster size). A block keeps its chunk's
+layer fields and its partial flux sums in shared memory, at most
+:data:`SMEM_LIMIT` bytes, so the column height is bounded: past it
+:func:`onchip_geometry` raises, and no other kernel takes over.
+
+The sums are fixed-order: per level, each block sums its chunk's
+g-points (broadband: warp by warp; by band: each band's g-points of the
+chunk in ascending order), and the cluster adds the blocks' partials in
+rank order (``transport.cuh::ClusterSums``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+__all__ = ["SMEM_LIMIT", "MAX_CHUNKS", "THREADS", "Geometry",
+           "onchip_geometry"]
+
+# dynamic shared memory one block may use on an H100 (227 KB)
+SMEM_LIMIT = 232448
+# the portable thread-block cluster size
+MAX_CHUNKS = 8
+# threads per block: chunk g-points x layer lanes
+THREADS = 256
+# flux fields each kernel sums: SW up, diffuse dn, dir; LW up, dn
+_FIELDS = {"fused_sw": 3, "lw_2stream": 2}
+
+
+class Geometry(NamedTuple):
+    chunk: int       # g-points per block (32, 64 or 128)
+    nchunk: int      # blocks per column: the cluster size
+    threads: int     # threads per block
+    smem: int        # bytes of shared memory per block
+
+
+def _sums_bytes(nf: int, lanes: int, nlev: int, nband: int) -> int:
+    """transport.cuh::ClusterSums::bytes: by band the chunk's band sums
+    of each field and level and its band lists (members, each g-point's
+    band, the bands' offsets), broadband each warp's level sums."""
+    if nband > 0:
+        return 4 * (nf * nband * nlev + 2 * lanes + nband + 1)
+    return 4 * nf * (lanes // 32) * nlev
+
+
+def _smem(kernel: str, nlay: int, chunk: int, nband: int,
+          nminor: int) -> int:
+    """The launchers' smem_bytes (csrc/fused_sw.cu, solver_lw_2str.cu)."""
+    sums = _sums_bytes(_FIELDS[kernel], chunk, nlay + 1, nband)
+    # the top level's fluxes of each g-point
+    top = 4 * _FIELDS[kernel] * chunk
+    if kernel == "fused_sw":
+        # per (layer, g-point) rdif, tdif, rdir, tdir as a float4 and tns;
+        # per g-point a bit mask of the minors over it; the minors'
+        # metadata rows
+        return (20 * nlay * chunk + top + 4 * (-(-nminor // 32)) * chunk
+                + 4 * 5 * nminor + sums)
+    # per (layer, g-point) the four values of the adding build
+    return 16 * nlay * chunk + top + sums
+
+
+def onchip_geometry(kernel: str, nlay: int, ngpt: int, nband: int = 0,
+                    nminor: int = 0) -> Geometry:
+    """Chunk width, cluster size, threads and shared memory per block of
+    ``kernel`` ("fused_sw" or "lw_2stream") at nlay layers and ngpt
+    g-points, with per-band sums over ``nband`` bands (0: broadband) and,
+    for the SW step, nminor minor gases. The chunk is the narrowest power
+    of two from 32 up with at most :data:`MAX_CHUNKS` chunks. Raises
+    ValueError where the g-points exceed 8 chunks of 128 or a block's
+    fields exceed :data:`SMEM_LIMIT`, naming the tallest column that
+    fits."""
+    if kernel not in _FIELDS:
+        raise ValueError(f"onchip_geometry: unknown kernel {kernel!r}")
+    if nlay < 1 or ngpt < 1:
+        raise ValueError(f"{kernel}: needs nlay >= 1 and ngpt >= 1, got "
+                         f"{nlay} and {ngpt}")
+    chunk = 32
+    while chunk * MAX_CHUNKS < ngpt:
+        chunk *= 2
+    if chunk > 128:
+        raise ValueError(f"{kernel}: {ngpt} g-points exceed {MAX_CHUNKS} "
+                         "blocks of 128")
+    smem = _smem(kernel, nlay, chunk, nband, nminor)
+    if smem > SMEM_LIMIT:
+        s0 = _smem(kernel, 0, chunk, nband, nminor)
+        per = _smem(kernel, 1, chunk, nband, nminor) - s0
+        raise ValueError(
+            f"{kernel}: {nlay} layers need {smem} B of shared memory per "
+            f"block, more than the {SMEM_LIMIT} B a block may use; at "
+            f"{ngpt} g-points (chunks of {chunk})"
+            + (f" and {nband} bands" if nband else "")
+            + f" the kernel takes at most {(SMEM_LIMIT - s0) // per} layers")
+    return Geometry(chunk, -(-ngpt // chunk), THREADS, smem)

@@ -23,10 +23,12 @@ import torch
 
 from ...fluxes import sum_bands
 from ..solver_lw import two_stream_lw
-from ._build import check_args, launch, on_cpu
+from ._build import check_args, launch, on_cpu, query
 from .autodiff import refuse_grad
+from .onchip import Geometry, onchip_geometry
 
-__all__ = ["lw_2stream", "lw_2stream_plain"]
+__all__ = ["lw_2stream", "lw_2stream_plain", "lw_2stream_geometry",
+           "lw_2stream_scratch_bytes", "lw_2stream_occupancy"]
 
 
 def lw_2stream_plain(tau, ssa, g, lay_source, lev_source, sfc_emis, sfc_src,
@@ -43,6 +45,30 @@ def lw_2stream_plain(tau, ssa, g, lay_source, lev_source, sfc_emis, sfc_src,
     return sum_bands(up, gpt2band, nband), sum_bands(dn, gpt2band, nband)
 
 
+def lw_2stream_geometry(nlay: int, ngpt: int, nband: int = 0) -> Geometry:
+    """Chunk width, cluster size, threads and shared memory per block of
+    the kernel at nlay layers, ngpt g-points and nband bands (0:
+    broadband) (:func:`onchip.onchip_geometry`); raises ValueError where
+    a column's layer fields do not fit on chip."""
+    return onchip_geometry("lw_2stream", nlay, ngpt, nband)
+
+
+def lw_2stream_scratch_bytes(ncol: int, nlay: int, ngpt: int) -> int:
+    """Device scratch of one launch: none, the layer fields stay in shared
+    memory."""
+    return 0
+
+
+def lw_2stream_occupancy(nlay: int, ngpt: int, nband: int = 0) -> tuple:
+    """(resident blocks per SM, clusters the card holds at once) of the
+    kernel at these sizes, from cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor and cudaOccupancyMaxActiveClusters."""
+    geo = lw_2stream_geometry(nlay, ngpt, nband)
+    n = query("solver_lw_2str", "occupancy_solver_lw_2str", nlay, geo.chunk,
+              geo.nchunk, nband)
+    return (n // 65536, n % 65536) if n >= 0 else (n, n)
+
+
 def lw_2stream(tau, ssa, g, lay_source, lev_source, sfc_emis, sfc_src,
                inc_flux, gpt2band=None, *, nband: int = 0):
     """:func:`lw_2stream_plain` semantics; on CUDA, one launch of the
@@ -54,8 +80,6 @@ def lw_2stream(tau, ssa, g, lay_source, lev_source, sfc_emis, sfc_src,
                 sfc_src, inc_flux, hint="ops/solver_lw.lw_solver_2stream "
                 "differentiates it (the twin's gradient)")
     ncol, nlay, ngpt = tau.shape
-    if ngpt > 1024:
-        raise ValueError(f"lw_2stream: {ngpt} g-points exceed one CUDA block")
     f32 = torch.float32
     lay3, bc = (ncol, nlay, ngpt), (ncol, ngpt)
     specs = {"tau": (tau, lay3, f32), "ssa": (ssa, lay3, f32),
@@ -70,17 +94,15 @@ def lw_2stream(tau, ssa, g, lay_source, lev_source, sfc_emis, sfc_src,
         specs["gpt2band"] = (gpt2band, (ngpt,), torch.int32)
     dev = tau.device
     check_args("lw_2stream", dev, specs)
-    # per-(column, level, g-point) scratch: rdif, tdif, source_dn,
-    # source_up (then the adding denominator), albedo, source
-    scratch = torch.empty((6, ncol, nlay + 1, ngpt), dtype=f32, device=dev)
+    geo = lw_2stream_geometry(nlay, ngpt, nband if byband else 0)
     shape = (ncol, nlay + 1) + ((nband,) if byband else ())
     up = torch.empty(shape, dtype=f32, device=dev)
     dn = torch.empty_like(up)
     launch("solver_lw_2str", "launch_solver_lw_2str", "lw_2stream",
            tau, ssa, g, lev_source, sfc_emis, sfc_src, inc_flux, gpt2band,
-           scratch, None if byband else up, None if byband else dn,
+           None if byband else up, None if byband else dn,
            up if byband else None, dn if byband else None, ncol, nlay, ngpt,
-           int(nband))
+           int(nband), geo.chunk)
     lw_2stream.launches += 1
     return up, dn
 

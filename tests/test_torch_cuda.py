@@ -22,8 +22,16 @@ or refuses an input that requires grad. The LW two-stream kernel, the
 by-band output of the solvers and fused steps (uniform, ragged and
 reordered bands through gpt2band) and the incident fluxes of the fused
 steps and their adjoints (inc_b, incdif_b) against their twins, the
-two-stream path's launches, and the secant forms on the card.
+two-stream path's launches, and the secant forms on the card. The fused
+SW kernel and the LW two-stream kernel, which hold their layer fields on
+chip in clusters of chunks (ops/kernels/onchip.py), also at the paths'
+widths (the flagship 224 / 256 g-points and the non-banded 168 / 192, not
+multiples of 32 per column), by band with uniform and ragged bands, with
+a diffuse incident flux under night and low suns, in the tallest column
+their narrowest chunk holds (one layer more raises) and bit-identical
+over two runs.
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -43,6 +51,8 @@ from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import (  # noqa: E402
     gas_major, gas_major_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (  # noqa: E402
     gas_minor, gas_minor_plain, gas_rayleigh, gas_rayleigh_plain)
+from rte_rrtmgp_tpu_torch.ops.kernels.onchip import (  # noqa: E402
+    onchip_geometry)
 from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import (  # noqa: E402
     lw_noscat, lw_noscat_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_2str import (  # noqa: E402
@@ -982,3 +992,137 @@ def test_new_wrappers_refuse_float64_and_grad(cuda):
         lw_2stream(args[0].detach().clone().requires_grad_(), *args[1:])
     assert [f.launches for f in (lw_2stream, lw_noscat, sw_2stream)] \
         == counts
+
+
+# ---------------------------------------------------------------------------
+# rows 3 and 8 on chip: a column's g-points in a cluster of chunks, the
+# layer fields in shared memory (ops/kernels/onchip.py)
+# ---------------------------------------------------------------------------
+
+ONCHIP_CASES = {**DIMS, "flagship": FLAGSHIP, "nonbanded": NONBANDED_72}
+
+
+def _flux_close(got, ref, tol=2e-6):
+    """chip_smoke.py's TOL_FLUX rule (check_kernel): the largest
+    difference over the kernel's outputs within tol of their largest twin
+    value. Per output it does not hold at the paths' widths for the small
+    up flux, for this kernel as for a kernel that keeps the layer fields
+    in device memory: 2.2e-6 of the up flux's own largest value from the
+    float32 twin, and nearer than that twin to the float64 twin (measured
+    on an H100, PERF.md)."""
+    assert all(g.shape == r.shape and g.dtype == torch.float32
+               for g, r in zip(got, ref))
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    assert err <= tol * max(float(r.abs().max()) for r in ref)
+
+
+def _row8_close(got, args, kw, monkeypatch):
+    """Row 8 against its twin: within 2e-6 of the float32 twin's largest
+    flux, or, where float32 cannot resolve the Toon sources just above
+    tau 1e-8, no further than TOL_COND times the float32 twin from the
+    float64 twin (chip_smoke.py's rule for this kernel)."""
+    ref = lw_2stream_plain(*args, **kw)
+    scale = max(float(r.abs().max()) for r in ref)
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    if err <= 2e-6 * scale:
+        return
+    ref64 = _twin_f64(lw_2stream_plain, args, kw, monkeypatch)
+    gap = lambda xs: max(float((x.double() - r).abs().max())
+                         for x, r in zip(xs, ref64))
+    assert gap(got) <= TOL_COND * gap(ref)
+
+
+def _tallest(kernel, ngpt, nminor=0):
+    """The tallest column the kernel's chunk holds, from onchip_geometry's
+    message."""
+    with pytest.raises(ValueError, match="at most") as e:
+        onchip_geometry(kernel, 10 ** 6, ngpt, 0, nminor)
+    return int(str(e.value).split("at most ")[1].split()[0])
+
+
+@pytest.mark.parametrize("output", ["broadband", "uniform", "ragged"])
+@pytest.mark.parametrize("dims", sorted(ONCHIP_CASES))
+def test_onchip_lw_2stream_matches_twin(cuda, dims, output, monkeypatch):
+    p = build_allsky(*ONCHIP_CASES[dims], device=cuda)
+    args = _lw2_args(p, cuda)
+    kw = {}
+    if output != "broadband":
+        gpt2band, nband = _bands(args[0].shape[2], ONCHIP_CASES[dims][3],
+                                 output, cuda)
+        args, kw = args + (gpt2band,), dict(nband=nband)
+    n0 = lw_2stream.launches
+    got = lw_2stream(*args, **kw)
+    assert lw_2stream.launches == n0 + 1
+    _row8_close(got, args, kw, monkeypatch)
+    again = lw_2stream(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("variant", ["broadband", "uniform", "ragged",
+                                     "incdif-low-suns"])
+@pytest.mark.parametrize("dims", sorted(ONCHIP_CASES))
+def test_onchip_fused_sw_matches_twin(cuda, dims, variant):
+    """By band with the k-distribution's uniform bands or three ragged,
+    interleaved ones; with a diffuse incident flux under a night column,
+    suns below the min_mu0 clamp and overhead ones."""
+    p = build_allsky(*ONCHIP_CASES[dims], device=cuda)
+    x = allsky_sw_inputs(p.inputs, p.gas_sw, cloud_optics=p.cld_sw)
+    nlay, ncol = x.mu0.shape
+    if variant in ("uniform", "ragged"):
+        gpt2band, nband = _bands(x.kmajor.shape[3], ONCHIP_CASES[dims][5],
+                                 variant, cuda)
+        x = x._replace(gpt2band=gpt2band, nband=nband, byband=True)
+    elif variant == "incdif-low-suns":
+        mu = torch.tensor([0.0, 1e-4, 3e-4, 1e-3, 0.05, 0.3, 0.6, 0.86, 0.99,
+                           1.0], device=cuda)[torch.arange(ncol) % 10]
+        gen = torch.Generator(device=cuda).manual_seed(12)
+        x = x._replace(
+            mu0=mu[None, :].expand(nlay, ncol).contiguous(),
+            incdif=0.05 * x.inc * torch.rand(x.inc.shape, generator=gen,
+                                             device=cuda))
+    n0 = sw_fused.launches
+    got = sw_fused(x)
+    assert sw_fused.launches == n0 + 1
+    _flux_close(got, sw_fused_plain(x))
+    again = sw_fused(x)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_onchip_tallest_column_and_past_it(cuda, monkeypatch):
+    """The tallest column that the narrowest chunk (32 g-points) holds, on
+    both kernels against their twins; one layer more raises ValueError
+    and launches nothing."""
+    ngpt = 32
+    nlay = _tallest("lw_2stream", ngpt)
+    rng = np.random.default_rng(13)
+    u = lambda lo, hi, *s: torch.from_numpy(
+        rng.uniform(lo, hi, s).astype(np.float32)).to(cuda)
+    ncol = 3
+    args = (u(0.0, 0.2, ncol, nlay, ngpt), u(0.0, 0.9, ncol, nlay, ngpt),
+            u(0.0, 0.8, ncol, nlay, ngpt), u(50.0, 100.0, ncol, nlay, ngpt),
+            u(50.0, 100.0, ncol, nlay + 1, ngpt), u(0.8, 1.0, ncol, ngpt),
+            u(50.0, 100.0, ncol, ngpt), u(0.0, 2.0, ncol, ngpt))
+    _row8_close(lw_2stream(*args), args, {}, monkeypatch)
+    taller = tuple(torch.cat([a, a[:, :1]], 1) if a.dim() == 3 else a
+                   for a in args)
+    n0 = lw_2stream.launches
+    with pytest.raises(ValueError, match=f"at most {nlay} layers"):
+        lw_2stream(*taller)
+    assert lw_2stream.launches == n0
+
+    dims = DIMS["g32"]
+    p = build_allsky(2, 8, *dims[2:], device=cuda)
+    nminor = len(allsky_sw_inputs(p.inputs, p.gas_sw,
+                                  cloud_optics=p.cld_sw).minors)
+    nlay = _tallest("fused_sw", dims[4], nminor)
+    for n, fits in ((nlay, True), (nlay + 1, False)):
+        p = build_allsky(2, n, *dims[2:], device=cuda)
+        x = allsky_sw_inputs(p.inputs, p.gas_sw, cloud_optics=p.cld_sw)
+        n0 = sw_fused.launches
+        if fits:
+            _flux_close(sw_fused(x), sw_fused_plain(x))
+            assert sw_fused.launches == n0 + 1
+        else:
+            with pytest.raises(ValueError, match=f"at most {nlay} layers"):
+                sw_fused(x)
+            assert sw_fused.launches == n0

@@ -1,0 +1,233 @@
+"""The on-chip geometry and summation order of the fused SW kernel and the
+LW two-stream kernel (``ops/kernels/onchip.py``), on the CPU.
+
+The kernels cut a column's g-points into chunks, one thread block per
+chunk and the column's chunks one thread-block cluster, keep the layer
+fields in shared memory and sum the fluxes in a fixed order: per level
+each block's warps (broadband) or each band's g-points of the chunk in
+ascending order (by band), then the blocks in rank order. Here: the chunk
+widths, cluster sizes and shared memory at the paths' widths, the limits
+(ValueError past them, naming the tallest column), a numpy float32 replay
+of both summation orders against a straight sum over g-points, and the
+wrappers' device scratch (none).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import (  # noqa: E402
+    sw_fused_scratch_bytes)
+from rte_rrtmgp_tpu_torch.ops.kernels.onchip import (  # noqa: E402
+    MAX_CHUNKS, SMEM_LIMIT, onchip_geometry)
+from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_2str import (  # noqa: E402
+    lw_2stream, lw_2stream_plain, lw_2stream_scratch_bytes)
+
+# (kernel, nlay, ngpt, nband, nminor) -> (chunk, nchunk, threads, smem):
+# the flagship widths (SW 224 g-points / 28 minors, LW 256), by band
+# (14 / 16 bands), the non-banded widths (168 / 192) and 1024 g-points.
+# smem by hand: SW 20 B x nlay x chunk (rdif, tdif, rdir, tdir, tns) +
+# 12 B x chunk (the top level's fluxes) + 4 B x chunk per 32 minors (the
+# g-points' minor masks) + 20 B per minor + the sums; LW
+# 16 B x nlay x chunk + 8 B x chunk + the sums; sums broadband 4 B x
+# fields x warps x levels, by band 4 B x (fields x bands x levels + 2 x
+# chunk + bands + 1)
+GEOMETRY = {
+    ("fused_sw", 72, 224, 0, 28): (32, 7, 256,
+                                   46080 + 384 + 128 + 560 + 876),
+    ("fused_sw", 72, 224, 14, 28): (
+        32, 7, 256, 46080 + 384 + 128 + 560 + 4 * (3 * 14 * 73 + 79)),
+    ("fused_sw", 72, 168, 0, 28): (32, 6, 256,
+                                   46080 + 384 + 128 + 560 + 876),
+    ("fused_sw", 72, 1024, 0, 28): (
+        128, 8, 256, 184320 + 1536 + 512 + 560 + 4 * 3 * 4 * 73),
+    ("lw_2stream", 72, 256, 0, 0): (32, 8, 256, 36864 + 256 + 584),
+    ("lw_2stream", 72, 256, 16, 0): (
+        32, 8, 256, 36864 + 256 + 4 * (2 * 16 * 73 + 81)),
+    ("lw_2stream", 72, 192, 0, 0): (32, 6, 256, 36864 + 256 + 584),
+    ("lw_2stream", 72, 257, 0, 0): (64, 5, 256,
+                                    73728 + 512 + 4 * 2 * 2 * 73),
+    ("lw_2stream", 72, 1024, 0, 0): (128, 8, 256,
+                                     147456 + 1024 + 4 * 2 * 4 * 73),
+    ("lw_2stream", 9, 24, 3, 0): (32, 1, 256,
+                                  4608 + 256 + 4 * (2 * 3 * 10 + 68)),
+}
+# the tallest column that fits: (kernel, ngpt, nband, nminor) -> nlay
+TALLEST = {("fused_sw", 224, 0, 28): 354,      # 652 nlay + 1084 B
+           ("fused_sw", 224, 14, 28): 285,     # 808 nlay + 1556 B
+           ("lw_2stream", 256, 0, 0): 446,     # 520 nlay + 264 B
+           ("lw_2stream", 256, 16, 0): 362,    # 640 nlay + 708 B
+           ("lw_2stream", 1024, 0, 0): 111}    # 2080 nlay + 1056 B
+
+
+@pytest.mark.parametrize("case", sorted(GEOMETRY), ids=str)
+def test_geometry_at_path_widths(case):
+    geo = onchip_geometry(*case)
+    assert tuple(geo) == GEOMETRY[case]
+    kernel, _, ngpt = case[:3]
+    assert geo.nchunk <= MAX_CHUNKS and geo.chunk * geo.nchunk >= ngpt
+    assert geo.chunk * (geo.nchunk - 1) < ngpt    # no idle block
+    assert geo.smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("case", sorted(TALLEST), ids=str)
+def test_tallest_column_and_past_it(case):
+    """The narrowest chunk holds the tallest column; one layer more
+    raises, naming the limit."""
+    kernel, ngpt, nband, nminor = case
+    nlay = TALLEST[case]
+    geo = onchip_geometry(kernel, nlay, ngpt, nband, nminor)
+    assert geo.smem <= SMEM_LIMIT
+    assert geo.chunk == onchip_geometry(kernel, 1, ngpt, nband,
+                                        nminor).chunk
+    with pytest.raises(ValueError, match=f"at most {nlay} layers"):
+        onchip_geometry(kernel, nlay + 1, ngpt, nband, nminor)
+
+
+@pytest.mark.parametrize("ngpt", [1025, 2048])
+def test_too_many_gpoints_raise(ngpt):
+    for kernel in ("fused_sw", "lw_2stream"):
+        with pytest.raises(ValueError, match="g-points exceed"):
+            onchip_geometry(kernel, 72, ngpt)
+
+
+def test_wrappers_allocate_no_scratch():
+    """The fused SW step and the LW two-stream solve keep their layer
+    fields on chip: no device scratch (in device memory they would take
+    6 x (nlay + 1) x ngpt floats per column, 1.61 and 1.84 GB at 4096 x
+    72)."""
+    assert sw_fused_scratch_bytes(4096, 72, 224) == 0
+    assert lw_2stream_scratch_bytes(4096, 72, 256) == 0
+
+
+def test_cpu_twin_has_no_height_limit():
+    """The limit is the kernel's: CPU tensors go to the twin at any
+    height, and the kernel is not launched."""
+    rng = np.random.default_rng(0)
+    ncol, nlay, ngpt = 2, 500, 8
+    t = lambda *s: torch.from_numpy(rng.uniform(0.0, 1.0, s).astype(
+        np.float32))
+    args = (0.1 * t(ncol, nlay, ngpt), 0.5 * t(ncol, nlay, ngpt),
+            0.5 * t(ncol, nlay, ngpt), t(ncol, nlay, ngpt),
+            t(ncol, nlay + 1, ngpt), t(ncol, ngpt), t(ncol, ngpt),
+            t(ncol, ngpt))
+    with pytest.raises(ValueError, match="at most"):
+        onchip_geometry("lw_2stream", nlay, 256)
+    n0 = lw_2stream.launches
+    up, dn = lw_2stream(*args)
+    assert lw_2stream.launches == n0
+    ref = lw_2stream_plain(*args)
+    assert torch.equal(up, ref[0]) and torch.equal(dn, ref[1])
+
+
+# ---- the summation order, replayed in float32 ----
+
+def chunk_bands(gpt2band, chunk, nband):
+    """The kernels' by-band summation order (transport.cuh::ClusterSums):
+    for each chunk (cluster rank), for each band, the chunk's g-points of
+    that band in ascending order. A band's sum is the sum over ranks, in
+    rank order, of its chunk sums."""
+    ngpt = gpt2band.shape[0]
+    out = []
+    for g0 in range(0, ngpt, chunk):
+        gs = np.arange(g0, min(g0 + chunk, ngpt))
+        out.append([gs[gpt2band[gs] == b].tolist() for b in range(nband)])
+    return out
+
+
+def _warp_sum(v):
+    """common.cuh::warp_sum: the xor butterfly over 32 lanes (every lane
+    ends with the same sum)."""
+    v = v.copy()
+    lane = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        v = (v + v[lane ^ off]).astype(np.float32)
+    assert np.all(v == v[0])
+    return v[0]
+
+
+def _broadband_chunked(vals, chunk):
+    """The cluster's broadband sum of one level: each block's warps'
+    butterfly sums, then the ranks in order and within a rank its warps
+    in order, from 0 (transport.cuh::ClusterSums::finalize)."""
+    ngpt = vals.shape[0]
+    nchunk = -(-ngpt // chunk)
+    pad = np.zeros(nchunk * chunk, np.float32)
+    pad[:ngpt] = vals
+    s = np.float32(0.0)
+    for r in range(nchunk):
+        for w in range(chunk // 32):
+            s = np.float32(s + _warp_sum(pad[r * chunk + 32 * w:
+                                             r * chunk + 32 * (w + 1)]))
+    return s
+
+
+def _byband_chunked(vals, gpt2band, chunk, nband):
+    """The cluster's by-band sums of one level: each chunk's band sums in
+    ascending g-point order, then the ranks in order, from 0."""
+    out = np.zeros(nband, np.float32)
+    for lists in chunk_bands(gpt2band, chunk, nband):
+        for b, gs in enumerate(lists):
+            t = np.float32(0.0)
+            for g in gs:
+                t = np.float32(t + vals[g])
+            out[b] = np.float32(out[b] + t)
+    return out
+
+
+def _bands(kind, ngpt, nband):
+    if kind == "uniform":
+        return np.arange(ngpt) // (ngpt // nband), nband
+    if kind == "ragged":           # widths 1, 2, 3, ... then the rest
+        edges = np.cumsum(np.arange(1, ngpt))
+        b = np.searchsorted(edges, np.arange(ngpt), side="right")
+        b = np.minimum(b, 6)
+        return b, 7
+    # reordered: g-points of three bands interleave (as the cuda tests)
+    return np.array([(g * g + g // 5) % 3 for g in range(ngpt)]), 3
+
+
+@pytest.mark.parametrize("kind", ["uniform", "ragged", "reordered"])
+@pytest.mark.parametrize("ngpt,nband", [(224, 14), (256, 16), (168, 14),
+                                        (192, 16), (24, 3), (1024, 16)])
+def test_chunked_sums_replay(ngpt, nband, kind):
+    gpt2band, nband = _bands(kind, ngpt, nband)
+    chunk = onchip_geometry("lw_2stream", 72, ngpt).chunk
+    rng = np.random.default_rng(ngpt)
+    vals = rng.uniform(0.0, 400.0, ngpt).astype(np.float32)
+    # every g-point in exactly one (rank, band) list, its own band, the
+    # lists ascending and within their chunk
+    lists = chunk_bands(gpt2band, chunk, nband)
+    seen = []
+    for r, per_band in enumerate(lists):
+        for b, gs in enumerate(per_band):
+            assert gs == sorted(gs)
+            assert all(gpt2band[g] == b and g // chunk == r for g in gs)
+            seen += gs
+    assert sorted(seen) == list(range(ngpt))
+    # against a straight sum over g-points (float64)
+    # (float32 rounding: well inside 1e-5 of the total for <= 1024 terms)
+    total = vals.astype(np.float64).sum()
+    bb = _broadband_chunked(vals, chunk)
+    assert abs(float(bb) - total) <= 1e-5 * total
+    byb = _byband_chunked(vals, gpt2band, chunk, nband)
+    ref = np.zeros(nband)
+    np.add.at(ref, gpt2band, vals.astype(np.float64))
+    assert np.all(np.abs(byb - ref) <= 1e-5 * total)
+    # broadband with 32-wide chunks: the warp order of one block that
+    # held the whole column (the PR 6 kernels' level_total), bit for bit
+    if chunk == 32:
+        one = np.float32(0.0)
+        for w in range(0, ngpt, 32):
+            warp = np.zeros(32, np.float32)
+            warp[:min(32, ngpt - w)] = vals[w:w + 32]
+            one = np.float32(one + _warp_sum(warp))
+        assert bb == one
+    # a band that no chunk boundary cuts: the one-block BandSums order
+    for b in range(nband):
+        gs = np.flatnonzero(gpt2band == b)
+        if len(gs) and gs[0] // chunk == gs[-1] // chunk:
+            t = np.float32(0.0)
+            for g in gs:
+                t = np.float32(t + vals[g])
+            assert byb[b] == t
