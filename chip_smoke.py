@@ -22,11 +22,14 @@ Phases (any failure ends the run with a non-zero exit and no result):
      not in the kernels line: by-band output of the fused LW and SW steps
      and of the LW no-scattering, LW two-stream and SW solvers, the fused
      steps with an incident flux (LW) and a diffuse one (SW), and their
-     adjoints with the same; for the four adjoints their ptxas registers
-     and spills, resident blocks per SM and scratch bytes; for the two
-     kernels that hold their adding transport on chip (fused_sw,
-     solver_lw_2str) the same and their shared memory per block and
-     cluster size, broadband and by band;
+     adjoints with the same; for the adjoints of rows 14, 16 and 17
+     their ptxas registers and spills, resident blocks per SM and scratch
+     bytes; for the kernels that hold their transport on chip (fused_sw,
+     solver_lw_2str, the SW solver's plain and COMBINED instantiations and
+     its adjoint solver_sw_bwd) the same and their shared memory per block
+     and cluster size, broadband and by band; the tallest column the SW
+     solver and its adjoint hold, against their twins, and one layer more
+     raising ValueError;
   4. golden gates at the production configuration (256 x 72): the float32
      fused step, public-API path and staged path against
      tests/golden/production.npz, and the float32 aerosols step (fused)
@@ -829,16 +832,17 @@ def adjoint_rows(prob, dev, variants):
 
 
 def adjoint_report(prob, reports):
-    """Phase 3, the adjoint kernels' resources at the main path's shapes:
-    ptxas registers and spills of each instantiation, resident blocks per
-    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, from the kernels'
-    own libraries) and the device scratch of one launch."""
+    """Phase 3, the resources of the adjoint kernels that keep their state
+    in device memory or registers (rows 14, 16, 17; row 15 holds its
+    state on chip: onchip_report) at the main path's shapes: ptxas
+    registers and spills of each instantiation, resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, from the kernels' own
+    libraries) and the device scratch of one launch."""
     from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
                                                      allsky_sw_inputs)
     from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw as flw
     from rte_rrtmgp_tpu_torch.ops.kernels import fused_sw as fsw
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_bwd as slw
-    from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd as ssw
     from rte_rrtmgp_tpu_torch.ops.kernels._build import ptxas_usage
     inp = prob.inputs
     ncol, nlay = inp.play.shape
@@ -850,9 +854,7 @@ def adjoint_report(prob, reports):
              flw.lw_fused_bwd_scratch_bytes(ncol, nlay, ngl)),
             ("fused_sw_bwd", fsw.sw_fused_bwd_occupancy(xs),
              fsw.sw_fused_bwd_scratch_bytes(ncol, nlay, ngs)),
-            ("solver_lw_bwd", slw.lw_noscat_bwd_occupancy(ngl), 0),
-            ("solver_sw_bwd", ssw.sw_2stream_bwd_occupancy(ngs, nlay),
-             ssw.sw_2stream_bwd_scratch_bytes(ncol, nlay, ngs))):
+            ("solver_lw_bwd", slw.lw_noscat_bwd_occupancy(ngl), 0)):
         rep = reports.get(name)
         regs = ("not rebuilt in this run" if rep is None else ", ".join(
             f"{r} registers, {ss} B spill stores, {sl} B spill loads"
@@ -866,25 +868,36 @@ def adjoint_report(prob, reports):
 
 
 def onchip_report(prob, reports):
-    """Phase 3, the resources of the kernels that hold their adding
-    transport on chip (rows 3 and 8) at the main path's shapes, broadband
-    and by band: ptxas registers and spills, shared memory per block and
-    cluster size (ops/kernels/onchip.py::onchip_geometry, held against the
-    launchers' own count), resident blocks per SM and clusters the card
-    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-    cudaOccupancyMaxActiveClusters), and device scratch (none)."""
+    """Phase 3, the resources of the kernels that hold their transport on
+    chip (rows 3, 8, 9, 12, 13 and 15) at the main path's shapes,
+    broadband and by band: ptxas registers and spills, shared memory per
+    block and cluster size (ops/kernels/onchip.py::onchip_geometry, held
+    against the launchers' own count), resident blocks per SM and
+    clusters the card holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    cudaOccupancyMaxActiveClusters), and device scratch (none). solver_sw
+    is one kernel of two instantiations: the plain one of rows 9 and 12
+    (broadband and by band) and the COMBINED one of row 13; ptxas lists
+    both."""
     from rte_rrtmgp_tpu_torch.drivers.allsky import allsky_sw_inputs
     from rte_rrtmgp_tpu_torch.ops.kernels import fused_sw as fsw
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_2str as l2
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw as ss
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd as ssw
     from rte_rrtmgp_tpu_torch.ops.kernels._build import (library,
                                                          ptxas_usage)
     inp = prob.inputs
     ncol, nlay = inp.play.shape
     xs = allsky_sw_inputs(inp, prob.gas_sw, cloud_optics=prob.cld_sw)
     ngl, nbl = prob.gas_lw.ngpt, prob.gas_lw.grid.nband
+    ngs, nbs = prob.gas_sw.ngpt, prob.gas_sw.grid.nband
     nminor = len(xs.minors)
-    for name, nband in (("fused_sw", 0), ("fused_sw", xs.nband),
-                        ("solver_lw_2str", 0), ("solver_lw_2str", nbl)):
+    for name, nband, what in (
+            ("fused_sw", 0, ""), ("fused_sw", xs.nband, ""),
+            ("solver_lw_2str", 0, ""), ("solver_lw_2str", nbl, ""),
+            ("solver_sw", 0, " (rows 9, 12)"), ("solver_sw", nbs, " (row 9)"),
+            ("solver_sw", 0, " COMBINED (row 13)"),
+            ("solver_sw_bwd", 0, " (row 15)")):
         if name == "fused_sw":
             x = xs._replace(byband=nband > 0, nband=nband)
             geo, occ = fsw.sw_fused_geometry(x), fsw.sw_fused_occupancy(x)
@@ -892,26 +905,153 @@ def onchip_report(prob, reports):
                                                  nband)
             scratch = fsw.sw_fused_scratch_bytes(ncol, nlay,
                                                  xs.kmajor.shape[3])
-        else:
+        elif name == "solver_lw_2str":
             geo = l2.lw_2stream_geometry(nlay, ngl, nband)
             occ = l2.lw_2stream_occupancy(nlay, ngl, nband)
             smem_c = library(name).smem_solver_lw_2str(nlay, geo.chunk, nband)
             scratch = l2.lw_2stream_scratch_bytes(ncol, nlay, ngl)
+        elif name == "solver_sw":
+            geo = ss.sw_2stream_geometry(nlay, ngs, nband)
+            occ = ss.sw_2stream_occupancy(nlay, ngs, nband,
+                                          combined="COMBINED" in what)
+            smem_c = library(name).smem_solver_sw(nlay, geo.chunk, nband)
+            scratch = ss.sw_2stream_scratch_bytes(ncol, nlay, ngs)
+        else:
+            geo = ssw.sw_2stream_bwd_geometry(nlay, ngs)
+            occ = ssw.sw_2stream_bwd_occupancy(nlay, ngs)
+            smem_c = library(name).smem_solver_sw_bwd(nlay, geo.chunk)
+            scratch = ssw.sw_2stream_bwd_scratch_bytes(ncol, nlay, ngs)
         rep = reports.get(name)
         regs = ("not rebuilt in this run" if rep is None else ", ".join(
-            f"{r} registers, {ss} B spill stores, {sl} B spill loads"
-            for r, ss, sl in ptxas_usage(rep)))
-        log(f"on chip {name} {'by band' if nband else 'broadband'}: ptxas "
-            f"{regs}; chunk {geo.chunk} g-points, cluster of {geo.nchunk} "
-            f"blocks of {geo.threads} threads, {geo.smem} B shared memory "
-            f"per block; {occ[0]} resident blocks per SM, {occ[1]} clusters "
-            f"at once; scratch {scratch} B at {ncol} x {nlay}")
+            f"{r} registers, {ss_} B spill stores, {sl} B spill loads"
+            for r, ss_, sl in ptxas_usage(rep)))
+        log(f"on chip {name}{what} {'by band' if nband else 'broadband'}: "
+            f"ptxas {regs}; chunk {geo.chunk} g-points, cluster of "
+            f"{geo.nchunk} blocks of {geo.threads} threads, {geo.smem} B "
+            f"shared memory per block; {occ[0]} resident blocks per SM, "
+            f"{occ[1]} clusters at once; scratch {scratch} B at {ncol} x "
+            f"{nlay}")
         if smem_c != geo.smem:
             raise SystemExit(f"{name}: onchip_geometry counts {geo.smem} B of"
                              f" shared memory, the launcher {smem_c}")
         if occ[0] < 1 or occ[1] < 1:
             raise SystemExit(f"{name}: no block or cluster fits ({occ})")
+        if scratch != 0:
+            raise SystemExit(f"{name}: {scratch} B of device scratch")
     del xs
+
+
+def onchip_limits(dev):
+    """Phase 3, the column-height limits of the SW solve and its adjoint
+    on the card, at the flagship's 224 g-points (chunks of 32): the
+    tallest column each holds (from onchip_geometry's message), 4 columns
+    of seeded optics, against the twin (fluxes within TOL_FLUX of the
+    largest twin flux; each cotangent within TOL_ADJ of its largest twin
+    value, or, where the float32 twin itself misses that against the
+    float64 twin, within TOL_ADJ of the float64 twin's: check_adjoint's
+    rule); one layer more raises ValueError naming the limit and launches
+    nothing. Then the adjoint's tallest column with mu0 up to the clamp at
+    k mu0 = 1, where float32 resolves the ssa, g and mu0 cotangents in no
+    implementation: there a cotangent that the float32 twin misses is held
+    within TOL_COND times the twin's distance from the float64 twin."""
+    import numpy as np
+    import torch
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw as ss
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd as ssw
+    from rte_rrtmgp_tpu_torch.ops.kernels.onchip import onchip_geometry
+    ncol, ngpt = 4, MAIN["ngpt_sw"]
+    rng = np.random.default_rng(21)
+    u = lambda lo, hi, *shape: torch.from_numpy(rng.uniform(
+        lo, hi, shape).astype(np.float32)).to(dev)
+
+    def tallest(kernel):
+        try:
+            onchip_geometry(kernel, 10 ** 6, ngpt)
+        except ValueError as e:
+            return int(str(e).split("at most ")[1].split()[0])
+        raise SystemExit(f"{kernel}: no column-height limit")
+
+    # ssa up to 0.9 and g up to 0.8 put the two-stream k in [0.55, 2]; mu0
+    # in [0.2, 0.3] keeps k mu0 below 0.6, away from the clamp at k mu0 =
+    # 1, near which float32 resolves the adjoint's ssa, g and mu0
+    # cotangents in no implementation (test_sw_solver_adjoint_low_suns)
+    def args(nlay, mu_lo=0.2, mu_hi=0.3):
+        bc = (ncol, ngpt)
+        inc = u(0.5, 2.0, *bc)
+        return (u(0.0, 0.1, ncol, nlay, ngpt), u(0.0, 0.9, ncol, nlay, ngpt),
+                u(0.0, 0.8, ncol, nlay, ngpt), u(mu_lo, mu_hi, ncol, nlay),
+                u(0.0, 0.3, *bc), u(0.0, 0.3, *bc), inc, 0.05 * inc)
+
+    for kernel, fn, plain, tol, cots in (
+            ("solver_sw", ss.sw_2stream, ss.sw_2stream_plain, TOL_FLUX, 0),
+            ("solver_sw_bwd", ssw.sw_2stream_bwd, ssw.sw_2stream_bwd_plain,
+             TOL_ADJ, 3)):
+        nlay = tallest(kernel)
+        a = args(nlay) + tuple(u(0.5, 1.5, ncol, nlay + 1)
+                               for _ in range(cots))
+        got, ref = fn(*a), plain(*a)
+        torch.cuda.synchronize()
+        if cots:
+            errs = [float((g - r).abs().max()) / float(r.abs().max())
+                    for g, r in zip(got, ref)]
+        else:
+            errs = [max(float((g - r).abs().max()) for g, r in zip(got, ref))
+                    / max(float(r.abs().max()) for r in ref)]
+        log(f"{kernel}: the tallest column, {nlay} layers at {ngpt} "
+            f"g-points, against the twin: "
+            + ", ".join(f"{e:.3e}" for e in errs)
+            + f" of the largest twin value (limit {tol})")
+        beyond = [i for i, e in enumerate(errs) if not e <= tol]
+        if beyond and cots:
+            with float32_constants():
+                ref64 = plain(*to_f64(a))
+            for i in list(beyond):
+                scale = float(ref64[i].abs().max())
+                k64 = float((got[i].double() - ref64[i]).abs().max()) / scale
+                t64 = float((ref[i].double() - ref64[i]).abs().max()) / scale
+                log(f"{kernel}: cotangent {i} against the float64 twin: "
+                    f"kernel {k64:.3e}, float32 twin {t64:.3e}")
+                if t64 > tol and k64 <= tol:
+                    beyond.remove(i)
+        if beyond:
+            raise SystemExit(f"{kernel}: the tallest column disagrees with "
+                             "the twin")
+        a = args(nlay + 1) + tuple(u(0.5, 1.5, ncol, nlay + 2)
+                                   for _ in range(cots))
+        n0 = fn.launches
+        try:
+            fn(*a)
+        except ValueError as e:
+            if f"at most {nlay} layers" not in str(e):
+                raise
+            log(f"{kernel}: {nlay + 1} layers raise ValueError: {e}")
+        else:
+            raise SystemExit(f"{kernel}: {nlay + 1} layers did not raise")
+        if fn.launches != n0:
+            raise SystemExit(f"{kernel}: launched past its limit")
+
+    # row 15 again with mu0 in [0.3, 0.9], k mu0 up to the clamp: each
+    # cotangent within TOL_ADJ of its largest twin value or, where the
+    # float32 twin misses TOL_ADJ against the float64 twin, within
+    # TOL_COND times the twin's distance from it (the low-suns rule)
+    nlay = tallest("solver_sw_bwd")
+    a = args(nlay, 0.3, 0.9) + tuple(u(0.5, 1.5, ncol, nlay + 1)
+                                     for _ in range(3))
+    got, ref = ssw.sw_2stream_bwd(*a), ssw.sw_2stream_bwd_plain(*a)
+    with float32_constants():
+        ref64 = ssw.sw_2stream_bwd_plain(*to_f64(a))
+    for i, (g, r, r64) in enumerate(zip(got, ref, ref64)):
+        err = float((g - r).abs().max()) / float(r.abs().max())
+        scale = float(r64.abs().max())
+        k64 = float((g.double() - r64).abs().max()) / scale
+        t64 = float((r.double() - r64).abs().max()) / scale
+        log(f"solver_sw_bwd: the tallest column, mu0 in [0.3, 0.9], "
+            f"cotangent {i}: {err:.3e} of the largest twin value; from the "
+            f"float64 twin kernel {k64:.3e}, float32 twin {t64:.3e}")
+        if not (err <= TOL_ADJ or (t64 > TOL_ADJ and k64 <= TOL_COND * t64)):
+            raise SystemExit(f"solver_sw_bwd: the tallest column near the "
+                             f"clamp, cotangent {i} disagrees with the twin")
+    del got, ref, ref64
 
 
 def peak_memory(name, fn):
@@ -1324,6 +1464,7 @@ def main():
     rows += adjoint_rows(prob, dev, variants)
     adjoint_report(prob, reports)
     onchip_report(prob, reports)
+    onchip_limits(dev)
     log(f"variants checked against their twins: "
         f"{', '.join(v['name'] for v in variants)}")
     solar = float(prob.gas_sw.kdist.solar_source.double().sum())

@@ -85,9 +85,9 @@ struct BandSums {
         __syncthreads();
     }
 
-    // scale * (band b's sum of v) (+ add[b * stride]) to out[b * stride].
-    __device__ void put(float v, float* out, long long stride, float scale,
-                        const float* add) {
+    // scale * (band b's sum of v) to out[b * stride].
+    __device__ void put(float v, float* out, long long stride,
+                        float scale) {
         float* s = slots + parity * blockDim.x;
         parity ^= 1;
         s[threadIdx.x] = v;
@@ -96,7 +96,6 @@ struct BandSums {
             float t = 0.0f;
             for (int k = first[b]; k < first[b + 1]; ++k) t += s[members[k]];
             t *= scale;
-            if (add) t += add[b * stride];
             out[b * stride] = t;
         }
     }
@@ -105,21 +104,18 @@ struct BandSums {
 // One flux field summed over g-points at each level: broadband into the
 // warp partials (reduce_level; level_total once the sweeps are done), or,
 // when ``band`` is set, per band straight into the output, element (lev,
-// b) at band[lev * s_lev + b * s_band], scaled, plus the same element of
-// ``add`` when that is set (the SW total down: diffuse + direct).
+// b) at band[lev * s_lev + b * s_band], scaled.
 struct LevelSink {
     float* partial;        // broadband: (nwarps, nlev) in shared memory
     int nlev;
     float* band;           // by band: null for broadband
     long long s_lev, s_band;
     float scale;
-    const float* add;
 
     __device__ __forceinline__ void put(BandSums& bs, float v,
                                         int lev) const {
         if (band)
-            bs.put(v, band + lev * s_lev, s_band, scale,
-                   add ? add + lev * s_lev : nullptr);
+            bs.put(v, band + lev * s_lev, s_band, scale);
         else
             reduce_level(v, partial, nlev, lev);
     }

@@ -105,9 +105,9 @@ __global__ void fused_lw_kernel(
     // by band: output (band, level, column)
     const long long bs = (long long)nlev * ncol;
     const rte::LevelSink up_s{p_up, nlev, byband ? band_up + c : nullptr,
-                              ncol, bs, piw, nullptr};
+                              ncol, bs, piw};
     const rte::LevelSink dn_s{p_dn, nlev, byband ? band_dn + c : nullptr,
-                              ncol, bs, piw, nullptr};
+                              ncol, bs, piw};
 
     // ---- pass 1: gas optics per layer ----
     if (active) {

@@ -165,9 +165,9 @@ __global__ void solver_lw_kernel(const LwArgs a) {
     float t = 0.0f, sdn = 0.0f, sup = 0.0f, an = 0.0f, cn = 0.0f;
     const long long bo = (long long)c * nlev * a.nband;
     const rte::LevelSink up_s{p_up, nlev, byband ? a.band_up + bo : nullptr,
-                              a.nband, 1, a.piw, nullptr};
+                              a.nband, 1, a.piw};
     const rte::LevelSink dn_s{p_dn, nlev, byband ? a.band_dn + bo : nullptr,
-                              a.nband, 1, a.piw, nullptr};
+                              a.nband, 1, a.piw};
 
     // ---- down sweep (reference lw_transport_noscat_dn :681-708) ----
     float rdn = rdn_top;

@@ -1,8 +1,9 @@
-// SW two-stream solve with broadband output. One kernel, three
+// SW two-stream solve with broadband or per-band output. One kernel, three
 // launchers:
 //   launch_solver_sw           the public rte_sw's solver: contiguous
 //                              (column, layer, g-point) fields, mu0
-//                              (column, layer), output (3, column, level);
+//                              (column, layer), output (3, column, level),
+//                              or per-band sums (3, column, level, band);
 //   launch_solver_sw_lanes     the staged branch's solver: (g-point,
 //                              layer, column) fields through any element
 //                              strides, mu0 (layer, column), output
@@ -21,33 +22,53 @@
 // sw_2stream_plain and ops/kernels/solver_lanes.py::sw_2stream_lanes_plain,
 // ::sw_2stream_lanes_combined_plain.
 //
-// Layout: one block per column, one thread per g-point; every field read
+// Layout: a column's g-points are cut into chunks of ``chunk`` (a
+// multiple of 32, at most 8 chunks: ops/kernels/onchip.py::
+// onchip_geometry), one block of kThreads threads per chunk, and the
+// column's chunks are one thread-block cluster. Every input is read
 // through its element strides (common.cuh::Field3), so the gathers'
 // (column, layer, g-point) output passed as a permuted view keeps g
-// fastest and the loads coalesced. Pass 1, top down: the layer's optics
-// (with COMBINED: ssa = tau_ray / tau where tau > 2 tiny, then the
-// tau-weighted combine with the cloud of the thread's band, float32 tiny
-// guards as in the TPU kernel), the Meador-Weaver coefficients with the
-// reference's clamps (transport.cuh::sw_layer, the code of the fused SW
-// kernel), night masking by mu0 > 0 per layer, and the direct beam.
-// Passes 2 and 3: the adding sweeps (transport.cuh::adding) from the
-// diffuse flux at the top, over per-thread layer columns in
-// wrapper-allocated scratch laid out (field, column, level, g-point).
-// Total down = diffuse + direct.
+// fastest and the loads coalesced. The chunk's layer fields live in
+// shared memory, no device-memory scratch:
+//   pass 1, every thread, kThreads / chunk layers at a time (thread
+//   lane + chunk * k takes g-point g0 + lane and the layers k, k + K,
+//   ...): the layer's optics (with COMBINED: ssa = tau_ray / tau where
+//   tau > 2 tiny, then the tau-weighted combine with the cloud of the
+//   thread's band, float32 tiny guards as in the TPU kernel), the
+//   Meador-Weaver coefficients with the reference's clamps
+//   (transport.cuh::sw_layer), rdir and tdir zeroed at night (mu0 > 0 per
+//   layer), tns;
+//   then the chunk's first ``chunk`` threads, one per g-point, sweep: the
+//   direct beam top down (source_dn = tdir * dir, source_up = rdir * dir;
+//   each level's beam in place of tns), the adding build bottom up
+//   (transport.cuh::adding_up, its four values per layer written in
+//   place), the diffuse fluxes top down from the diffuse incident flux
+//   (zero when absent) (transport.cuh::adding_down), each level's fluxes
+//   written in place;
+//   then every thread again: the chunk's sums of each level
+//   (transport.cuh::ClusterSums::reduce), and the cluster's
+//   (ClusterSums::finalize). Total down = diffuse + direct.
 //
 // What bounds it on this card: reading tau, ssa and g (or the two depths
-// and the band cloud), 8-12 B per (column, layer, g-point), and the
-// scratch traffic (six fields, about 14 x 4 B per (column, level,
-// g-point)).
+// and the band cloud), 12 B per (column, layer, g-point), which needs
+// many warps in flight, and the latency of the three dependent sweeps,
+// one warp per chunk. Kept in device memory, the layer fields (six per
+// column, level and g-point) make each layer of the adding build wait a
+// memory round trip: most of the solve's time on an H100 (PERF.md). Here
+// they take 20 B x nlay x chunk of shared memory per block.
 //
-// Broadband sums are deterministic: warp-shuffle sums per level into
-// shared memory, then fixed-order sums of the warp partials. No atomics.
-// launch_solver_sw can give per-band sums instead (common.cuh::BandSums:
-// per level, each band's g-points summed in g-point order by one thread),
-// as the TPU kernel does for uniform bands; here any gpt2band works.
+// Sums: per level, broadband the warp-shuffle sum of each 32 g-points,
+// by band each band's g-points of the chunk in ascending order
+// (gpt2band, so ragged or reordered bands work), then summed over the
+// cluster's shared memory in rank order (transport.cuh::ClusterSums):
+// broadband with 32-wide chunks in the warp order of one block that held
+// the whole column. Deterministic, no atomics.
 //
-// Contract (checked by the Python wrappers): float32, ngpt <= 1024,
-// offsets within 32-bit strides, top of the atmosphere at layer 0.
+// Contract (checked by the Python wrappers): float32, ngpt <= 1024, the
+// column height within onchip_geometry's limit, offsets within 32-bit
+// strides, top of the atmosphere at layer 0.
+
+#include <cfloat>
 
 #include "common.cuh"
 #include "transport.cuh"
@@ -60,18 +81,21 @@ using rte::Line;
 using rte::f2;
 using rte::f3;
 
+constexpr int kThreads = 256;   // per block: chunk g-points x layer lanes
+constexpr int kBlocksPerSM = 4;
+constexpr int kFields = 3;      // up, dn (diffuse), dir
+
 struct SwArgs {
     Field3 tau, ssa, asy;        // COMBINED: tau_abs, tau_ray; asy unused
     Field3 ct, cs, cg;           // COMBINED: cloud by band; ct.p null: none
     Field2 mu0;                  // (layer, column)
     Field2 alb_dir, alb_dif, inc, inc_dif;   // inc_dif.p null: no diffuse
     const int* gpt2band;         // COMBINED, or by-band output
-    float* scratch;              // 6 x (column, level, g-point)
     float* out;                  // up, dn total, dir planes
     long long out_plane;
     int out_sl, out_sc;          // output strides of (level, column)
     float* band_out;             // by band: (3, column, level, band); or null
-    int ncol, nlay, ngpt, nband;
+    int ncol, nlay, ngpt, nband, chunk;
 };
 
 // The layer optics of one thread's (column, g-point).
@@ -123,103 +147,137 @@ struct SwColumn {
     }
 };
 
-// BYBAND is a template argument, not a test of a.band_out, so that the
-// broadband kernels hold no by-band state in registers (a run-time test
-// costs them a third more registers and a block per SM).
-template <bool COMBINED, bool BYBAND>
-__global__ void solver_sw_kernel(const SwArgs a) {
-    extern __shared__ float smem[];
-    const int nlay = a.nlay, ngpt = a.ngpt;
+template <bool COMBINED>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+solver_sw_kernel(const SwArgs a) {
+    extern __shared__ float4 coef[];          // (nlay, chunk)
+    namespace cg = cooperative_groups;
+    const int nlay = a.nlay, ngpt = a.ngpt, chunk = a.chunk;
     const int nlev = nlay + 1;
-    const int nwarps = blockDim.x >> 5;
-    float* p_up = smem;                       // (nwarps, nlev) each
-    float* p_dn = p_up + nwarps * nlev;
-    float* p_dir = p_dn + nwarps * nlev;
-    rte::BandSums bands = {};
-    if (BYBAND) bands.init(p_dir + nwarps * nlev, a.gpt2band, ngpt, a.nband);
+    const int nchunk = (int)cg::this_cluster().num_blocks();
+    const int rank = (int)cg::this_cluster().block_rank();
+    const int c = blockIdx.x / nchunk;
+    float* tns_s = (float*)(coef + (size_t)nlay * chunk);   // (nlay, chunk)
+    float* top_s = tns_s + (size_t)nlay * chunk;            // (3, chunk)
+    const bool byband = a.band_out != nullptr;
+    rte::ClusterSums sums;
+    sums.init(top_s + kFields * chunk, kFields, chunk, nlev,
+              byband ? a.nband : 0, a.gpt2band, rank * chunk, ngpt);
+    const int lane = threadIdx.x % chunk;
+    const int g = rank * chunk + lane;
+    const bool active = g < ngpt;
+    const SwColumn<COMBINED> col(a, active ? g : 0, c);
 
-    const int c = blockIdx.x;
-    const bool active = threadIdx.x < ngpt;
-    const int g = active ? threadIdx.x : 0;   // idle lanes never read
-    const long long field = (long long)a.ncol * nlev * ngpt;
-    float* R = a.scratch + (long long)c * nlev * ngpt + g;   // rdif
-    float* T = R + field;                                    // tdif
-    float* SDN = T + field;                                  // source_dn
-    float* SUP = SDN + field;     // source_up, then 1/(1-r*alb)
-    float* ALB = SUP + field;                                // albedo at levels
-    float* SRC = ALB + field;                                // source at levels
-    SwColumn<COMBINED> col(a, g, c);
-    // by band: the (level, band) planes of this column
-    const long long bplane = (long long)a.ncol * nlev * a.nband;
-    float* bup = BYBAND ? a.band_out + (long long)c * nlev * a.nband
-                        : nullptr;
-    float* bdn = BYBAND ? bup + bplane : nullptr;
-    float* bdir = BYBAND ? bup + 2 * bplane : nullptr;
-    const rte::LevelSink dir_s{p_dir, nlev, bdir, a.nband, 1, 1.0f, nullptr};
-    const rte::LevelSink up_s{p_up, nlev, bup, a.nband, 1, 1.0f, nullptr};
-    const rte::LevelSink dn_s{p_dn, nlev, bdn, a.nband, 1, 1.0f, bdir};
-
-    // ---- pass 1: two-stream coefficients, direct beam ----
-    float dir = active ? a.inc.at(g, c) * a.mu0.at(0, c) : 0.0f;
-    dir_s.put(bands, dir, 0);
-    for (int l = 0; l < nlay; ++l) {
-        if (active) {
-            float mu = a.mu0.at(l, c);
-            float t, w0, asy;
-            col.layer(l, &t, &w0, &asy);
-            rte::SwLayer s = rte::sw_layer(t, w0, asy, mu);
-            bool day = mu > 0.0f;
-            long long o = (long long)l * ngpt;
-            R[o] = s.rdif;
-            T[o] = s.tdif;
-            SUP[o] = day ? s.rdir * dir : 0.0f;
-            SDN[o] = day ? s.tdir * dir : 0.0f;
-            dir = dir * s.tns;
-        }
-        dir_s.put(bands, dir, l + 1);
+    // ---- pass 1: two-stream coefficients, layers in parallel ----
+    for (int l = threadIdx.x / chunk; active && l < nlay;
+         l += kThreads / chunk) {
+        float mu = a.mu0.at(l, c);
+        float t, w0, asym;
+        col.layer(l, &t, &w0, &asym);
+        rte::SwLayer s = rte::sw_layer(t, w0, asym, mu);
+        bool day = mu > 0.0f;
+        coef[l * chunk + lane] = make_float4(s.rdif, s.tdif,
+                                             day ? s.rdir : 0.0f,
+                                             day ? s.tdir : 0.0f);
+        tns_s[l * chunk + lane] = s.tns;
     }
-
-    // ---- passes 2 and 3: adding (Eqs 9-13) from the diffuse TOA flux ----
-    float alb_sfc = 0.0f, src_sfc = 0.0f, top = 0.0f;
-    if (active) {
-        alb_sfc = a.alb_dif.at(g, c);
-        src_sfc = a.mu0.at(nlay - 1, c) > 0.0f ? dir * a.alb_dir.at(g, c)
-                                               : 0.0f;
-        top = a.inc_dif.p ? a.inc_dif.at(g, c) : 0.0f;
-    }
-    rte::adding(active, R, T, SDN, SUP, ALB, SRC, nlay, ngpt, alb_sfc,
-                src_sfc, top, up_s, dn_s, bands);
-    if (BYBAND) return;
-
     __syncthreads();
-    for (int lev = threadIdx.x; lev < nlev; lev += blockDim.x) {
-        long long o = (long long)lev * a.out_sl + (long long)c * a.out_sc;
-        float fd = rte::level_total(p_dir, nwarps, nlev, lev);
-        a.out[o] = rte::level_total(p_up, nwarps, nlev, lev);
-        a.out[a.out_plane + o] = rte::level_total(p_dn, nwarps, nlev, lev)
-                                 + fd;
-        a.out[2 * a.out_plane + o] = fd;
+
+    // ---- the sweeps: the chunk's first ``chunk`` threads ----
+    if (threadIdx.x < chunk) {
+        float4* k = coef + lane;
+        float* tn = tns_s + lane;
+        // direct beam, top down: coef becomes (rdif, tdif, sdn, sup), tns
+        // the beam at the layer's bottom
+        float dir = active ? a.inc.at(g, c) * a.mu0.at(0, c) : 0.0f;
+        top_s[2 * chunk + lane] = dir;
+        float4 q = k[0];
+        float tq = tn[0];
+        for (int l = 0; l < nlay; ++l) {
+            int nx = (l + 1 < nlay ? l + 1 : l) * chunk;
+            float4 qn = k[nx];
+            float tqn = tn[nx];
+            if (active) {
+                k[l * chunk] = make_float4(q.x, q.y, q.w * dir, q.z * dir);
+                dir = dir * tq;
+            }
+            tn[l * chunk] = dir;
+            q = qn;
+            tq = tqn;
+        }
+        // adding build, bottom up, in place (Eqs 9-13)
+        float alb = 0.0f, src = 0.0f, top = 0.0f;
+        if (active) {
+            alb = a.alb_dif.at(g, c);
+            src = a.mu0.at(nlay - 1, c) > 0.0f ? dir * a.alb_dir.at(g, c)
+                                               : 0.0f;
+            top = a.inc_dif.p ? a.inc_dif.at(g, c) : 0.0f;
+        }
+        q = k[(nlay - 1) * chunk];
+        for (int v = nlay - 1; v >= 0; --v) {
+            float4 qn = k[(v > 0 ? v - 1 : 0) * chunk];
+            k[v * chunk] = rte::adding_up(q.x, q.y, q.z, q.w, alb, src);
+            q = qn;
+        }
+        // diffuse fluxes, top down; level v + 1's in place of layer v's
+        // values
+        rte::adding_down(active, k, chunk, nlay, alb, src, top,
+                         [&](float fup, float fdn, int lv) {
+                             if (lv > 0) {
+                                 *(float2*)(k + (lv - 1) * chunk) =
+                                     make_float2(fup, fdn);
+                             } else {
+                                 top_s[lane] = fup;
+                                 top_s[chunk + lane] = fdn;
+                             }
+                         });
     }
+    __syncthreads();
+
+    // ---- the column's sums: the chunk's, then the cluster's; up, dn
+    // total = diffuse + direct, dir ----
+    sums.reduce([&](int f, int lv, int i) {
+        if (lv == 0) return top_s[f * chunk + i];
+        int o = (lv - 1) * chunk + i;
+        return f == 2 ? tns_s[o] : ((const float*)(coef + o))[f];
+    });
+    sums.finalize([&](int i, auto total) {
+        float fd = total(2);
+        if (byband) {
+            int b = i / nlev, lv = i - b * nlev;
+            long long ob = ((long long)c * nlev + lv) * a.nband + b;
+            long long bplane = (long long)a.ncol * nlev * a.nband;
+            a.band_out[ob] = total(0);
+            a.band_out[bplane + ob] = total(1) + fd;
+            a.band_out[2 * bplane + ob] = fd;
+        } else {
+            long long o = (long long)i * a.out_sl + (long long)c * a.out_sc;
+            a.out[o] = total(0);
+            a.out[a.out_plane + o] = total(1) + fd;
+            a.out[2 * a.out_plane + o] = fd;
+        }
+    });
 }
 
-template <bool COMBINED, bool BYBAND = false>
+size_t smem_bytes(int nlay, int chunk, int nband) {
+    return (size_t)nlay * chunk * (sizeof(float4) + sizeof(float))
+        + (size_t)kFields * chunk * sizeof(float)
+        + rte::ClusterSums::bytes(kFields, chunk, nlay + 1, nband);
+}
+
+template <bool COMBINED>
 int run(const SwArgs& a, void* stream) {
     if (a.ncol == 0) return 0;
-    int threads = (a.ngpt + 31) / 32 * 32;
-    size_t smem = (size_t)3 * (threads / 32) * (a.nlay + 1) * sizeof(float)
-        + (BYBAND ? rte::BandSums::bytes(threads, a.nband) : 0);
-    cudaError_t err = rte::allow_smem(solver_sw_kernel<COMBINED, BYBAND>,
-                                      smem);
-    if (err != cudaSuccess) return (int)err;
-    solver_sw_kernel<COMBINED, BYBAND><<<a.ncol, threads, smem,
-                                         (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    const int nchunk = (a.ngpt + a.chunk - 1) / a.chunk;
+    return (int)rte::launch_clusters(
+        solver_sw_kernel<COMBINED>, a.ncol, nchunk, kThreads,
+        smem_bytes(a.nlay, a.chunk, a.band_out ? a.nband : 0),
+        (cudaStream_t)stream, a);
 }
 
-SwArgs base(void* scratch, void* out, int ncol, int nlay, int ngpt,
+SwArgs base(void* out, int ncol, int nlay, int ngpt, int chunk,
             bool lanes) {
     SwArgs a = {};
-    a.scratch = (float*)scratch;
     a.out = (float*)out;
     a.out_plane = (long long)ncol * (nlay + 1);
     a.out_sl = lanes ? ncol : 1;
@@ -227,21 +285,41 @@ SwArgs base(void* scratch, void* out, int ncol, int nlay, int ngpt,
     a.ncol = ncol;
     a.nlay = nlay;
     a.ngpt = ngpt;
+    a.chunk = chunk;
     return a;
 }
 
 }  // namespace
 
+// Shared memory of one block at (nlay, chunk, nband; 0 for broadband),
+// the bytes ops/kernels/onchip.py::onchip_geometry counts.
+extern "C" int smem_solver_sw(int nlay, int chunk, int nband) {
+    return (int)smem_bytes(nlay, chunk, nband);
+}
+
+// Resident blocks per SM * 65536 + clusters the card holds at once, or a
+// negative CUDA error (transport.cuh::cluster_occupancy), of the plain
+// (combined 0) or the COMBINED kernel.
+extern "C" int occupancy_solver_sw(int nlay, int chunk, int nchunk,
+                                   int nband, int combined) {
+    size_t smem = smem_bytes(nlay, chunk, nband);
+    return combined
+        ? rte::cluster_occupancy(solver_sw_kernel<true>, nchunk, kThreads,
+                                 smem)
+        : rte::cluster_occupancy(solver_sw_kernel<false>, nchunk, kThreads,
+                                 smem);
+}
+
 // The public layout: (column, layer, g-point) contiguous fields; with
 // band_out (3, column, level, band) per-band sums there (gpt2band) instead
-// of the broadband ``out``.
+// of the broadband ``out``. chunk: g-points per block (onchip_geometry).
 extern "C" int launch_solver_sw(
         const void* tau, const void* ssa, const void* asy, const void* mu0,
         const void* alb_dir, const void* alb_dif, const void* inc,
-        const void* inc_dif, const void* gpt2band, void* scratch, void* out,
-        void* band_out, int ncol, int nlay, int ngpt, int nband,
+        const void* inc_dif, const void* gpt2band, void* out,
+        void* band_out, int ncol, int nlay, int ngpt, int nband, int chunk,
         void* stream) {
-    SwArgs a = base(scratch, out, ncol, nlay, ngpt, false);
+    SwArgs a = base(out, ncol, nlay, ngpt, chunk, false);
     a.gpt2band = (const int*)gpt2band;
     a.band_out = (float*)band_out;
     a.nband = nband;
@@ -254,7 +332,7 @@ extern "C" int launch_solver_sw(
     a.alb_dif = f2(alb_dif, 1, ngpt);
     a.inc = f2(inc, 1, ngpt);
     a.inc_dif = f2(inc_dif, 1, ngpt);
-    return band_out ? run<false, true>(a, stream) : run<false>(a, stream);
+    return run<false>(a, stream);
 }
 
 // The lane layout: (g-point, layer, column) fields, mu0 (layer, column),
@@ -268,9 +346,8 @@ extern "C" int launch_solver_sw_lanes(
         const void* alb_dif, int af0, int af1,
         const void* inc, int inc0, int inc1,
         const void* inc_dif, int id0, int id1,
-        void* scratch, void* out, int ncol, int nlay, int ngpt,
-        void* stream) {
-    SwArgs a = base(scratch, out, ncol, nlay, ngpt, true);
+        void* out, int ncol, int nlay, int ngpt, int chunk, void* stream) {
+    SwArgs a = base(out, ncol, nlay, ngpt, chunk, true);
     a.tau = f3(tau, tau0, tau1, tau2);
     a.ssa = f3(ssa, ssa0, ssa1, ssa2);
     a.asy = f3(asy, asy0, asy1, asy2);
@@ -295,9 +372,9 @@ extern "C" int launch_solver_sw_combined(
         const void* alb_dif, int af0, int af1,
         const void* inc, int inc0, int inc1,
         const void* inc_dif, int id0, int id1,
-        const void* gpt2band, void* scratch, void* out, int ncol, int nlay,
-        int ngpt, void* stream) {
-    SwArgs a = base(scratch, out, ncol, nlay, ngpt, true);
+        const void* gpt2band, void* out, int ncol, int nlay, int ngpt,
+        int chunk, void* stream) {
+    SwArgs a = base(out, ncol, nlay, ngpt, chunk, true);
     a.tau = f3(tau_abs, ta0, ta1, ta2);
     a.ssa = f3(tau_ray, tr0, tr1, tr2);
     a.ct = f3(ct, ct0, ct1, ct2);

@@ -1,9 +1,8 @@
 // Radiative transfer shared by the fused kernels and the stand-alone
 // solvers: the LW linear-in-tau layer source, the SW Meador-Weaver layer
-// coefficients, the LW two-stream layer coefficients and sources, the
-// adding sweeps over per-thread layer columns in device memory (the SW
-// solvers) and the on-chip adding with its cluster-wide flux sums (the
-// fused SW step and the LW two-stream solve).
+// coefficients, the LW two-stream layer coefficients and sources, and the
+// on-chip adding with its cluster-wide sums (the fused SW step, the SW
+// and LW two-stream solves; the sums also serve the SW solve's adjoint).
 #pragma once
 
 #include <cfloat>
@@ -110,63 +109,13 @@ __device__ __forceinline__ Lw2Layer lw2_layer(float t, float w0, float asym,
     return s;
 }
 
-// Shonk-Hogan adding (Eqs 9-13; reference adding :1135-1245) over one
-// thread's layer columns, stride ngpt, from any surface albedo and
-// source: the SW diffuse solve and the LW two-stream one. R, T, SDN, SUP
-// per layer in; SUP is overwritten with 1 / (1 - R * albedo below), ALB
-// and SRC receive the albedo and upward source at the levels. Then the
-// top-down sweep from the diffuse flux fdn_top; the up and down fluxes of
-// every level go to the sinks ``up``/``dn`` (broadband or by band; every
-// thread of the block must call this).
-__device__ __forceinline__ void adding(
-        bool active, const float* R, const float* T, const float* SDN,
-        float* SUP, float* ALB, float* SRC, int nlay, int ngpt,
-        float alb_sfc, float src_sfc, float fdn_top, const LevelSink& up,
-        const LevelSink& dn, BandSums& bands) {
-    float alb = 0.0f, src = 0.0f;
-    if (active) {
-        alb = alb_sfc;
-        src = src_sfc;
-        long long o = (long long)nlay * ngpt;
-        ALB[o] = alb;
-        SRC[o] = src;
-        for (int v = nlay - 1; v >= 0; --v) {
-            long long ov = (long long)v * ngpt;
-            float r = R[ov];
-            float td = T[ov];
-            float dd = 1.0f / (1.0f - r * alb);
-            float src_v = SUP[ov] + td * dd * (src + alb * SDN[ov]);
-            alb = r + td * td * alb * dd;
-            src = src_v;
-            SUP[ov] = dd;
-            ALB[ov] = alb;
-            SRC[ov] = src;
-        }
-    }
-    float fdn = active ? fdn_top : 0.0f;
-    float fup = active ? fdn * alb + src : 0.0f;
-    up.put(bands, fup, 0);
-    dn.put(bands, fdn, 0);
-    for (int v = 0; v < nlay; ++v) {
-        if (active) {
-            long long ov = (long long)v * ngpt;
-            long long on = ov + ngpt;
-            float src_n = SRC[on];
-            fdn = (T[ov] * fdn + R[ov] * src_n + SDN[ov]) * SUP[ov];
-            fup = fdn * ALB[on] + src_n;
-        }
-        up.put(bands, fup, v + 1);
-        dn.put(bands, fdn, v + 1);
-    }
-}
-
 // ---- on-chip adding: the layer fields of one chunk of a column's
 // g-points in shared memory, the column's chunks one thread-block cluster
-// (the fused SW step, the LW two-stream solve) ----
+// (the fused SW step, the SW and LW two-stream solves) ----
 
-// One layer of the adding build, bottom up (Shonk-Hogan Eqs 9-13, the
-// arithmetic of ``adding``): from the layer's rdif r, tdif t and sources
-// sdn, sup and the albedo and source of the level below it (alb, src,
+// One layer of the adding build, bottom up (Shonk-Hogan Eqs 9-13;
+// reference adding :1135-1245): from the layer's rdif r, tdif t and
+// sources sdn, sup and the albedo and source of the level below it (alb, src,
 // replaced by those of the level above), the four values that the down
 // sweep needs: a = t dd and b = (r src + sdn) dd with dd = 1 / (1 - r
 // alb), and the level below's alb and src. The down sweep is then fdn' =
@@ -206,20 +155,22 @@ __device__ __forceinline__ void adding_down(bool active, const float4* k,
     }
 }
 
-// The flux sums of a column whose g-points are spread over the blocks of
-// a thread-block cluster, one chunk of ``lanes`` g-points each,
-// deterministic and without atomics. The sweeps leave each flux field's
-// value of every (level, g-point) of the chunk in shared memory (zero on
-// an idle lane); reduce() then sums them, all threads of the block
-// together: broadband per level each 32 g-points' warp-shuffle sum
-// (common.cuh::warp_sum), by band per level each band's g-points of the
-// chunk in ascending order (band membership from gpt2band, so ragged or
-// reordered bands work; a band with none of them sums to 0), into
-// ``part`` at the same offset in every block. finalize() sums the blocks'
-// parts over the cluster's distributed shared memory, ranks in order and
-// within a rank its warps in order (so broadband, with 32-wide chunks, in
-// the warp order of a block that held the whole column), each block
-// taking a share of the outputs, between two cluster barriers.
+// The sums over the g-points of a column whose g-points are spread over
+// the blocks of a thread-block cluster, one chunk of ``lanes`` g-points
+// each, deterministic and without atomics: the fluxes of each level, or
+// the SW adjoint's mu0 cotangent of each layer (its "levels"). The sweeps
+// leave each field's value of every (level, g-point) of the chunk in
+// shared memory (zero on an idle lane); reduce() then sums them, all
+// threads of the block together: broadband per level each 32 g-points'
+// warp-shuffle sum (common.cuh::warp_sum), by band per level each band's
+// g-points of the chunk in ascending order (band membership from
+// gpt2band, so ragged or reordered bands work; a band with none of them
+// sums to 0), into ``part`` at the same offset in every block.
+// finalize() sums the blocks' parts over the cluster's distributed shared
+// memory, ranks in order and within a rank its warps in order (so
+// broadband, with 32-wide chunks, in the warp order of a block that held
+// the whole column), each rank taking a run of the outputs, between two
+// cluster barriers.
 struct ClusterSums {
     float* part;           // nf x (nw or nband) x nlev
     int* members;          // lanes: the chunk's g-points grouped by band
@@ -275,57 +226,75 @@ struct ClusterSums {
 
     // After the sweeps and a block barrier, every thread of the block:
     // the chunk's sums of val(f, lev, lane), field f's value of g-point
-    // g0 + lane at level lev, into part.
+    // g0 + lane at level lev, into part. Broadband warp k of the block
+    // takes levels k, k + nwarps, ... and sums every field and warp of
+    // each; by band a thread takes one (band, level) item and sums every
+    // field of it. No integer division per warp sum.
     template <class Val>
     __device__ void reduce(Val&& val) {
         if (byband) {
-            for (int it = threadIdx.x; it < nf * nband * nlev;
-                 it += blockDim.x) {
-                int f = it / (nband * nlev);
-                int r = it - f * nband * nlev;
-                int b = r / nlev, lev = r - b * nlev;
-                float t = 0.0f;
-                for (int k = first[b]; k < first[b + 1]; ++k)
-                    t += val(f, lev, members[k]);
-                part[it] = t;
+            for (int it = threadIdx.x; it < nband * nlev; it += blockDim.x) {
+                const int b = it / nlev, lev = it - b * nlev;
+                for (int f = 0; f < nf; ++f) {
+                    float t = 0.0f;
+                    for (int k = first[b]; k < first[b + 1]; ++k)
+                        t += val(f, lev, members[k]);
+                    part[f * nband * nlev + it] = t;
+                }
             }
             return;
         }
         const int lane = threadIdx.x & 31;
-        for (int it = threadIdx.x >> 5; it < nf * nw * nlev;
-             it += blockDim.x >> 5) {
-            int f = it / (nw * nlev);
-            int r = it - f * nw * nlev;
-            int w = r / nlev, lev = r - w * nlev;
-            float s = warp_sum(val(f, lev, w * 32 + lane));
-            if (lane == 0) part[it] = s;
-        }
+        for (int lev = threadIdx.x >> 5; lev < nlev;
+             lev += blockDim.x >> 5)
+            for (int f = 0; f < nf; ++f)
+                for (int w = 0; w < nw; ++w) {
+                    float s = warp_sum(val(f, lev, w * 32 + lane));
+                    if (lane == 0) part[(f * nw + w) * nlev + lev] = s;
+                }
     }
 
     // After reduce, every thread of every block of the cluster: emit(i,
     // total) for each output item i (broadband the level, by band band *
-    // nlev + level) of this block's share, total(f) the cluster's sum of
-    // field f for it.
+    // nlev + level), each rank taking an equal run of consecutive items,
+    // one per thread (so that a warp's remote loads are contiguous),
+    // total(f) the cluster's sum of field f for it. With one partial per
+    // rank (by band, or 32-wide chunks) all nr partials of an item are
+    // loaded before any is added, so that the remote loads overlap
+    // instead of waiting one behind the other; wider chunks' warps are
+    // summed one after the other. At most 8 ranks (ops/kernels/onchip.py).
     template <class Emit>
     __device__ void finalize(Emit&& emit) {
         namespace cg = cooperative_groups;
         cg::cluster_group cluster = cg::this_cluster();
         cluster.sync();
+        constexpr int kRanks = 8;
         const int nr = (int)cluster.num_blocks();
         const int rank = (int)cluster.block_rank();
         const int items = byband ? nband * nlev : nlev;
         const int rows = byband ? nband : nw;
-        for (int i = rank * blockDim.x + threadIdx.x; i < items;
-             i += nr * blockDim.x) {
+        const int per = byband ? 1 : nw;        // partials per rank
+        const int span = (items + nr - 1) / nr;
+        const int end = min(items, (rank + 1) * span);
+        for (int i = rank * span + (int)threadIdx.x; i < end;
+             i += (int)blockDim.x) {
             auto total = [&](int f) {
+                const float* p = part + f * rows * nlev + i;
                 float s = 0.0f;
+                if (per == 1) {
+                    float v[kRanks];
+#pragma unroll
+                    for (int q = 0; q < kRanks; ++q)
+                        v[q] = q < nr ? *cluster.map_shared_rank(p, q)
+                                      : 0.0f;
+#pragma unroll
+                    for (int q = 0; q < kRanks; ++q)
+                        if (q < nr) s += v[q];
+                    return s;
+                }
                 for (int q = 0; q < nr; ++q) {
-                    const float* p = cluster.map_shared_rank(part, q)
-                        + f * rows * nlev;
-                    if (byband)
-                        s += p[i];
-                    else
-                        for (int w = 0; w < nw; ++w) s += p[w * nlev + i];
+                    const float* r = cluster.map_shared_rank(p, q);
+                    for (int w = 0; w < per; ++w) s += r[w * nlev];
                 }
                 return s;
             };

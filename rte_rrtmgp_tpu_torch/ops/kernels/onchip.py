@@ -1,18 +1,20 @@
-"""The on-chip geometry of the kernels that hold their adding transport in
-shared memory: the fused SW step (``csrc/fused_sw.cu``) and the LW
-two-stream solve (``csrc/solver_lw_2str.cu``).
+"""The on-chip geometry of the kernels that hold their transport in shared
+memory: the fused SW step (``csrc/fused_sw.cu``), the LW two-stream solve
+(``csrc/solver_lw_2str.cu``), the SW two-stream solve of the public and
+staged paths (``csrc/solver_sw.cu``, all three launchers) and its adjoint
+(``csrc/solver_sw_bwd.cu``).
 
 A column's g-points are cut into chunks of ``chunk`` g-points, one thread
 block per chunk, and the column's chunks form one thread-block cluster
 (at most 8 blocks, the portable cluster size). A block keeps its chunk's
-layer fields and its partial flux sums in shared memory, at most
+layer fields and its partial sums in shared memory, at most
 :data:`SMEM_LIMIT` bytes, so the column height is bounded: past it
 :func:`onchip_geometry` raises, and no other kernel takes over.
 
-The sums are fixed-order: per level, each block sums its chunk's
-g-points (broadband: warp by warp; by band: each band's g-points of the
-chunk in ascending order), and the cluster adds the blocks' partials in
-rank order (``transport.cuh::ClusterSums``).
+The sums are fixed-order: per level (the adjoint: per layer), each block
+sums its chunk's g-points (broadband: warp by warp; by band: each band's
+g-points of the chunk in ascending order), and the cluster adds the
+blocks' partials in rank order (``transport.cuh::ClusterSums``).
 """
 from __future__ import annotations
 
@@ -27,8 +29,10 @@ SMEM_LIMIT = 232448
 MAX_CHUNKS = 8
 # threads per block: chunk g-points x layer lanes
 THREADS = 256
-# flux fields each kernel sums: SW up, diffuse dn, dir; LW up, dn
-_FIELDS = {"fused_sw": 3, "lw_2stream": 2}
+# fields each kernel sums: SW up, diffuse dn, dir; LW up, dn; the SW
+# adjoint the mu0 cotangent of each layer and the beam's seed at the top
+_FIELDS = {"fused_sw": 3, "lw_2stream": 2, "solver_sw": 3,
+           "solver_sw_bwd": 2}
 
 
 class Geometry(NamedTuple):
@@ -49,7 +53,18 @@ def _sums_bytes(nf: int, lanes: int, nlev: int, nband: int) -> int:
 
 def _smem(kernel: str, nlay: int, chunk: int, nband: int,
           nminor: int) -> int:
-    """The launchers' smem_bytes (csrc/fused_sw.cu, solver_lw_2str.cu)."""
+    """The launchers' smem_bytes (csrc/fused_sw.cu, solver_lw_2str.cu,
+    solver_sw.cu, solver_sw_bwd.cu)."""
+    if kernel == "solver_sw_bwd":
+        # per (layer, g-point) rdif, tdif, rdir, tdir as a float4 and tns
+        # (then their cotangents), the adding denominator and the A-F
+        # cotangent; per (level, g-point) the beam, the adding albedo and
+        # source and the diffuse flux (then the A-U cotangents); per level
+        # the column's three flux cotangents; the warp sums of the mu0
+        # cotangent and of the beam's seed, per layer
+        return (28 * nlay * chunk + 16 * (nlay + 1) * chunk
+                + 12 * (nlay + 1)
+                + _sums_bytes(_FIELDS[kernel], chunk, nlay, 0))
     sums = _sums_bytes(_FIELDS[kernel], chunk, nlay + 1, nband)
     # the top level's fluxes of each g-point
     top = 4 * _FIELDS[kernel] * chunk
@@ -59,6 +74,9 @@ def _smem(kernel: str, nlay: int, chunk: int, nband: int,
         # metadata rows
         return (20 * nlay * chunk + top + 4 * (-(-nminor // 32)) * chunk
                 + 4 * 5 * nminor + sums)
+    if kernel == "solver_sw":
+        # per (layer, g-point) rdif, tdif, rdir, tdir as a float4 and tns
+        return 20 * nlay * chunk + top + sums
     # per (layer, g-point) the four values of the adding build
     return 16 * nlay * chunk + top + sums
 
@@ -66,13 +84,14 @@ def _smem(kernel: str, nlay: int, chunk: int, nband: int,
 def onchip_geometry(kernel: str, nlay: int, ngpt: int, nband: int = 0,
                     nminor: int = 0) -> Geometry:
     """Chunk width, cluster size, threads and shared memory per block of
-    ``kernel`` ("fused_sw" or "lw_2stream") at nlay layers and ngpt
-    g-points, with per-band sums over ``nband`` bands (0: broadband) and,
-    for the SW step, nminor minor gases. The chunk is the narrowest power
-    of two from 32 up with at most :data:`MAX_CHUNKS` chunks. Raises
-    ValueError where the g-points exceed 8 chunks of 128 or a block's
-    fields exceed :data:`SMEM_LIMIT`, naming the tallest column that
-    fits."""
+    ``kernel`` ("fused_sw", "lw_2stream", "solver_sw" or
+    "solver_sw_bwd") at nlay layers and ngpt g-points, with per-band sums
+    over ``nband`` bands (0: broadband; the adjoint takes broadband
+    cotangents only) and, for the fused SW step, nminor minor gases.
+    The chunk is the narrowest power of two from 32 up with at most
+    :data:`MAX_CHUNKS` chunks. Raises ValueError where the g-points
+    exceed 8 chunks of 128 or a block's fields exceed :data:`SMEM_LIMIT`,
+    naming the tallest column that fits."""
     if kernel not in _FIELDS:
         raise ValueError(f"onchip_geometry: unknown kernel {kernel!r}")
     if nlay < 1 or ngpt < 1:

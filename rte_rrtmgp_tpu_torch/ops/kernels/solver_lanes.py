@@ -17,7 +17,10 @@ The twins run the public-layout solvers (``lw_noscat_plain`` and
 ``sw_2stream_plain``) on permuted views, after the pfrac-source or the
 Rayleigh/cloud-combine prologue of the two solvers that do their own.
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
-CPU tensor to the twin. Each wrapper counts its launches. The staged
+CPU tensor to the twin. Each wrapper counts its launches. The SW kernel
+keeps a column's layer fields in shared memory
+(``solver_sw.sw_2stream_geometry``): on CUDA a column taller than a block
+holds raises ValueError naming the limit. The staged
 branch has no gradient on the card, as the JAX package gives its lane
 kernels none: on CUDA the wrappers raise when an input requires grad.
 """
@@ -31,7 +34,7 @@ from ..gas_optics import level_pfrac
 from ._build import check_strided, launch, on_cpu, strided
 from .autodiff import refuse_grad
 from .solver_lw import lw_noscat_plain
-from .solver_sw import sw_2stream_plain
+from .solver_sw import sw_2stream_geometry, sw_2stream_plain
 
 __all__ = ["lw_noscat_lanes", "lw_noscat_lanes_plain",
            "lw_noscat_lanes_pfrac", "lw_noscat_lanes_pfrac_plain",
@@ -223,17 +226,16 @@ def sw_2stream_lanes_plain(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
 def _sw_launch(fn, what, fields, mu0, sfc_alb_dir, sfc_alb_dif,
                inc_flux_dir, inc_flux_dif, gpt2band, ngpt, nlay, ncol):
     dev = mu0.device
-    # per-(column, level, g-point) scratch: rdif, tdif, source_dn,
-    # source_up (then the adding denominator), albedo, source
-    scratch = torch.empty((6, ncol, nlay + 1, ngpt), dtype=torch.float32,
-                          device=dev)
+    # the layer fields stay in shared memory: raises past the column
+    # height a block holds
+    geo = sw_2stream_geometry(nlay, ngpt)
     out = torch.empty((3, nlay + 1, ncol), dtype=torch.float32, device=dev)
     extra = () if gpt2band is None else (gpt2band.contiguous(),)
     launch("solver_sw", fn, what,
            *(a for f in fields for a in strided(f, 3)), *strided(mu0, 2),
            *strided(sfc_alb_dir, 2), *strided(sfc_alb_dif, 2),
            *strided(inc_flux_dir, 2), *strided(inc_flux_dif, 2), *extra,
-           scratch, out, ncol, nlay, ngpt)
+           out, ncol, nlay, ngpt, geo.chunk)
     return out[0], out[1], out[2]
 
 
@@ -258,7 +260,6 @@ def sw_2stream_lanes(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
     _no_grad("sw_2stream_lanes", tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
              inc_flux_dir, inc_flux_dif)
     ngpt, nlay, ncol = tau.shape
-    _block("sw_2stream_lanes", ngpt)
     lay3, f32 = (ngpt, nlay, ncol), torch.float32
     bounds = (mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir, inc_flux_dif)
     check_strided("sw_2stream_lanes", tau.device, {
@@ -323,7 +324,6 @@ def sw_2stream_lanes_combined(tau_abs, tau_ray, cloud, mu0, sfc_alb_dir,
     _no_grad("sw_2stream_lanes_combined", tau_abs, tau_ray, cloud, mu0,
              sfc_alb_dir, sfc_alb_dif, inc_flux_dir, inc_flux_dif)
     ngpt, nlay, ncol = tau_abs.shape
-    _block("sw_2stream_lanes_combined", ngpt)
     lay3, f32 = (ngpt, nlay, ncol), torch.float32
     cloud = (None,) * 3 if cloud is None else tuple(cloud)
     nbnd = 0 if cloud[0] is None else cloud[0].shape[0]

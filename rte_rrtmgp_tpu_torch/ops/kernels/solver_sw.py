@@ -12,7 +12,10 @@ are uniform and their width divides 128; here any band of each g-point
 works.
 
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
-CPU tensor to :func:`sw_2stream_plain`. The kernel has no backward of its
+CPU tensor to :func:`sw_2stream_plain`. The kernel keeps a column's layer
+fields in shared memory (:func:`sw_2stream_geometry`), so on CUDA the
+column height is bounded and a taller one raises ValueError naming the
+limit; the twin has no limit. The kernel has no backward of its
 own: on CUDA it refuses inputs that require grad; ``ops/solver_sw.py``
 differentiates it through ``solver_sw_bwd.sw_2stream_vjp``.
 """
@@ -22,10 +25,12 @@ import torch
 
 from ...fluxes import sum_bands
 from ..solver_sw import two_stream
-from ._build import check_args, launch, on_cpu
+from ._build import check_args, launch, on_cpu, query
 from .autodiff import refuse_grad
+from .onchip import Geometry, onchip_geometry
 
-__all__ = ["sw_2stream", "sw_2stream_plain"]
+__all__ = ["sw_2stream", "sw_2stream_plain", "sw_2stream_geometry",
+           "sw_2stream_scratch_bytes", "sw_2stream_occupancy"]
 
 
 def sw_2stream_plain(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
@@ -44,6 +49,33 @@ def sw_2stream_plain(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
         inc_flux_dif, spectral=True))
 
 
+def sw_2stream_geometry(nlay: int, ngpt: int, nband: int = 0) -> Geometry:
+    """Chunk width, cluster size, threads and shared memory per block of
+    the kernel (all three launchers) at nlay layers, ngpt g-points and
+    nband bands (0: broadband) (:func:`onchip.onchip_geometry`); raises
+    ValueError where a column's layer fields do not fit on chip."""
+    return onchip_geometry("solver_sw", nlay, ngpt, nband)
+
+
+def sw_2stream_scratch_bytes(ncol: int, nlay: int, ngpt: int) -> int:
+    """Device scratch of one launch of any of the three launchers: none,
+    the layer fields stay in shared memory."""
+    return 0
+
+
+def sw_2stream_occupancy(nlay: int, ngpt: int, nband: int = 0,
+                         combined: bool = False) -> tuple:
+    """(resident blocks per SM, clusters the card holds at once) of the
+    kernel (``combined``: the COMBINED instantiation of
+    ``launch_solver_sw_combined``) at these sizes, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor and
+    cudaOccupancyMaxActiveClusters."""
+    geo = sw_2stream_geometry(nlay, ngpt, nband)
+    n = query("solver_sw", "occupancy_solver_sw", nlay, geo.chunk,
+              geo.nchunk, nband, int(combined))
+    return (n // 65536, n % 65536) if n >= 0 else (n, n)
+
+
 def sw_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
                inc_flux_dif=None, gpt2band=None, *, nband: int = 0):
     """:func:`sw_2stream_plain` semantics; on CUDA, one launch of the
@@ -57,8 +89,6 @@ def sw_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
                 "sw_solver_2stream differentiates it (solver_sw_bwd."
                 "sw_2stream_vjp)")
     ncol, nlay, ngpt = tau.shape
-    if ngpt > 1024:
-        raise ValueError(f"sw_2stream: {ngpt} g-points exceed one CUDA block")
     f32 = torch.float32
     lay3, bc = (ncol, nlay, ngpt), (ncol, ngpt)
     specs = {"tau": (tau, lay3, f32), "ssa": (ssa, lay3, f32),
@@ -75,15 +105,13 @@ def sw_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
         specs["gpt2band"] = (gpt2band, (ngpt,), torch.int32)
     dev = tau.device
     check_args("sw_2stream", dev, specs)
-    # per-(column, level, g-point) scratch: rdif, tdif, source_dn,
-    # source_up (then the adding denominator), albedo, source
-    scratch = torch.empty((6, ncol, nlay + 1, ngpt), dtype=f32, device=dev)
+    geo = sw_2stream_geometry(nlay, ngpt, nband if byband else 0)
     out = torch.empty((3, ncol, nlay + 1) + ((nband,) if byband else ()),
                       dtype=f32, device=dev)
     launch("solver_sw", "launch_solver_sw", "sw_2stream",
            tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif, inc_flux_dir,
-           inc_flux_dif, gpt2band, scratch, None if byband else out,
-           out if byband else None, ncol, nlay, ngpt, int(nband))
+           inc_flux_dif, gpt2band, None if byband else out,
+           out if byband else None, ncol, nlay, ngpt, int(nband), geo.chunk)
     sw_2stream.launches += 1
     return out[0], out[1], out[2]
 

@@ -1,28 +1,179 @@
 #!/usr/bin/env python3
-"""The costs of the PyTorch port's fused SW and LW two-stream kernels and
-of the steps that run them, for one checkout, on one CUDA GPU, at the
-flagship size (4096 x 72, LW 256 g-points, SW 224):
+"""The costs of the PyTorch port's on-chip kernels and of the steps that
+run them, for one checkout, on one CUDA GPU, at the flagship size (4096 x
+72, LW 256 g-points, SW 224):
 
     python3 scripts/torch_step_costs.py [CHECKOUT]
 
 CHECKOUT is the root of a checkout of this repository (default: the one
 holding this script), so that two commits are compared on one card by
 running the script on both, in turns, in one session. It imports that
-checkout's ``rte_rrtmgp_tpu_torch`` and ``chip_smoke.py`` (MAIN, cuda_ms,
-lw2_step, train_loss) and never JAX. It prints one JSON line: the card;
-the two kernels' CUDA-event median times, broadband and by band, and
-their largest difference from their plain twins over the twins' largest
-value; and for the fused forward step, the LW two-stream step and the
-fused gradient step, the median wall time of 5 steps ending in a
-synchronize, the device time per step under torch.profiler (3 steps) and
-the peak device memory of one step (torch.cuda.max_memory_allocated).
+checkout's ``rte_rrtmgp_tpu_torch`` and ``chip_smoke.py`` (MAIN,
+NONBANDED, cuda_ms, lw2_step, step_fn, train_loss) and never JAX, and
+calls only entry points that checkouts from before the SW solver's
+on-chip redesign have too. It prints one JSON line: the card; the
+CUDA-event median time of each kernel and its largest difference from its
+plain twin (for the adjoint, per cotangent) over the twin's largest value:
+the fused SW step and the LW two-stream solve, broadband and by band, the
+SW solver of the public path (row 9, broadband and by band, on the path's
+optics and delta-scaled clouds, night columns and mu0 varying by layer,
+a diffuse incident flux), the staged path's SW lane solvers (row 12 on
+the non-banded configuration, row 13 with clouds and aerosols) and the
+SW solver's adjoint (row 15, seeded flux cotangents), with a digest of
+each kernel's outputs, so that two checkouts' outputs are compared bit
+for bit; row 15 in the tallest column a 32-wide chunk holds (see
+tall_column_replay), each cotangent's distance from the float64 twin; and
+for the fused
+forward step, the LW two-stream step, the fused gradient step, the
+public-API forward step, the staged forward step and the public-API
+gradient step, the median wall time of 5 steps ending in a synchronize,
+the device time per step under torch.profiler (3 steps) and the peak
+device memory of one step (torch.cuda.max_memory_allocated).
 """
+import hashlib
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+
+
+def sw_solver_cases(cs, prob, nonb, dev):
+    """{name: (kernel call, twin call)} of rows 9, 12, 13 and 15 on the
+    inputs their paths give them, as chip_smoke.py's api_rows, lanes_rows
+    and adjoint_rows build them."""
+    import torch
+    from rte_rrtmgp_tpu_torch.drivers.allsky import _scattering_lanes
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lanes as sl
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw import (sw_2stream,
+                                                            sw_2stream_plain)
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw_bwd import (
+        sw_2stream_bwd, sw_2stream_bwd_plain)
+    from rte_rrtmgp_tpu_torch.optical_props import delta_scale, increment
+    inp, gs = prob.inputs, prob.gas_sw
+    ncol, nlay = inp.play.shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rand = lambda shape, lo, hi: lo + (hi - lo) * torch.rand(
+        shape, generator=gen, device=dev)
+    props, toa = gs.gas_optics_sw(inp.play, inp.plev, inp.tlay,
+                                  inp.gas_concs, top_at_1=True)
+    props = increment(props, delta_scale(prob.cld_sw.cloud_optics(
+        inp.lwp, inp.iwp, inp.rel, inp.dei)))
+    col = torch.arange(ncol, device=dev)
+    mu_col = torch.where(col % 16 == 0, -0.3,
+                         torch.where(col % 16 == 1, 0.0, 0.86))
+    layer = torch.arange(nlay, device=dev) / nlay
+    mu0 = torch.where(mu_col[:, None] > 0,
+                      mu_col[:, None] * (1.0 - 0.05 * layer),
+                      mu_col[:, None].expand(ncol, nlay)).contiguous()
+    bc = (ncol, gs.ngpt)
+    inc = toa.contiguous()
+    sw = (props.tau.contiguous(), props.ssa.contiguous(),
+          props.g.contiguous(), mu0, rand(bc, 0.0, 0.3), rand(bc, 0.0, 0.3),
+          inc, 0.05 * inc)
+    nbs = dict(nband=gs.grid.nband)
+    swb = sw + (gs.gpt2band,)
+    cot = lambda seed: 0.5 + torch.rand(
+        (ncol, nlay + 1), generator=torch.Generator(device=dev).manual_seed(
+            seed), device=dev)
+    alb = inp.sfc_alb.expand(*bc).contiguous()
+    bwd = (sw[0], sw[1], sw[2], inp.mu0[:, None].expand(ncol, nlay)
+           .contiguous(), alb, alb, inc, torch.zeros_like(inc), cot(8),
+           cot(9), cot(10))
+
+    def lanes(p, banded):
+        i = p.inputs
+        tau, second, top = p.gas_sw.gas_optics_sw_lanes(
+            i.play, i.plev, i.tlay, i.gas_concs, split_rayleigh=banded)
+        cloud = _scattering_lanes(i, p.cld_sw, True, p.aer_sw, True)
+        ngpt, nl, nc = tau.shape
+        m = i.mu0[None, :].expand(nl, nc)
+        a = i.sfc_alb[:, 0][None, :].expand(ngpt, nc)
+        if banded:
+            return (tau, second, cloud, m, a, a, top, None), dict(
+                gpt2band=p.gas_sw.gpt2band)
+        tau, ssa, g = sl.increment_2str_bybnd(tau, second, cloud,
+                                              p.gas_sw.gpt2band,
+                                              torch.finfo(tau.dtype).tiny)
+        return (tau, ssa, g, m, a, a, top, None), {}
+
+    l12, k12 = lanes(nonb, False)
+    l13, k13 = lanes(prob, True)
+    return {
+        "solver_sw": (lambda: sw_2stream(*sw), lambda: sw_2stream_plain(*sw)),
+        "solver_sw byband": (lambda: sw_2stream(*swb, **nbs),
+                             lambda: sw_2stream_plain(*swb, **nbs)),
+        "solver_sw_lanes": (lambda: sl.sw_2stream_lanes(*l12, **k12),
+                            lambda: sl.sw_2stream_lanes_plain(*l12, **k12)),
+        "solver_sw_combined": (
+            lambda: sl.sw_2stream_lanes_combined(*l13, **k13),
+            lambda: sl.sw_2stream_lanes_combined_plain(*l13, **k13)),
+        "solver_sw_bwd": (lambda: sw_2stream_bwd(*bwd),
+                          lambda: sw_2stream_bwd_plain(*bwd)),
+    }
+
+
+def digest(outs):
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in outs:
+        if t is not None:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def tall_column_replay(cs, dev):
+    """Row 15 at 162 layers and 224 g-points, 4 columns, mu0 drawn per
+    layer in [0.3, 0.9], k mu0 up to the clamp at 1: the inputs that
+    chip_smoke.py's onchip_limits drew from numpy's default_rng(21) before
+    its mu0 range became [0.2, 0.3] (after the SW solve's draws for 355
+    and 356 layers). For each cotangent, the kernel's and the float32
+    twin's largest distance from the float64 twin (the float32 algorithm
+    in float64 arithmetic) over the float64 twin's largest value, and
+    where the kernel's distance lies: (column, layer, g-point), mu0 and k
+    mu0 there."""
+    import numpy as np
+    import torch
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw_bwd import (
+        sw_2stream_bwd, sw_2stream_bwd_plain)
+    ncol, ngpt = 4, 224
+    rng = np.random.default_rng(21)
+
+    def args(nlay, mu_lo, mu_hi, cots):
+        u = lambda lo, hi, *shape: rng.uniform(lo, hi, shape).astype(
+            np.float32)
+        inc = u(0.5, 2.0, ncol, ngpt)
+        a = (u(0.0, 0.1, ncol, nlay, ngpt), u(0.0, 0.9, ncol, nlay, ngpt),
+             u(0.0, 0.8, ncol, nlay, ngpt), u(mu_lo, mu_hi, ncol, nlay),
+             u(0.0, 0.3, ncol, ngpt), u(0.0, 0.3, ncol, ngpt), inc,
+             np.float32(0.05) * inc)
+        return a + tuple(u(0.5, 1.5, ncol, nlay + 1) for _ in range(cots))
+
+    args(355, 0.3, 0.9, 0)
+    args(356, 0.3, 0.9, 0)
+    a = args(162, 0.3, 0.9, 3)
+    x = tuple(torch.from_numpy(v).to(dev) for v in a)
+    got, ref = sw_2stream_bwd(*x), sw_2stream_bwd_plain(*x)
+    with cs.float32_constants():
+        ref64 = sw_2stream_bwd_plain(*cs.to_f64(x))
+    tau, ssa, asy, mu0 = (v.astype(np.float64) for v in a[:4])
+    g1 = (8.0 - ssa * (5.0 + 3.0 * asy)) / 4.0
+    g2 = 3.0 * ssa * (1.0 - asy) / 4.0
+    kmu = np.sqrt(np.maximum((g1 - g2) * (g1 + g2), 1e4 * 2.0 ** -23)) * (
+        mu0[:, :, None])
+    out = dict(digest=digest(got), cotangents=[])
+    for g, r, r64 in zip(got, ref, ref64):
+        scale = float(r64.abs().max())
+        d = (g.double() - r64).abs()
+        at = np.unravel_index(int(d.argmax()), tuple(d.shape))
+        row = dict(kernel=float(d.max()) / scale,
+                   twin=float((r.double() - r64).abs().max()) / scale,
+                   at=[int(i) for i in at])
+        if len(at) == 3:
+            row.update(mu0=float(mu0[at[0], at[1]]), kmu=float(kmu[at]))
+        out["cotangents"].append(row)
+    return out
 
 
 def main():
@@ -67,27 +218,55 @@ def main():
     bands = (prob.gas_lw.gpt2band,)
     nb = dict(nband=prob.gas_lw.grid.nband)
     xb = x._replace(byband=True)
-    for name, kernel, plain in (
-            ("fused_sw", lambda: sw_fused(x), lambda: sw_fused_plain(x)),
-            ("fused_sw byband", lambda: sw_fused(xb),
-             lambda: sw_fused_plain(xb)),
-            ("solver_lw_2str", lambda: lw_2stream(*lw),
-             lambda: lw_2stream_plain(*lw)),
-            ("solver_lw_2str byband", lambda: lw_2stream(*lw, *bands, **nb),
-             lambda: lw_2stream_plain(*lw, *bands, **nb))):
+    cases = [
+        ("fused_sw", lambda: sw_fused(x), lambda: sw_fused_plain(x)),
+        ("fused_sw byband", lambda: sw_fused(xb),
+         lambda: sw_fused_plain(xb)),
+        ("solver_lw_2str", lambda: lw_2stream(*lw),
+         lambda: lw_2stream_plain(*lw)),
+        ("solver_lw_2str byband", lambda: lw_2stream(*lw, *bands, **nb),
+         lambda: lw_2stream_plain(*lw, *bands, **nb))]
+    for name, kernel, plain in cases:
         got, ref = kernel(), plain()
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         scale = max(float(r.abs().max()) for r in ref)
-        out[name] = dict(ms=cs.cuda_ms(kernel), rel_err=err / scale)
-    del x, xb, lw, got, ref
+        out[name] = dict(ms=cs.cuda_ms(kernel), rel_err=err / scale,
+                         digest=digest(got))
+    del x, xb, lw, got, ref, cases
+    torch.cuda.empty_cache()
+
+    aer = build_allsky(**cs.MAIN, device=dev, use_aerosols=True)
+    nonb = build_allsky(**cs.NONBANDED, device=dev, use_aerosols=True)
+    for name, (kernel, plain) in sw_solver_cases(cs, aer, nonb,
+                                                 dev).items():
+        got, ref = kernel(), plain()
+        if name == "solver_sw_bwd":
+            err = [float((g - r).abs().max()) / float(r.abs().max())
+                   for g, r in zip(got, ref)]
+        else:
+            err = (max(float((g - r).abs().max()) for g, r in zip(got, ref))
+                   / max(float(r.abs().max()) for r in ref))
+        sha = digest(got)
+        del got, ref
+        torch.cuda.empty_cache()
+        out[name] = dict(ms=cs.cuda_ms(kernel), rel_err=err, digest=sha)
+    # the cases' inputs (about 0.8 GB) must not count in the steps' peaks
+    del aer, nonb, kernel, plain
+    torch.cuda.empty_cache()
+    out["solver_sw_bwd tallest column"] = tall_column_replay(cs, dev)
     torch.cuda.empty_cache()
 
     step, inputs = build_allsky_step(**cs.MAIN, device=dev)
     lw2 = cs.lw2_step(prob)
+    api, staged = cs.step_fn(prob, "api"), cs.step_fn(prob, "staged")
     for name, fn in (("fused step", lambda: step(inputs)),
                      ("two-stream step", lambda: lw2(inputs)),
                      ("fused gradient step",
-                      lambda: cs.train_loss(step, inputs))):
+                      lambda: cs.train_loss(step, inputs)),
+                     ("public API step", lambda: api(inputs)),
+                     ("staged step", lambda: staged(inputs)),
+                     ("public API gradient step",
+                      lambda: cs.train_loss(api, inputs))):
         fn()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()

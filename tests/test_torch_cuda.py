@@ -759,10 +759,17 @@ def test_kernel_wrappers_carry_a_backward_or_raise(cuda):
 
 def _bands(ngpt, nband, kind, cuda):
     """gpt2band (int32) and the band count: the k-distribution's uniform
-    contiguous bands, or three ragged bands whose g-points interleave."""
+    contiguous bands, seven contiguous bands of widths 1, 2, 3, ... and
+    the rest ("uneven"), or three ragged bands whose g-points interleave
+    ("ragged")."""
     if kind == "uniform":
         return torch.arange(ngpt, device=cuda, dtype=torch.int32) // (
             ngpt // nband), nband
+    if kind == "uneven":
+        edges = np.cumsum(np.arange(1, ngpt))
+        b = np.minimum(np.searchsorted(edges, np.arange(ngpt),
+                                       side="right"), 6)
+        return torch.tensor(b, dtype=torch.int32, device=cuda), 7
     return torch.tensor([(g * g + g // 5) % 3 for g in range(ngpt)],
                         dtype=torch.int32, device=cuda), 3
 
@@ -1126,3 +1133,261 @@ def test_onchip_tallest_column_and_past_it(cuda, monkeypatch):
             with pytest.raises(ValueError, match=f"at most {nlay} layers"):
                 sw_fused(x)
             assert sw_fused.launches == n0
+
+
+# ---------------------------------------------------------------------------
+# rows 9, 12, 13 and 15 on chip: the SW solver's three launchers and its
+# adjoint, a column's g-points in a cluster of chunks, the layer fields in
+# shared memory (ops/kernels/onchip.py); row 17 unchanged
+# ---------------------------------------------------------------------------
+
+def _sw_pub_args(p, cuda, low_suns=False, diffuse=False, seed=14):
+    """Row 9's inputs on the public path: gas optics with the
+    delta-scaled clouds, the path's mu0 or (``low_suns``) a night column
+    and suns down to 1e-4 varying by layer, seeded albedos, the TOA flux
+    and (``diffuse``) a diffuse one."""
+    inp = p.inputs
+    props, toa = p.gas_sw.gas_optics_sw(inp.play, inp.plev, inp.tlay,
+                                        inp.gas_concs, top_at_1=True)
+    props = increment(props, delta_scale(p.cld_sw.cloud_optics(
+        inp.lwp, inp.iwp, inp.rel, inp.dei)))
+    ncol, nlay, ngpt = props.tau.shape
+    if low_suns:
+        mu = torch.tensor([-0.3, 0.0, 1e-4, 3e-4, 1e-3, 0.05, 0.3, 0.6,
+                           0.86, 1.0], device=cuda)[torch.arange(ncol) % 10]
+        mu0 = mu[:, None] * torch.linspace(1.0, 0.95, nlay, device=cuda)
+    else:
+        mu0 = inp.mu0[:, None].expand(ncol, nlay)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rand = lambda *s: torch.rand(s, generator=gen, device=cuda)
+    inc = toa.contiguous()
+    c = lambda x: x.contiguous()
+    return (c(props.tau), c(props.ssa), c(props.g), c(mu0),
+            0.3 * rand(ncol, ngpt), 0.3 * rand(ncol, ngpt), inc,
+            0.05 * inc if diffuse else None)
+
+
+@pytest.mark.parametrize("variant", ["broadband", "uniform", "uneven",
+                                     "ragged", "incdif-low-suns"])
+@pytest.mark.parametrize("dims", sorted(ONCHIP_CASES))
+def test_onchip_sw_2stream_matches_twin(cuda, dims, variant):
+    """Row 9, broadband and by band (the k-distribution's uniform bands,
+    uneven contiguous ones, three interleaved ones), and with a diffuse
+    incident flux under a night column and low suns: against the twin
+    (chip_smoke.py's TOL_FLUX rule), band sums against the broadband
+    fluxes, the same bits twice."""
+    p = build_allsky(*ONCHIP_CASES[dims], device=cuda)
+    low = variant == "incdif-low-suns"
+    args = _sw_pub_args(p, cuda, low_suns=low, diffuse=low)
+    kw = {}
+    if variant in ("uniform", "uneven", "ragged"):
+        gpt2band, nband = _bands(args[0].shape[2], ONCHIP_CASES[dims][5],
+                                 variant, cuda)
+        args, kw = args + (gpt2band,), dict(nband=nband)
+    n0 = sw_2stream.launches
+    got = sw_2stream(*args, **kw)
+    assert sw_2stream.launches == n0 + 1
+    _flux_close(got, sw_2stream_plain(*args, **kw))
+    if kw:
+        assert got[0].shape[2] == kw["nband"]
+        _flux_close(tuple(x.sum(-1) for x in got), sw_2stream(*args[:-1]))
+    again = sw_2stream(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("variant", ["plain", "plain-incdif", "combined",
+                                     "combined-cloud"])
+@pytest.mark.parametrize("dims", sorted(ONCHIP_CASES))
+def test_onchip_sw_lanes_match_twins(cuda, dims, variant):
+    """Rows 12 and 13 on the staged path's lane inputs (permuted views of
+    the gathers' output), night and low suns varying by layer: row 12
+    with and without a diffuse incident flux, row 13 without and with the
+    by-band cloud and aerosols; against the twins (TOL_FLUX rule), the
+    same bits twice."""
+    from rte_rrtmgp_tpu_torch.drivers.allsky import _scattering_lanes
+    p = build_allsky(*ONCHIP_CASES[dims], device=cuda, use_aerosols=True)
+    inp = p.inputs
+    combined = variant.startswith("combined")
+    tau, second, _ = p.gas_sw.gas_optics_sw_lanes(
+        inp.play, inp.plev, inp.tlay, inp.gas_concs,
+        split_rayleigh=combined)
+    ngpt, nlay, ncol = tau.shape
+    mu0, adir, adif, toa, dif = _sw_bounds(p, cuda, ngpt, nlay, ncol)
+    if combined:
+        cld = (_scattering_lanes(inp, p.cld_sw, True, p.aer_sw, True)
+               if variant == "combined-cloud" else None)
+        kernel, plain = sw_2stream_lanes_combined, \
+            sw_2stream_lanes_combined_plain
+        args = (tau, second, cld, mu0, adir, adif, toa, dif)
+        kw = dict(gpt2band=p.gas_sw.gpt2band)
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(16)
+        g = 0.85 * torch.rand((ngpt, nlay, ncol), generator=gen,
+                              device=cuda)
+        kernel, plain = sw_2stream_lanes, sw_2stream_lanes_plain
+        args = (tau, second, g, mu0, adir, adif, toa,
+                dif if variant == "plain-incdif" else None)
+        kw = {}
+    n0 = kernel.launches
+    got = kernel(*args, **kw)
+    assert kernel.launches == n0 + 1
+    _flux_close(got, plain(*args, **kw))
+    again = kernel(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_onchip_sw_tallest_column_and_past_it(cuda, monkeypatch):
+    """The tallest column that the narrowest chunk (32 g-points) holds, on
+    the SW solver's three launchers and its adjoint, against the twins
+    (fluxes by the TOL_FLUX rule; each cotangent within TOL_ADJ of its
+    largest twin value, or, where the float32 twin misses that against
+    the float64 twin, within TOL_ADJ of the float64 twin's, the rule of
+    test_adjoint_kernels_match_twins); one layer more raises ValueError
+    naming the limit and launches nothing."""
+    ngpt, ncol = 32, 3
+    rng = np.random.default_rng(15)
+    u = lambda lo, hi, *s: torch.from_numpy(
+        rng.uniform(lo, hi, s).astype(np.float32)).to(cuda)
+
+    # mu0 in [0.2, 0.3]: k mu0 below 0.6, away from the clamp at k mu0 = 1
+    # (chip_smoke.py's onchip_limits)
+    def args(nlay):
+        inc = u(0.5, 2.0, ncol, ngpt)
+        return (u(0.0, 0.1, ncol, nlay, ngpt), u(0.0, 0.9, ncol, nlay, ngpt),
+                u(0.0, 0.8, ncol, nlay, ngpt), u(0.2, 0.3, ncol, nlay),
+                u(0.0, 0.3, ncol, ngpt), u(0.0, 0.3, ncol, ngpt), inc,
+                0.05 * inc)
+
+    def lanes(a):
+        return (tuple(x.permute(2, 1, 0) for x in a[:3]) + (a[3].T,)
+                + tuple(x.T for x in a[4:]))
+
+    g2b = torch.zeros(ngpt, dtype=torch.int32, device=cuda)
+
+    def combined(la):
+        cloud = tuple(x[:1] for x in la[:3])
+        return (la[0], la[1], cloud) + la[3:]
+
+    nlay = _tallest("solver_sw", ngpt)
+    for n, fits in ((nlay, True), (nlay + 1, False)):
+        a = args(n)
+        cases = ((sw_2stream, sw_2stream_plain, a, {}),
+                 (sw_2stream_lanes, sw_2stream_lanes_plain, lanes(a), {}),
+                 (sw_2stream_lanes_combined, sw_2stream_lanes_combined_plain,
+                  combined(lanes(a)), dict(gpt2band=g2b)))
+        for kernel, plain, x, kw in cases:
+            n0 = kernel.launches
+            if fits:
+                _flux_close(kernel(*x, **kw), plain(*x, **kw))
+                assert kernel.launches == n0 + 1
+            else:
+                with pytest.raises(ValueError,
+                                   match=f"at most {nlay} layers"):
+                    kernel(*x, **kw)
+                assert kernel.launches == n0
+
+    nlay = _tallest("solver_sw_bwd", ngpt)
+    for n, fits in ((nlay, True), (nlay + 1, False)):
+        a = args(n) + tuple(u(0.5, 1.5, ncol, n + 1) for _ in range(3))
+        n0 = sw_2stream_bwd.launches
+        if fits:
+            got, ref = sw_2stream_bwd(*a), sw_2stream_bwd_plain(*a)
+            assert sw_2stream_bwd.launches == n0 + 1
+            ref64 = None
+            for i, (g, r) in enumerate(zip(got, ref)):
+                if float((g - r).abs().max()) <= (
+                        TOL_ADJ * float(r.abs().max())):
+                    continue
+                if ref64 is None:
+                    ref64 = _twin_f64(sw_2stream_bwd_plain, a, {},
+                                      monkeypatch)
+                k64, t64 = _against_f64(got, ref, ref64, i)
+                assert t64 > TOL_ADJ and k64 <= TOL_ADJ, f"cotangent {i}"
+        else:
+            with pytest.raises(ValueError, match=f"at most {nlay} layers"):
+                sw_2stream_bwd(*a)
+            assert sw_2stream_bwd.launches == n0
+
+
+def test_onchip_sw_2stream_bwd_tallest_column_near_clamp(cuda, monkeypatch):
+    """Row 15 in the tallest column that a 32-wide chunk holds, mu0 per
+    layer in [0.3, 0.9], so that k mu0 reaches the clamp at 1: each
+    cotangent within TOL_ADJ of its largest twin value, or, where the
+    float32 twin itself misses TOL_ADJ against the float64 twin (there the
+    ssa, g and mu0 cotangents), within TOL_COND times the float32 twin's
+    distance from the float64 twin (test_sw_solver_adjoint_low_suns's
+    rule)."""
+    ngpt, ncol = 32, 3
+    rng = np.random.default_rng(16)
+    u = lambda lo, hi, *s: torch.from_numpy(
+        rng.uniform(lo, hi, s).astype(np.float32)).to(cuda)
+    nlay = _tallest("solver_sw_bwd", ngpt)
+    inc = u(0.5, 2.0, ncol, ngpt)
+    a = (u(0.0, 0.1, ncol, nlay, ngpt), u(0.0, 0.9, ncol, nlay, ngpt),
+         u(0.0, 0.8, ncol, nlay, ngpt), u(0.3, 0.9, ncol, nlay),
+         u(0.0, 0.3, ncol, ngpt), u(0.0, 0.3, ncol, ngpt), inc,
+         0.05 * inc) + tuple(u(0.5, 1.5, ncol, nlay + 1) for _ in range(3))
+    got, ref = sw_2stream_bwd(*a), sw_2stream_bwd_plain(*a)
+    ref64 = None
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+        if float((g - r).abs().max()) <= TOL_ADJ * float(r.abs().max()):
+            continue
+        if ref64 is None:
+            ref64 = _twin_f64(sw_2stream_bwd_plain, a, {}, monkeypatch)
+        k64, t64 = _against_f64(got, ref, ref64, i)
+        assert t64 > TOL_ADJ and k64 <= TOL_COND * t64, f"cotangent {i}"
+
+
+@pytest.mark.parametrize("dims", sorted(ONCHIP_CASES))
+def test_onchip_sw_2stream_bwd_low_suns(cuda, dims, monkeypatch):
+    """Row 15 with a diffuse incident flux under a night column and suns
+    down to 1e-4 varying by layer, at the DIMS, flagship and non-banded
+    widths: each cotangent within TOL_ADJ of its largest twin value, or,
+    where the float32 twin itself misses that (the ssa, g and mu0
+    cotangents under low suns), within TOL_COND times the float32 twin's
+    distance from the float64 twin (test_sw_solver_adjoint_low_suns's
+    rule); the same bits twice."""
+    p = build_allsky(*ONCHIP_CASES[dims], device=cuda)
+    a = _sw_pub_args(p, cuda, low_suns=True, diffuse=True, seed=18)
+    ncol, nlay = a[3].shape
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    args = a + tuple(0.5 + torch.rand((ncol, nlay + 1), generator=gen,
+                                      device=cuda) for _ in range(3))
+    n0 = sw_2stream_bwd.launches
+    got = sw_2stream_bwd(*args)
+    assert sw_2stream_bwd.launches == n0 + 1
+    ref = sw_2stream_bwd_plain(*args)
+    ref64 = None
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+        if float((g - r).abs().max()) <= TOL_ADJ * float(r.abs().max()):
+            continue
+        assert i in (1, 2, 3), f"cotangent {i}"
+        if ref64 is None:
+            ref64 = _twin_f64(sw_2stream_bwd_plain, args, {}, monkeypatch)
+        k64, t64 = _against_f64(got, ref, ref64, i)
+        assert t64 > TOL_ADJ and k64 <= TOL_COND * t64, f"cotangent {i}"
+    again = sw_2stream_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_fused_sw_bwd_matches_frozen_record(cuda):
+    """Row 17 (csrc/fused_sw_bwd.cu), which shares transport_bwd.cuh and
+    transport.cuh with the SW solver and its adjoint, gives bit for bit
+    the outputs recorded from it before those two moved on chip
+    (tests/golden/fused_sw_bwd_frozen.npz: fused_sw_bwd_record.record,
+    written by scripts/freeze_fused_sw_bwd.py). The bits are those of one
+    CUDA compiler and runtime: after a change of either, the record is
+    written again on the card from a checkout whose fused SW adjoint is
+    known good."""
+    import os
+    from fused_sw_bwd_record import record
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rec = np.load(os.path.join(root, "tests", "golden",
+                               "fused_sw_bwd_frozen.npz"))
+    got = record(cuda)
+    assert sorted(got) == sorted(rec.files)
+    for k, v in got.items():
+        assert v.dtype == rec[k].dtype and v.shape == rec[k].shape, k
+        assert v.tobytes() == rec[k].tobytes(), k

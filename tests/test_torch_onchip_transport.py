@@ -1,27 +1,38 @@
-"""The on-chip geometry and summation order of the fused SW kernel and the
-LW two-stream kernel (``ops/kernels/onchip.py``), on the CPU.
+"""The on-chip geometry and summation order of the kernels that hold their
+transport in shared memory (``ops/kernels/onchip.py``): the fused SW
+kernel, the LW two-stream kernel, the SW two-stream solver of the public
+and staged paths and its adjoint, on the CPU.
 
 The kernels cut a column's g-points into chunks, one thread block per
 chunk and the column's chunks one thread-block cluster, keep the layer
-fields in shared memory and sum the fluxes in a fixed order: per level
-each block's warps (broadband) or each band's g-points of the chunk in
-ascending order (by band), then the blocks in rank order. Here: the chunk
-widths, cluster sizes and shared memory at the paths' widths, the limits
-(ValueError past them, naming the tallest column), a numpy float32 replay
-of both summation orders against a straight sum over g-points, and the
-wrappers' device scratch (none).
+fields in shared memory and sum over g-points in a fixed order: per level
+(the adjoint's mu0 cotangent: per layer) each block's warps (broadband)
+or each band's g-points of the chunk in ascending order (by band), then
+the blocks in rank order. Here: the chunk widths, cluster sizes and
+shared memory at the paths' widths, the limits (ValueError past them,
+naming the tallest column), a numpy float32 replay of the summation
+orders against a straight sum over g-points and, for the adjoint's mu0
+cotangent, against the one-block warp order it had with its state in
+device memory, and the wrappers' device scratch (none: the launchers get
+their inputs and outputs only).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from rte_rrtmgp_tpu_torch.ops.kernels import solver_lanes  # noqa: E402
+from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw  # noqa: E402
+from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import (  # noqa: E402
     sw_fused_scratch_bytes)
 from rte_rrtmgp_tpu_torch.ops.kernels.onchip import (  # noqa: E402
     MAX_CHUNKS, SMEM_LIMIT, onchip_geometry)
 from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_2str import (  # noqa: E402
     lw_2stream, lw_2stream_plain, lw_2stream_scratch_bytes)
+from rte_rrtmgp_tpu_torch.optical_props import OpticalProps2str  # noqa: E402
+from rte_rrtmgp_tpu_torch.rte import rte_sw  # noqa: E402
+from rte_rrtmgp_tpu_torch.spectral import SpectralGrid  # noqa: E402
 
 # (kernel, nlay, ngpt, nband, nminor) -> (chunk, nchunk, threads, smem):
 # the flagship widths (SW 224 g-points / 28 minors, LW 256), by band
@@ -31,7 +42,12 @@ from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_2str import (  # noqa: E402
 # g-points' minor masks) + 20 B per minor + the sums; LW
 # 16 B x nlay x chunk + 8 B x chunk + the sums; sums broadband 4 B x
 # fields x warps x levels, by band 4 B x (fields x bands x levels + 2 x
-# chunk + bands + 1)
+# chunk + bands + 1); the SW solver as the fused SW kernel without the
+# minors; its adjoint 28 B x nlay x chunk (rdif, tdif, rdir, tdir, tns,
+# the adding denominator, the A-F cotangent) + 16 B x (nlay + 1) x chunk
+# (the beam, adding albedo and source and diffuse flux at each level) +
+# 12 B x (nlay + 1) (the column's flux cotangents) + 4 B x 2 fields (the
+# mu0 cotangent, the beam's seed) x warps x layers (the sums)
 GEOMETRY = {
     ("fused_sw", 72, 224, 0, 28): (32, 7, 256,
                                    46080 + 384 + 128 + 560 + 876),
@@ -51,13 +67,32 @@ GEOMETRY = {
                                      147456 + 1024 + 4 * 2 * 4 * 73),
     ("lw_2stream", 9, 24, 3, 0): (32, 1, 256,
                                   4608 + 256 + 4 * (2 * 3 * 10 + 68)),
+    ("solver_sw", 72, 224, 0, 0): (32, 7, 256, 46080 + 384 + 876),
+    ("solver_sw", 72, 224, 14, 0): (
+        32, 7, 256, 46080 + 384 + 4 * (3 * 14 * 73 + 79)),
+    ("solver_sw", 72, 168, 0, 0): (32, 6, 256, 46080 + 384 + 876),
+    ("solver_sw", 72, 168, 14, 0): (
+        32, 6, 256, 46080 + 384 + 4 * (3 * 14 * 73 + 79)),
+    ("solver_sw", 72, 1024, 0, 0): (128, 8, 256,
+                                    184320 + 1536 + 4 * 3 * 4 * 73),
+    ("solver_sw_bwd", 72, 224, 0, 0): (32, 7, 256,
+                                       64512 + 37376 + 876 + 576),
+    ("solver_sw_bwd", 72, 168, 0, 0): (32, 6, 256,
+                                       64512 + 37376 + 876 + 576),
+    ("solver_sw_bwd", 40, 1024, 0, 0): (128, 8, 256,
+                                        143360 + 83968 + 492 + 1280),
 }
 # the tallest column that fits: (kernel, ngpt, nband, nminor) -> nlay
 TALLEST = {("fused_sw", 224, 0, 28): 354,      # 652 nlay + 1084 B
            ("fused_sw", 224, 14, 28): 285,     # 808 nlay + 1556 B
            ("lw_2stream", 256, 0, 0): 446,     # 520 nlay + 264 B
            ("lw_2stream", 256, 16, 0): 362,    # 640 nlay + 708 B
-           ("lw_2stream", 1024, 0, 0): 111}    # 2080 nlay + 1056 B
+           ("lw_2stream", 1024, 0, 0): 111,    # 2080 nlay + 1056 B
+           ("solver_sw", 224, 0, 0): 355,      # 652 nlay + 396 B
+           ("solver_sw", 224, 14, 0): 286,     # 808 nlay + 868 B
+           ("solver_sw", 1024, 0, 0): 88,      # 2608 nlay + 1548 B
+           ("solver_sw_bwd", 224, 0, 0): 162,  # 1428 nlay + 524 B
+           ("solver_sw_bwd", 1024, 0, 0): 40}  # 5676 nlay + 2060 B
 
 
 @pytest.mark.parametrize("case", sorted(GEOMETRY), ids=str)
@@ -86,7 +121,7 @@ def test_tallest_column_and_past_it(case):
 
 @pytest.mark.parametrize("ngpt", [1025, 2048])
 def test_too_many_gpoints_raise(ngpt):
-    for kernel in ("fused_sw", "lw_2stream"):
+    for kernel in ("fused_sw", "lw_2stream", "solver_sw", "solver_sw_bwd"):
         with pytest.raises(ValueError, match="g-points exceed"):
             onchip_geometry(kernel, 72, ngpt)
 
@@ -98,6 +133,76 @@ def test_wrappers_allocate_no_scratch():
     72)."""
     assert sw_fused_scratch_bytes(4096, 72, 224) == 0
     assert lw_2stream_scratch_bytes(4096, 72, 256) == 0
+    assert solver_sw.sw_2stream_scratch_bytes(4096, 72, 224) == 0
+    assert solver_sw_bwd.sw_2stream_bwd_scratch_bytes(4096, 72, 224) == 0
+
+
+def _sw_args(rng, ncol, nlay, ngpt, lanes=False):
+    """Seeded SW solver inputs, public layout (column, layer, g-point), or
+    with ``lanes`` the lane layout (g-point, layer, column)."""
+    u = lambda lo, hi, *s: torch.from_numpy(rng.uniform(lo, hi, s).astype(
+        np.float32))
+    lay = (ngpt, nlay, ncol) if lanes else (ncol, nlay, ngpt)
+    bc = (ngpt, ncol) if lanes else (ncol, ngpt)
+    mu = (nlay, ncol) if lanes else (ncol, nlay)
+    inc = u(0.5, 2.0, *bc)
+    return (u(0.0, 0.2, *lay), u(0.0, 0.9, *lay), u(0.0, 0.8, *lay),
+            u(0.2, 0.9, *mu), u(0.0, 0.3, *bc), u(0.0, 0.3, *bc), inc,
+            0.05 * inc)
+
+
+@pytest.mark.parametrize("which", ["sw_2stream", "sw_2stream byband",
+                                   "sw_2stream_lanes",
+                                   "sw_2stream_lanes_combined",
+                                   "sw_2stream_bwd"])
+def test_sw_wrappers_pass_no_scratch(which, monkeypatch):
+    """The SW solver's three wrappers and its adjoint's hand their
+    launcher the inputs, the outputs they return and sizes only: no
+    device scratch (the parent kernels took a (6, ncol, nlay + 1, ngpt)
+    and a five-field scratch, 1.61 and 1.34 GB at 4096 x 72). The CUDA
+    branch is taken on CPU tensors with the launch replaced by a record
+    of its arguments; the chunk passed is onchip_geometry's."""
+    calls = []
+    for mod in (solver_sw, solver_lanes, solver_sw_bwd):
+        monkeypatch.setattr(mod, "on_cpu", lambda t, what: False)
+        monkeypatch.setattr(mod, "launch",
+                            lambda *a: calls.append(a[3:]))
+    rng = np.random.default_rng(5)
+    ncol, nlay, ngpt = 3, 9, 40
+    lanes = "lanes" in which
+    args = _sw_args(rng, ncol, nlay, ngpt, lanes)
+    kw = {}
+    if which == "sw_2stream":
+        out = solver_sw.sw_2stream(*args)
+    elif which == "sw_2stream byband":
+        args += (torch.arange(ngpt, dtype=torch.int32) // 10,)
+        kw = dict(nband=4)
+        out = solver_sw.sw_2stream(*args, **kw)
+    elif which == "sw_2stream_lanes":
+        out = solver_lanes.sw_2stream_lanes(*args)
+    elif which == "sw_2stream_lanes_combined":
+        cloud = tuple(torch.from_numpy(rng.uniform(0.0, 0.5, (4, nlay, ncol))
+                                       .astype(np.float32)) for _ in range(3))
+        args = args[:2] + (cloud,) + args[3:]
+        kw = dict(gpt2band=torch.arange(ngpt, dtype=torch.int32) // 10)
+        out = solver_lanes.sw_2stream_lanes_combined(*args, **kw)
+        args += (kw.pop("gpt2band"),)
+    else:
+        args += tuple(torch.ones(ncol, nlay + 1) for _ in range(3))
+        out = solver_sw_bwd.sw_2stream_bwd(*args)
+    assert len(calls) == 1
+    given = {t.data_ptr() for t in args if isinstance(t, torch.Tensor)}
+    given |= {t.data_ptr() for a in args if isinstance(a, tuple)
+              for t in a}
+    returned = {o.untyped_storage().data_ptr() for o in out}
+    for a in calls[0]:
+        if isinstance(a, torch.Tensor):
+            assert (a.data_ptr() in given
+                    or a.untyped_storage().data_ptr() in returned)
+    kernel = "solver_sw_bwd" if which == "sw_2stream_bwd" else "solver_sw"
+    ints = [a for a in calls[0] if isinstance(a, int)]
+    assert ints[-1] == onchip_geometry(kernel, nlay, ngpt,
+                                       kw.get("nband", 0)).chunk
 
 
 def test_cpu_twin_has_no_height_limit():
@@ -118,6 +223,73 @@ def test_cpu_twin_has_no_height_limit():
     assert lw_2stream.launches == n0
     ref = lw_2stream_plain(*args)
     assert torch.equal(up, ref[0]) and torch.equal(dn, ref[1])
+
+
+@pytest.mark.parametrize("which", ["sw_2stream", "sw_2stream_lanes",
+                                   "sw_2stream_lanes_combined",
+                                   "sw_2stream_bwd"])
+def test_sw_wrappers_raise_past_the_limit(which, monkeypatch):
+    """On the CUDA branch (taken here on CPU tensors, the launch replaced
+    by a record) a column one layer taller than a block holds raises
+    ValueError naming the limit, and nothing is launched; the CPU twin of
+    the same call runs."""
+    calls = []
+    ngpt = 32
+    kernel = "solver_sw_bwd" if which == "sw_2stream_bwd" else "solver_sw"
+    nlay = TALLEST[(kernel, 224, 0, 0)] + 1
+    rng = np.random.default_rng(6)
+    lanes = "lanes" in which
+    args = _sw_args(rng, 2, nlay, ngpt, lanes)
+    kw = {}
+    if which == "sw_2stream_lanes_combined":
+        args = args[:2] + (None,) + args[3:]
+        kw = dict(gpt2band=torch.zeros(ngpt, dtype=torch.int32))
+    if which == "sw_2stream_bwd":
+        args += tuple(torch.ones(2, nlay + 1) for _ in range(3))
+    mod = {"sw_2stream": solver_sw, "sw_2stream_bwd": solver_sw_bwd}.get(
+        which, solver_lanes)
+    fn = getattr(mod, which)
+    assert len(fn(*args, **kw)) in (3, 8)      # the twin runs
+    for m in (solver_sw, solver_lanes, solver_sw_bwd):
+        monkeypatch.setattr(m, "on_cpu", lambda t, what: False)
+        monkeypatch.setattr(m, "launch", lambda *a: calls.append(a))
+    with pytest.raises(ValueError, match=f"at most {nlay - 1} layers"):
+        fn(*args, **kw)
+    assert calls == []
+
+
+def test_rte_sw_twin_has_no_height_limit():
+    """rte_sw on CPU tensors at 500 layers, past both SW kernels' limits:
+    the twins run (fluxes and their gradient with respect to tau), no
+    kernel is launched."""
+    with pytest.raises(ValueError, match="at most"):
+        onchip_geometry("solver_sw", 500, 16)
+    with pytest.raises(ValueError, match="at most"):
+        onchip_geometry("solver_sw_bwd", 500, 16)
+    rng = np.random.default_rng(7)
+    ncol, nlay, ngpt = 2, 500, 16
+    grid = SpectralGrid.from_arrays([[3250.0, 10000.0]], [[1, ngpt]])
+    f = lambda lo, hi, *s: torch.from_numpy(rng.uniform(lo, hi, s).astype(
+        np.float32))
+    tau = f(0.0, 0.02, ncol, nlay, ngpt).requires_grad_()
+    props = OpticalProps2str(tau=tau, ssa=f(0.0, 0.9, ncol, nlay, ngpt),
+                             g=f(0.0, 0.8, ncol, nlay, ngpt), grid=grid)
+    n0 = (solver_sw.sw_2stream.launches,
+          solver_sw_bwd.sw_2stream_bwd.launches)
+    inc = f(0.5, 1.5, ncol, ngpt)
+    alb = f(0.0, 0.3, ncol, ngpt)
+    fl = rte_sw(props, np.array([0.7, 0.3]), inc, alb, alb)
+    ref = solver_sw.sw_2stream_plain(
+        tau.detach(), props.ssa, props.g,
+        torch.tensor([[0.7], [0.3]]).expand(ncol, nlay).contiguous(), alb,
+        alb, inc)
+    for got, want in zip((fl.flux_up, fl.flux_dn, fl.flux_dn_dir), ref):
+        assert got.shape == (ncol, nlay + 1)
+        assert torch.allclose(got, want, rtol=1e-6, atol=1e-6)
+    grad, = torch.autograd.grad(fl.flux_up.sum(), tau)
+    assert grad.shape == tau.shape and bool(torch.isfinite(grad).all())
+    assert (solver_sw.sw_2stream.launches,
+            solver_sw_bwd.sw_2stream_bwd.launches) == n0
 
 
 # ---- the summation order, replayed in float32 ----
@@ -231,3 +403,39 @@ def test_chunked_sums_replay(ngpt, nband, kind):
             for g in gs:
                 t = np.float32(t + vals[g])
             assert byb[b] == t
+
+
+@pytest.mark.parametrize("ngpt,nlay", [(224, 72), (168, 72), (256, 72),
+                                       (24, 9), (1024, 40)])
+def test_mu0_cotangent_sum_replay(ngpt, nlay):
+    """The SW adjoint's mu0 cotangent of each layer: the cluster's sum
+    (each chunk's warps' butterfly sums, ranks in order; layer 0 then adds
+    the beam's seed summed the same way) is bit for bit the sum the
+    kernel took when it held the whole column in one block (the warps'
+    butterfly sums in warp order, then the seed's), at the chunk widths
+    onchip_geometry gives the adjoint, idle lanes zero."""
+    chunk = onchip_geometry("solver_sw_bwd", nlay, ngpt).chunk
+    rng = np.random.default_rng(ngpt + nlay)
+    # per (layer, g-point) mu0 cotangents of both signs and magnitudes
+    vals = (rng.standard_normal((nlay, ngpt))
+            * 10.0 ** rng.uniform(-3, 3, (nlay, ngpt))).astype(np.float32)
+    seed = rng.standard_normal(ngpt).astype(np.float32)
+
+    def one_block(v):
+        s = np.float32(0.0)
+        for w in range(0, ngpt, 32):
+            warp = np.zeros(32, np.float32)
+            warp[:min(32, ngpt - w)] = v[w:w + 32]
+            s = np.float32(s + _warp_sum(warp))
+        return s
+
+    for l in range(nlay):
+        got = _broadband_chunked(vals[l], chunk)
+        want = one_block(vals[l])
+        if l == 0:
+            got = np.float32(got + _broadband_chunked(seed, chunk))
+            want = np.float32(want + one_block(seed))
+        assert got.tobytes() == want.tobytes()
+        ref = float(vals[l].astype(np.float64).sum())
+        assert abs(float(_broadband_chunked(vals[l], chunk)) - ref) <= (
+            1e-5 * float(np.abs(vals[l]).astype(np.float64).sum()))
