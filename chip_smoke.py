@@ -24,12 +24,13 @@ Phases (any failure ends the run with a non-zero exit and no result):
      steps with an incident flux (LW) and a diffuse one (SW), and their
      adjoints with the same; for the adjoints of rows 14, 16 and 17
      their ptxas registers and spills, resident blocks per SM and scratch
-     bytes; for the kernels that hold their transport on chip (fused_sw,
-     solver_lw_2str, the SW solver's plain and COMBINED instantiations and
-     its adjoint solver_sw_bwd) the same and their shared memory per block
-     and cluster size, broadband and by band; the tallest column the SW
-     solver and its adjoint hold, against their twins, and one layer more
-     raising ValueError;
+     bytes; for the kernels that hold their transport on chip (fused_lw,
+     fused_sw, solver_lw_2str, the SW solver's plain and COMBINED
+     instantiations and its adjoint solver_sw_bwd) the same and their
+     shared memory per block, cluster size and tallest column, broadband
+     and by band; the minor gather's resident blocks per SM; the tallest
+     column the fused LW step, the SW solver and its adjoint hold, against
+     their twins, and one layer more raising ValueError;
   4. golden gates at the production configuration (256 x 72): the float32
      fused step, public-API path and staged path against
      tests/golden/production.npz, and the float32 aerosols step (fused)
@@ -379,14 +380,16 @@ def api_rows(prob, dev, variants):
                             tlay=inp.tlay, col_gas=col_gas, idx_h2o=idx_h2o)
     minor = (tau, co, kd.kminor_lower, lo, gl.minor_meta[:len(lo)], scaling)
     covered = sum(w for (_, _, w, _) in lo)
+    # out of place, as the gas optics call it (models/rrtmgp/gas_optics.py
+    # ::_minor): tau read, a new tensor written
     rows.append(check_kernel(
-        "gas_minor", lambda a: gas_minor(*a), lambda a: gas_minor_plain(*a),
+        "gas_minor", lambda a: gas_minor(*a, out=torch.empty_like(a[0])),
+        lambda a: gas_minor_plain(*a, out=torch.empty_like(a[0])),
         minor, TOL_GATHER, "rte_rrtmgp_tpu_torch/csrc/gas_minor.cu",
         "rte_rrtmgp_tpu/ops/pallas/minor_gather.py:100",
         (nbytes(co.jtemp, co.ftemp, co.jeta, co.feta, kd.kminor_lower,
                 scaling) + 2 * tau.numel() * 4,
-         ncell * covered * OPS_MINOR),
-        fresh=lambda a: (a[0].clone(),) + a[1:]))
+         ncell * covered * OPS_MINOR)))
     del minor, tau, scaling
 
     co, col_gas, col_dry, idx_h2o = cells(gs)
@@ -867,20 +870,37 @@ def adjoint_report(prob, reports):
     del xl, xs
 
 
+def tallest_column(kernel, ngpt, nband=0, nminor=0):
+    """The tallest column ``kernel`` holds on chip at ngpt g-points, from
+    onchip_geometry's message."""
+    from rte_rrtmgp_tpu_torch.ops.kernels.onchip import onchip_geometry
+    try:
+        onchip_geometry(kernel, 10 ** 6, ngpt, nband, nminor)
+    except ValueError as e:
+        return int(str(e).split("at most ")[1].split()[0])
+    raise SystemExit(f"{kernel}: no column-height limit")
+
+
 def onchip_report(prob, reports):
     """Phase 3, the resources of the kernels that hold their transport on
-    chip (rows 3, 8, 9, 12, 13 and 15) at the main path's shapes,
+    chip (rows 2, 3, 8, 9, 12, 13 and 15) at the main path's shapes,
     broadband and by band: ptxas registers and spills, shared memory per
     block and cluster size (ops/kernels/onchip.py::onchip_geometry, held
-    against the launchers' own count), resident blocks per SM and
-    clusters the card holds at once
+    against the launchers' own count), the tallest column, resident blocks
+    per SM and clusters the card holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
     cudaOccupancyMaxActiveClusters), and device scratch (none). solver_sw
     is one kernel of two instantiations: the plain one of rows 9 and 12
     (broadband and by band) and the COMBINED one of row 13; ptxas lists
-    both."""
-    from rte_rrtmgp_tpu_torch.drivers.allsky import allsky_sw_inputs
+    both. Then the minor gather's (row 5) ptxas line and resident blocks
+    per SM at the path's widths, the launcher starting that many blocks
+    per SM."""
+    from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
+                                                     allsky_sw_inputs)
+    from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw as flw
     from rte_rrtmgp_tpu_torch.ops.kernels import fused_sw as fsw
+    from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (
+        gas_minor_occupancy)
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_2str as l2
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw as ss
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd as ssw
@@ -889,38 +909,51 @@ def onchip_report(prob, reports):
     inp = prob.inputs
     ncol, nlay = inp.play.shape
     xs = allsky_sw_inputs(inp, prob.gas_sw, cloud_optics=prob.cld_sw)
+    xl = allsky_lw_inputs(inp, prob.gas_lw, cloud_optics=prob.cld_lw)
     ngl, nbl = prob.gas_lw.ngpt, prob.gas_lw.grid.nband
     ngs, nbs = prob.gas_sw.ngpt, prob.gas_sw.grid.nband
     nminor = len(xs.minors)
     for name, nband, what in (
+            ("fused_lw", 0, ""), ("fused_lw", nbl, ""),
             ("fused_sw", 0, ""), ("fused_sw", xs.nband, ""),
             ("solver_lw_2str", 0, ""), ("solver_lw_2str", nbl, ""),
             ("solver_sw", 0, " (rows 9, 12)"), ("solver_sw", nbs, " (row 9)"),
             ("solver_sw", 0, " COMBINED (row 13)"),
             ("solver_sw_bwd", 0, " (row 15)")):
-        if name == "fused_sw":
+        if name == "fused_lw":
+            x = xl._replace(byband=nband > 0)
+            geo, occ = flw.lw_fused_geometry(x), flw.lw_fused_occupancy(x)
+            smem_c = library(name).smem_fused_lw(nlay, geo.chunk,
+                                                 len(xl.minors), nband)
+            scratch = flw.lw_fused_scratch_bytes(ncol, nlay, ngl)
+            top = tallest_column("fused_lw", ngl, nband, len(xl.minors))
+        elif name == "fused_sw":
             x = xs._replace(byband=nband > 0, nband=nband)
             geo, occ = fsw.sw_fused_geometry(x), fsw.sw_fused_occupancy(x)
             smem_c = library(name).smem_fused_sw(nlay, geo.chunk, nminor,
                                                  nband)
             scratch = fsw.sw_fused_scratch_bytes(ncol, nlay,
                                                  xs.kmajor.shape[3])
+            top = tallest_column("fused_sw", ngs, nband, nminor)
         elif name == "solver_lw_2str":
             geo = l2.lw_2stream_geometry(nlay, ngl, nband)
             occ = l2.lw_2stream_occupancy(nlay, ngl, nband)
             smem_c = library(name).smem_solver_lw_2str(nlay, geo.chunk, nband)
             scratch = l2.lw_2stream_scratch_bytes(ncol, nlay, ngl)
+            top = tallest_column("lw_2stream", ngl, nband)
         elif name == "solver_sw":
             geo = ss.sw_2stream_geometry(nlay, ngs, nband)
             occ = ss.sw_2stream_occupancy(nlay, ngs, nband,
                                           combined="COMBINED" in what)
             smem_c = library(name).smem_solver_sw(nlay, geo.chunk, nband)
             scratch = ss.sw_2stream_scratch_bytes(ncol, nlay, ngs)
+            top = tallest_column("solver_sw", ngs, nband)
         else:
             geo = ssw.sw_2stream_bwd_geometry(nlay, ngs)
             occ = ssw.sw_2stream_bwd_occupancy(nlay, ngs)
             smem_c = library(name).smem_solver_sw_bwd(nlay, geo.chunk)
             scratch = ssw.sw_2stream_bwd_scratch_bytes(ncol, nlay, ngs)
+            top = tallest_column("solver_sw_bwd", ngs)
         rep = reports.get(name)
         regs = ("not rebuilt in this run" if rep is None else ", ".join(
             f"{r} registers, {ss_} B spill stores, {sl} B spill loads"
@@ -928,9 +961,9 @@ def onchip_report(prob, reports):
         log(f"on chip {name}{what} {'by band' if nband else 'broadband'}: "
             f"ptxas {regs}; chunk {geo.chunk} g-points, cluster of "
             f"{geo.nchunk} blocks of {geo.threads} threads, {geo.smem} B "
-            f"shared memory per block; {occ[0]} resident blocks per SM, "
-            f"{occ[1]} clusters at once; scratch {scratch} B at {ncol} x "
-            f"{nlay}")
+            f"shared memory per block, the tallest column {top} layers; "
+            f"{occ[0]} resident blocks per SM, {occ[1]} clusters at once; "
+            f"scratch {scratch} B at {ncol} x {nlay}")
         if smem_c != geo.smem:
             raise SystemExit(f"{name}: onchip_geometry counts {geo.smem} B of"
                              f" shared memory, the launcher {smem_c}")
@@ -938,14 +971,31 @@ def onchip_report(prob, reports):
             raise SystemExit(f"{name}: no block or cluster fits ({occ})")
         if scratch != 0:
             raise SystemExit(f"{name}: {scratch} B of device scratch")
-    del xs
+    rep = reports.get("gas_minor")
+    regs = ("not rebuilt in this run" if rep is None else ", ".join(
+        f"{r} registers, {ss_} B spill stores, {sl} B spill loads"
+        for r, ss_, sl in ptxas_usage(rep)))
+    for tag, gas in (("LW", prob.gas_lw), ("SW", prob.gas_sw)):
+        kd = gas.kdist
+        for atm, n in (("lower", len(kd.minor_lower)),
+                       ("upper", len(kd.minor_upper))):
+            blocks = gas_minor_occupancy(gas.ngpt, n)
+            log(f"gas_minor {tag} {atm} ({gas.ngpt} g-points, {n} minors): "
+                f"{blocks} resident blocks per SM")
+            if blocks < 1:
+                raise SystemExit(f"gas_minor: no block fits an SM ({blocks})")
+    log(f"gas_minor: ptxas {regs} (the gas_minor_kernel instantiations and "
+        "gas_rayleigh_kernel)")
+    del xs, xl
 
 
 def onchip_limits(dev):
-    """Phase 3, the column-height limits of the SW solve and its adjoint
-    on the card, at the flagship's 224 g-points (chunks of 32): the
-    tallest column each holds (from onchip_geometry's message), 4 columns
-    of seeded optics, against the twin (fluxes within TOL_FLUX of the
+    """Phase 3, the column-height limits of the fused LW step, the SW
+    solve and its adjoint on the card, at the flagship's 256 and 224
+    g-points (chunks of 32): the tallest column each holds (from
+    onchip_geometry's message), 4 columns of the flagship problem (the
+    fused LW step) or of seeded optics, against the twin (fluxes within
+    TOL_FLUX of the
     largest twin flux; each cotangent within TOL_ADJ of its largest twin
     value, or, where the float32 twin itself misses that against the
     float64 twin, within TOL_ADJ of the float64 twin's: check_adjoint's
@@ -956,20 +1006,54 @@ def onchip_limits(dev):
     within TOL_COND times the twin's distance from the float64 twin."""
     import numpy as np
     import torch
+    from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
+                                                     build_allsky)
+    from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw as flw
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw as ss
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd as ssw
-    from rte_rrtmgp_tpu_torch.ops.kernels.onchip import onchip_geometry
     ncol, ngpt = 4, MAIN["ngpt_sw"]
+
+    # the fused LW step on 4 columns of the flagship problem, as tall as
+    # a block holds, with clouds and a non-zero incident flux
+    lw_dims = dict(MAIN, ncol=ncol)
+    p = build_allsky(**dict(lw_dims, nlay=8), device=dev)
+    nminor = len(allsky_lw_inputs(p.inputs, p.gas_lw,
+                                  use_clouds=False).minors)
+    nlay = tallest_column("fused_lw", MAIN["ngpt_lw"], 0, nminor)
+    for n in (nlay, nlay + 1):
+        p = build_allsky(**dict(lw_dims, nlay=n), device=dev)
+        x = allsky_lw_inputs(p.inputs, p.gas_lw, cloud_optics=p.cld_lw)
+        x = x._replace(inc=0.5 + torch.rand(
+            x.inc.shape, generator=torch.Generator(device=dev).manual_seed(
+                22), device=dev))
+        n0 = flw.lw_fused.launches
+        if n == nlay:
+            got, ref = flw.lw_fused(x), flw.lw_fused_plain(x)
+            torch.cuda.synchronize()
+            err = (max(float((g - r).abs().max()) for g, r in zip(got, ref))
+                   / max(float(r.abs().max()) for r in ref))
+            log(f"fused_lw: the tallest column, {n} layers at "
+                f"{x.kmajor.shape[3]} g-points, against the twin: {err:.3e}"
+                f" of the largest twin flux (limit {TOL_FLUX})")
+            if not err <= TOL_FLUX or flw.lw_fused.launches != n0 + 1:
+                raise SystemExit("fused_lw: the tallest column disagrees "
+                                 "with the twin")
+            continue
+        try:
+            flw.lw_fused(x)
+        except ValueError as e:
+            if f"at most {nlay} layers" not in str(e):
+                raise
+            log(f"fused_lw: {n} layers raise ValueError: {e}")
+        else:
+            raise SystemExit(f"fused_lw: {n} layers did not raise")
+        if flw.lw_fused.launches != n0:
+            raise SystemExit("fused_lw: launched past its limit")
+    del p, x
+
     rng = np.random.default_rng(21)
     u = lambda lo, hi, *shape: torch.from_numpy(rng.uniform(
         lo, hi, shape).astype(np.float32)).to(dev)
-
-    def tallest(kernel):
-        try:
-            onchip_geometry(kernel, 10 ** 6, ngpt)
-        except ValueError as e:
-            return int(str(e).split("at most ")[1].split()[0])
-        raise SystemExit(f"{kernel}: no column-height limit")
 
     # ssa up to 0.9 and g up to 0.8 put the two-stream k in [0.55, 2]; mu0
     # in [0.2, 0.3] keeps k mu0 below 0.6, away from the clamp at k mu0 =
@@ -986,7 +1070,7 @@ def onchip_limits(dev):
             ("solver_sw", ss.sw_2stream, ss.sw_2stream_plain, TOL_FLUX, 0),
             ("solver_sw_bwd", ssw.sw_2stream_bwd, ssw.sw_2stream_bwd_plain,
              TOL_ADJ, 3)):
-        nlay = tallest(kernel)
+        nlay = tallest_column(kernel, ngpt)
         a = args(nlay) + tuple(u(0.5, 1.5, ncol, nlay + 1)
                                for _ in range(cots))
         got, ref = fn(*a), plain(*a)
@@ -1034,7 +1118,7 @@ def onchip_limits(dev):
     # cotangent within TOL_ADJ of its largest twin value or, where the
     # float32 twin misses TOL_ADJ against the float64 twin, within
     # TOL_COND times the twin's distance from it (the low-suns rule)
-    nlay = tallest("solver_sw_bwd")
+    nlay = tallest_column("solver_sw_bwd", ngpt)
     a = args(nlay, 0.3, 0.9) + tuple(u(0.5, 1.5, ncol, nlay + 1)
                                      for _ in range(3))
     got, ref = ssw.sw_2stream_bwd(*a), ssw.sw_2stream_bwd_plain(*a)

@@ -220,35 +220,73 @@ __device__ __forceinline__ void major_tau(
     *pf = p;
 }
 
-// Minor-gas contributions of the minors whose g-point window holds g
-// (reference gas_optical_depths_minor): per minor, the 2-D (temperature x
-// eta) lerp of its kminor column times its scaling row; meta in shared
-// memory, lower-atmosphere minors first.
-__device__ __forceinline__ float minor_tau(
-        float tau, const CellDesc& d, const int* meta, int nminor,
-        int nflav, int ncell, int cell, const int* __restrict__ jeta,
-        const float* __restrict__ feta, const float* __restrict__ msc,
-        const float* __restrict__ klo, const float* __restrict__ kup,
-        int ncl, int ncu, int neta, int g) {
-    for (int m = 0; m < nminor; ++m) {
-        const int* mm = meta + m * kMetaFields;
-        int g0 = mm[2];
-        if (g < g0 || g >= g0 + mm[3]) continue;
-        int f = mm[1];
-        const float* tab = mm[0] ? klo : kup;
-        int ncont = mm[0] ? ncl : ncu;
-        int k = mm[4] + (g - g0);
-        float kk = 0.0f;
+// Word w of g-point g's minor mask: bit m - 32 w set where minor m's
+// g-point window (minor_meta rows lower, flavor, g0, width, start) holds
+// g.
+__device__ __forceinline__ unsigned minor_word(
+        const int* __restrict__ minor_meta, int nminor, int w, int g) {
+    unsigned bits = 0;
+    for (int m = 32 * w; m < nminor && m < 32 * w + 32; ++m) {
+        int g0 = __ldg(minor_meta + m * kMetaFields + 2);
+        int width = __ldg(minor_meta + m * kMetaFields + 3);
+        bits |= (g >= g0 && g < g0 + width ? 1u : 0u) << (m - 32 * w);
+    }
+    return bits;
+}
+
+// The 2-D (temperature x eta) lerp of one minor at one cell from values
+// already loaded: the temperature fraction ft, and per temperature it
+// (jt, jt + 1) the feta of the minor's flavor and the kminor values at the
+// lower and upper eta rows. minor_tau_lane and gas_minor.cu's kernel both
+// go through it, so rows 2, 3 and 5 share its arithmetic and order.
+__device__ __forceinline__ float minor_lerp(float ft, const float* fe,
+                                            const float* lo,
+                                            const float* hi) {
+    float kk = 0.0f;
 #pragma unroll
-        for (int it = 0; it < 2; ++it) {
-            int fi = (it * nflav + f) * ncell + cell;
-            int row = (d.jt + it) * neta + jeta[fi];
-            float fe = feta[fi];
-            float ftv = it == 0 ? 1.0f - d.ft : d.ft;
-            kk += ((1.0f - fe) * ftv) * __ldg(tab + row * ncont + k)
-                + (fe * ftv) * __ldg(tab + (row + 1) * ncont + k);
+    for (int it = 0; it < 2; ++it) {
+        float ftv = it == 0 ? 1.0f - ft : ft;
+        kk += ((1.0f - fe[it]) * ftv) * lo[it] + (fe[it] * ftv) * hi[it];
+    }
+    return kk;
+}
+
+// Minor-gas contributions to g-point g at one cell (reference
+// gas_optical_depths_minor): per minor whose window holds g, read from
+// its mask words (words[w * wstride], minor_word), in ascending order,
+// minor_lerp of its kminor column times its scaling row; meta in shared
+// memory, lower-atmosphere minors first. A minor whose scaling is 0 at
+// this cell (the other atmosphere's) adds exactly nothing (tau + 0 x kk
+// is tau for a finite kk), and its table reads are skipped.
+__device__ __forceinline__ float minor_tau_lane(
+        float tau, const CellDesc& d, const int* meta, const unsigned* words,
+        int nwords, int wstride, int nflav, int ncell, int cell,
+        const int* __restrict__ jeta, const float* __restrict__ feta,
+        const float* __restrict__ msc, const float* __restrict__ klo,
+        const float* __restrict__ kup, int ncl, int ncu, int neta, int g) {
+    for (int w = 0; w < nwords; ++w) {
+        unsigned bits = words[w * wstride];
+        while (bits) {
+            const int m = 32 * w + __ffs(bits) - 1;
+            bits &= bits - 1;
+            const float s = msc[(long long)m * ncell + cell];
+            if (s == 0.0f) continue;
+            const int* mm = meta + m * kMetaFields;
+            int f = mm[1];
+            const float* tab = mm[0] ? klo : kup;
+            int ncont = mm[0] ? ncl : ncu;
+            int k = mm[4] + (g - mm[2]);
+            float fe[2], lo[2], hi[2];
+#pragma unroll
+            for (int it = 0; it < 2; ++it) {
+                int fi = (it * nflav + f) * ncell + cell;
+                int row = (d.jt + it) * neta + jeta[fi];
+                fe[it] = feta[fi];
+                lo[it] = __ldg(tab + row * ncont + k);
+                hi[it] = __ldg(tab + (row + 1) * ncont + k);
+            }
+            tau += s * minor_lerp(d.ft, fe, lo, hi);
         }
-        tau += msc[(long long)m * ncell + cell] * kk;
     }
     return tau;
 }

@@ -61,45 +61,6 @@ constexpr int kThreads = 256;   // per block: chunk g-points x layer lanes
 constexpr int kBlocksPerSM = 4;
 constexpr int kFields = 3;      // up, dn (diffuse), dir
 
-// common.cuh::minor_tau over the minors whose window holds this thread's
-// g-point only, read from its mask words (bit m of word w: minor 32 w +
-// m), in ascending order as there; a minor whose scaling is 0 at this cell
-// (the other atmosphere's) adds exactly nothing, and its table reads are
-// skipped.
-__device__ __forceinline__ float minor_tau_lane(
-        float tau, const CellDesc& d, const int* meta, const unsigned* words,
-        int nwords, int wstride, int nflav, int ncell, int cell,
-        const int* __restrict__ jeta, const float* __restrict__ feta,
-        const float* __restrict__ msc, const float* __restrict__ klo,
-        const float* __restrict__ kup, int ncl, int ncu, int neta, int g) {
-    for (int w = 0; w < nwords; ++w) {
-        unsigned bits = words[w * wstride];
-        while (bits) {
-            const int m = 32 * w + __ffs(bits) - 1;
-            bits &= bits - 1;
-            const float s = msc[(long long)m * ncell + cell];
-            if (s == 0.0f) continue;
-            const int* mm = meta + m * rte::kMetaFields;
-            int f = mm[1];
-            const float* tab = mm[0] ? klo : kup;
-            int ncont = mm[0] ? ncl : ncu;
-            int k = mm[4] + (g - mm[2]);
-            float kk = 0.0f;
-#pragma unroll
-            for (int it = 0; it < 2; ++it) {
-                int fi = (it * nflav + f) * ncell + cell;
-                int row = (d.jt + it) * neta + jeta[fi];
-                float fe = feta[fi];
-                float ftv = it == 0 ? 1.0f - d.ft : d.ft;
-                kk += ((1.0f - fe) * ftv) * __ldg(tab + row * ncont + k)
-                    + (fe * ftv) * __ldg(tab + (row + 1) * ncont + k);
-            }
-            tau += s * kk;
-        }
-    }
-    return tau;
-}
-
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM) fused_sw_kernel(
         const int* __restrict__ jtemp, const float* __restrict__ ftemp,
         const int* __restrict__ jpress, const float* __restrict__ fpress,
@@ -137,15 +98,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) fused_sw_kernel(
     for (int i = threadIdx.x; i < nminor * rte::kMetaFields; i += kThreads)
         meta[i] = minor_meta[i];
     // the minors whose g-point window holds the lane's g-point
-    for (int w = threadIdx.x / chunk; w < nwords; w += kThreads / chunk) {
-        unsigned bits = 0;
-        for (int m = 32 * w; m < nminor && m < 32 * w + 32; ++m) {
-            int g0 = __ldg(minor_meta + m * rte::kMetaFields + 2);
-            int width = __ldg(minor_meta + m * rte::kMetaFields + 3);
-            bits |= (g >= g0 && g < g0 + width ? 1u : 0u) << (m - 32 * w);
-        }
-        mwords[w * chunk + lane] = bits;
-    }
+    for (int w = threadIdx.x / chunk; w < nwords; w += kThreads / chunk)
+        mwords[w * chunk + lane] = rte::minor_word(minor_meta, nminor, w, g);
     __syncthreads();
 
     const int ncell = nlay * ncol;
@@ -163,9 +117,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) fused_sw_kernel(
         float tau, unused;
         rte::major_tau(d, flav, nflav, ncell, cell, jeta, feta, col_mix,
                        kmajor, nullptr, neta, npres1, ngpt, g, &tau, &unused);
-        tau = minor_tau_lane(tau, d, meta, mwords + lane, nwords, chunk,
-                             nflav, ncell, cell, jeta, feta, msc, klo, kup,
-                             ncl, ncu, neta, g);
+        tau = rte::minor_tau_lane(tau, d, meta, mwords + lane, nwords,
+                                  chunk, nflav, ncell, cell, jeta, feta, msc,
+                                  klo, kup, ncl, ncu, neta, g);
         float ray = rte::rayleigh_k(d, flav, nflav, ncell, cell, jeta, feta,
                                     krayl, neta, ngpt, g)
             * rayscale[cell];

@@ -5,7 +5,7 @@
 // (rte_rrtmgp_tpu/ops/pallas/fused_lw_bwd.py:19-36, the major, minor and
 // cloud adjoints; fused_sw_bwd.py:21-24, Rayleigh).
 //
-// gas_lin is common.cuh's major_tau, minor_tau and rayleigh_k, term for
+// gas_lin is common.cuh's major_tau, minor_tau_lane and rayleigh_k, term for
 // term, with their derivatives in the cell's descriptors, from one
 // gather per table entry; it reads the minors of a g-point from the slot
 // table of ops/kernels/adjoint_segments.py (a few per g-point, in minor
@@ -70,7 +70,7 @@ struct GasArgs {
 };
 
 // Minor m's absorption coefficient at g-point g of one cell (the 2-D
-// lerp of minor_tau) and its derivatives in the feta of its flavor for
+// lerp of minor_tau_lane) and its derivatives in the feta of its flavor for
 // each temperature corner and in ftemp.
 __device__ __forceinline__ float minor_k(const GasArgs& a, const CellDesc& d,
                                          int m, int cell, int g, float* dfe,
@@ -103,7 +103,7 @@ __device__ __forceinline__ float minor_k(const GasArgs& a, const CellDesc& d,
 // major tau, p_* of the Planck fraction, r_* of the Rayleigh k; per
 // minor slot s < NS, d tau / d scaling (m_k) and d tau / d feta at the
 // minor's flavor (m_fe); m_ft: d tau / d ftemp of all the minors. The
-// forward arithmetic is common.cuh's major_tau, minor_tau and rayleigh_k,
+// forward arithmetic is common.cuh's major_tau, minor_tau_lane and rayleigh_k,
 // term for term; the minors are the g-point's slots (in minor order), not
 // a scan of every minor. A caller that reads only the forward values
 // gets only those: the compiler drops the rest.

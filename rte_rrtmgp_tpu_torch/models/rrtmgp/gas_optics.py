@@ -32,7 +32,8 @@ from ...optical_props import (OpticalProps, OpticalProps1scl,
 from ...ops.gas_optics import (InterpCoeffs, interpolation, minor_scaling,
                                planck_bands_lanes, planck_sources, tau_minor)
 from ...ops.kernels.autodiff import with_twin_grad
-from ...ops.kernels.fused_lw import LWFusedInputs, _split_minors, lw_fused
+from ...ops.kernels.fused_lw import (LWFusedInputs, _split_minors,
+                                     interleave_kmajor_pfrac, lw_fused)
 from ...ops.kernels.fused_sw import SWFusedInputs, sw_fused
 from ...ops.kernels.gas_major import gas_major, gas_major_plain
 from ...ops.kernels.gas_minor import gas_minor, gas_rayleigh, rayleigh_combine
@@ -49,9 +50,13 @@ def _major(co, kmajor, planck_frac, gpoint_flavor):
 
 
 def _minor(tau, co, kminor, minors, meta, scaling):
-    """gas_minor out of place: a new tensor, ``tau`` untouched."""
+    """gas_minor out of place: the kernel reads ``tau`` and writes a new
+    tensor, ``tau`` untouched."""
+    def kernel(t, *a):
+        return gas_minor(t, *a, out=torch.empty_like(
+            t, memory_format=torch.contiguous_format))
     return with_twin_grad(
-        lambda t, *a: gas_minor(t.clone(), *a),
+        kernel,
         lambda t, c, k, m, _, s: tau_minor(t.movedim(-1, 0), c, k, m,
                                            s).movedim(0, -1),
         tau, co, kminor, minors, meta, scaling)
@@ -111,6 +116,10 @@ class GasOpticsRRTMGP:
         self.minors = tuple(minors)
         self.minor_meta = torch.as_tensor(self.minors, dtype=i32,
                                           device=dev).reshape(-1, 5)
+        # the fused LW kernel's gather table (LWFusedInputs.kmajor_pfrac)
+        self.kmajor_pfrac = (
+            None if kdist.planck_frac is None
+            else interleave_kmajor_pfrac(kdist.kmajor, kdist.planck_frac))
 
     @property
     def ngpt(self) -> int:
@@ -389,7 +398,7 @@ class GasOpticsRRTMGP:
             tsfc=tsfc.to(play.dtype).contiguous(),
             sfc_emis=sfc_emis.contiguous(), inc=inc_flux.contiguous(),
             cloud_tau_abs=cloud_tau_abs, ds=float(ds), weight=float(weight),
-            byband=bool(byband))
+            byband=bool(byband), kmajor_pfrac=self.kmajor_pfrac)
 
     def lw_fused_solve(self, play, plev, tlay, tsfc, gas_concs, **kw):
         """Gas optics + no-scattering solve in one fused kernel call

@@ -15,7 +15,11 @@ g-points through ``gpt2band``, and the callers keep the JAX package's
 rule of uniform bands.
 
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
-CPU tensor to :func:`lw_fused_plain`. :func:`lw_fused` is differentiable:
+CPU tensor to :func:`lw_fused_plain`. The kernel holds a column's layer
+fields in shared memory (:func:`lw_fused_geometry`, ``onchip.py``): past
+the tallest column a block holds (438 layers at 256 g-points and 28
+minor gases, 356 by band) it raises ValueError naming the limit; the
+twin has none. :func:`lw_fused` is differentiable:
 its broadband backward is the adjoint kernel ``csrc/fused_lw_bwd.cu``
 (:func:`lw_fused_bwd`, replacing the TPU kernel ``ops/pallas/
 fused_lw_bwd.py::_lw_fused_bwd``) on CUDA tensors and the twin's gradient
@@ -35,11 +39,14 @@ from ..gas_optics import InterpCoeffs, planck_sources, tau_major, tau_minor
 from ._build import check_args, launch, on_cpu, query
 from .adjoint_segments import segments_on
 from .autodiff import none_like, refuse_grad, with_adjoint, with_twin_grad
+from .onchip import Geometry, onchip_geometry
 from .solver_lw import lw_noscat_plain
 
 __all__ = ["LWFusedInputs", "LW_DIFF", "lw_fused", "lw_fused_plain",
-           "lw_fused_bwd", "lw_fused_bwd_plain", "lw_fused_bwd_scratch_bytes",
-           "lw_fused_bwd_occupancy"]
+           "lw_fused_geometry", "lw_fused_scratch_bytes",
+           "lw_fused_occupancy", "interleave_kmajor_pfrac", "lw_fused_bwd",
+           "lw_fused_bwd_plain",
+           "lw_fused_bwd_scratch_bytes", "lw_fused_bwd_occupancy"]
 
 
 class LWFusedInputs(NamedTuple):
@@ -49,6 +56,11 @@ class LWFusedInputs(NamedTuple):
     minor_meta: torch.Tensor       # (nminor, 5) int32, ``minors`` on device
     kmajor: torch.Tensor           # (ntemp, neta, npres+1, ngpt)
     planck_frac: torch.Tensor      # (ntemp, neta, npres+1, ngpt)
+    # kmajor and planck_frac interleaved, (ntemp, neta, npres+1, ngpt, 2):
+    # the forward kernel's gather table, built once per k-distribution
+    # (GasOpticsRRTMGP.kmajor_pfrac, by interleave_kmajor_pfrac); the twin
+    # and the adjoint read kmajor and planck_frac
+    kmajor_pfrac: torch.Tensor
     kminor_lower: torch.Tensor     # (ntemp, neta, ncont_lower)
     kminor_upper: torch.Tensor     # (ntemp, neta, ncont_upper)
     gpoint_flavor: torch.Tensor    # (2, ngpt) int32
@@ -198,23 +210,60 @@ def _sizes(x: LWFusedInputs, n: dict) -> tuple:
             math.pi * x.weight)
 
 
+def lw_fused_geometry(x: LWFusedInputs) -> Geometry:
+    """Chunk width, cluster size, threads and shared memory per block of
+    the forward kernel at x's sizes (:func:`onchip.onchip_geometry`);
+    raises ValueError where a column's layer fields do not fit on chip."""
+    return onchip_geometry("fused_lw", x.tlay.shape[0], x.kmajor.shape[3],
+                           x.totplnk.shape[1] if x.byband else 0,
+                           len(x.minors))
+
+
+def lw_fused_scratch_bytes(ncol: int, nlay: int, ngpt: int) -> int:
+    """Device scratch of one forward launch: none, the layer fields stay
+    in shared memory."""
+    return 0
+
+
+def lw_fused_occupancy(x: LWFusedInputs) -> tuple:
+    """(resident blocks per SM, clusters the card holds at once) of the
+    forward kernel at x's sizes, from cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor and cudaOccupancyMaxActiveClusters."""
+    geo = lw_fused_geometry(x)
+    n = query("fused_lw", "occupancy_fused_lw", x.tlay.shape[0], geo.chunk,
+              geo.nchunk, len(x.minors),
+              x.totplnk.shape[1] if x.byband else 0)
+    return (n // 65536, n % 65536) if n >= 0 else (n, n)
+
+
+def interleave_kmajor_pfrac(kmajor, planck_frac):
+    """The forward kernel's gather table: kmajor and planck_frac (ntemp,
+    neta, npres+1, ngpt) as one (..., ngpt, 2) table of pairs."""
+    return torch.stack([kmajor, planck_frac], -1).contiguous()
+
+
 def _lw_fused_kernel(x: LWFusedInputs):
     """One launch of the forward kernel (or the twin on CPU tensors)."""
     if on_cpu(x.tlay, "lw_fused"):
         return lw_fused_plain(x)
     n = _check(x, "lw_fused")
+    geo = lw_fused_geometry(x)
+    kp = x.kmajor_pfrac
+    if kp is None:
+        raise ValueError("lw_fused: kmajor_pfrac is missing; build it with "
+                         "interleave_kmajor_pfrac(kmajor, planck_frac)")
+    check_args("lw_fused", x.tlay.device, {"kmajor_pfrac": (
+        kp, tuple(x.kmajor.shape) + (2,), torch.float32)})
+    ins = _inputs(x)
+    ins = ins[:10] + (kp,) + ins[12:]       # kp for kmajor, planck_frac
     dev = x.tlay.device
-    # per-(column, layer, g-point) scratch: tau then transmittance, and
-    # Planck fraction then upward source
-    scratch = torch.empty((2, n["ncol"], n["nlay"], n["ngpt"]),
-                          dtype=torch.float32, device=dev)
     shape = ((n["nbnd"],) if x.byband else ()) + (n["nlay"] + 1, n["ncol"])
     up = torch.empty(shape, dtype=torch.float32, device=dev)
     dn = torch.empty_like(up)
     bb, band = (None, up) if x.byband else (up, None)
-    launch("fused_lw", "launch_fused_lw", "lw_fused", *_inputs(x), scratch,
-           bb, None if x.byband else dn, band, dn if x.byband else None,
-           *_sizes(x, n))
+    launch("fused_lw", "launch_fused_lw", "lw_fused", *ins, bb,
+           None if x.byband else dn, band, dn if x.byband else None,
+           *_sizes(x, n), geo.chunk)
     lw_fused.launches += 1
     return up, dn
 

@@ -9,49 +9,63 @@ reference gas_optical_depths_minor) and ``::rayleigh_k_lane`` (via
 the absorption/Rayleigh combine of ``models/rrtmgp/gas_optics.py:344-358``
 (reference combine_abs_and_rayleigh).
 
-Both add into ``tau`` (cells of any shape S, then g-points) in place. A
-CUDA tensor goes to the kernel (float32 only; anything else raises), a
-CPU tensor to the twin. The kernels have no backward of their own: on
-CUDA they refuse inputs that require grad, and gas_optics takes the
-twins' gradient out of place (on a copy of tau, :func:`rayleigh_combine`
-and ``ops/gas_optics.py::tau_minor``) through
-``autodiff.with_twin_grad``.
+Both add into ``tau`` (cells of any shape S, then g-points) in place;
+:func:`gas_minor` writes into a separate ``out`` instead where one is
+given, ``tau`` untouched. A CUDA tensor goes to the kernel (float32 only;
+anything else raises), a CPU tensor to the twin. The kernels have no
+backward of their own: on CUDA they refuse inputs that require grad, and
+gas_optics takes the twins' gradient out of place (the minors into a new
+tensor, Rayleigh on a copy of tau; :func:`rayleigh_combine` and
+``ops/gas_optics.py::tau_minor``) through ``autodiff.with_twin_grad``.
 """
 from __future__ import annotations
 
 import torch
 
 from ..gas_optics import InterpCoeffs, tau_minor, tau_rayleigh
-from ._build import check_args, launch, on_cpu
+from ._build import check_args, launch, on_cpu, query
 from .autodiff import refuse_grad
 
-__all__ = ["gas_minor", "gas_minor_plain", "gas_rayleigh",
-           "gas_rayleigh_plain", "rayleigh_combine"]
+__all__ = ["gas_minor", "gas_minor_plain", "gas_minor_occupancy",
+           "gas_rayleigh", "gas_rayleigh_plain", "rayleigh_combine"]
 
 _HINT = ("gas_optics differentiates it out of place through "
          "autodiff.with_twin_grad")
 
 
 def gas_minor_plain(tau, co: InterpCoeffs, kminor, minors, minor_meta,
-                    scaling):
-    """Add one atmosphere's minor-gas optical depths into ``tau``
-    (*S, ngpt) in place and return it. kminor (ntemp, neta, ncont);
-    minors: one (flavor, g0, width, kminor_start) per minor gas; scaling
-    (nminor, *S) from ``minor_scaling`` (atmosphere mask applied).
-    ``minor_meta`` (the kernel's copy of ``minors``) is not read here."""
-    tau.copy_(tau_minor(tau.movedim(-1, 0), co, kminor, minors,
+                    scaling, out=None):
+    """Add one atmosphere's minor-gas optical depths into ``tau`` (*S,
+    ngpt) in place and return it, or with ``out`` (tau's shape) write tau
+    plus them into ``out`` and return that, ``tau`` untouched. kminor
+    (ntemp, neta, ncont); minors: one (flavor, g0, width, kminor_start)
+    per minor gas; scaling (nminor, *S) from ``minor_scaling`` (atmosphere
+    mask applied). ``minor_meta`` (the kernel's copy of ``minors``) is not
+    read here."""
+    dst = tau if out is None else out
+    dst.copy_(tau_minor(tau.movedim(-1, 0), co, kminor, minors,
                         scaling).movedim(0, -1))
-    return tau
+    return dst
 
 
-def gas_minor(tau, co: InterpCoeffs, kminor, minors, minor_meta, scaling):
+def gas_minor_occupancy(ngpt: int, nminor: int) -> int:
+    """Resident blocks per SM of the kernel at ngpt g-points and nminor
+    minors (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the launcher
+    starts that many per SM, each taking a run of consecutive cells."""
+    return query("gas_minor", "occupancy_gas_minor", ngpt, nminor)
+
+
+def gas_minor(tau, co: InterpCoeffs, kminor, minors, minor_meta, scaling,
+              out=None):
     """:func:`gas_minor_plain` semantics; on CUDA, one launch of the
-    hand-written kernel (counted in ``gas_minor.launches``).
+    hand-written kernel (counted in ``gas_minor.launches``), which reads
+    tau and writes ``out`` (tau itself without one).
     minor_meta: (nminor, 5) int32 rows (lower, flavor, g0, width, start)
     on the device, the same gases as ``minors``."""
     if on_cpu(tau, "gas_minor"):
-        return gas_minor_plain(tau, co, kminor, minors, minor_meta, scaling)
-    refuse_grad("gas_minor", tau, co, kminor, scaling, hint=_HINT)
+        return gas_minor_plain(tau, co, kminor, minors, minor_meta, scaling,
+                               out)
+    refuse_grad("gas_minor", tau, co, kminor, scaling, out, hint=_HINT)
     cells = tuple(co.jtemp.shape)
     ncell = co.jtemp.numel()
     ngpt = tau.shape[-1]
@@ -61,8 +75,10 @@ def gas_minor(tau, co: InterpCoeffs, kminor, minors, minor_meta, scaling):
     if ngpt > 1024:
         raise ValueError(f"gas_minor: {ngpt} g-points exceed one CUDA block")
     f32, i32 = torch.float32, torch.int32
+    dst = tau if out is None else out
     check_args("gas_minor", tau.device, {
         "tau": (tau, cells + (ngpt,), f32),
+        "out": (dst, cells + (ngpt,), f32),
         "jtemp": (co.jtemp, cells, i32), "ftemp": (co.ftemp, cells, f32),
         "jeta": (co.jeta, (2, nflav) + cells, i32),
         "feta": (co.feta, (2, nflav) + cells, f32),
@@ -70,10 +86,10 @@ def gas_minor(tau, co: InterpCoeffs, kminor, minors, minor_meta, scaling):
         "minor_meta": (minor_meta, (nminor, 5), i32),
         "kminor": (kminor, (ntemp, neta, ncont), f32)})
     launch("gas_minor", "launch_gas_minor", "gas_minor",
-           tau, co.jtemp, co.ftemp, co.jeta, co.feta, scaling, minor_meta,
-           kminor, ncell, ngpt, neta, nflav, nminor, ncont)
+           tau, dst, co.jtemp, co.ftemp, co.jeta, co.feta, scaling,
+           minor_meta, kminor, ncell, ngpt, neta, nflav, nminor, ncont)
     gas_minor.launches += 1
-    return tau
+    return dst
 
 
 gas_minor.launches = 0

@@ -1,5 +1,6 @@
 """The on-chip geometry of the kernels that hold their transport in shared
-memory: the fused SW step (``csrc/fused_sw.cu``), the LW two-stream solve
+memory: the fused LW and SW steps (``csrc/fused_lw.cu``,
+``csrc/fused_sw.cu``), the LW two-stream solve
 (``csrc/solver_lw_2str.cu``), the SW two-stream solve of the public and
 staged paths (``csrc/solver_sw.cu``, all three launchers) and its adjoint
 (``csrc/solver_sw_bwd.cu``).
@@ -31,7 +32,7 @@ MAX_CHUNKS = 8
 THREADS = 256
 # fields each kernel sums: SW up, diffuse dn, dir; LW up, dn; the SW
 # adjoint the mu0 cotangent of each layer and the beam's seed at the top
-_FIELDS = {"fused_sw": 3, "lw_2stream": 2, "solver_sw": 3,
+_FIELDS = {"fused_lw": 2, "fused_sw": 3, "lw_2stream": 2, "solver_sw": 3,
            "solver_sw_bwd": 2}
 
 
@@ -53,8 +54,8 @@ def _sums_bytes(nf: int, lanes: int, nlev: int, nband: int) -> int:
 
 def _smem(kernel: str, nlay: int, chunk: int, nband: int,
           nminor: int) -> int:
-    """The launchers' smem_bytes (csrc/fused_sw.cu, solver_lw_2str.cu,
-    solver_sw.cu, solver_sw_bwd.cu)."""
+    """The launchers' smem_bytes (csrc/fused_lw.cu, fused_sw.cu,
+    solver_lw_2str.cu, solver_sw.cu, solver_sw_bwd.cu)."""
     if kernel == "solver_sw_bwd":
         # per (layer, g-point) rdif, tdif, rdir, tdir as a float4 and tns
         # (then their cotangents), the adding denominator and the A-F
@@ -66,14 +67,22 @@ def _smem(kernel: str, nlay: int, chunk: int, nband: int,
                 + 12 * (nlay + 1)
                 + _sums_bytes(_FIELDS[kernel], chunk, nlay, 0))
     sums = _sums_bytes(_FIELDS[kernel], chunk, nlay + 1, nband)
+    # per g-point a bit mask of the minors over it; the minors' metadata
+    minors = 4 * (-(-nminor // 32)) * chunk + 4 * 5 * nminor
+    if kernel == "fused_lw":
+        # per (layer, g-point) tau then the transmittance, the Planck
+        # fraction then the down source then the down flux, and the up
+        # source; per (level, g-point) the Planck level source then the up
+        # flux; per g-point the top level's down flux and the surface
+        # source; the column's totplnk positions of its levels, layers and
+        # surface
+        return (16 * nlay * chunk + 4 * chunk + 8 * chunk
+                + 4 * (2 * nlay + 2) + minors + sums)
     # the top level's fluxes of each g-point
     top = 4 * _FIELDS[kernel] * chunk
     if kernel == "fused_sw":
-        # per (layer, g-point) rdif, tdif, rdir, tdir as a float4 and tns;
-        # per g-point a bit mask of the minors over it; the minors'
-        # metadata rows
-        return (20 * nlay * chunk + top + 4 * (-(-nminor // 32)) * chunk
-                + 4 * 5 * nminor + sums)
+        # per (layer, g-point) rdif, tdif, rdir, tdir as a float4 and tns
+        return 20 * nlay * chunk + top + minors + sums
     if kernel == "solver_sw":
         # per (layer, g-point) rdif, tdif, rdir, tdir as a float4 and tns
         return 20 * nlay * chunk + top + sums
@@ -84,10 +93,10 @@ def _smem(kernel: str, nlay: int, chunk: int, nband: int,
 def onchip_geometry(kernel: str, nlay: int, ngpt: int, nband: int = 0,
                     nminor: int = 0) -> Geometry:
     """Chunk width, cluster size, threads and shared memory per block of
-    ``kernel`` ("fused_sw", "lw_2stream", "solver_sw" or
+    ``kernel`` ("fused_lw", "fused_sw", "lw_2stream", "solver_sw" or
     "solver_sw_bwd") at nlay layers and ngpt g-points, with per-band sums
     over ``nband`` bands (0: broadband; the adjoint takes broadband
-    cotangents only) and, for the fused SW step, nminor minor gases.
+    cotangents only) and, for the fused steps, nminor minor gases.
     The chunk is the narrowest power of two from 32 up with at most
     :data:`MAX_CHUNKS` chunks. Raises ValueError where the g-points
     exceed 8 chunks of 128 or a block's fields exceed :data:`SMEM_LIMIT`,

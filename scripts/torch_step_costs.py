@@ -14,7 +14,11 @@ calls only entry points that checkouts from before the SW solver's
 on-chip redesign have too. It prints one JSON line: the card; the
 CUDA-event median time of each kernel and its largest difference from its
 plain twin (for the adjoint, per cotangent) over the twin's largest value:
-the fused SW step and the LW two-stream solve, broadband and by band, the
+the fused LW and SW steps and the LW two-stream solve, broadband and by
+band, the minor gather (row 5, in place on a copy of the major-gas tau,
+the call every checkout has, and, where the checkout's ``gas_minor`` takes
+``out``, also out of place as the gas optics and chip_smoke.py's api_rows
+call it; LW 256 and SW 224 g-points, each atmosphere's minors), the
 SW solver of the public path (row 9, broadband and by band, on the path's
 optics and delta-scaled clouds, night columns and mu0 varying by layer,
 a diffuse incident flux), the staged path's SW lane solvers (row 12 on
@@ -114,6 +118,51 @@ def sw_solver_cases(cs, prob, nonb, dev):
     }
 
 
+def minor_cases(prob, cs):
+    """Row 5 on the public path's inputs: each k-distribution's minors of
+    each atmosphere added in place into a copy of the major-gas tau
+    (``gas_minor(tau, ...)``, the call both checkouts have): {name: ms,
+    largest difference from the twin over its largest value, digest}; and
+    where the checkout's ``gas_minor`` takes ``out``, the out-of-place call
+    of the gas optics (``_minor``): ms_out, digest_out."""
+    import inspect
+    import torch
+    from rte_rrtmgp_tpu_torch.ops.gas_optics import minor_scaling
+    from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import gas_major_plain
+    from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (gas_minor,
+                                                            gas_minor_plain)
+    inp, out = prob.inputs, {}
+    for tag, gas in (("lw", prob.gas_lw), ("sw", prob.gas_sw)):
+        kd = gas.kdist
+        cg, _, h2o = gas.col_gas(inp.play, inp.plev, inp.gas_concs)
+        co = gas.interp(inp.play, inp.tlay, cg)
+        tau = gas_major_plain(co, kd.kmajor, None, gas.gpoint_flavor)[0]
+        nlo = len(kd.minor_lower)
+        for lower, mset, ktab, meta in (
+                (True, kd.minor_lower, kd.kminor_lower, gas.minor_meta[:nlo]),
+                (False, kd.minor_upper, kd.kminor_upper,
+                 gas.minor_meta[nlo:])):
+            minors = tuple(m[1:] for m in gas.minors if bool(m[0]) == lower)
+            sc = minor_scaling(co, mset, lower=lower, play=inp.play,
+                               tlay=inp.tlay, col_gas=cg, idx_h2o=h2o)
+            a = (co, ktab, minors, meta, sc)
+            got = gas_minor(tau.clone(), *a)
+            ref = gas_minor_plain(tau.clone(), *a)
+            err = float((got - ref).abs().max()) / float(ref.abs().max())
+            sha = digest((got,))
+            del got, ref
+            t = tau.clone()
+            row = out[f"gas_minor {tag} {'lower' if lower else 'upper'}"] = \
+                dict(ms=cs.cuda_ms(lambda: gas_minor(t, *a)), rel_err=err,
+                     digest=sha)
+            del t
+            if "out" in inspect.signature(gas_minor).parameters:
+                oop = lambda: gas_minor(tau, *a, out=torch.empty_like(tau))
+                row.update(digest_out=digest((oop(),)),
+                           ms_out=cs.cuda_ms(oop))
+    return out
+
+
 def digest(outs):
     """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
     h = hashlib.sha256()
@@ -187,9 +236,12 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
-    from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_sw_inputs,
+    from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
+                                                     allsky_sw_inputs,
                                                      build_allsky,
                                                      build_allsky_step)
+    from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import (lw_fused,
+                                                           lw_fused_plain)
     from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import (sw_fused,
                                                            sw_fused_plain)
     from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_2str import (
@@ -218,7 +270,12 @@ def main():
     bands = (prob.gas_lw.gpt2band,)
     nb = dict(nband=prob.gas_lw.grid.nband)
     xb = x._replace(byband=True)
+    xl = allsky_lw_inputs(i, prob.gas_lw, cloud_optics=prob.cld_lw)
+    xlb = xl._replace(byband=True)
     cases = [
+        ("fused_lw", lambda: lw_fused(xl), lambda: lw_fused_plain(xl)),
+        ("fused_lw byband", lambda: lw_fused(xlb),
+         lambda: lw_fused_plain(xlb)),
         ("fused_sw", lambda: sw_fused(x), lambda: sw_fused_plain(x)),
         ("fused_sw byband", lambda: sw_fused(xb),
          lambda: sw_fused_plain(xb)),
@@ -232,7 +289,9 @@ def main():
         scale = max(float(r.abs().max()) for r in ref)
         out[name] = dict(ms=cs.cuda_ms(kernel), rel_err=err / scale,
                          digest=digest(got))
-    del x, xb, lw, got, ref, cases
+    del x, xb, xl, xlb, lw, got, ref, cases
+    torch.cuda.empty_cache()
+    out.update(minor_cases(prob, cs))
     torch.cuda.empty_cache()
 
     aer = build_allsky(**cs.MAIN, device=dev, use_aerosols=True)

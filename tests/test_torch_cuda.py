@@ -29,7 +29,13 @@ widths (the flagship 224 / 256 g-points and the non-banded 168 / 192, not
 multiples of 32 per column), by band with uniform and ragged bands, with
 a diffuse incident flux under night and low suns, in the tallest column
 their narrowest chunk holds (one layer more raises) and bit-identical
-over two runs.
+over two runs; the fused LW kernel likewise on chip, broadband, by band,
+with an incident flux and without clouds. The minor-gas gather in place
+and out of place (the public paths' call), on both atmospheres and with
+a scaling row of zeros; and the fused LW step and the minor gather with
+the kernels that share device code with them (rows 2, 3, 5, 6, 16) bit
+for bit the outputs recorded from them before (tests/golden/
+kernel_digests_frozen.json).
 """
 import numpy as np
 import pytest
@@ -1391,3 +1397,128 @@ def test_fused_sw_bwd_matches_frozen_record(cuda):
     for k, v in got.items():
         assert v.dtype == rec[k].dtype and v.shape == rec[k].shape, k
         assert v.tobytes() == rec[k].tobytes(), k
+
+
+# ---------------------------------------------------------------------------
+# row 2 on chip: the fused LW step in a cluster of chunks, the layer fields
+# in shared memory (ops/kernels/onchip.py); row 5 many cells per block,
+# out of place
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("variant", ["broadband", "uniform", "ragged", "inc",
+                                     "clear"])
+@pytest.mark.parametrize("dims", sorted(ONCHIP_CASES))
+def test_onchip_fused_lw_matches_twin(cuda, dims, variant):
+    """By band with the k-distribution's uniform bands or three ragged,
+    interleaved ones (gpt2band also picks the Planck and cloud bands, for
+    kernel and twin alike); with an incident flux; without clouds; within
+    chip_smoke.py's TOL_FLUX rule and bit-identical over two runs."""
+    p = build_allsky(*ONCHIP_CASES[dims], device=cuda)
+    x = allsky_lw_inputs(p.inputs, p.gas_lw, cloud_optics=p.cld_lw)
+    if variant in ("uniform", "ragged"):
+        gpt2band, _ = _bands(x.kmajor.shape[3], ONCHIP_CASES[dims][3],
+                             variant, cuda)
+        x = x._replace(gpt2band=gpt2band, byband=True)
+    elif variant == "inc":
+        gen = torch.Generator(device=cuda).manual_seed(23)
+        x = x._replace(inc=3.0 * torch.rand(x.inc.shape, generator=gen,
+                                            device=cuda))
+    elif variant == "clear":
+        x = x._replace(cloud_tau_abs=None)
+    n0 = lw_fused.launches
+    got = lw_fused(x)
+    assert lw_fused.launches == n0 + 1
+    _flux_close(got, lw_fused_plain(x))
+    again = lw_fused(x)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("byband", [False, True], ids=["broadband", "byband"])
+def test_onchip_fused_lw_tallest_column_and_past_it(cuda, byband):
+    """The tallest column that the narrowest chunk (32 g-points) holds,
+    against the twin; one layer more raises ValueError naming the limit
+    and launches nothing."""
+    dims = DIMS["g32"]
+    p = build_allsky(2, 8, *dims[2:], device=cuda)
+    x = allsky_lw_inputs(p.inputs, p.gas_lw, cloud_optics=p.cld_lw)
+    nband = x.totplnk.shape[1] if byband else 0
+    with pytest.raises(ValueError, match="at most") as e:
+        onchip_geometry("fused_lw", 10 ** 6, dims[2], nband, len(x.minors))
+    nlay = int(str(e.value).split("at most ")[1].split()[0])
+    for n, fits in ((nlay, True), (nlay + 1, False)):
+        p = build_allsky(2, n, *dims[2:], device=cuda)
+        x = allsky_lw_inputs(p.inputs, p.gas_lw, cloud_optics=p.cld_lw)
+        x = x._replace(byband=byband)
+        n0 = lw_fused.launches
+        if fits:
+            _flux_close(lw_fused(x), lw_fused_plain(x))
+            assert lw_fused.launches == n0 + 1
+        else:
+            with pytest.raises(ValueError, match=f"at most {nlay} layers"):
+                lw_fused(x)
+            assert lw_fused.launches == n0
+
+
+@pytest.mark.parametrize("dims", sorted(ONCHIP_CASES))
+def test_gas_minor_out_of_place_matches_twin(cuda, dims):
+    """Both atmospheres' minors of both k-distributions, and the lower
+    ones again with the first minor's scaling row all zeros: out of place
+    (the public paths' call) within 1e-6 of the twin's largest value, tau
+    untouched, bit for bit the in-place call, and bit-identical over two
+    runs."""
+    from rte_rrtmgp_tpu_torch.models.rrtmgp.gas_optics import _minor
+    p = build_allsky(*ONCHIP_CASES[dims], device=cuda)
+    for gas in (p.gas_lw, p.gas_sw):
+        co, cg, _, h2o = _descriptors(p, gas)
+        kd = gas.kdist
+        tau = gas_major_plain(co, kd.kmajor, None, gas.gpoint_flavor)[0]
+        nlo = len(kd.minor_lower)
+        cases = []
+        for lower, mset, ktab, meta in (
+                (True, kd.minor_lower, kd.kminor_lower, gas.minor_meta[:nlo]),
+                (False, kd.minor_upper, kd.kminor_upper,
+                 gas.minor_meta[nlo:])):
+            minors = tuple(m[1:] for m in gas.minors if bool(m[0]) == lower)
+            sc = minor_scaling(co, mset, lower=lower, play=p.inputs.play,
+                               tlay=p.inputs.tlay, col_gas=cg, idx_h2o=h2o)
+            cases.append((ktab, minors, meta, sc))
+            if lower:
+                zero = sc.clone()
+                zero[0] = 0.0
+                cases.append((ktab, minors, meta, zero))
+        for ktab, minors, meta, sc in cases:
+            before = tau.clone()
+            n0 = gas_minor.launches
+            out = _minor(tau, co, ktab, minors, meta, sc)
+            assert gas_minor.launches == n0 + 1
+            assert torch.equal(tau, before)
+            _close(out, gas_minor_plain(tau.clone(), co, ktab, minors, meta,
+                                        sc), 1e-6)
+            inplace = gas_minor(tau.clone(), co, ktab, minors, meta, sc)
+            assert torch.equal(out, inplace)
+            assert torch.equal(out, _minor(tau, co, ktab, minors, meta, sc))
+
+
+def test_kernels_match_frozen_digests(cuda):
+    """Rows 2 (the fused LW step, broadband, by band, with an incident
+    flux and without clouds) and 5 (the minor gather), both rewritten,
+    and rows 3 (the fused SW step), 6 (the Rayleigh gather) and 16 (the
+    fused LW adjoint), which share csrc/common.cuh and transport.cuh with
+    them, give bit for bit the outputs recorded from them before the two
+    were rewritten (tests/golden/kernel_digests_frozen.json:
+    kernel_digest_record.record, written by
+    scripts/freeze_kernel_digests.py). The bits are those of one CUDA
+    compiler and runtime: after a change of either, the record is written
+    again on the card from a checkout whose kernels are known good."""
+    import json
+    import os
+    from kernel_digest_record import record
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "tests", "golden",
+                           "kernel_digests_frozen.json")) as f:
+        rec = json.load(f)
+    got = record(cuda)
+    assert len(rec) == 2 * 13
+    assert got == rec
+    out = record(cuda, minor_out=True)
+    assert out == rec

@@ -1,7 +1,7 @@
 """The on-chip geometry and summation order of the kernels that hold their
-transport in shared memory (``ops/kernels/onchip.py``): the fused SW
-kernel, the LW two-stream kernel, the SW two-stream solver of the public
-and staged paths and its adjoint, on the CPU.
+transport in shared memory (``ops/kernels/onchip.py``): the fused LW and
+SW kernels, the LW two-stream kernel, the SW two-stream solver of the
+public and staged paths and its adjoint, on the CPU.
 
 The kernels cut a column's g-points into chunks, one thread block per
 chunk and the column's chunks one thread-block cluster, keep the layer
@@ -21,6 +21,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from rte_rrtmgp_tpu_torch.drivers.allsky import (  # noqa: E402
+    allsky_lw_inputs, build_allsky)
+from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels import solver_lanes  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd  # noqa: E402
@@ -47,8 +50,27 @@ from rte_rrtmgp_tpu_torch.spectral import SpectralGrid  # noqa: E402
 # the adding denominator, the A-F cotangent) + 16 B x (nlay + 1) x chunk
 # (the beam, adding albedo and source and diffuse flux at each level) +
 # 12 B x (nlay + 1) (the column's flux cotangents) + 4 B x 2 fields (the
-# mu0 cotangent, the beam's seed) x warps x layers (the sums)
+# mu0 cotangent, the beam's seed) x warps x layers (the sums); the fused
+# LW kernel 16 B x nlay x chunk (tau then trans, the Planck fraction then
+# sdn then the down flux, sup, and per level the Planck source then the up
+# flux) + 4 B x chunk (the bottom level) + 8 B x chunk (the top level's
+# down flux, the surface source) + 4 B x (2 nlay + 2) (the column's totplnk
+# positions) + the minors' masks and metadata as the fused SW kernel + the
+# sums (2 fields)
 GEOMETRY = {
+    ("fused_lw", 72, 256, 0, 28): (
+        32, 8, 256, 36864 + 128 + 256 + 584 + 128 + 560 + 4 * 2 * 73),
+    ("fused_lw", 72, 256, 16, 28): (
+        32, 8, 256,
+        36864 + 128 + 256 + 584 + 128 + 560 + 4 * (2 * 16 * 73 + 81)),
+    ("fused_lw", 72, 192, 0, 28): (
+        32, 6, 256, 36864 + 128 + 256 + 584 + 128 + 560 + 4 * 2 * 73),
+    ("fused_lw", 72, 192, 16, 28): (
+        32, 6, 256,
+        36864 + 128 + 256 + 584 + 128 + 560 + 4 * (2 * 16 * 73 + 81)),
+    ("fused_lw", 72, 1024, 0, 28): (
+        128, 8, 256,
+        147456 + 512 + 1024 + 584 + 512 + 560 + 4 * 2 * 4 * 73),
     ("fused_sw", 72, 224, 0, 28): (32, 7, 256,
                                    46080 + 384 + 128 + 560 + 876),
     ("fused_sw", 72, 224, 14, 28): (
@@ -83,7 +105,11 @@ GEOMETRY = {
                                         143360 + 83968 + 492 + 1280),
 }
 # the tallest column that fits: (kernel, ngpt, nband, nminor) -> nlay
-TALLEST = {("fused_sw", 224, 0, 28): 354,      # 652 nlay + 1084 B
+TALLEST = {("fused_lw", 256, 0, 28): 438,      # 528 nlay + 1088 B
+           ("fused_lw", 256, 16, 28): 356,     # 648 nlay + 1532 B
+           ("fused_lw", 192, 0, 28): 438,      # 528 nlay + 1088 B
+           ("fused_lw", 1024, 0, 28): 110,     # 2088 nlay + 2648 B
+           ("fused_sw", 224, 0, 28): 354,      # 652 nlay + 1084 B
            ("fused_sw", 224, 14, 28): 285,     # 808 nlay + 1556 B
            ("lw_2stream", 256, 0, 0): 446,     # 520 nlay + 264 B
            ("lw_2stream", 256, 16, 0): 362,    # 640 nlay + 708 B
@@ -121,7 +147,8 @@ def test_tallest_column_and_past_it(case):
 
 @pytest.mark.parametrize("ngpt", [1025, 2048])
 def test_too_many_gpoints_raise(ngpt):
-    for kernel in ("fused_sw", "lw_2stream", "solver_sw", "solver_sw_bwd"):
+    for kernel in ("fused_lw", "fused_sw", "lw_2stream", "solver_sw",
+                   "solver_sw_bwd"):
         with pytest.raises(ValueError, match="g-points exceed"):
             onchip_geometry(kernel, 72, ngpt)
 
@@ -135,6 +162,114 @@ def test_wrappers_allocate_no_scratch():
     assert lw_2stream_scratch_bytes(4096, 72, 256) == 0
     assert solver_sw.sw_2stream_scratch_bytes(4096, 72, 224) == 0
     assert solver_sw_bwd.sw_2stream_bwd_scratch_bytes(4096, 72, 224) == 0
+
+
+def _lw_fused_inputs(variant, nlay=9, ncol=3):
+    """The fused LW step's inputs on the CPU (the allsky problem at LW 40
+    g-points / 5 bands, SW 32 / 4), broadband, by band, with a non-zero
+    incident flux or without clouds."""
+    p = build_allsky(ncol, nlay, 40, 5, 32, 4, 6, 11, device="cpu")
+    x = allsky_lw_inputs(p.inputs, p.gas_lw, cloud_optics=p.cld_lw)
+    if variant == "byband":
+        x = x._replace(byband=True)
+    elif variant == "inc":
+        x = x._replace(inc=torch.from_numpy(np.random.default_rng(4).uniform(
+            0.5, 1.5, tuple(x.inc.shape)).astype(np.float32)))
+    elif variant == "clear":
+        x = x._replace(cloud_tau_abs=None)
+    return x
+
+
+@pytest.mark.parametrize("variant", ["broadband", "byband", "inc", "clear"])
+def test_fused_lw_wrapper_passes_no_scratch(variant, monkeypatch):
+    """The fused LW step's wrapper hands its launcher the inputs, the
+    outputs it returns and sizes only: no device scratch (the parent took a
+    (2, ncol, nlay, ngpt) scratch, 0.60 GB at 4096 x 72). The CUDA branch
+    is taken on CPU tensors with the launch replaced by a record of its
+    arguments; the chunk passed is onchip_geometry's."""
+    calls = []
+    monkeypatch.setattr(fused_lw, "on_cpu", lambda t, what: False)
+    monkeypatch.setattr(fused_lw, "launch", lambda *a: calls.append(a[3:]))
+    x = _lw_fused_inputs(variant)
+    up, dn = fused_lw._lw_fused_kernel(x)
+    assert len(calls) == 1
+    given = {t.data_ptr() for t in x + tuple(x.co)
+             if isinstance(t, torch.Tensor)}
+    returned = {up.data_ptr(), dn.data_ptr()}
+    tensors = [a for a in calls[0] if isinstance(a, torch.Tensor)]
+    tropo = x.co.tropo.to(torch.int32)     # the launcher's copy of a mask
+    assert all(t.data_ptr() in given | returned
+               or (t.dtype == torch.int32 and torch.equal(t, tropo))
+               for t in tensors)
+    assert returned <= {t.data_ptr() for t in tensors}
+    nlay, ngpt = x.tlay.shape[0], x.kmajor.shape[3]
+    nband = x.totplnk.shape[1] if x.byband else 0
+    ints = [a for a in calls[0] if isinstance(a, int)]
+    assert ints[-1] == onchip_geometry("fused_lw", nlay, ngpt, nband,
+                                       len(x.minors)).chunk
+    assert fused_lw.lw_fused_scratch_bytes(4096, 72, 256) == 0
+
+
+@pytest.mark.parametrize("given", [True, False], ids=["built", "missing"])
+def test_fused_lw_gather_table(given, monkeypatch):
+    """The forward kernel gathers from kmajor and planck_frac interleaved
+    as one table of pairs, built once per k-distribution by the gas optics
+    (``GasOpticsRRTMGP.kmajor_pfrac``, reaching the inputs through
+    ``allsky_lw_inputs``); the launcher gets it in place of the two. Inputs
+    that carry no table raise on the CUDA branch, and nothing is
+    launched."""
+    calls = []
+    monkeypatch.setattr(fused_lw, "on_cpu", lambda t, what: False)
+    monkeypatch.setattr(fused_lw, "launch", lambda *a: calls.append(a[3:]))
+    x = _lw_fused_inputs("broadband")
+    kp = x.kmajor_pfrac
+    assert kp is not None and kp.is_contiguous()
+    assert torch.equal(kp[..., 0], x.kmajor)
+    assert torch.equal(kp[..., 1], x.planck_frac)
+    if not given:
+        with pytest.raises(ValueError, match="kmajor_pfrac is missing"):
+            fused_lw._lw_fused_kernel(x._replace(kmajor_pfrac=None))
+        assert calls == []
+        return
+    fused_lw._lw_fused_kernel(x)
+    table = calls[0][10]
+    assert table.data_ptr() == kp.data_ptr()
+    assert table.shape == tuple(x.kmajor.shape) + (2,)
+    assert not any(a is x.kmajor or a is x.planck_frac for a in calls[0])
+
+
+@pytest.mark.parametrize("byband", [False, True], ids=["broadband", "byband"])
+def test_fused_lw_raises_past_the_limit(byband, monkeypatch):
+    """On the CUDA branch (taken here on CPU tensors, the launch replaced by
+    a record) a column one layer taller than a block holds raises
+    ValueError naming the limit, and nothing is launched; at the limit the
+    launch goes ahead. The CPU twin of the taller call runs (no height
+    limit) and gives finite fluxes of the right shape."""
+    ngpt = 40
+    x = _lw_fused_inputs("byband" if byband else "broadband", nlay=1,
+                         ncol=2)
+    nminor = len(x.minors)
+    nband = x.totplnk.shape[1] if byband else 0
+    with pytest.raises(ValueError, match="at most") as e:
+        onchip_geometry("fused_lw", 10 ** 6, ngpt, nband, nminor)
+    top = int(str(e.value).split("at most ")[1].split()[0])
+    taller = _lw_fused_inputs("byband" if byband else "broadband",
+                              nlay=top + 1, ncol=2)
+    n0 = fused_lw.lw_fused.launches
+    up, dn = fused_lw.lw_fused(taller)        # the twin, at any height
+    assert fused_lw.lw_fused.launches == n0
+    shape = ((nband,) if byband else ()) + (top + 2, 2)
+    assert up.shape == dn.shape == shape
+    assert bool(torch.isfinite(up).all() and torch.isfinite(dn).all())
+    calls = []
+    monkeypatch.setattr(fused_lw, "on_cpu", lambda t, what: False)
+    monkeypatch.setattr(fused_lw, "launch", lambda *a: calls.append(a))
+    with pytest.raises(ValueError, match=f"at most {top} layers"):
+        fused_lw.lw_fused(taller)
+    assert calls == []
+    fused_lw._lw_fused_kernel(_lw_fused_inputs(
+        "byband" if byband else "broadband", nlay=top, ncol=2))
+    assert len(calls) == 1
 
 
 def _sw_args(rng, ncol, nlay, ngpt, lanes=False):
@@ -439,3 +574,40 @@ def test_mu0_cotangent_sum_replay(ngpt, nlay):
         ref = float(vals[l].astype(np.float64).sum())
         assert abs(float(_broadband_chunked(vals[l], chunk)) - ref) <= (
             1e-5 * float(np.abs(vals[l]).astype(np.float64).sum()))
+
+
+@pytest.mark.parametrize("ngpt,nband", [(256, 16), (192, 16)])
+def test_fused_lw_sums_replay(ngpt, nband):
+    """The fused LW kernel's sums at its chunk width (onchip_geometry's):
+    broadband bit for bit the one-block warp order the kernel had when a
+    column was one block (common.cuh::level_total), by band with uniform
+    bands bit for bit the one-block ascending order (common.cuh::BandSums)
+    for each band inside one chunk (every band at 256 g-points / 16 bands)
+    and within float32 rounding of a straight sum for a band that two
+    chunks share (bands of 12 at 192 g-points); the scaling by pi *
+    weight comes after either sum."""
+    chunk = onchip_geometry("fused_lw", 72, ngpt, nband, 28).chunk
+    assert chunk == 32
+    gpt2band = np.arange(ngpt) // (ngpt // nband)
+    rng = np.random.default_rng(ngpt + 1)
+    for _ in range(8):
+        vals = rng.uniform(0.0, 400.0, ngpt).astype(np.float32)
+        one = np.float32(0.0)
+        for w in range(0, ngpt, 32):
+            one = np.float32(one + _warp_sum(vals[w:w + 32]))
+        assert _broadband_chunked(vals, chunk) == one
+        byb = _byband_chunked(vals, gpt2band, chunk, nband)
+        for b in range(nband):
+            gs = np.flatnonzero(gpt2band == b)
+            t = np.float32(0.0)
+            for g in gs:
+                t = np.float32(t + vals[g])
+            if gs[0] // chunk == gs[-1] // chunk:
+                assert byb[b] == t
+            else:
+                ref = float(vals[gs].astype(np.float64).sum())
+                assert abs(float(byb[b]) - ref) <= 1e-6 * ref
+        split = [b for b in range(nband)
+                 if np.flatnonzero(gpt2band == b)[0] // chunk
+                 != np.flatnonzero(gpt2band == b)[-1] // chunk]
+        assert (split == []) == (ngpt == 256)
