@@ -16,21 +16,26 @@ Phases (any failure ends the run with a non-zero exit and no result):
      lane solvers with clouds and aerosols; the LW two-stream kernel on
      the two-stream path's inputs, clouds at scattering=True), with the
      median CUDA-event time of both and the card's lower bound for the same
-     work; the four adjoint kernels against the twins' autograd on the same
-     inputs and seeded flux cotangents (see TOL_ADJ); then the variants
-     the paths can ask for, each against its twin and timed, logged but
-     not in the kernels line: by-band output of the fused LW and SW steps
-     and of the LW no-scattering, LW two-stream and SW solvers, the fused
-     steps with an incident flux (LW) and a diffuse one (SW), and their
-     adjoints with the same; for the adjoints of rows 14, 16 and 17
-     their ptxas registers and spills, resident blocks per SM and scratch
-     bytes; for the kernels that hold their transport on chip (fused_lw,
-     fused_sw, solver_lw_2str, the SW solver's plain and COMBINED
-     instantiations and its adjoint solver_sw_bwd) the same and their
-     shared memory per block, cluster size and tallest column, broadband
-     and by band; the minor gather's resident blocks per SM; the tallest
-     column the fused LW step, the SW solver and its adjoint hold, against
-     their twins, and one layer more raising ValueError;
+     work (the LW no-scattering solver as the public path calls it: one
+     scalar secant, no rescaling, no Jacobian); the four adjoint kernels
+     against the twins' autograd on the same inputs and seeded flux
+     cotangents (see TOL_ADJ); then the variants the paths can ask for,
+     each against its twin and timed, logged but not in the kernels line:
+     by-band output of the fused LW and SW steps and of the LW
+     no-scattering, LW two-stream and SW solvers, the LW no-scattering
+     solver with Tang rescaling, the Jacobian and a secant field (also by
+     band), the fused steps with an incident flux (LW) and a diffuse one
+     (SW), and their adjoints with the same; for the adjoints of rows 14,
+     16 and 17 their ptxas registers and spills, resident blocks per SM
+     and scratch bytes; for the kernels that hold their transport on chip
+     (fused_lw, fused_sw, solver_lw in its variants, solver_lw_2str, the
+     SW solver's plain and COMBINED instantiations and its adjoint
+     solver_sw_bwd) the same and their shared memory per block, cluster
+     size and tallest column, broadband and by band; the minor and major
+     gathers' resident blocks per SM; the tallest column the fused LW
+     step, the LW no-scattering solver (as the public path calls it, and
+     rescaled with the Jacobian), the SW solver and its adjoint hold,
+     against their twins, and one layer more raising ValueError;
   4. golden gates at the production configuration (256 x 72): the float32
      fused step, public-API path and staged path against
      tests/golden/production.npz, and the float32 aerosols step (fused)
@@ -59,8 +64,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
      per step and no no-scattering solver, finite non-negative fluxes, the
      band sums against the broadband fluxes; then where the time goes
      (torch.profiler over 3 steps of the fused, public-API, staged,
-     aerosols fused and two-stream paths: device time by kernel, device
-     busy share) and the peak device memory of the fused and two-stream
+     aerosols fused and two-stream paths: device time by kernel, each
+     hand-written kernel on a line of its own, device busy share) and the
+     peak device memory of the fused and two-stream
      steps; then two gradient steps
      (forward + backward of a weighted flux loss) on the fused path with
      clouds, then with aerosols, and on the public-API path, with the
@@ -366,12 +372,15 @@ def api_rows(prob, dev, variants):
     co, col_gas, _, idx_h2o = cells(gl)
     kd = gl.kdist
     ngl = kd.ngpt
-    major = (co, kd.kmajor, kd.planck_frac, gl.gpoint_flavor)
+    # the kernel gathers from the interleaved table the gas optics hold;
+    # the function's inputs are the descriptors and the two tables
+    major = (co, kd.kmajor, kd.planck_frac, gl.gpoint_flavor,
+             gl.kmajor_pfrac)
     rows = [check_kernel(
         "gas_major", lambda a: gas_major(*a), lambda a: gas_major_plain(*a),
         major, TOL_GATHER, "rte_rrtmgp_tpu_torch/csrc/gas_major.cu",
         "rte_rrtmgp_tpu/ops/pallas/major_gather.py:188",
-        (nbytes(major) + 2 * ncell * ngl * 4,
+        (nbytes(major[:4]) + 2 * ncell * ngl * 4,
          ncell * ngl * 8 * (OPS_MAJOR_CORNER + OPS_PFRAC_CORNER)))]
 
     tau = gas_major_plain(*major)[0]
@@ -409,8 +418,12 @@ def api_rows(prob, dev, variants):
         fresh=lambda a: (a[0].clone(),) + a[1:]))
     del rayl, tau, co, col_gas, col_dry
 
-    # LW solver with Tang rescaling, the Jacobian, an incident flux and
-    # per-(column, g-point) secants, on the path's gas optics and sources
+    # the LW solver as the public path calls it (rte_lw on 1scl props: one
+    # scalar secant, no rescaling, no Jacobian, zero incident flux), on the
+    # path's gas optics and sources; then, into ``variants``, by band, and
+    # with Tang rescaling, the Jacobian, an incident flux and
+    # per-(column, g-point) secants, broadband and by band
+    from rte_rrtmgp_tpu_torch.ops.solver_lw import GAUSS_DS, GAUSS_WTS
     gen = torch.Generator(device=dev).manual_seed(0)
     rand = lambda shape, lo, hi: lo + (hi - lo) * torch.rand(
         shape, generator=gen, device=dev)
@@ -418,26 +431,36 @@ def api_rows(prob, dev, variants):
                                   inp.gas_concs, tlev=inp.tlev, top_at_1=True)
     shape = tuple(props.tau.shape)
     bc = (ncol, ngl)
-    lw = (props.tau, src.lay_source, src.lev_source, rand(bc, 0.8, 1.0),
-          src.sfc_source, rand(bc, 0.0, 2.0),
-          dict(ds=gl.compute_optimal_angles(props), weight=1.0,
-               sfc_src_jac=src.sfc_source_jac, ssa=rand(shape, 0.0, 0.6),
-               g=rand(shape, 0.0, 0.9)))
+    emis = inp.sfc_emis[:, :1].expand(bc).contiguous()
+    path = (props.tau, src.lay_source, src.lev_source, emis, src.sfc_source,
+            torch.zeros_like(emis),
+            dict(ds=float(GAUSS_DS[0][0]), weight=float(GAUSS_WTS[0][0])))
     call = lambda f: lambda a: f(*a[:6], **a[6])
     rows.append(check_kernel(
-        "solver_lw", call(lw_noscat), call(lw_noscat_plain), lw, TOL_FLUX,
+        "solver_lw", call(lw_noscat), call(lw_noscat_plain), path, TOL_FLUX,
         "rte_rrtmgp_tpu_torch/csrc/solver_lw.cu",
         "rte_rrtmgp_tpu/ops/pallas/solver_lw_kernel.py:239",
-        (nbytes(lw) + 3 * ncol * (nlay + 1) * 4,
-         ncol * nlay * ngl * (OPS_LW_LAYER + OPS_LW_RESCALE))))
+        (nbytes(path) + 2 * ncol * (nlay + 1) * 4,
+         ncol * nlay * ngl * OPS_LW_LAYER)))
+    resc = (props.tau, src.lay_source, src.lev_source, rand(bc, 0.8, 1.0),
+            src.sfc_source, rand(bc, 0.0, 2.0),
+            dict(ds=gl.compute_optimal_angles(props), weight=1.0,
+                 sfc_src_jac=src.sfc_source_jac, ssa=rand(shape, 0.0, 0.6),
+                 g=rand(shape, 0.0, 0.9)))
     nbl = gl.grid.nband
-    lwb = lw[:6] + (dict(lw[6], gpt2band=gl.gpt2band, nband=nbl),)
-    variants.append(check_kernel(
-        "solver_lw byband", call(lw_noscat), call(lw_noscat_plain), lwb,
-        TOL_FLUX, rows[-1]["source"], rows[-1]["replaces"],
-        (nbytes(lwb) + (2 * nbl + 1) * ncol * (nlay + 1) * 4,
-         ncol * nlay * ngl * (OPS_LW_LAYER + OPS_LW_RESCALE))))
-    del lw, lwb, props, src
+    bands = dict(gpt2band=gl.gpt2band, nband=nbl)
+    for name, x, nout, ops in (
+            ("solver_lw byband", path[:6] + (dict(path[6], **bands),),
+             2 * nbl, OPS_LW_LAYER),
+            ("solver_lw rescaled", resc, 3, OPS_LW_LAYER + OPS_LW_RESCALE),
+            ("solver_lw rescaled byband", resc[:6] + (dict(resc[6], **bands),),
+             2 * nbl + 1, OPS_LW_LAYER + OPS_LW_RESCALE)):
+        variants.append(check_kernel(
+            name, call(lw_noscat), call(lw_noscat_plain), x, TOL_FLUX,
+            rows[-1]["source"], rows[-1]["replaces"],
+            (nbytes(x) + nout * ncol * (nlay + 1) * 4,
+             ncol * nlay * ngl * ops)))
+    del path, resc, props, src
 
     # SW solver with a diffuse incident flux, night columns and mu0 that
     # varies by layer, on the path's gas optics and delta-scaled clouds
@@ -870,12 +893,12 @@ def adjoint_report(prob, reports):
     del xl, xs
 
 
-def tallest_column(kernel, ngpt, nband=0, nminor=0):
-    """The tallest column ``kernel`` holds on chip at ngpt g-points, from
-    onchip_geometry's message."""
+def tallest_column(kernel, ngpt, nband=0, nminor=0, **variant):
+    """The tallest column ``kernel`` (of the solver_lw ``variant``) holds
+    on chip at ngpt g-points, from onchip_geometry's message."""
     from rte_rrtmgp_tpu_torch.ops.kernels.onchip import onchip_geometry
     try:
-        onchip_geometry(kernel, 10 ** 6, ngpt, nband, nminor)
+        onchip_geometry(kernel, 10 ** 6, ngpt, nband, nminor, **variant)
     except ValueError as e:
         return int(str(e).split("at most ")[1].split()[0])
     raise SystemExit(f"{kernel}: no column-height limit")
@@ -883,26 +906,31 @@ def tallest_column(kernel, ngpt, nband=0, nminor=0):
 
 def onchip_report(prob, reports):
     """Phase 3, the resources of the kernels that hold their transport on
-    chip (rows 2, 3, 8, 9, 12, 13 and 15) at the main path's shapes,
-    broadband and by band: ptxas registers and spills, shared memory per
-    block and cluster size (ops/kernels/onchip.py::onchip_geometry, held
-    against the launchers' own count), the tallest column, resident blocks
-    per SM and clusters the card holds at once
+    chip (rows 2, 3, 7, 8, 9, 10, 11, 12, 13 and 15) at the main path's
+    shapes, broadband and by band: ptxas registers and spills, shared
+    memory per block and cluster size (ops/kernels/onchip.py::
+    onchip_geometry, held against the launchers' own count), the tallest
+    column, resident blocks per SM and clusters the card holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-    cudaOccupancyMaxActiveClusters), and device scratch (none). solver_sw
-    is one kernel of two instantiations: the plain one of rows 9 and 12
-    (broadband and by band) and the COMBINED one of row 13; ptxas lists
-    both. Then the minor gather's (row 5) ptxas line and resident blocks
-    per SM at the path's widths, the launcher starting that many blocks
-    per SM."""
+    cudaOccupancyMaxActiveClusters), and device scratch (none). solver_lw
+    is one kernel of nine instantiations: plain and rescaled, each with
+    and without the Jacobian, broadband (rows 7 and 10) and by band (row
+    7), and PFRAC (row 11); solver_sw one of two: the plain one of rows 9
+    and 12 (broadband and by band) and the COMBINED one of row 13; ptxas
+    lists them all. Then the minor and major gathers' (rows 5 and 4)
+    ptxas lines and resident blocks per SM at the path's widths, each
+    launcher starting that many blocks per SM."""
     from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
                                                      allsky_sw_inputs)
     from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw as flw
     from rte_rrtmgp_tpu_torch.ops.kernels import fused_sw as fsw
     from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (
         gas_minor_occupancy)
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw as slw
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_2str as l2
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw as ss
+    from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import (
+        gas_major_occupancy)
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd as ssw
     from rte_rrtmgp_tpu_torch.ops.kernels._build import (library,
                                                          ptxas_usage)
@@ -916,6 +944,10 @@ def onchip_report(prob, reports):
     for name, nband, what in (
             ("fused_lw", 0, ""), ("fused_lw", nbl, ""),
             ("fused_sw", 0, ""), ("fused_sw", xs.nband, ""),
+            ("solver_lw", 0, " (rows 7, 10)"), ("solver_lw", nbl, " (row 7)"),
+            ("solver_lw", 0, " rescaled + Jacobian (rows 7, 10)"),
+            ("solver_lw", nbl, " rescaled + Jacobian (row 7)"),
+            ("solver_lw", 0, " PFRAC (row 11)"),
             ("solver_lw_2str", 0, ""), ("solver_lw_2str", nbl, ""),
             ("solver_sw", 0, " (rows 9, 12)"), ("solver_sw", nbs, " (row 9)"),
             ("solver_sw", 0, " COMBINED (row 13)"),
@@ -935,6 +967,15 @@ def onchip_report(prob, reports):
             scratch = fsw.sw_fused_scratch_bytes(ncol, nlay,
                                                  xs.kmajor.shape[3])
             top = tallest_column("fused_sw", ngs, nband, nminor)
+        elif name == "solver_lw":
+            v = dict(rescale="rescaled" in what, jacobian="Jacobian" in what,
+                     pfrac="PFRAC" in what)
+            geo = slw.lw_noscat_geometry(nlay, ngl, nband, **v)
+            occ = slw.lw_noscat_occupancy(nlay, ngl, nband, **v)
+            smem_c = library(name).smem_solver_lw(
+                nlay, geo.chunk, nband, *(int(x) for x in v.values()))
+            scratch = slw.lw_noscat_scratch_bytes(ncol, nlay, ngl)
+            top = tallest_column("solver_lw", ngl, nband, **v)
         elif name == "solver_lw_2str":
             geo = l2.lw_2stream_geometry(nlay, ngl, nband)
             occ = l2.lw_2stream_occupancy(nlay, ngl, nband)
@@ -986,16 +1027,31 @@ def onchip_report(prob, reports):
                 raise SystemExit(f"gas_minor: no block fits an SM ({blocks})")
     log(f"gas_minor: ptxas {regs} (the gas_minor_kernel instantiations and "
         "gas_rayleigh_kernel)")
+    rep = reports.get("gas_major")
+    regs = ("not rebuilt in this run" if rep is None else ", ".join(
+        f"{r} registers, {ss_} B spill stores, {sl} B spill loads"
+        for r, ss_, sl in ptxas_usage(rep)))
+    for tag, ngpt, planck in (("LW", ngl, True), ("SW", ngs, False),
+                              ("LW non-banded", 192, True)):
+        blocks = gas_major_occupancy(ngpt, planck)
+        log(f"gas_major {tag} ({ngpt} g-points"
+            f"{', Planck fraction' if planck else ''}): {blocks} resident "
+            "blocks per SM")
+        if blocks < 1:
+            raise SystemExit(f"gas_major: no block fits an SM ({blocks})")
+    log(f"gas_major: ptxas {regs} (its instantiations with and without the "
+        "Planck fraction, of 256 and 1024 threads)")
     del xs, xl
 
 
 def onchip_limits(dev):
-    """Phase 3, the column-height limits of the fused LW step, the SW
-    solve and its adjoint on the card, at the flagship's 256 and 224
-    g-points (chunks of 32): the tallest column each holds (from
-    onchip_geometry's message), 4 columns of the flagship problem (the
-    fused LW step) or of seeded optics, against the twin (fluxes within
-    TOL_FLUX of the
+    """Phase 3, the column-height limits of the fused LW step, the LW
+    no-scattering solve (as the public path calls it, and rescaled with
+    the Jacobian), the SW solve and its adjoint on the card, at the
+    flagship's 256 and 224 g-points (chunks of 32): the tallest column
+    each holds (from onchip_geometry's message), 4 columns of the flagship
+    problem (the fused LW step) or of seeded optics, against the twin
+    (fluxes within TOL_FLUX of the
     largest twin flux; each cotangent within TOL_ADJ of its largest twin
     value, or, where the float32 twin itself misses that against the
     float64 twin, within TOL_ADJ of the float64 twin's: check_adjoint's
@@ -1009,6 +1065,7 @@ def onchip_limits(dev):
     from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
                                                      build_allsky)
     from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw as flw
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw as slw
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw as ss
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd as ssw
     ncol, ngpt = 4, MAIN["ngpt_sw"]
@@ -1051,9 +1108,58 @@ def onchip_limits(dev):
             raise SystemExit("fused_lw: launched past its limit")
     del p, x
 
-    rng = np.random.default_rng(21)
+    # the LW no-scattering solve as the public path calls it and rescaled
+    # with the Jacobian and a secant field, at the flagship's 256
+    # g-points, on 4 columns of seeded sources and optical depths from
+    # 1e-6 to 10
+    rng = np.random.default_rng(24)
     u = lambda lo, hi, *shape: torch.from_numpy(rng.uniform(
         lo, hi, shape).astype(np.float32)).to(dev)
+    ngl = MAIN["ngpt_lw"]
+    for variant in (dict(), dict(rescale=True, jacobian=True)):
+        nlay = tallest_column("solver_lw", ngl, **variant)
+        for n in (nlay, nlay + 1):
+            lay3 = (ncol, n, ngl)
+            tau = torch.from_numpy((10.0 ** rng.uniform(-6.0, 1.0, lay3))
+                                   .astype(np.float32)).to(dev)
+            a = (tau, u(0.5, 1.5, *lay3), u(0.5, 1.5, ncol, n + 1, ngl),
+                 u(0.8, 1.0, ncol, ngl), u(0.5, 1.5, ncol, ngl),
+                 u(0.0, 0.5, ncol, ngl))
+            kw = dict(ds=1.66, weight=0.5)
+            if variant:
+                kw.update(ds=u(1.0, 2.0, ncol, ngl), sfc_src_jac=u(
+                    0.0, 0.1, ncol, ngl), ssa=u(0.0, 0.6, *lay3),
+                    g=u(0.0, 0.9, *lay3))
+            what = "rescaled + Jacobian" if variant else "path"
+            n0 = slw.lw_noscat.launches
+            if n == nlay:
+                got = as_tuple(slw.lw_noscat(*a, **kw))
+                ref = as_tuple(slw.lw_noscat_plain(*a, **kw))
+                torch.cuda.synchronize()
+                err = (max(float((g - r).abs().max())
+                           for g, r in zip(got, ref))
+                       / max(float(r.abs().max()) for r in ref))
+                log(f"solver_lw {what}: the tallest column, {n} layers at "
+                    f"{ngl} g-points, against the twin: {err:.3e} of the "
+                    f"largest twin flux (limit {TOL_FLUX})")
+                if not err <= TOL_FLUX or slw.lw_noscat.launches != n0 + 1:
+                    raise SystemExit(f"solver_lw {what}: the tallest column "
+                                     "disagrees with the twin")
+                continue
+            try:
+                slw.lw_noscat(*a, **kw)
+            except ValueError as e:
+                if f"at most {nlay} layers" not in str(e):
+                    raise
+                log(f"solver_lw {what}: {n} layers raise ValueError: {e}")
+            else:
+                raise SystemExit(f"solver_lw {what}: {n} layers did not "
+                                 "raise")
+            if slw.lw_noscat.launches != n0:
+                raise SystemExit("solver_lw: launched past its limit")
+    del a, tau
+
+    rng = np.random.default_rng(21)
 
     # ssa up to 0.9 and g up to 0.8 put the two-stream k in [0.55, 2]; mu0
     # in [0.2, 0.3] keeps k mu0 below 0.6, away from the clamp at k mu0 =
@@ -1387,10 +1493,21 @@ def run_path(name, step, inputs, counters, must, must_not, solar,
     return out, launches
 
 
+# the hand-written kernels (csrc/*.cu), which profile_path names whatever
+# their rank
+HAND_KERNELS = ("cloud_props_kernel", "fused_lw_kernel", "fused_sw_kernel",
+                "gas_major_kernel", "gas_minor_kernel", "gas_rayleigh_kernel",
+                "solver_lw_kernel", "solver_lw_2str_kernel",
+                "solver_sw_kernel", "fused_lw_bwd_kernel",
+                "fused_sw_bwd_kernel", "solver_lw_bwd_kernel",
+                "solver_sw_bwd_kernel")
+
+
 def profile_path(name, step, inputs, n=3, top=8):
     """Device time by kernel and the device's busy share over n steps,
     from torch.profiler (the profiler's own overhead lengthens the wall
-    time, so the busy share is a lower bound)."""
+    time, so the busy share is a lower bound): the ``top`` kernels by
+    time, then every other hand-written kernel, each on its own line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     step(inputs)
@@ -1415,9 +1532,12 @@ def profile_path(name, step, inputs, n=3, top=8):
     log(f"profile {name}: device {total:.3f} ms per step, wall "
         f"{wall_ms:.3f} ms under the profiler, busy share "
         f"{total / wall_ms:.3f}")
-    for ms, count, key in rows[:top]:
+    hand = lambda key: any(k + "<" in key or k + "(" in key
+                           for k in HAND_KERNELS)
+    shown = rows[:top] + [r for r in rows[top:] if hand(r[2])]
+    for ms, count, key in shown:
         log(f"profile {name}:   {ms:8.3f} ms  x{count:g}  {key[:70]}")
-    rest = rows[top:]
+    rest = [r for r in rows[top:] if not hand(r[2])]
     log(f"profile {name}:   {sum(r[0] for r in rest):8.3f} ms  in "
         f"{sum(r[1] for r in rest):g} other launches")
 

@@ -324,6 +324,46 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                                 (int)bytes);
 }
 
+// As many blocks of ``kernel`` as the card holds at once at ``threads``
+// threads and ``smem`` bytes of dynamic shared memory (the current
+// device's SMs times the resident blocks per SM), queried once per
+// (device, kernel, threads, smem) and host thread: the gathers launch
+// several times per step, on steps whose pace the host sets.
+template <typename K>
+cudaError_t resident_grid(K kernel, int threads, size_t smem,
+                          long long* limit) {
+    struct Key {
+        int dev;
+        const void* fn;
+        int threads;
+        size_t smem;
+        long long limit;
+    };
+    constexpr int kKeys = 16;
+    thread_local Key keys[kKeys];
+    thread_local int nkeys = 0;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const void* fn = (const void*)kernel;
+    for (int i = 0; i < nkeys && i < kKeys; ++i)
+        if (keys[i].dev == dev && keys[i].fn == fn
+                && keys[i].threads == threads && keys[i].smem == smem) {
+            *limit = keys[i].limit;
+            return cudaSuccess;
+        }
+    int nsm = 0, per = 0;
+    err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel,
+                                                            threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per == 0) return cudaErrorInvalidConfiguration;
+    *limit = (long long)per * nsm;
+    keys[nkeys++ % kKeys] = Key{dev, fn, threads, smem, *limit};
+    return cudaSuccess;
+}
+
 }  // namespace rte
 
 extern "C" const char* rte_error_string(int status) {

@@ -155,35 +155,6 @@ int minor_occupancy(int ngpt, int nminor) {
     return err == cudaSuccess ? blocks : -(int)err;
 }
 
-// As many blocks as the card holds at once (SMs x resident blocks per SM)
-// at (ngpt, nminor) on the current device, queried once per key and host
-// thread: the launch runs several times per step, on steps whose pace the
-// host sets.
-cudaError_t minor_grid_limit(int ngpt, int nminor, long long* limit) {
-    struct Key { int dev, ngpt, nminor; long long limit; };
-    constexpr int kKeys = 8;
-    thread_local Key keys[kKeys];
-    thread_local int nkeys = 0;
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    for (int i = 0; i < nkeys && i < kKeys; ++i)
-        if (keys[i].dev == dev && keys[i].ngpt == ngpt
-                && keys[i].nminor == nminor) {
-            *limit = keys[i].limit;
-            return cudaSuccess;
-        }
-    int nsm = 0;
-    err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    const int per = minor_occupancy(ngpt, nminor);
-    if (per < 0) return (cudaError_t)-per;
-    if (per == 0) return cudaErrorInvalidConfiguration;
-    *limit = (long long)per * nsm;
-    keys[nkeys++ % kKeys] = Key{dev, ngpt, nminor, *limit};
-    return cudaSuccess;
-}
-
 __global__ void gas_rayleigh_kernel(
         float* __restrict__ tau, float* __restrict__ ssa,
         const int* __restrict__ jtemp, const float* __restrict__ ftemp,
@@ -231,38 +202,29 @@ extern "C" int launch_gas_minor(
     }
     // as many blocks as the card holds at once, each a run of ``span``
     // consecutive cells (fewer where there are fewer batches)
-    long long limit = 0;
-    cudaError_t err = minor_grid_limit(ngpt, nminor, &limit);
-    if (err != cudaSuccess) return (int)err;
     const int threads = minor_threads(ngpt);
     const int cpb = threads / ((ngpt + 31) / 32 * 32);
-    const long long batches = ((long long)ncell + cpb * kBatch - 1)
-        / (cpb * kBatch);
-    const int grid = (int)(batches < limit ? batches : limit);
-    const int span = (int)(((long long)ncell + grid - 1) / grid);
     const size_t smem = minor_smem(ngpt, nminor);
-    if (threads > kThreads) {
-        err = rte::allow_smem(gas_minor_kernel<1024>, smem);
+    auto go = [&](auto kernel) {
+        long long limit = 0;
+        cudaError_t err = rte::allow_smem(kernel, smem);
+        if (err == cudaSuccess)
+            err = rte::resident_grid(kernel, threads, smem, &limit);
         if (err != cudaSuccess) return (int)err;
-        gas_minor_kernel<1024><<<grid, threads, smem,
-                                 (cudaStream_t)stream>>>(
+        const long long batches = ((long long)ncell + cpb * kBatch - 1)
+            / (cpb * kBatch);
+        const int grid = (int)(batches < limit ? batches : limit);
+        const int span = (int)(((long long)ncell + grid - 1) / grid);
+        kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
             (const float*)tau_in, (float*)tau_out, (const int*)jtemp,
             (const float*)ftemp, (const int*)jeta, (const float*)feta,
             (const float*)msc, (const int*)minor_meta,
             (const float*)kminor, ncell, ngpt, neta, nflav, nminor, ncont,
             span);
-    } else {
-        err = rte::allow_smem(gas_minor_kernel<kThreads>, smem);
-        if (err != cudaSuccess) return (int)err;
-        gas_minor_kernel<kThreads><<<grid, threads, smem,
-                                     (cudaStream_t)stream>>>(
-            (const float*)tau_in, (float*)tau_out, (const int*)jtemp,
-            (const float*)ftemp, (const int*)jeta, (const float*)feta,
-            (const float*)msc, (const int*)minor_meta,
-            (const float*)kminor, ncell, ngpt, neta, nflav, nminor, ncont,
-            span);
-    }
-    return (int)cudaGetLastError();
+        return (int)cudaGetLastError();
+    };
+    return threads > kThreads ? go(gas_minor_kernel<1024>)
+                              : go(gas_minor_kernel<kThreads>);
 }
 
 extern "C" int launch_gas_rayleigh(

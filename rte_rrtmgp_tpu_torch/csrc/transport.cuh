@@ -2,7 +2,8 @@
 // solvers: the LW linear-in-tau layer source, the SW Meador-Weaver layer
 // coefficients, the LW two-stream layer coefficients and sources, and the
 // on-chip adding with its cluster-wide sums (the fused SW step, the SW
-// and LW two-stream solves; the sums also serve the SW solve's adjoint).
+// and LW two-stream solves; the sums also serve the fused LW step, the LW
+// no-scattering solve and the SW solve's adjoint).
 #pragma once
 
 #include <cfloat>
@@ -252,6 +253,52 @@ struct ClusterSums {
                     float s = warp_sum(val(f, lev, w * 32 + lane));
                     if (lane == 0) part[(f * nw + w) * nlev + lev] = s;
                 }
+    }
+
+    // reduce() for fields f0 .. f1 - 1, taken by the block's threads t0
+    // and up (so that the threads below t0 can still be sweeping), from
+    // row(f, lev): the values of field f at level lev, g-point g0 + i at
+    // row(f, lev)[i]. Broadband each warp sum by one thread: the 32
+    // values of one warp's g-points at one level added pairwise in the
+    // xor butterfly's order, so with warp_sum's bits, one (field, warp,
+    // level) item per thread, levels fastest, so that rows padded to an
+    // odd stride are read without bank conflicts; by band one (band,
+    // level) item per thread, as reduce(). The threads t0 and up call it
+    // once the fields' values are final.
+    template <class Row>
+    __device__ void reduce_by_thread(Row&& row, int f0, int f1,
+                                     int t0 = 0) {
+        const int tid = (int)threadIdx.x - t0, nt = (int)blockDim.x - t0;
+        if (tid < 0) return;
+        if (byband) {
+            for (int it = tid; it < nband * nlev; it += nt) {
+                const int b = it / nlev, lev = it - b * nlev;
+                for (int f = f0; f < f1; ++f) {
+                    const float* r = row(f, lev);
+                    float t = 0.0f;
+                    for (int k = first[b]; k < first[b + 1]; ++k)
+                        t += r[members[k]];
+                    part[f * nband * nlev + it] = t;
+                }
+            }
+            return;
+        }
+        const int per = nw * nlev;
+        for (int it = tid; it < (f1 - f0) * per; it += nt) {
+            const int df = it / per, r = it - df * per;
+            const int w = r / nlev, lev = r - w * nlev, f = f0 + df;
+            const float* v = row(f, lev) + w * 32;
+            float x[16];
+#pragma unroll
+            for (int i = 0; i < 16; ++i) x[i] = v[i] + v[i + 16];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) x[i] += x[i + 8];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) x[i] += x[i + 4];
+            x[0] += x[2];
+            x[1] += x[3];
+            part[(f * nw + w) * nlev + lev] = x[0] + x[1];
+        }
     }
 
     // After reduce, every thread of every block of the cluster: emit(i,

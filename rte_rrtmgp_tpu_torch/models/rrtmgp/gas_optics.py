@@ -44,9 +44,11 @@ from .kdist import KDist
 __all__ = ["GasOpticsRRTMGP", "get_col_dry", "interp_tlev"]
 
 
-def _major(co, kmajor, planck_frac, gpoint_flavor):
+def _major(co, kmajor, planck_frac, gpoint_flavor, kmajor_pfrac=None):
+    """gas_major with its twin's gradient; the kernel reads the LW table of
+    (kmajor, planck_frac) pairs, which an LW call on CUDA must pass."""
     return with_twin_grad(gas_major, gas_major_plain, co, kmajor,
-                          planck_frac, gpoint_flavor)
+                          planck_frac, gpoint_flavor, kmajor_pfrac)
 
 
 def _minor(tau, co, kminor, minors, meta, scaling):
@@ -116,7 +118,8 @@ class GasOpticsRRTMGP:
         self.minors = tuple(minors)
         self.minor_meta = torch.as_tensor(self.minors, dtype=i32,
                                           device=dev).reshape(-1, 5)
-        # the fused LW kernel's gather table (LWFusedInputs.kmajor_pfrac)
+        # the LW gather table of the fused LW kernel (LWFusedInputs.
+        # kmajor_pfrac) and of the major-gas gather
         self.kmajor_pfrac = (
             None if kdist.planck_frac is None
             else interleave_kmajor_pfrac(kdist.kmajor, kdist.planck_frac))
@@ -194,7 +197,7 @@ class GasOpticsRRTMGP:
                                                  col_dry)
         co = self.interp(play, tlay, col_gas)
         tau, pfrac = _major(co, kd.kmajor, kd.planck_frac,
-                            self.gpoint_flavor)
+                            self.gpoint_flavor, self.kmajor_pfrac)
         nlo = len(kd.minor_lower)
         minors_lo, minors_up = _split_minors(self.minors)
         kw = dict(play=play, tlay=tlay, col_gas=col_gas, idx_h2o=idx_h2o)

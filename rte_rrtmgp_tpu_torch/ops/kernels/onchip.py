@@ -1,9 +1,10 @@
 """The on-chip geometry of the kernels that hold their transport in shared
 memory: the fused LW and SW steps (``csrc/fused_lw.cu``,
-``csrc/fused_sw.cu``), the LW two-stream solve
-(``csrc/solver_lw_2str.cu``), the SW two-stream solve of the public and
-staged paths (``csrc/solver_sw.cu``, all three launchers) and its adjoint
-(``csrc/solver_sw_bwd.cu``).
+``csrc/fused_sw.cu``), the LW no-scattering solve of the public and
+staged paths (``csrc/solver_lw.cu``, all three launchers), the LW
+two-stream solve (``csrc/solver_lw_2str.cu``), the SW two-stream solve of
+the public and staged paths (``csrc/solver_sw.cu``, all three launchers)
+and its adjoint (``csrc/solver_sw_bwd.cu``).
 
 A column's g-points are cut into chunks of ``chunk`` g-points, one thread
 block per chunk, and the column's chunks form one thread-block cluster
@@ -30,10 +31,11 @@ SMEM_LIMIT = 232448
 MAX_CHUNKS = 8
 # threads per block: chunk g-points x layer lanes
 THREADS = 256
-# fields each kernel sums: SW up, diffuse dn, dir; LW up, dn; the SW
+# fields each kernel sums: SW up, diffuse dn, dir; LW up, dn (the LW
+# no-scattering solve also its broadband Jacobian where asked for); the SW
 # adjoint the mu0 cotangent of each layer and the beam's seed at the top
-_FIELDS = {"fused_lw": 2, "fused_sw": 3, "lw_2stream": 2, "solver_sw": 3,
-           "solver_sw_bwd": 2}
+_FIELDS = {"fused_lw": 2, "fused_sw": 3, "lw_2stream": 2, "solver_lw": 2,
+           "solver_sw": 3, "solver_sw_bwd": 2}
 
 
 class Geometry(NamedTuple):
@@ -52,10 +54,29 @@ def _sums_bytes(nf: int, lanes: int, nlev: int, nband: int) -> int:
     return 4 * nf * (lanes // 32) * nlev
 
 
-def _smem(kernel: str, nlay: int, chunk: int, nband: int,
-          nminor: int) -> int:
+def _smem(kernel: str, nlay: int, chunk: int, nband: int, nminor: int,
+          rescale: bool = False, jacobian: bool = False,
+          pfrac: bool = False) -> int:
     """The launchers' smem_bytes (csrc/fused_lw.cu, fused_sw.cu,
-    solver_lw_2str.cu, solver_sw.cu, solver_sw_bwd.cu)."""
+    solver_lw.cu, solver_lw_2str.cu, solver_sw.cu, solver_sw_bwd.cu)."""
+    if kernel == "solver_lw":
+        # per (layer, g-point) the transmittance (then the Jacobian's
+        # flux), the down source (then the down flux) and the up source
+        # (then the up flux); with rescaling Tang's cn and the radiance at
+        # the layer top (then the up flux); with pfrac the Planck
+        # fraction; each layer's row padded by one, each field padded by
+        # 4 rows at either end (the sweeps' loads 4 layers ahead); per
+        # g-point the top level's down flux, the surface's up flux and
+        # Jacobian and the surface source; the sums: up and dn (by band),
+        # the Jacobian broadband
+        nlev = nlay + 1
+        fields = (5 if rescale else 4 if pfrac else 3) * (nlay + 8)
+        if nband > 0:
+            sums = _sums_bytes(2, chunk, nlev, nband) + (
+                _sums_bytes(1, chunk, nlev, 0) if jacobian else 0)
+        else:
+            sums = _sums_bytes(2 + jacobian, chunk, nlev, 0)
+        return 4 * (fields * (chunk + 1) + 4 * chunk) + sums
     if kernel == "solver_sw_bwd":
         # per (layer, g-point) rdif, tdif, rdir, tdir as a float4 and tns
         # (then their cotangents), the adding denominator and the A-F
@@ -91,12 +112,15 @@ def _smem(kernel: str, nlay: int, chunk: int, nband: int,
 
 
 def onchip_geometry(kernel: str, nlay: int, ngpt: int, nband: int = 0,
-                    nminor: int = 0) -> Geometry:
+                    nminor: int = 0, *, rescale: bool = False,
+                    jacobian: bool = False, pfrac: bool = False) -> Geometry:
     """Chunk width, cluster size, threads and shared memory per block of
-    ``kernel`` ("fused_lw", "fused_sw", "lw_2stream", "solver_sw" or
-    "solver_sw_bwd") at nlay layers and ngpt g-points, with per-band sums
-    over ``nband`` bands (0: broadband; the adjoint takes broadband
-    cotangents only) and, for the fused steps, nminor minor gases.
+    ``kernel`` ("fused_lw", "fused_sw", "solver_lw", "lw_2stream",
+    "solver_sw" or "solver_sw_bwd") at nlay layers and ngpt g-points, with
+    per-band sums over ``nband`` bands (0: broadband; the adjoint takes
+    broadband cotangents only), for the fused steps nminor minor gases,
+    and for "solver_lw" its variant: Tang ``rescale``-ing, the surface
+    ``jacobian``, the in-kernel Planck sources (``pfrac``).
     The chunk is the narrowest power of two from 32 up with at most
     :data:`MAX_CHUNKS` chunks. Raises ValueError where the g-points
     exceed 8 chunks of 128 or a block's fields exceed :data:`SMEM_LIMIT`,
@@ -112,10 +136,13 @@ def onchip_geometry(kernel: str, nlay: int, ngpt: int, nband: int = 0,
     if chunk > 128:
         raise ValueError(f"{kernel}: {ngpt} g-points exceed {MAX_CHUNKS} "
                          "blocks of 128")
-    smem = _smem(kernel, nlay, chunk, nband, nminor)
+    if kernel != "solver_lw" and (rescale or jacobian or pfrac):
+        raise ValueError(f"onchip_geometry: {kernel} has no variants")
+    variant = dict(rescale=rescale, jacobian=jacobian, pfrac=pfrac)
+    smem = _smem(kernel, nlay, chunk, nband, nminor, **variant)
     if smem > SMEM_LIMIT:
-        s0 = _smem(kernel, 0, chunk, nband, nminor)
-        per = _smem(kernel, 1, chunk, nband, nminor) - s0
+        s0 = _smem(kernel, 0, chunk, nband, nminor, **variant)
+        per = _smem(kernel, 1, chunk, nband, nminor, **variant) - s0
         raise ValueError(
             f"{kernel}: {nlay} layers need {smem} B of shared memory per "
             f"block, more than the {SMEM_LIMIT} B a block may use; at "

@@ -17,10 +17,11 @@ The twins run the public-layout solvers (``lw_noscat_plain`` and
 ``sw_2stream_plain``) on permuted views, after the pfrac-source or the
 Rayleigh/cloud-combine prologue of the two solvers that do their own.
 A CUDA tensor goes to the kernel (float32 only; anything else raises), a
-CPU tensor to the twin. Each wrapper counts its launches. The SW kernel
-keeps a column's layer fields in shared memory
-(``solver_sw.sw_2stream_geometry``): on CUDA a column taller than a block
-holds raises ValueError naming the limit. The staged
+CPU tensor to the twin. Each wrapper counts its launches. Both kernels
+keep a column's layer fields in shared memory
+(``solver_lw.lw_noscat_geometry``, ``solver_sw.sw_2stream_geometry``):
+on CUDA a column taller than a block holds raises ValueError naming the
+limit, and no launch takes device scratch. The staged
 branch has no gradient on the card, as the JAX package gives its lane
 kernels none: on CUDA the wrappers raise when an input requires grad.
 """
@@ -33,7 +34,7 @@ from ...constants import PI
 from ..gas_optics import level_pfrac
 from ._build import check_strided, launch, on_cpu, strided
 from .autodiff import refuse_grad
-from .solver_lw import lw_noscat_plain
+from .solver_lw import lw_noscat_geometry, lw_noscat_plain
 from .solver_sw import sw_2stream_geometry, sw_2stream_plain
 
 __all__ = ["lw_noscat_lanes", "lw_noscat_lanes_plain",
@@ -73,11 +74,6 @@ def _no_grad(what, *args):
                 "take gradients through the fused step or the public API")
 
 
-def _block(what, ngpt):
-    if ngpt > 1024:
-        raise ValueError(f"{what}: {ngpt} g-points exceed one CUDA block")
-
-
 # ---------------------------------------------------------------------------
 # LW no-scattering (row 10) and with in-kernel Planck sources (row 11)
 # ---------------------------------------------------------------------------
@@ -115,7 +111,6 @@ def lw_noscat_lanes(tau, lay_source, lev_source, sfc_emis, sfc_src,
     _no_grad("lw_noscat_lanes", tau, lay_source, lev_source, sfc_emis,
              sfc_src, inc_flux, ssa, g, sfc_src_jac)
     ngpt, nlay, ncol = tau.shape
-    _block("lw_noscat_lanes", ngpt)
     f32 = torch.float32
     lay3, bc = (ngpt, nlay, ncol), (ngpt, ncol)
     dev = tau.device
@@ -126,9 +121,10 @@ def lw_noscat_lanes(tau, lay_source, lev_source, sfc_emis, sfc_src,
         "sfc_emis": (sfc_emis, bc, f32), "sfc_src": (sfc_src, bc, f32),
         "sfc_src_jac": (sfc_src_jac, bc, f32),
         "inc_flux": (inc_flux, bc, f32)})
-    # rescaling keeps each thread's radiances at the layer tops
-    scratch = (None if ssa is None
-               else torch.empty((ncol, nlay, ngpt), dtype=f32, device=dev))
+    # the layer fields stay in shared memory: raises past the column
+    # height a block holds
+    geo = lw_noscat_geometry(nlay, ngpt, rescale=ssa is not None,
+                             jacobian=sfc_src_jac is not None)
     up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
     dn = torch.empty_like(up)
     jac = None if sfc_src_jac is None else torch.empty_like(up)
@@ -137,8 +133,8 @@ def lw_noscat_lanes(tau, lay_source, lev_source, sfc_emis, sfc_src,
            *strided(lev_source, 3), *strided(ssa, 3), *strided(g, 3),
            *strided(sfc_emis, 2), *strided(sfc_src, 2),
            *strided(sfc_src_jac, 2), *strided(inc_flux, 2),
-           scratch, up, dn, jac, ncol, nlay, ngpt, float(ds),
-           PI * float(weight))
+           up, dn, jac, ncol, nlay, ngpt, float(ds), PI * float(weight),
+           geo.chunk)
     lw_noscat_lanes.launches += 1
     return up, dn, jac
 
@@ -181,7 +177,6 @@ def lw_noscat_lanes_pfrac(tau, pfrac, pb_lay, pb_lev, pb_sfc, sfc_emis,
              sfc_emis, inc_flux, cloud_tau_abs)
     ngpt, nlay, ncol = tau.shape
     nbnd = pb_lay.shape[0]
-    _block("lw_noscat_lanes_pfrac", ngpt)
     f32 = torch.float32
     lay3, bc = (ngpt, nlay, ncol), (ngpt, ncol)
     dev = tau.device
@@ -193,6 +188,7 @@ def lw_noscat_lanes_pfrac(tau, pfrac, pb_lay, pb_lev, pb_sfc, sfc_emis,
         "cloud_tau_abs": (cloud_tau_abs, (nbnd, nlay, ncol), f32),
         "sfc_emis": (sfc_emis, bc, f32), "inc_flux": (inc_flux, bc, f32),
         "gpt2band": (gpt2band, (ngpt,), torch.int32)})
+    geo = lw_noscat_geometry(nlay, ngpt, pfrac=True)
     up = torch.empty((nlay + 1, ncol), dtype=f32, device=dev)
     dn = torch.empty_like(up)
     launch("solver_lw", "launch_solver_lw_pfrac", "lw_noscat_lanes_pfrac",
@@ -200,7 +196,7 @@ def lw_noscat_lanes_pfrac(tau, pfrac, pb_lay, pb_lev, pb_sfc, sfc_emis,
            *strided(pb_lev, 3), *strided(pb_sfc, 2),
            *strided(cloud_tau_abs, 3), *strided(sfc_emis, 2),
            *strided(inc_flux, 2), gpt2band.contiguous(), up, dn, ncol, nlay,
-           ngpt, float(ds), PI * float(weight))
+           ngpt, float(ds), PI * float(weight), geo.chunk)
     lw_noscat_lanes_pfrac.launches += 1
     return up, dn
 

@@ -11,11 +11,15 @@ running the script on both, in turns, in one session. It imports that
 checkout's ``rte_rrtmgp_tpu_torch`` and ``chip_smoke.py`` (MAIN,
 NONBANDED, cuda_ms, lw2_step, step_fn, train_loss) and never JAX, and
 calls only entry points that checkouts from before the SW solver's
-on-chip redesign have too. It prints one JSON line: the card; the
+on-chip redesign have too (the major gather gets the interleaved LW
+table only where its wrapper takes one). It prints one JSON line: the card; the
 CUDA-event median time of each kernel and its largest difference from its
 plain twin (for the adjoint, per cotangent) over the twin's largest value:
 the fused LW and SW steps and the LW two-stream solve, broadband and by
-band, the minor gather (row 5, in place on a copy of the major-gas tau,
+band, the major gather (row 4, LW and SW), the LW no-scattering solve
+(row 7 as the public path calls it, by band, and rescaled with the
+Jacobian and a secant field; row 10 on the non-banded configuration;
+row 11), the minor gather (row 5, in place on a copy of the major-gas tau,
 the call every checkout has, and, where the checkout's ``gas_minor`` takes
 ``out``, also out of place as the gas optics and chip_smoke.py's api_rows
 call it; LW 256 and SW 224 g-points, each atmosphere's minors), the
@@ -116,6 +120,89 @@ def sw_solver_cases(cs, prob, nonb, dev):
         "solver_sw_bwd": (lambda: sw_2stream_bwd(*bwd),
                           lambda: sw_2stream_bwd_plain(*bwd)),
     }
+
+
+def lw_solver_cases(prob, nonb, dev):
+    """{name: (kernel call, twin call)} of the major-gas gather (row 4, LW
+    256 g-points with the Planck fraction and SW 224 without, on the
+    public path's cells; the interleaved LW table passed where the
+    checkout's ``gas_major`` takes it) and the LW no-scattering solve's
+    launchers: row 7 as the public path calls it (one scalar secant, no
+    rescaling, no Jacobian, zero incident flux), by band, and rescaled
+    with the Jacobian, an incident flux and per-(column, g-point) secants,
+    on the path's gas optics and sources; row 10 on the non-banded
+    configuration and row 11, clouds and aerosols on, on the staged path's
+    inputs, as chip_smoke.py's api_rows and lanes_rows build them."""
+    import inspect
+    import torch
+    from rte_rrtmgp_tpu_torch.drivers.allsky import _absorption_lanes
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lanes as sl
+    from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import (gas_major,
+                                                            gas_major_plain)
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import (lw_noscat,
+                                                            lw_noscat_plain)
+    from rte_rrtmgp_tpu_torch.ops.solver_lw import GAUSS_DS, GAUSS_WTS
+    inp, gl = prob.inputs, prob.gas_lw
+    ncol, nlay = inp.play.shape
+    out = {}
+    for tag, gas in (("lw", gl), ("sw", prob.gas_sw)):
+        kd = gas.kdist
+        cg, _, _ = gas.col_gas(inp.play, inp.plev, inp.gas_concs)
+        a = (gas.interp(inp.play, inp.tlay, cg), kd.kmajor, kd.planck_frac,
+             gas.gpoint_flavor)
+        kw = ({"kmajor_pfrac": gas.kmajor_pfrac}
+              if "kmajor_pfrac" in inspect.signature(gas_major).parameters
+              else {})
+        out[f"gas_major {tag}"] = (lambda a=a, kw=kw: gas_major(*a, **kw),
+                                   lambda a=a: gas_major_plain(*a))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rand = lambda shape, lo, hi: lo + (hi - lo) * torch.rand(
+        shape, generator=gen, device=dev)
+    props, src = gl.gas_optics_lw(inp.play, inp.plev, inp.tlay, inp.tsfc,
+                                  inp.gas_concs, tlev=inp.tlev, top_at_1=True)
+    bc = (ncol, gl.ngpt)
+    shape = tuple(props.tau.shape)
+    emis = inp.sfc_emis[:, :1].expand(bc).contiguous()
+    angle = dict(ds=float(GAUSS_DS[0][0]), weight=float(GAUSS_WTS[0][0]))
+    path = (props.tau, src.lay_source, src.lev_source, emis, src.sfc_source,
+            torch.zeros_like(emis))
+    resc = (props.tau, src.lay_source, src.lev_source, rand(bc, 0.8, 1.0),
+            src.sfc_source, rand(bc, 0.0, 2.0))
+    rkw = dict(ds=gl.compute_optimal_angles(props), weight=1.0,
+               sfc_src_jac=src.sfc_source_jac, ssa=rand(shape, 0.0, 0.6),
+               g=rand(shape, 0.0, 0.9))
+    bands = dict(angle, gpt2band=gl.gpt2band, nband=gl.grid.nband)
+    for name, a, kw in (("solver_lw", path, angle),
+                        ("solver_lw byband", path, bands),
+                        ("solver_lw rescaled", resc, rkw)):
+        out[name] = (lambda a=a, kw=kw: lw_noscat(*a, **kw),
+                     lambda a=a, kw=kw: lw_noscat_plain(*a, **kw))
+
+    def lanes(p, banded):
+        i, g = p.inputs, p.gas_lw
+        o = g.gas_optics_lw_lanes(i.play, i.plev, i.tlay, i.tsfc,
+                                  i.gas_concs, tlev=i.tlev,
+                                  banded_planck=banded)
+        cld = _absorption_lanes(i, p.cld_lw, True, p.aer_lw, True)
+        tau = o[0]
+        ngpt, _, nc = tau.shape
+        em = i.sfc_emis[:, 0][None, :].expand(ngpt, nc)
+        inc = tau.new_zeros(()).expand(ngpt, nc)
+        if banded:
+            _, pfrac, (pbs, pbl, pbv) = o
+            return (tau, pfrac, pbl, pbv, pbs, em, inc), dict(
+                angle, gpt2band=g.gpt2band, cloud_tau_abs=cld)
+        sfc, lay, lev, _ = o[1]
+        return (tau + cld[g.gpt2band.long()], lay, lev, em, sfc, inc), angle
+
+    l10, k10 = lanes(nonb, False)
+    l11, k11 = lanes(prob, True)
+    out["solver_lw_lanes"] = (lambda: sl.lw_noscat_lanes(*l10, **k10),
+                              lambda: sl.lw_noscat_lanes_plain(*l10, **k10))
+    out["solver_lw_pfrac"] = (
+        lambda: sl.lw_noscat_lanes_pfrac(*l11, **k11),
+        lambda: sl.lw_noscat_lanes_pfrac_plain(*l11, **k11))
+    return out
 
 
 def minor_cases(prob, cs):
@@ -296,9 +383,11 @@ def main():
 
     aer = build_allsky(**cs.MAIN, device=dev, use_aerosols=True)
     nonb = build_allsky(**cs.NONBANDED, device=dev, use_aerosols=True)
-    for name, (kernel, plain) in sw_solver_cases(cs, aer, nonb,
-                                                 dev).items():
-        got, ref = kernel(), plain()
+    cases = dict(lw_solver_cases(aer, nonb, dev))
+    cases.update(sw_solver_cases(cs, aer, nonb, dev))
+    for name, (kernel, plain) in cases.items():
+        got, ref = (tuple(x for x in f() if x is not None)
+                    for f in (kernel, plain))
         if name == "solver_sw_bwd":
             err = [float((g - r).abs().max()) / float(r.abs().max())
                    for g, r in zip(got, ref)]
@@ -309,8 +398,8 @@ def main():
         del got, ref
         torch.cuda.empty_cache()
         out[name] = dict(ms=cs.cuda_ms(kernel), rel_err=err, digest=sha)
-    # the cases' inputs (about 0.8 GB) must not count in the steps' peaks
-    del aer, nonb, kernel, plain
+    # the cases' inputs (about 2 GB) must not count in the steps' peaks
+    del aer, nonb, kernel, plain, cases
     torch.cuda.empty_cache()
     out["solver_sw_bwd tallest column"] = tall_column_replay(cs, dev)
     torch.cuda.empty_cache()

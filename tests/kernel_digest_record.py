@@ -3,7 +3,13 @@ fused LW step and the minor-gas gather (``csrc/common.cuh``,
 ``csrc/transport.cuh``), at two small cases, which
 ``tests/golden/kernel_digests_frozen.json`` records: rows 2 (the fused LW
 step), 3 (the fused SW step), 5 (the minor-gas gather), 6 (the Rayleigh
-gather) and 16 (the fused LW adjoint), on tests/test_torch_cuda.py's
+gather) and 16 (the fused LW adjoint); and rows 4 (the major-gas gather,
+LW with the Planck fraction and SW), 7 (the LW no-scattering solve: one
+scalar secant broadband, as the public path calls it, by band, and
+rescaled with the Jacobian and a secant field), 10 (its lane layout,
+plain and rescaled with the Jacobian) and 11 (with in-kernel Planck
+sources, with and without cloud), the solvers on inputs drawn from
+numpy's default_rng(23) at the case's widths; on tests/test_torch_cuda.py's
 DIMS["g24"] (7 columns, 12 layers, LW 24 g-points / 3 bands, SW 40 / 5)
 and its FLAGSHIP (3 columns, 72 layers, LW 256 / 16, SW 224 / 14), clouds
 on; incident fluxes and flux cotangents uniform from numpy's
@@ -14,9 +20,16 @@ call of the checkout it was taken from); ``record(dev, minor_out=True)``
 takes them out of place, as the gas optics call them
 (``models/rrtmgp/gas_optics.py::_minor``), under the same names. Used by
 tests/test_torch_cuda.py::test_kernels_match_frozen_digests and by
-scripts/freeze_kernel_digests.py, which writes the record.
+scripts/freeze_kernel_digests.py, which writes the record. Every call
+goes through an entry point that checkouts from before the LW solver and
+the major gather were rewritten have too; the major gather gets the
+interleaved LW table only where its wrapper takes one. The record holds
+the outputs of the kernels before each was rewritten, but for row 11's
+four entries: the rewritten kernel's, which nvcc compiles to other bits
+(an ulp or two, PERF.md).
 """
 import hashlib
+import inspect
 
 import numpy as np
 
@@ -67,6 +80,73 @@ def _gathers(p, gas, sw, minor_out):
     return out
 
 
+def _major(p, gas):
+    """(name, call) of the major-gas gather on the gas optics' cells (with
+    the Planck fraction for LW), passing the interleaved table
+    (``GasOpticsRRTMGP.kmajor_pfrac``) where the wrapper takes it."""
+    from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import gas_major
+    inp, kd = p.inputs, gas.kdist
+    cg, _, _ = gas.col_gas(inp.play, inp.plev, inp.gas_concs)
+    co = gas.interp(inp.play, inp.tlay, cg)
+    kw = {}
+    if "kmajor_pfrac" in inspect.signature(gas_major).parameters:
+        kw["kmajor_pfrac"] = gas.kmajor_pfrac
+    return lambda: gas_major(co, kd.kmajor, kd.planck_frac,
+                             gas.gpoint_flavor, **kw)
+
+
+def _lw_solvers(p, dev):
+    """(name, call) of the LW no-scattering solve's three launchers (rows
+    7, 10, 11) on inputs from numpy's default_rng(23) at the problem's
+    widths: optical depths spanning the small-tau series and the
+    exponential (1e-6 to 10), the lane solvers on permuted views of the
+    public layout, as the staged path passes the gathers' output."""
+    import torch
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lanes import (
+        lw_noscat_lanes, lw_noscat_lanes_pfrac)
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import lw_noscat
+    gl = p.gas_lw
+    ncol, nlay = p.inputs.play.shape
+    ngpt, nbnd, g2b = gl.ngpt, gl.grid.nband, gl.gpt2band
+    rng = np.random.default_rng(23)
+    u = lambda lo, hi, *s: torch.from_numpy(rng.uniform(lo, hi, s).astype(
+        np.float32)).to(dev)
+    lay3 = (ncol, nlay, ngpt)
+    tau = torch.from_numpy((10.0 ** rng.uniform(-6.0, 1.0, lay3)).astype(
+        np.float32)).to(dev)
+    lay, lev = u(0.5, 1.5, *lay3), u(0.5, 1.5, ncol, nlay + 1, ngpt)
+    emis, sfc = u(0.8, 1.0, ncol, ngpt), u(0.5, 1.5, ncol, ngpt)
+    inc, jac = u(0.0, 0.5, ncol, ngpt), u(0.0, 0.1, ncol, ngpt)
+    ssa, asy = u(0.0, 0.6, *lay3), u(0.0, 0.9, *lay3)
+    ds = u(1.0, 2.0, ncol, ngpt)
+    pf = u(0.0, 1.0, *lay3)
+    pbl, pbv = u(0.5, 1.5, nbnd, nlay, ncol), u(0.5, 1.5, nbnd, nlay + 1,
+                                                ncol)
+    pbs, cld = u(0.5, 1.5, nbnd, ncol), u(0.0, 0.5, nbnd, nlay, ncol)
+    t3 = lambda x: x.permute(2, 1, 0)
+    one = dict(ds=1.66, weight=0.5)
+    lanes = (t3(tau), t3(lay), t3(lev), emis.T, sfc.T, inc.T)
+    return [
+        ("solver_lw path", lambda: lw_noscat(tau, lay, lev, emis, sfc, inc,
+                                             **one)),
+        ("solver_lw byband", lambda: lw_noscat(
+            tau, lay, lev, emis, sfc, inc, gpt2band=g2b, nband=nbnd,
+            **one)),
+        ("solver_lw rescaled", lambda: lw_noscat(
+            tau, lay, lev, emis, sfc, inc, ds=ds, weight=0.5,
+            sfc_src_jac=jac, ssa=ssa, g=asy)),
+        ("solver_lw_lanes plain", lambda: lw_noscat_lanes(*lanes, **one)),
+        ("solver_lw_lanes rescaled", lambda: lw_noscat_lanes(
+            *lanes, ssa=t3(ssa), g=t3(asy), sfc_src_jac=jac.T,
+            do_rescaling=True, do_jacobians=True, **one)),
+        ("solver_lw_pfrac cloud", lambda: lw_noscat_lanes_pfrac(
+            t3(tau), t3(pf), pbl, pbv, pbs, emis.T, inc.T, gpt2band=g2b,
+            cloud_tau_abs=cld, **one)),
+        ("solver_lw_pfrac clear", lambda: lw_noscat_lanes_pfrac(
+            t3(tau), t3(pf), pbl, pbv, pbs, emis.T, inc.T, gpt2band=g2b,
+            **one))]
+
+
 def record(dev, minor_out=False):
     """{"<case> <kernel> <variant>": digest} at CASES on ``dev``; with
     ``minor_out`` the minor gathers out of place."""
@@ -105,6 +185,9 @@ def record(dev, minor_out=False):
         calls += [(f"gas_minor sw {n}" if n != "rayleigh"
                    else "gas_rayleigh sw", f)
                   for n, f in _gathers(p, p.gas_sw, True, minor_out)]
+        calls += [("gas_major lw", _major(p, p.gas_lw)),
+                  ("gas_major sw", _major(p, p.gas_sw))]
+        calls += _lw_solvers(p, dev)
         for name, call in calls:
             out[f"{tag} {name}"] = digest(call())
     return out

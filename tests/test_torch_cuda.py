@@ -30,12 +30,18 @@ multiples of 32 per column), by band with uniform and ragged bands, with
 a diffuse incident flux under night and low suns, in the tallest column
 their narrowest chunk holds (one layer more raises) and bit-identical
 over two runs; the fused LW kernel likewise on chip, broadband, by band,
-with an incident flux and without clouds. The minor-gas gather in place
-and out of place (the public paths' call), on both atmospheres and with
-a scaling row of zeros; and the fused LW step and the minor gather with
-the kernels that share device code with them (rows 2, 3, 5, 6, 16) bit
-for bit the outputs recorded from them before (tests/golden/
-kernel_digests_frozen.json).
+with an incident flux and without clouds; the LW no-scattering solver
+likewise on chip, its three launchers in every variant (as the public
+path calls it, by band, rescaled with the Jacobian and a secant field;
+the lane layout plain and rescaled; the in-kernel Planck sources with and
+without cloud), in the tallest column each variant holds (one layer more
+raises). The minor-gas gather in place and out of place (the public
+paths' call), on both atmospheres and with a scaling row of zeros; the
+major-gas gather from the interleaved LW table at the paths' widths; and
+the rewritten kernels (rows 2, 4, 5, 7, 10, 11) with the kernels that
+share device code with them (rows 3, 6, 16) bit for bit the outputs
+recorded from them before (tests/golden/kernel_digests_frozen.json; row
+11 its rewritten kernel's).
 """
 import numpy as np
 import pytest
@@ -171,7 +177,7 @@ def test_gas_major_matches_twin(cuda, dims):
     for gas in (p.gas_lw, p.gas_sw):
         co = _descriptors(p, gas)[0]
         args = (co, gas.kdist.kmajor, gas.kdist.planck_frac,
-                gas.gpoint_flavor)
+                gas.gpoint_flavor, gas.kmajor_pfrac)
         n0 = gas_major.launches
         got = tuple(x for x in gas_major(*args) if x is not None)
         assert gas_major.launches == n0 + 1
@@ -730,7 +736,8 @@ def test_kernel_wrappers_carry_a_backward_or_raise(cuda):
     kd = p.gas_lw.kdist
     co_g = co._replace(ftemp=req(co.ftemp))
     raw.append(lambda: gas_major(co_g, kd.kmajor, kd.planck_frac,
-                                 p.gas_lw.gpoint_flavor))
+                                 p.gas_lw.gpoint_flavor,
+                                 p.gas_lw.kmajor_pfrac))
     tau = gas_major_plain(co, kd.kmajor, None, p.gas_lw.gpoint_flavor)[0]
     nlo = len(kd.minor_lower)
     minors = tuple(m[1:] for m in p.gas_lw.minors if m[0])
@@ -1499,13 +1506,216 @@ def test_gas_minor_out_of_place_matches_twin(cuda, dims):
             assert torch.equal(out, _minor(tau, co, ktab, minors, meta, sc))
 
 
+# ---------------------------------------------------------------------------
+# rows 7, 10 and 11 on chip: the LW no-scattering solve's three launchers,
+# a column's g-points in a cluster of chunks, the layer fields in shared
+# memory (ops/kernels/onchip.py); row 4 many cells per block
+# ---------------------------------------------------------------------------
+
+def _lw_pub_args(p, cuda, seed=25):
+    """Row 7's inputs on the case's gas optics and sources, a seeded
+    emissivity and incident flux, and the rescaled variant's ssa, g and
+    per-(column, g-point) secants."""
+    inp = p.inputs
+    props, src = p.gas_lw.gas_optics_lw(inp.play, inp.plev, inp.tlay,
+                                        inp.tsfc, inp.gas_concs,
+                                        tlev=inp.tlev)
+    ncol, nlay, ngpt = props.tau.shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rand = lambda *s: torch.rand(s, generator=gen, device=cuda)
+    args = (props.tau, src.lay_source, src.lev_source,
+            0.8 + 0.2 * rand(ncol, ngpt), src.sfc_source, rand(ncol, ngpt))
+    rescaled = dict(ds=p.gas_lw.compute_optimal_angles(props), weight=1.0,
+                    sfc_src_jac=src.sfc_source_jac,
+                    ssa=0.6 * rand(ncol, nlay, ngpt),
+                    g=0.9 * rand(ncol, nlay, ngpt))
+    return args, rescaled
+
+
+@pytest.mark.parametrize("variant", ["path", "uniform", "ragged",
+                                     "rescale-jac-ds", "rescale-jac-ragged"])
+@pytest.mark.parametrize("dims", sorted(ONCHIP_CASES))
+def test_onchip_lw_noscat_matches_twin(cuda, dims, variant):
+    """Row 7 as the public path calls it (one scalar secant, broadband),
+    by band with the k-distribution's uniform bands or three ragged,
+    interleaved ones, and rescaled with the Jacobian and a secant field,
+    broadband and by band (the Jacobian broadband): within chip_smoke.py's
+    TOL_FLUX rule and bit-identical over two runs."""
+    p = build_allsky(*ONCHIP_CASES[dims], device=cuda)
+    args, rescaled = _lw_pub_args(p, cuda)
+    kw = dict(ds=1.66, weight=0.5)
+    if variant.startswith("rescale"):
+        kw = rescaled
+    if variant in ("uniform", "ragged", "rescale-jac-ragged"):
+        kind = "uniform" if variant == "uniform" else "ragged"
+        gpt2band, nband = _bands(args[0].shape[2], ONCHIP_CASES[dims][3],
+                                 kind, cuda)
+        kw = dict(kw, gpt2band=gpt2band, nband=nband)
+    n0 = lw_noscat.launches
+    got = tuple(x for x in lw_noscat(*args, **kw) if x is not None)
+    assert lw_noscat.launches == n0 + 1
+    ref = tuple(x for x in lw_noscat_plain(*args, **kw) if x is not None)
+    assert len(got) == (3 if variant.startswith("rescale") else 2)
+    _flux_close(got, ref)
+    again = tuple(x for x in lw_noscat(*args, **kw) if x is not None)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("variant", ["plain", "rescale-jac", "pfrac-clear",
+                                     "pfrac-cloud"])
+@pytest.mark.parametrize("dims", sorted(ONCHIP_CASES))
+def test_onchip_lw_lanes_match_twins(cuda, dims, variant):
+    """Rows 10 (plain, and rescaled with the Jacobian) and 11 (with and
+    without the by-band cloud absorption) on the staged path's inputs, as
+    permuted views and as contiguous copies: within the TOL_FLUX rule and
+    bit-identical over two runs."""
+    p = build_allsky(*ONCHIP_CASES[dims], device=cuda)
+    inp = p.inputs
+    ngpt, ncol = p.gas_lw.ngpt, inp.play.shape[0]
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    rand = lambda *s: torch.rand(s, generator=gen, device=cuda)
+    emis = 0.8 + 0.2 * rand(ngpt, ncol)
+    inc = rand(ngpt, ncol)
+    if variant.startswith("pfrac"):
+        cld = None
+        if variant == "pfrac-cloud":
+            t, ts, _ = p.cld_lw.cloud_optics_lanes(inp.lwp, inp.iwp, inp.rel,
+                                                   inp.dei)
+            cld = t - ts
+        kernel, plain = lw_noscat_lanes_pfrac, lw_noscat_lanes_pfrac_plain
+        kw = dict(ds=1.66, weight=1.0, gpt2band=p.gas_lw.gpt2band,
+                  cloud_tau_abs=cld)
+        cases = [c + (emis, inc) for c in _lane_cases(p, cuda)]
+    else:
+        tau, (sfc, lay, lev, jac) = p.gas_lw.gas_optics_lw_lanes(
+            inp.play, inp.plev, inp.tlay, inp.tsfc, inp.gas_concs,
+            tlev=inp.tlev)
+        nlay = tau.shape[1]
+        kernel, plain = lw_noscat_lanes, lw_noscat_lanes_plain
+        kw = dict(ds=1.66, weight=0.7)
+        if variant == "rescale-jac":
+            kw.update(ssa=0.6 * rand(ngpt, nlay, ncol),
+                      g=0.9 * rand(ngpt, nlay, ncol), sfc_src_jac=jac,
+                      do_rescaling=True, do_jacobians=True)
+        cases = [f + (emis, sfc, inc) for f in (
+            (tau, lay, lev), tuple(x.contiguous() for x in (tau, lay, lev)))]
+    for args in cases:
+        n0 = kernel.launches
+        got = tuple(x for x in kernel(*args, **kw) if x is not None)
+        assert kernel.launches == n0 + 1
+        _flux_close(got, tuple(x for x in plain(*args, **kw)
+                               if x is not None))
+        again = tuple(x for x in kernel(*args, **kw) if x is not None)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("variant", ["path", "byband", "rescale-jac",
+                                     "lanes-rescale-jac", "pfrac"])
+def test_onchip_lw_noscat_tallest_column_and_past_it(cuda, variant):
+    """The tallest column that the narrowest chunk (32 g-points) holds at
+    the flagship's 256 g-points, for each launcher and variant, on seeded
+    inputs (optical depths from 1e-6 to 10) against the twin; one layer
+    more raises ValueError naming the limit and launches nothing."""
+    ngpt, nband, ncol = 256, 16, 3
+    rng = np.random.default_rng(27)
+    u = lambda lo, hi, *s: torch.from_numpy(
+        rng.uniform(lo, hi, s).astype(np.float32)).to(cuda)
+    gpt2band = torch.arange(ngpt, device=cuda, dtype=torch.int32) // 16
+    v = dict(rescale="rescale" in variant, jacobian="jac" in variant,
+             pfrac=variant == "pfrac")
+    with pytest.raises(ValueError, match="at most") as e:
+        onchip_geometry("solver_lw", 10 ** 6, ngpt,
+                        nband if variant == "byband" else 0, **v)
+    nlay = int(str(e.value).split("at most ")[1].split()[0])
+
+    def call(n, wrapper):
+        lay3 = (ncol, n, ngpt)
+        tau = torch.from_numpy((10.0 ** rng.uniform(-6.0, 1.0, lay3))
+                               .astype(np.float32)).to(cuda)
+        lay, lev = u(0.5, 1.5, *lay3), u(0.5, 1.5, ncol, n + 1, ngpt)
+        emis, sfc, inc = (u(0.8, 1.0, ncol, ngpt), u(0.5, 1.5, ncol, ngpt),
+                          u(0.0, 0.5, ncol, ngpt))
+        t3 = lambda x: x.permute(2, 1, 0)
+        if variant == "pfrac":
+            f = lw_noscat_lanes_pfrac if wrapper else \
+                lw_noscat_lanes_pfrac_plain
+            return f(t3(tau), t3(u(0.0, 1.0, *lay3)),
+                     u(0.5, 1.5, 16, n, ncol), u(0.5, 1.5, 16, n + 1, ncol),
+                     u(0.5, 1.5, 16, ncol), emis.T, inc.T, ds=1.66,
+                     weight=0.5, gpt2band=gpt2band,
+                     cloud_tau_abs=u(0.0, 0.5, 16, n, ncol))
+        if variant == "lanes-rescale-jac":
+            f = lw_noscat_lanes if wrapper else lw_noscat_lanes_plain
+            return f(t3(tau), t3(lay), t3(lev), emis.T, sfc.T, inc.T,
+                     ds=1.66, weight=0.5, ssa=t3(u(0.0, 0.6, *lay3)),
+                     g=t3(u(0.0, 0.9, *lay3)),
+                     sfc_src_jac=u(0.0, 0.1, ncol, ngpt).T,
+                     do_rescaling=True, do_jacobians=True)
+        kw = dict(ds=1.66, weight=0.5)
+        if variant == "byband":
+            kw.update(gpt2band=gpt2band, nband=nband)
+        if variant == "rescale-jac":
+            kw.update(ds=u(1.0, 2.0, ncol, ngpt),
+                      sfc_src_jac=u(0.0, 0.1, ncol, ngpt),
+                      ssa=u(0.0, 0.6, *lay3), g=u(0.0, 0.9, *lay3))
+        f = lw_noscat if wrapper else lw_noscat_plain
+        return f(tau, lay, lev, emis, sfc, inc, **kw)
+
+    kernel = {"pfrac": lw_noscat_lanes_pfrac,
+              "lanes-rescale-jac": lw_noscat_lanes}.get(variant, lw_noscat)
+    state = rng.bit_generator.state
+    n0 = kernel.launches
+    got = tuple(x for x in call(nlay, True) if x is not None)
+    assert kernel.launches == n0 + 1
+    rng.bit_generator.state = state
+    _flux_close(got, tuple(x for x in call(nlay, False) if x is not None))
+    with pytest.raises(ValueError, match=f"at most {nlay} layers"):
+        call(nlay + 1, True)
+    assert kernel.launches == n0 + 1
+
+
+@pytest.mark.parametrize("dims", sorted(ONCHIP_CASES))
+def test_gas_major_many_cells_matches_twin(cuda, dims):
+    """Row 4 at the paths' widths (LW with the Planck fraction from the
+    interleaved table, SW without), on cells of both atmospheres: within
+    1e-6 of the twin's largest value and bit-identical over two runs;
+    without the interleaved table an LW call raises and launches
+    nothing."""
+    p = build_allsky(*ONCHIP_CASES[dims], device=cuda)
+    for gas in (p.gas_lw, p.gas_sw):
+        co = _descriptors(p, gas)[0]
+        assert bool(co.tropo.any()) and not bool(co.tropo.all())
+        kd = gas.kdist
+        args = (co, kd.kmajor, kd.planck_frac, gas.gpoint_flavor)
+        n0 = gas_major.launches
+        got = tuple(x for x in gas_major(*args, gas.kmajor_pfrac)
+                    if x is not None)
+        assert gas_major.launches == n0 + 1
+        assert len(got) == (2 if kd.planck_frac is not None else 1)
+        _close(got, tuple(x for x in gas_major_plain(*args)
+                          if x is not None), 1e-6)
+        again = tuple(x for x in gas_major(*args, gas.kmajor_pfrac)
+                      if x is not None)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        if kd.planck_frac is not None:
+            with pytest.raises(ValueError, match="kmajor_pfrac is missing"):
+                gas_major(*args)
+            assert gas_major.launches == n0 + 2
+
+
 def test_kernels_match_frozen_digests(cuda):
     """Rows 2 (the fused LW step, broadband, by band, with an incident
     flux and without clouds) and 5 (the minor gather), both rewritten,
     and rows 3 (the fused SW step), 6 (the Rayleigh gather) and 16 (the
     fused LW adjoint), which share csrc/common.cuh and transport.cuh with
-    them, give bit for bit the outputs recorded from them before the two
-    were rewritten (tests/golden/kernel_digests_frozen.json:
+    them; and rows 4 (the major gather, LW and SW), 7 (the LW
+    no-scattering solve as the public path calls it, by band, rescaled
+    with the Jacobian and a secant field), 10 (plain and rescaled with the
+    Jacobian) and 11 (with and without cloud), rewritten later, give bit
+    for bit the outputs recorded from them before each was rewritten, row
+    11 those of its rewritten kernel, whose arithmetic nvcc compiles to
+    other bits than the one-block kernel's
+    (tests/golden/kernel_digests_frozen.json:
     kernel_digest_record.record, written by
     scripts/freeze_kernel_digests.py). The bits are those of one CUDA
     compiler and runtime: after a change of either, the record is written
@@ -1518,7 +1728,7 @@ def test_kernels_match_frozen_digests(cuda):
                            "kernel_digests_frozen.json")) as f:
         rec = json.load(f)
     got = record(cuda)
-    assert len(rec) == 2 * 13
+    assert len(rec) == 2 * 22
     assert got == rec
     out = record(cuda, minor_out=True)
     assert out == rec

@@ -18,6 +18,10 @@
     ``rayleigh_k_lane`` in interpret mode (each side computes its own
     float32 descriptors; bound 1e-5 of the largest value, the JAX test's
     own 5e-6 rtol with room for the 8-corner sums taken in another order).
+  * The gas optics' own call of the major gather (with the interleaved LW
+    table its kernel reads) against the JAX package in float64, and the
+    gather's wrapper on its CUDA branch handing the launcher that table
+    (LW) or raising without it.
 """
 import numpy as np
 import pytest
@@ -316,6 +320,66 @@ def test_gas_major_twin_matches_jax(sw, dtype, pallas, tol):
     assert (pf is None) == sw == (jpf is None)
     if not sw:
         close(pf, jpf, tol)
+
+
+@pytest.mark.parametrize("sw", [False, True], ids=["lw", "sw"])
+def test_gas_optics_major_call_matches_jax(sw):
+    """The gas optics' call of the major gather (``_major``, with the
+    interleaved LW table the kernel reads, ``GasOpticsRRTMGP.kmajor_pfrac``)
+    on CPU tensors in float64 against the JAX package's ``tau_major``
+    (XLA path) within 1e-12 of the largest value; the launch counter does
+    not move."""
+    from rte_rrtmgp_tpu_torch.models.rrtmgp.gas_optics import _major
+    jgas, inp, gas, gc, t = both(sw, "float64")
+    (jco, *_), (co, *_) = descriptors(jgas, inp, gas, gc, t)
+    jkd, kd = jgas.kdist, gas.kdist
+    assert (gas.kmajor_pfrac is None) == sw
+    n0 = gas_major.launches
+    tau, pf = _major(co, kd.kmajor, kd.planck_frac, gas.gpoint_flavor,
+                     gas.kmajor_pfrac)
+    assert gas_major.launches == n0
+    jtau, jpf = jops.tau_major(jco, jkd.kmajor_x,
+                               gpoint_flavor=jkd.gpoint_flavor,
+                               band_lims_gpt=jkd.grid.band_lims_gpt_array)
+    close(tau, jtau, 1e-12)
+    assert (pf is None) == sw == (jpf is None)
+    if not sw:
+        close(pf, jpf, 1e-12)
+
+
+@pytest.mark.parametrize("sw", [False, True], ids=["lw", "sw"])
+def test_gas_major_wrapper_gathers_the_interleaved_table(sw, monkeypatch):
+    """On the CUDA branch (taken here on CPU tensors, the launch replaced
+    by a record of its arguments) the LW call hands the launcher the
+    interleaved table (kmajor, planck_frac) in place of planck_frac, and
+    raises without it, launching nothing; the SW call passes no table but
+    kmajor. No table is built per launch."""
+    from rte_rrtmgp_tpu_torch.ops.kernels import gas_major as gm
+    calls = []
+    monkeypatch.setattr(gm, "on_cpu", lambda t, what: False)
+    monkeypatch.setattr(gm, "launch", lambda *a: calls.append(a[3:]))
+    _, inp, gas, gc, t = both(sw, "float32")
+    co = gas.interp(t["play"], t["tlay"], gas.col_gas(t["play"], t["plev"],
+                                                      gc)[0])
+    kd = gas.kdist
+    args = (co, kd.kmajor, kd.planck_frac, gas.gpoint_flavor)
+    tau, pf = gm.gas_major(*args, gas.kmajor_pfrac)
+    assert len(calls) == 1
+    table = calls[0][9]
+    if sw:
+        assert table is None and pf is None
+    else:
+        kp = gas.kmajor_pfrac
+        assert table.data_ptr() == kp.data_ptr()
+        assert torch.equal(kp[..., 0], kd.kmajor)
+        assert torch.equal(kp[..., 1], kd.planck_frac)
+        assert not any(a is kd.planck_frac for a in calls[0])
+        assert pf.shape == tau.shape == tuple(co.jtemp.shape) + (
+            kd.kmajor.shape[3],)
+        with pytest.raises(ValueError, match="kmajor_pfrac is missing"):
+            gm.gas_major(*args)
+        assert len(calls) == 1
+    assert calls[0][8] is kd.kmajor
 
 
 @pytest.mark.parametrize("dtype,pallas,tol", CASES, ids=CASE_IDS)

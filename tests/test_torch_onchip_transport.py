@@ -1,7 +1,9 @@
 """The on-chip geometry and summation order of the kernels that hold their
 transport in shared memory (``ops/kernels/onchip.py``): the fused LW and
-SW kernels, the LW two-stream kernel, the SW two-stream solver of the
-public and staged paths and its adjoint, on the CPU.
+SW kernels, the LW no-scattering solver of the public and staged paths
+(its three launchers and their variants), the LW two-stream kernel, the
+SW two-stream solver of the public and staged paths and its adjoint, on
+the CPU.
 
 The kernels cut a column's g-points into chunks, one thread block per
 chunk and the column's chunks one thread-block cluster, keep the layer
@@ -25,6 +27,7 @@ from rte_rrtmgp_tpu_torch.drivers.allsky import (  # noqa: E402
     allsky_lw_inputs, build_allsky)
 from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels import solver_lanes  # noqa: E402
+from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import (  # noqa: E402
@@ -119,6 +122,90 @@ TALLEST = {("fused_lw", 256, 0, 28): 438,      # 528 nlay + 1088 B
            ("solver_sw", 1024, 0, 0): 88,      # 2608 nlay + 1548 B
            ("solver_sw_bwd", 224, 0, 0): 162,  # 1428 nlay + 524 B
            ("solver_sw_bwd", 1024, 0, 0): 40}  # 5676 nlay + 2060 B
+
+
+# the LW no-scattering solver, (nlay, ngpt, nband, rescale, jacobian,
+# pfrac) -> (chunk, nchunk, threads, smem): the flagship's 256 g-points /
+# 16 bands, the SW width 224, the non-banded 192, 1024 and the g24 case.
+# smem by hand: 12 B x (nlay + 8) x (chunk + 1) (the transmittance, the
+# down and up sources, then the fluxes; each layer's row padded by one,
+# each field by 4 rows at either end for the sweeps' loads 4 layers
+# ahead), 20 B with rescaling (Tang's cn, the radiance at the layer top),
+# 16 B with pfrac (the Planck fraction); 16 B x chunk (the top level's
+# down flux, the surface's up flux and Jacobian, the surface source); the
+# sums of up and dn, and the Jacobian's broadband: broadband 4 B x fields
+# x warps x levels, by band 4 B x (2 x bands x levels + 2 x chunk + bands
+# + 1) + the Jacobian's 4 B x warps x levels
+SOLVER_LW = {
+    (72, 256, 0, False, False, False): (32, 8, 256, 31680 + 512 + 584),
+    (72, 256, 16, False, False, False): (
+        32, 8, 256, 31680 + 512 + 4 * (2 * 16 * 73 + 81)),
+    (72, 256, 0, False, True, False): (32, 8, 256, 31680 + 512 + 876),
+    (72, 256, 16, False, True, False): (
+        32, 8, 256, 31680 + 512 + 4 * (2 * 16 * 73 + 81) + 292),
+    (72, 256, 0, True, False, False): (32, 8, 256, 52800 + 512 + 584),
+    (72, 256, 0, True, True, False): (32, 8, 256, 52800 + 512 + 876),
+    (72, 256, 16, True, True, False): (
+        32, 8, 256, 52800 + 512 + 4 * (2 * 16 * 73 + 81) + 292),
+    (72, 256, 0, False, False, True): (32, 8, 256, 42240 + 512 + 584),
+    (72, 224, 0, False, False, False): (32, 7, 256, 31680 + 512 + 584),
+    (72, 192, 0, False, False, False): (32, 6, 256, 31680 + 512 + 584),
+    (72, 192, 16, False, False, False): (
+        32, 6, 256, 31680 + 512 + 4 * (2 * 16 * 73 + 81)),
+    (72, 192, 0, True, True, False): (32, 6, 256, 52800 + 512 + 876),
+    (72, 192, 0, False, False, True): (32, 6, 256, 42240 + 512 + 584),
+    (72, 1024, 0, False, False, False): (128, 8, 256,
+                                         123840 + 2048 + 4 * 2 * 4 * 73),
+    (9, 24, 3, False, False, False): (32, 1, 256,
+                                      6732 + 512 + 4 * (2 * 3 * 10 + 68)),
+}
+# its tallest column: (ngpt, nband, rescale, jacobian, pfrac) -> nlay
+SOLVER_LW_TALLEST = {
+    (256, 0, False, False, False): 566,    # 404 nlay + 3688 B
+    (256, 16, False, False, False): 435,   # 524 nlay + 4132 B
+    (256, 0, False, True, False): 560,     # 408 nlay + 3692 B
+    (256, 0, True, True, False): 337,      # 672 nlay + 5804 B
+    (256, 16, True, True, False): 285,     # 792 nlay + 6248 B
+    (256, 0, False, False, True): 424,     # 536 nlay + 4744 B
+    (1024, 0, False, False, False): 137,   # 1580 nlay + 14464 B
+}
+
+
+def _lw_variant(rescale, jacobian, pfrac):
+    return dict(rescale=rescale, jacobian=jacobian, pfrac=pfrac)
+
+
+@pytest.mark.parametrize("case", sorted(SOLVER_LW), ids=str)
+def test_solver_lw_geometry(case):
+    """onchip_geometry("solver_lw", ...) of each variant: the narrowest
+    chunk with at most 8 per column, no idle block, and the launcher's
+    shared memory (smem_solver_lw, whose count chip_smoke.py holds this
+    one to on the card), pinned by hand."""
+    nlay, ngpt, nband = case[:3]
+    geo = onchip_geometry("solver_lw", nlay, ngpt, nband,
+                          **_lw_variant(*case[3:]))
+    assert tuple(geo) == SOLVER_LW[case]
+    assert geo == solver_lw.lw_noscat_geometry(nlay, ngpt, nband,
+                                               **_lw_variant(*case[3:]))
+    assert geo.nchunk <= MAX_CHUNKS and geo.chunk * geo.nchunk >= ngpt
+    assert geo.chunk * (geo.nchunk - 1) < ngpt
+    assert geo.smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("case", sorted(SOLVER_LW_TALLEST), ids=str)
+def test_solver_lw_tallest_column_and_past_it(case):
+    """The tallest column each variant's narrowest chunk holds; one layer
+    more raises, naming the limit. The variants' flags belong to
+    solver_lw alone."""
+    ngpt, nband = case[:2]
+    v = _lw_variant(*case[2:])
+    nlay = SOLVER_LW_TALLEST[case]
+    geo = onchip_geometry("solver_lw", nlay, ngpt, nband, **v)
+    assert geo.smem <= SMEM_LIMIT
+    with pytest.raises(ValueError, match=f"at most {nlay} layers"):
+        onchip_geometry("solver_lw", nlay + 1, ngpt, nband, **v)
+    with pytest.raises(ValueError, match="no variants"):
+        onchip_geometry("solver_sw", 72, ngpt, rescale=True)
 
 
 @pytest.mark.parametrize("case", sorted(GEOMETRY), ids=str)
@@ -393,6 +480,125 @@ def test_sw_wrappers_raise_past_the_limit(which, monkeypatch):
     assert calls == []
 
 
+def _lw_call(which, rng, ncol, nlay, ngpt):
+    """(wrapper, args, kw, (rescale, jacobian, pfrac, nband)) of one LW
+    no-scattering launcher and variant on seeded inputs: the public
+    layout (``lw_noscat`` as the public path calls it, by band, rescaled
+    with the Jacobian and a secant field) or the lane layout (plain,
+    rescaled with the Jacobian, with in-kernel Planck sources)."""
+    u = lambda lo, hi, *s: torch.from_numpy(rng.uniform(lo, hi, s).astype(
+        np.float32))
+    lay3, bc = (ncol, nlay, ngpt), (ncol, ngpt)
+    tau, lay, lev = (u(0.0, 2.0, *lay3), u(0.5, 1.5, *lay3),
+                     u(0.5, 1.5, ncol, nlay + 1, ngpt))
+    emis, sfc, inc = u(0.8, 1.0, *bc), u(0.5, 1.5, *bc), u(0.0, 0.5, *bc)
+    g2b = torch.arange(ngpt, dtype=torch.int32) * 4 // ngpt
+    t3 = lambda x: x.permute(2, 1, 0)
+    resc = dict(ssa=u(0.0, 0.6, *lay3), g=u(0.0, 0.9, *lay3))
+    if which == "lw_noscat":
+        return (solver_lw.lw_noscat, (tau, lay, lev, emis, sfc, inc),
+                dict(ds=1.66, weight=0.5), (False, False, False, 0))
+    if which == "lw_noscat byband":
+        return (solver_lw.lw_noscat, (tau, lay, lev, emis, sfc, inc),
+                dict(ds=1.66, weight=0.5, gpt2band=g2b, nband=4),
+                (False, False, False, 4))
+    if which == "lw_noscat rescaled":
+        return (solver_lw.lw_noscat, (tau, lay, lev, emis, sfc, inc),
+                dict(ds=u(1.0, 2.0, *bc), weight=0.5,
+                     sfc_src_jac=u(0.0, 0.1, *bc), **resc),
+                (True, True, False, 0))
+    lanes = (t3(tau), t3(lay), t3(lev), emis.T, sfc.T, inc.T)
+    if which == "lw_noscat_lanes":
+        return (solver_lanes.lw_noscat_lanes, lanes,
+                dict(ds=1.66, weight=0.5), (False, False, False, 0))
+    if which == "lw_noscat_lanes rescaled":
+        return (solver_lanes.lw_noscat_lanes, lanes,
+                dict(ds=1.66, weight=0.5, ssa=t3(resc["ssa"]),
+                     g=t3(resc["g"]), sfc_src_jac=u(0.0, 0.1, *bc).T,
+                     do_rescaling=True, do_jacobians=True),
+                (True, True, False, 0))
+    return (solver_lanes.lw_noscat_lanes_pfrac,
+            (t3(tau), t3(u(0.0, 1.0, *lay3)), u(0.5, 1.5, 4, nlay, ncol),
+             u(0.5, 1.5, 4, nlay + 1, ncol), u(0.5, 1.5, 4, ncol), emis.T,
+             inc.T),
+            dict(ds=1.66, weight=0.5, gpt2band=g2b,
+                 cloud_tau_abs=u(0.0, 0.5, 4, nlay, ncol)),
+            (False, False, True, 0))
+
+
+LW_CALLS = ["lw_noscat", "lw_noscat byband", "lw_noscat rescaled",
+            "lw_noscat_lanes", "lw_noscat_lanes rescaled",
+            "lw_noscat_lanes_pfrac"]
+
+
+def _cuda_branch(monkeypatch, calls):
+    """The wrappers' CUDA branch on CPU tensors, each launch replaced by a
+    record of its arguments."""
+    for mod in (solver_lw, solver_lanes):
+        monkeypatch.setattr(mod, "on_cpu", lambda t, what: False)
+        monkeypatch.setattr(mod, "launch", lambda *a: calls.append(a[3:]))
+
+
+@pytest.mark.parametrize("which", LW_CALLS)
+def test_lw_wrappers_pass_no_scratch(which, monkeypatch):
+    """The LW no-scattering solver's three wrappers hand their launcher
+    the inputs, the outputs they return and sizes only: no device scratch
+    (the parent's rescaled variant took an (ncol, nlay, ngpt) scratch,
+    0.30 GB at 4096 x 72), and the chunk onchip_geometry gives the
+    variant."""
+    calls = []
+    _cuda_branch(monkeypatch, calls)
+    ncol, nlay, ngpt = 3, 9, 40
+    fn, args, kw, (rescale, jacobian, pfrac, nband) = _lw_call(
+        which, np.random.default_rng(8), ncol, nlay, ngpt)
+    out = fn(*args, **kw)
+    assert len(calls) == 1
+    given = {t.data_ptr() for t in list(args) + list(kw.values())
+             if isinstance(t, torch.Tensor)}
+    returned = {o.data_ptr() for o in out if o is not None}
+    tensors = [a for a in calls[0] if isinstance(a, torch.Tensor)]
+    assert all(t.data_ptr() in given | returned for t in tensors)
+    assert returned <= {t.data_ptr() for t in tensors}
+    ints = [a for a in calls[0] if isinstance(a, int)]
+    assert ints[-1] == onchip_geometry(
+        "solver_lw", nlay, ngpt, nband, rescale=rescale, jacobian=jacobian,
+        pfrac=pfrac).chunk
+    assert solver_lw.lw_noscat_scratch_bytes(4096, 72, 256) == 0
+
+
+@pytest.mark.parametrize("which", LW_CALLS)
+def test_lw_wrappers_raise_past_the_limit(which, monkeypatch):
+    """On the CUDA branch a column one layer taller than the variant's
+    block holds raises ValueError naming the limit, and nothing is
+    launched; at the limit the launch goes ahead. On CPU tensors the twin
+    of the taller call runs (no height limit), launching nothing, with
+    finite fluxes of the right shape."""
+    ngpt, ncol = 32, 2
+    rng = np.random.default_rng(9)
+    _, _, _, (rescale, jacobian, pfrac, nband) = _lw_call(which, rng, 1, 1,
+                                                          ngpt)
+    with pytest.raises(ValueError, match="at most") as e:
+        onchip_geometry("solver_lw", 10 ** 6, ngpt, nband, rescale=rescale,
+                        jacobian=jacobian, pfrac=pfrac)
+    top = int(str(e.value).split("at most ")[1].split()[0])
+    fn, args, kw, _ = _lw_call(which, rng, ncol, top + 1, ngpt)
+    n0 = fn.launches
+    out = [o for o in fn(*args, **kw) if o is not None]
+    assert fn.launches == n0
+    lanes = "lanes" in which
+    for o in out:
+        assert o.shape[:2] == ((top + 2, ncol) if lanes else (ncol, top + 2))
+        assert bool(torch.isfinite(o).all())
+    calls = []
+    _cuda_branch(monkeypatch, calls)
+    with pytest.raises(ValueError, match=f"at most {top} layers"):
+        fn(*args, **kw)
+    assert calls == []
+    fn, args, kw, _ = _lw_call(which, rng, ncol, top, ngpt)
+    fn(*args, **kw)
+    assert len(calls) == 1
+
+
 def test_rte_sw_twin_has_no_height_limit():
     """rte_sw on CPU tensors at 500 layers, past both SW kernels' limits:
     the twins run (fluxes and their gradient with respect to tau), no
@@ -586,7 +792,26 @@ def test_fused_lw_sums_replay(ngpt, nband):
     and within float32 rounding of a straight sum for a band that two
     chunks share (bands of 12 at 192 g-points); the scaling by pi *
     weight comes after either sum."""
-    chunk = onchip_geometry("fused_lw", 72, ngpt, nband, 28).chunk
+    _one_block_order(onchip_geometry("fused_lw", 72, ngpt, nband, 28).chunk,
+                     ngpt, nband)
+
+
+@pytest.mark.parametrize("ngpt,nband", [(256, 16), (192, 16)])
+def test_solver_lw_sums_replay(ngpt, nband):
+    """The LW no-scattering solver's sums, in the order of the fused LW
+    kernel's at the same chunk width: bit for bit the one-block orders it
+    had when a column was one block, broadband and, for each band inside
+    one chunk, by band (so rows 7, 10 and 11 keep their outputs at the
+    flagship's 256 g-points), within float32 rounding of a straight sum
+    for a band two chunks share."""
+    for v in (dict(), dict(rescale=True, jacobian=True), dict(pfrac=True)):
+        _one_block_order(onchip_geometry("solver_lw", 72, ngpt, nband,
+                                         **v).chunk, ngpt, nband)
+
+
+def _one_block_order(chunk, ngpt, nband):
+    """The chunked sums at ``chunk`` against the one-block orders (see
+    test_fused_lw_sums_replay)."""
     assert chunk == 32
     gpt2band = np.arange(ngpt) // (ngpt // nband)
     rng = np.random.default_rng(ngpt + 1)
