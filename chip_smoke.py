@@ -17,25 +17,28 @@ Phases (any failure ends the run with a non-zero exit and no result):
      the two-stream path's inputs, clouds at scattering=True), with the
      median CUDA-event time of both and the card's lower bound for the same
      work (the LW no-scattering solver as the public path calls it: one
-     scalar secant, no rescaling, no Jacobian); the four adjoint kernels
-     against the twins' autograd on the same inputs and seeded flux
-     cotangents (see TOL_ADJ); then the variants the paths can ask for,
-     each against its twin and timed, logged but not in the kernels line:
-     by-band output of the fused LW and SW steps and of the LW
+     scalar secant, no rescaling, no Jacobian; the minor and Rayleigh
+     gathers out of place, as the gas optics call them); the four adjoint
+     kernels against the twins' autograd on the same inputs and seeded
+     flux cotangents (see TOL_ADJ); then the variants the paths can ask
+     for, each against its twin and timed, logged but not in the kernels
+     line: by-band output of the fused LW and SW steps and of the LW
      no-scattering, LW two-stream and SW solvers, the LW no-scattering
      solver with Tang rescaling, the Jacobian and a secant field (also by
-     band), the fused steps with an incident flux (LW) and a diffuse one
-     (SW), and their adjoints with the same; for the adjoints of rows 14,
-     16 and 17 their ptxas registers and spills, resident blocks per SM
-     and scratch bytes; for the kernels that hold their transport on chip
-     (fused_lw, fused_sw, solver_lw in its variants, solver_lw_2str, the
-     SW solver's plain and COMBINED instantiations and its adjoint
-     solver_sw_bwd) the same and their shared memory per block, cluster
-     size and tallest column, broadband and by band; the minor and major
-     gathers' resident blocks per SM; the tallest column the fused LW
-     step, the LW no-scattering solver (as the public path calls it, and
-     rescaled with the Jacobian), the SW solver and its adjoint hold,
-     against their twins, and one layer more raising ValueError;
+     band), the Rayleigh gather's split variant (0 + Rayleigh, no ssa),
+     the fused steps with an incident flux (LW) and a diffuse one (SW),
+     and their adjoints with the same; for the adjoints of rows 16 and 17
+     their ptxas registers and spills, resident blocks per SM and scratch
+     bytes; for the kernels that hold their transport on chip (fused_lw,
+     fused_sw, solver_lw in its variants, solver_lw_2str, the SW solver's
+     plain and COMBINED instantiations and the adjoints solver_sw_bwd and
+     solver_lw_bwd) the same and their shared memory per block, cluster
+     size and tallest column, broadband and by band; the minor, Rayleigh
+     and major gathers' resident blocks per SM; the tallest column the
+     fused LW step, the LW no-scattering solver (as the public path calls
+     it, and rescaled with the Jacobian) and its adjoint, the SW solver
+     and its adjoint hold, against their twins, and one layer more
+     raising ValueError;
   4. golden gates at the production configuration (256 x 72): the float32
      fused step, public-API path and staged path against
      tests/golden/production.npz, and the float32 aerosols step (fused)
@@ -123,6 +126,7 @@ OPS_MAJOR_CORNER = 5       # weight (2), x col_mix, multiply-add
 OPS_PFRAC_CORNER = 2
 OPS_MINOR = 16             # per (cell, g-point) a minor gas covers
 OPS_RAYLEIGH = 18          # 2-D lerp (14), x scale, combine (3)
+OPS_RAYLEIGH_SPLIT = 16    # 2-D lerp (14), x scale, 0 + it
 OPS_CLOUD = 27             # per (cell, band): 2 phases x (3 lerps + 3)
 OPS_LW_LAYER = 24          # per (column, layer, g-point): source, sweeps
 OPS_LW_RESCALE = 14        # Tang terms and the second down sweep
@@ -406,17 +410,28 @@ def api_rows(prob, dev, variants):
     ngs = kds.ngpt
     tau = gas_major_plain(co, kds.kmajor, None, gs.gpoint_flavor)[0]
     rayl = (tau, co, kds.krayl, gs.gpoint_flavor,
-            (col_gas[idx_h2o] + col_dry).contiguous(), True)
+            (col_gas[idx_h2o] + col_dry).contiguous())
+    descr = nbytes(co.jtemp, co.ftemp, co.tropo, co.jeta, co.feta,
+                   kds.krayl, rayl[4])
+    # out of place, as the gas optics call it (models/rrtmgp/gas_optics.py
+    # ::_rayleigh): tau read, a new tau and the ssa written; then, into
+    # ``variants``, the staged path's split variant: 0 + Rayleigh, no ssa,
+    # no tau read
+    oop = lambda f, scattering: lambda a: f(
+        *a, scattering, out=torch.empty_like(tau))
     rows.append(check_kernel(
-        "gas_rayleigh", lambda a: gas_rayleigh(*a),
-        lambda a: gas_rayleigh_plain(*a), rayl, TOL_GATHER,
+        "gas_rayleigh", oop(gas_rayleigh, True),
+        oop(gas_rayleigh_plain, True), rayl, TOL_GATHER,
         "rte_rrtmgp_tpu_torch/csrc/gas_minor.cu",
         "rte_rrtmgp_tpu/ops/pallas/minor_gather.py:161",
-        (nbytes(co.jtemp, co.ftemp, co.tropo, co.jeta, co.feta, kds.krayl,
-                rayl[4]) + 3 * tau.numel() * 4,
-         ncell * ngs * OPS_RAYLEIGH),
-        fresh=lambda a: (a[0].clone(),) + a[1:]))
-    del rayl, tau, co, col_gas, col_dry
+        (descr + 3 * tau.numel() * 4, ncell * ngs * OPS_RAYLEIGH)))
+    split = (None,) + rayl[1:]
+    variants.append(check_kernel(
+        "gas_rayleigh split", oop(gas_rayleigh, False),
+        oop(gas_rayleigh_plain, False), split, TOL_GATHER,
+        rows[-1]["source"], rows[-1]["replaces"],
+        (descr + tau.numel() * 4, ncell * ngs * OPS_RAYLEIGH_SPLIT)))
+    del rayl, split, tau, co, col_gas, col_dry
 
     # the LW solver as the public path calls it (rte_lw on 1scl props: one
     # scalar secant, no rescaling, no Jacobian, zero incident flux), on the
@@ -859,7 +874,7 @@ def adjoint_rows(prob, dev, variants):
 
 def adjoint_report(prob, reports):
     """Phase 3, the resources of the adjoint kernels that keep their state
-    in device memory or registers (rows 14, 16, 17; row 15 holds its
+    in device memory or registers (rows 16, 17; rows 14 and 15 hold their
     state on chip: onchip_report) at the main path's shapes: ptxas
     registers and spills of each instantiation, resident blocks per SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, from the kernels' own
@@ -868,7 +883,6 @@ def adjoint_report(prob, reports):
                                                      allsky_sw_inputs)
     from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw as flw
     from rte_rrtmgp_tpu_torch.ops.kernels import fused_sw as fsw
-    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_bwd as slw
     from rte_rrtmgp_tpu_torch.ops.kernels._build import ptxas_usage
     inp = prob.inputs
     ncol, nlay = inp.play.shape
@@ -879,8 +893,7 @@ def adjoint_report(prob, reports):
             ("fused_lw_bwd", flw.lw_fused_bwd_occupancy(xl),
              flw.lw_fused_bwd_scratch_bytes(ncol, nlay, ngl)),
             ("fused_sw_bwd", fsw.sw_fused_bwd_occupancy(xs),
-             fsw.sw_fused_bwd_scratch_bytes(ncol, nlay, ngs)),
-            ("solver_lw_bwd", slw.lw_noscat_bwd_occupancy(ngl), 0)):
+             fsw.sw_fused_bwd_scratch_bytes(ncol, nlay, ngs))):
         rep = reports.get(name)
         regs = ("not rebuilt in this run" if rep is None else ", ".join(
             f"{r} registers, {ss} B spill stores, {sl} B spill loads"
@@ -906,31 +919,33 @@ def tallest_column(kernel, ngpt, nband=0, nminor=0, **variant):
 
 def onchip_report(prob, reports):
     """Phase 3, the resources of the kernels that hold their transport on
-    chip (rows 2, 3, 7, 8, 9, 10, 11, 12, 13 and 15) at the main path's
-    shapes, broadband and by band: ptxas registers and spills, shared
-    memory per block and cluster size (ops/kernels/onchip.py::
-    onchip_geometry, held against the launchers' own count), the tallest
-    column, resident blocks per SM and clusters the card holds at once
+    chip (rows 2, 3, 7, 8, 9, 10, 11, 12, 13, 14 and 15) at the main
+    path's shapes, broadband and by band: ptxas registers and spills,
+    shared memory per block and cluster size (ops/kernels/onchip.py::
+    onchip_geometry, held against the launchers' own count; row 14's
+    blocks launch without a cluster), the tallest column, resident blocks
+    per SM and clusters the card holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
     cudaOccupancyMaxActiveClusters), and device scratch (none). solver_lw
     is one kernel of nine instantiations: plain and rescaled, each with
     and without the Jacobian, broadband (rows 7 and 10) and by band (row
     7), and PFRAC (row 11); solver_sw one of two: the plain one of rows 9
     and 12 (broadband and by band) and the COMBINED one of row 13; ptxas
-    lists them all. Then the minor and major gathers' (rows 5 and 4)
-    ptxas lines and resident blocks per SM at the path's widths, each
-    launcher starting that many blocks per SM."""
+    lists them all. Then the minor, Rayleigh and major gathers' (rows 5, 6
+    and 4) ptxas lines and resident blocks per SM at the path's widths,
+    each launcher starting that many blocks per SM."""
     from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
                                                      allsky_sw_inputs)
     from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw as flw
     from rte_rrtmgp_tpu_torch.ops.kernels import fused_sw as fsw
     from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (
-        gas_minor_occupancy)
+        gas_minor_occupancy, gas_rayleigh_occupancy)
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw as slw
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_2str as l2
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw as ss
     from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import (
         gas_major_occupancy)
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_bwd as lwb
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd as ssw
     from rte_rrtmgp_tpu_torch.ops.kernels._build import (library,
                                                          ptxas_usage)
@@ -951,7 +966,8 @@ def onchip_report(prob, reports):
             ("solver_lw_2str", 0, ""), ("solver_lw_2str", nbl, ""),
             ("solver_sw", 0, " (rows 9, 12)"), ("solver_sw", nbs, " (row 9)"),
             ("solver_sw", 0, " COMBINED (row 13)"),
-            ("solver_sw_bwd", 0, " (row 15)")):
+            ("solver_sw_bwd", 0, " (row 15)"),
+            ("solver_lw_bwd", 0, " (row 14)")):
         if name == "fused_lw":
             x = xl._replace(byband=nband > 0)
             geo, occ = flw.lw_fused_geometry(x), flw.lw_fused_occupancy(x)
@@ -989,6 +1005,12 @@ def onchip_report(prob, reports):
             smem_c = library(name).smem_solver_sw(nlay, geo.chunk, nband)
             scratch = ss.sw_2stream_scratch_bytes(ncol, nlay, ngs)
             top = tallest_column("solver_sw", ngs, nband)
+        elif name == "solver_lw_bwd":
+            geo = lwb.lw_noscat_bwd_geometry(nlay, ngl)
+            occ = (lwb.lw_noscat_bwd_occupancy(nlay, ngl), None)
+            smem_c = library(name).smem_solver_lw_bwd(nlay, geo.chunk)
+            scratch = lwb.lw_noscat_bwd_scratch_bytes(ncol, nlay, ngl)
+            top = tallest_column("solver_lw_bwd", ngl)
         else:
             geo = ssw.sw_2stream_bwd_geometry(nlay, ngs)
             occ = ssw.sw_2stream_bwd_occupancy(nlay, ngs)
@@ -999,16 +1021,19 @@ def onchip_report(prob, reports):
         regs = ("not rebuilt in this run" if rep is None else ", ".join(
             f"{r} registers, {ss_} B spill stores, {sl} B spill loads"
             for r, ss_, sl in ptxas_usage(rep)))
+        blocks = (f"cluster of {geo.nchunk}" if occ[1] is not None else
+                  f"{geo.nchunk} independent")
+        clusters = (f", {occ[1]} clusters at once" if occ[1] is not None
+                    else "")
         log(f"on chip {name}{what} {'by band' if nband else 'broadband'}: "
-            f"ptxas {regs}; chunk {geo.chunk} g-points, cluster of "
-            f"{geo.nchunk} blocks of {geo.threads} threads, {geo.smem} B "
-            f"shared memory per block, the tallest column {top} layers; "
-            f"{occ[0]} resident blocks per SM, {occ[1]} clusters at once; "
-            f"scratch {scratch} B at {ncol} x {nlay}")
+            f"ptxas {regs}; chunk {geo.chunk} g-points, {blocks} blocks of "
+            f"{geo.threads} threads, {geo.smem} B shared memory per block, "
+            f"the tallest column {top} layers; {occ[0]} resident blocks per "
+            f"SM{clusters}; scratch {scratch} B at {ncol} x {nlay}")
         if smem_c != geo.smem:
             raise SystemExit(f"{name}: onchip_geometry counts {geo.smem} B of"
                              f" shared memory, the launcher {smem_c}")
-        if occ[0] < 1 or occ[1] < 1:
+        if occ[0] < 1 or (occ[1] is not None and occ[1] < 1):
             raise SystemExit(f"{name}: no block or cluster fits ({occ})")
         if scratch != 0:
             raise SystemExit(f"{name}: {scratch} B of device scratch")
@@ -1025,8 +1050,13 @@ def onchip_report(prob, reports):
                 f"{blocks} resident blocks per SM")
             if blocks < 1:
                 raise SystemExit(f"gas_minor: no block fits an SM ({blocks})")
-    log(f"gas_minor: ptxas {regs} (the gas_minor_kernel instantiations and "
-        "gas_rayleigh_kernel)")
+    blocks = gas_rayleigh_occupancy(prob.gas_sw.ngpt)
+    log(f"gas_rayleigh SW ({prob.gas_sw.ngpt} g-points): {blocks} resident "
+        "blocks per SM")
+    if blocks < 1:
+        raise SystemExit(f"gas_rayleigh: no block fits an SM ({blocks})")
+    log(f"gas_minor: ptxas {regs} (the gas_minor_kernel and "
+        "gas_rayleigh_kernel instantiations)")
     rep = reports.get("gas_major")
     regs = ("not rebuilt in this run" if rep is None else ", ".join(
         f"{r} registers, {ss_} B spill stores, {sl} B spill loads"
@@ -1047,7 +1077,8 @@ def onchip_report(prob, reports):
 def onchip_limits(dev):
     """Phase 3, the column-height limits of the fused LW step, the LW
     no-scattering solve (as the public path calls it, and rescaled with
-    the Jacobian), the SW solve and its adjoint on the card, at the
+    the Jacobian) and its adjoint, the SW solve and its adjoint on the
+    card, at the
     flagship's 256 and 224 g-points (chunks of 32): the tallest column
     each holds (from onchip_geometry's message), 4 columns of the flagship
     problem (the fused LW step) or of seeded optics, against the twin
@@ -1066,6 +1097,7 @@ def onchip_limits(dev):
                                                      build_allsky)
     from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw as flw
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw as slw
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_bwd as lwb
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw as ss
     from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd as ssw
     ncol, ngpt = 4, MAIN["ngpt_sw"]
@@ -1157,6 +1189,61 @@ def onchip_limits(dev):
                                  "raise")
             if slw.lw_noscat.launches != n0:
                 raise SystemExit("solver_lw: launched past its limit")
+    del a, tau
+
+    # its adjoint (row 14) at the flagship's 256 g-points, as rte_lw's
+    # gradient calls it, on 4 columns of seeded sources, flux cotangents
+    # and optical depths from 1e-6 to 10
+    nlay = tallest_column("solver_lw_bwd", ngl)
+    for n in (nlay, nlay + 1):
+        lay3 = (ncol, n, ngl)
+        tau = torch.from_numpy((10.0 ** rng.uniform(-6.0, 1.0, lay3))
+                               .astype(np.float32)).to(dev)
+        a = (tau, u(0.5, 1.5, *lay3), u(0.5, 1.5, ncol, n + 1, ngl),
+             u(0.8, 1.0, ncol, ngl), u(0.5, 1.5, ncol, ngl),
+             u(0.0, 0.5, ncol, ngl), u(0.5, 1.5, ncol, n + 1),
+             u(0.5, 1.5, ncol, n + 1))
+        kw = dict(ds=1.66, weight=0.5)
+        n0 = lwb.lw_noscat_bwd.launches
+        if n == nlay:
+            got = lwb.lw_noscat_bwd(*a, **kw)
+            ref = lwb.lw_noscat_bwd_plain(*a, **kw)
+            torch.cuda.synchronize()
+            errs = [float((g - r).abs().max()) / float(r.abs().max())
+                    for g, r in zip(got, ref)]
+            log(f"solver_lw_bwd: the tallest column, {n} layers at {ngl} "
+                "g-points, against the twin: "
+                + ", ".join(f"{e:.3e}" for e in errs)
+                + f" of the largest twin value (limit {TOL_ADJ})")
+            beyond = [i for i, e in enumerate(errs) if not e <= TOL_ADJ]
+            if beyond:
+                with float32_constants():
+                    ref64 = lwb.lw_noscat_bwd_plain(*to_f64(a), **kw)
+                for i in list(beyond):
+                    scale = float(ref64[i].abs().max())
+                    k64 = float((got[i].double() - ref64[i]).abs().max()) \
+                        / scale
+                    t64 = float((ref[i].double() - ref64[i]).abs().max()) \
+                        / scale
+                    log(f"solver_lw_bwd: cotangent {i} against the float64 "
+                        f"twin: kernel {k64:.3e}, float32 twin {t64:.3e}")
+                    if t64 > TOL_ADJ and k64 <= TOL_ADJ:
+                        beyond.remove(i)
+            if beyond or lwb.lw_noscat_bwd.launches != n0 + 1:
+                raise SystemExit("solver_lw_bwd: the tallest column "
+                                 "disagrees with the twin")
+            del got, ref
+            continue
+        try:
+            lwb.lw_noscat_bwd(*a, **kw)
+        except ValueError as e:
+            if f"at most {nlay} layers" not in str(e):
+                raise
+            log(f"solver_lw_bwd: {n} layers raise ValueError: {e}")
+        else:
+            raise SystemExit(f"solver_lw_bwd: {n} layers did not raise")
+        if lwb.lw_noscat_bwd.launches != n0:
+            raise SystemExit("solver_lw_bwd: launched past its limit")
     del a, tau
 
     rng = np.random.default_rng(21)

@@ -234,11 +234,12 @@ __device__ __forceinline__ unsigned minor_word(
     return bits;
 }
 
-// The 2-D (temperature x eta) lerp of one minor at one cell from values
-// already loaded: the temperature fraction ft, and per temperature it
-// (jt, jt + 1) the feta of the minor's flavor and the kminor values at the
-// lower and upper eta rows. minor_tau_lane and gas_minor.cu's kernel both
-// go through it, so rows 2, 3 and 5 share its arithmetic and order.
+// The 2-D (temperature x eta) lerp of one minor, or of the Rayleigh
+// table, at one cell from values already loaded: the temperature fraction
+// ft, and per temperature it (jt, jt + 1) the feta of the flavor and the
+// table's values at the lower and upper eta rows. minor_tau_lane,
+// rayleigh_k and gas_minor.cu's kernels all go through it, so rows 2, 3, 5
+// and 6 share its arithmetic and order.
 __device__ __forceinline__ float minor_lerp(float ft, const float* fe,
                                             const float* lo,
                                             const float* hi) {
@@ -293,26 +294,24 @@ __device__ __forceinline__ float minor_tau_lane(
 
 // Rayleigh absorption coefficient of g-point g at one cell (reference
 // compute_tau_rayleigh): the 2-D (temperature x eta) lerp of krayl
-// (ntemp, neta, ngpt, 2) in the cell's atmosphere; the caller scales it
-// by col_h2o + col_dry.
+// (ntemp, neta, ngpt, 2) in the cell's atmosphere atm (0 below the
+// tropopause); the caller scales it by col_h2o + col_dry.
 __device__ __forceinline__ float rayleigh_k(
         const CellDesc& d, int flav, int nflav, int ncell, int cell,
         const int* __restrict__ jeta, const float* __restrict__ feta,
         const float* __restrict__ krayl, int neta, int ngpt, int g) {
     int atm = d.lower ? 0 : 1;
-    float k = 0.0f;
+    float fe[2], lo[2], hi[2];
 #pragma unroll
     for (int it = 0; it < 2; ++it) {
         int fi = (it * nflav + flav) * ncell + cell;
-        int je = jeta[fi];
-        float fe = feta[fi];
-        float ftv = it == 0 ? 1.0f - d.ft : d.ft;
-        long long base = ((long long)((d.jt + it) * neta + je) * ngpt + g);
-        float lo = __ldg(krayl + base * 2 + atm);
-        float hi = __ldg(krayl + (base + ngpt) * 2 + atm);
-        k += ((1.0f - fe) * ftv) * lo + (fe * ftv) * hi;
+        fe[it] = feta[fi];
+        long long base = (long long)((d.jt + it) * neta + jeta[fi]) * ngpt
+                         + g;
+        lo[it] = __ldg(krayl + base * 2 + atm);
+        hi[it] = __ldg(krayl + (base + ngpt) * 2 + atm);
     }
-    return k;
+    return minor_lerp(d.ft, fe, lo, hi);
 }
 
 // Dynamic shared memory beyond 48 KB must be opted into per kernel.

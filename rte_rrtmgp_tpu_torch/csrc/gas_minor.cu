@@ -25,9 +25,18 @@
 // the one minor_tau_lane calls; no atomics, so two runs give identical
 // bits.
 //
-// gas_rayleigh: one block per cell, one thread per g-point: the krayl
-// lerp in the cell's atmosphere (common.cuh::rayleigh_k) times col_h2o +
-// col_dry, added to tau, and ssa = tau_rayleigh / tau where tau > 2 tiny.
+// gas_rayleigh: tau_out = tau_in + the krayl lerp in the cell's
+// atmosphere (common.cuh::rayleigh_k's arithmetic) times col_h2o +
+// col_dry, and ssa = tau_rayleigh / tau_out where tau_out > 2 tiny; a null
+// tau_in reads as 0 (0 + Rayleigh: the Rayleigh optical depth alone, the
+// same bits), a null ssa is not written, and tau_out may be tau_in (in
+// place). The public and staged gas optics call it out of place, with no
+// clone of tau and no zeros tensor. A run of consecutive cells per block
+// as gas_minor, kRayBatch cells per thread, each cell's chain of
+// dependent loads (tropo -> the flavor's jeta -> the four krayl values)
+// started for the whole batch before any value is used: one block per cell
+// and one chain per thread held it at 0.57 ms at 4096 x 72, 2.3x its
+// bound (PERF.md).
 //
 // What bounds them on this card: reading and writing tau (and writing
 // ssa), 4 B per (cell, g-point) each; the table gathers hit kminor and
@@ -37,7 +46,8 @@
 // (64 registers; capped for more blocks, it spills and slows: PERF.md).
 //
 // Contract (checked by the Python wrapper): float32 data, int32 indices,
-// contiguous, ngpt <= 1024; cells flattened in the caller's order.
+// the tropopause flags as bytes (torch.bool), contiguous, ngpt <= 1024;
+// cells flattened in the caller's order.
 
 #include <cfloat>
 
@@ -46,7 +56,8 @@
 namespace {
 
 constexpr int kThreads = 256;   // most per block, unless ngpt needs more
-constexpr int kBatch = 4;       // cells per thread in flight
+constexpr int kBatch = 4;       // gas_minor: cells per thread in flight
+constexpr int kRayBatch = 2;    // gas_rayleigh: cells per thread in flight
 
 template <int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads) gas_minor_kernel(
@@ -155,27 +166,89 @@ int minor_occupancy(int ngpt, int nminor) {
     return err == cudaSuccess ? blocks : -(int)err;
 }
 
-__global__ void gas_rayleigh_kernel(
-        float* __restrict__ tau, float* __restrict__ ssa,
+// gas_rayleigh: the same run of cells per block, kRayBatch cells per
+// thread; each cell's loads (descriptors, tau, jeta and feta of the
+// thread's flavor, the four krayl values) started for all cells of the
+// batch before any is used.
+template <int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads) gas_rayleigh_kernel(
+        const float* tau_in, float* tau_out, float* __restrict__ ssa,
         const int* __restrict__ jtemp, const float* __restrict__ ftemp,
-        const int* __restrict__ tropo, const int* __restrict__ jeta,
+        const unsigned char* __restrict__ tropo,
+        const int* __restrict__ jeta,
         const float* __restrict__ feta, const float* __restrict__ krayl,
         const int* __restrict__ gflav, const float* __restrict__ rayscale,
-        int ncell, int ngpt, int neta, int nflav) {
-    const int cell = blockIdx.x;
-    const int g = threadIdx.x;
-    if (g >= ngpt) return;
-    rte::CellDesc d;
-    d.lower = tropo[cell] != 0;
-    d.jt = jtemp[cell];
-    d.ft = ftemp[cell];
-    int flav = gflav[(d.lower ? 0 : 1) * ngpt + g];
-    float ray = rte::rayleigh_k(d, flav, nflav, ncell, cell, jeta, feta,
-                                krayl, neta, ngpt, g) * rayscale[cell];
-    long long o = (long long)cell * ngpt + g;
-    float t = tau[o] + ray;
-    tau[o] = t;
-    if (ssa) ssa[o] = t > 2.0f * FLT_MIN ? ray / t : 0.0f;
+        int ncell, int ngpt, int neta, int nflav, int span) {
+    const int gw = (ngpt + 31) / 32 * 32;     // threads per cell
+    const int cpb = blockDim.x / gw;          // cells side by side
+    const int g = threadIdx.x % gw;
+    const int slot = threadIdx.x / gw;
+    if (slot >= cpb || g >= ngpt) return;
+    const int flav_lo = __ldg(gflav + g), flav_up = __ldg(gflav + ngpt + g);
+    const int c0 = blockIdx.x * span;
+    const int c1 = min(ncell, c0 + span);
+    for (int base = c0 + slot; base < c1; base += cpb * kRayBatch) {
+        int cell[kRayBatch], jt[kRayBatch], atm[kRayBatch];
+        float ft[kRayBatch], rs[kRayBatch], t[kRayBatch];
+#pragma unroll
+        for (int i = 0; i < kRayBatch; ++i) {
+            int ci = base + i * cpb;
+            cell[i] = ci < c1 ? ci : base;
+            atm[i] = __ldg(tropo + cell[i]) != 0 ? 0 : 1;
+            jt[i] = __ldg(jtemp + cell[i]);
+            ft[i] = __ldg(ftemp + cell[i]);
+            rs[i] = __ldg(rayscale + cell[i]);
+            t[i] = tau_in ? tau_in[(long long)cell[i] * ngpt + g] : 0.0f;
+        }
+        float fe[kRayBatch][2], lo[kRayBatch][2], hi[kRayBatch][2];
+        int je[kRayBatch][2];
+#pragma unroll
+        for (int i = 0; i < kRayBatch; ++i)
+#pragma unroll
+            for (int it = 0; it < 2; ++it) {
+                int fi = (it * nflav + (atm[i] ? flav_up : flav_lo)) * ncell
+                         + cell[i];
+                je[i][it] = __ldg(jeta + fi);
+                fe[i][it] = __ldg(feta + fi);
+            }
+#pragma unroll
+        for (int i = 0; i < kRayBatch; ++i)
+#pragma unroll
+            for (int it = 0; it < 2; ++it) {
+                long long b = (long long)((jt[i] + it) * neta + je[i][it])
+                              * ngpt + g;
+                lo[i][it] = __ldg(krayl + b * 2 + atm[i]);
+                hi[i][it] = __ldg(krayl + (b + ngpt) * 2 + atm[i]);
+            }
+#pragma unroll
+        for (int i = 0; i < kRayBatch; ++i) {
+            if (base + i * cpb >= c1) continue;
+            float ray = rte::minor_lerp(ft[i], fe[i], lo[i], hi[i]) * rs[i];
+            float tt = t[i] + ray;
+            long long o = (long long)cell[i] * ngpt + g;
+            tau_out[o] = tt;
+            if (ssa) ssa[o] = tt > 2.0f * FLT_MIN ? ray / tt : 0.0f;
+        }
+    }
+}
+
+// As many blocks of ``kernel`` as the card holds at once, each a run of
+// ``*span`` consecutive cells (fewer blocks where there are fewer
+// batches of ``batch`` cells per thread): the grid, or a negative CUDA
+// error.
+template <typename K>
+int run_grid(K kernel, int threads, size_t smem, int ncell, int cpb,
+             int batch, int* span) {
+    long long limit = 0;
+    cudaError_t err = rte::allow_smem(kernel, smem);
+    if (err == cudaSuccess)
+        err = rte::resident_grid(kernel, threads, smem, &limit);
+    if (err != cudaSuccess) return -(int)err;
+    const long long batches = ((long long)ncell + cpb * batch - 1)
+        / (cpb * batch);
+    const int grid = (int)(batches < limit ? batches : limit);
+    *span = (int)(((long long)ncell + grid - 1) / grid);
+    return grid;
 }
 
 }  // namespace
@@ -206,15 +279,10 @@ extern "C" int launch_gas_minor(
     const int cpb = threads / ((ngpt + 31) / 32 * 32);
     const size_t smem = minor_smem(ngpt, nminor);
     auto go = [&](auto kernel) {
-        long long limit = 0;
-        cudaError_t err = rte::allow_smem(kernel, smem);
-        if (err == cudaSuccess)
-            err = rte::resident_grid(kernel, threads, smem, &limit);
-        if (err != cudaSuccess) return (int)err;
-        const long long batches = ((long long)ncell + cpb * kBatch - 1)
-            / (cpb * kBatch);
-        const int grid = (int)(batches < limit ? batches : limit);
-        const int span = (int)(((long long)ncell + grid - 1) / grid);
+        int span = 0;
+        const int grid = run_grid(kernel, threads, smem, ncell, cpb, kBatch,
+                                  &span);
+        if (grid < 0) return -grid;
         kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
             (const float*)tau_in, (float*)tau_out, (const int*)jtemp,
             (const float*)ftemp, (const int*)jeta, (const float*)feta,
@@ -227,17 +295,43 @@ extern "C" int launch_gas_minor(
                               : go(gas_minor_kernel<kThreads>);
 }
 
+// Resident blocks per SM of gas_rayleigh at ngpt g-points, or a negative
+// CUDA error.
+extern "C" int occupancy_gas_rayleigh(int ngpt) {
+    int blocks = 0;
+    const int threads = minor_threads(ngpt);
+    cudaError_t err = threads > kThreads
+        ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &blocks, gas_rayleigh_kernel<1024>, threads, 0)
+        : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &blocks, gas_rayleigh_kernel<kThreads>, threads, 0);
+    return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// tau_in null: 0 + Rayleigh; tau_out may be tau_in (in place); ssa null:
+// no ssa.
 extern "C" int launch_gas_rayleigh(
-        void* tau, void* ssa, const void* jtemp, const void* ftemp,
-        const void* tropo, const void* jeta, const void* feta,
-        const void* krayl, const void* gflav, const void* rayscale,
-        int ncell, int ngpt, int neta, int nflav, void* stream) {
+        const void* tau_in, void* tau_out, void* ssa, const void* jtemp,
+        const void* ftemp, const void* tropo, const void* jeta,
+        const void* feta, const void* krayl, const void* gflav,
+        const void* rayscale, int ncell, int ngpt, int neta, int nflav,
+        void* stream) {
     if (ncell == 0) return 0;
-    int threads = (ngpt + 31) / 32 * 32;
-    gas_rayleigh_kernel<<<ncell, threads, 0, (cudaStream_t)stream>>>(
-        (float*)tau, (float*)ssa, (const int*)jtemp, (const float*)ftemp,
-        (const int*)tropo, (const int*)jeta, (const float*)feta,
-        (const float*)krayl, (const int*)gflav, (const float*)rayscale,
-        ncell, ngpt, neta, nflav);
-    return (int)cudaGetLastError();
+    const int threads = minor_threads(ngpt);
+    const int cpb = threads / ((ngpt + 31) / 32 * 32);
+    auto go = [&](auto kernel) {
+        int span = 0;
+        const int grid = run_grid(kernel, threads, 0, ncell, cpb, kRayBatch,
+                                  &span);
+        if (grid < 0) return -grid;
+        kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+            (const float*)tau_in, (float*)tau_out, (float*)ssa,
+            (const int*)jtemp, (const float*)ftemp,
+            (const unsigned char*)tropo, (const int*)jeta,
+            (const float*)feta, (const float*)krayl, (const int*)gflav,
+            (const float*)rayscale, ncell, ngpt, neta, nflav, span);
+        return (int)cudaGetLastError();
+    };
+    return threads > kThreads ? go(gas_rayleigh_kernel<1024>)
+                              : go(gas_rayleigh_kernel<kThreads>);
 }

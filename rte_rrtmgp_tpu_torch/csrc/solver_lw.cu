@@ -47,7 +47,8 @@
 //   adjacent layers' fractions, 0 where their product is not positive)
 //   and the transmittance and sources;
 //   then the chunk's first ``chunk`` threads, one per g-point, sweep, a
-//   ring of kAhead layers' values loaded ahead of their use (sweep):
+//   ring of kAhead layers' values loaded ahead of their use
+//   (transport.cuh::ring_sweep):
 //   down from the incident flux, the surface emission and reflection, up;
 //   with RESCALE the radiance at each layer top kept by the first down
 //   sweep, adjusted in the up sweep and a second down sweep (Tang 2018);
@@ -101,9 +102,9 @@ using rte::f2;
 using rte::f3;
 
 constexpr int kThreads = 256;   // per block: chunk g-points x layer lanes
-constexpr int kAhead = 4;       // sweeps: layers loaded ahead of their
-                                // use; each field's padding rows at both
-                                // ends
+constexpr int kAhead = rte::kRingAhead;  // sweeps: layers loaded ahead
+                                         // of their use; each field's
+                                         // padding rows at both ends
 constexpr int kExtra = 4;       // per g-point: dn at the top, up and the
                                 // Jacobian at the surface, PFRAC's surface
                                 // source
@@ -123,36 +124,6 @@ struct LwArgs {
     int nlay, ngpt, nband, chunk;
     float ds_scalar, piw;
 };
-
-// One serial sweep of the chunk's first ``chunk`` threads over the nlay
-// layers, down (layer 0 first) or up: load(l, v) reads layer l's NF
-// values, step(l, v) advances the recurrence and writes layer l's flux.
-// A ring of kAhead layers' values: right after a layer is stepped
-// through, the layer kAhead further on is loaded into its slot, so that a
-// step waits on no shared-memory load. The loads run up to kAhead layers
-// past either end, into each field's padding rows (never used); a step
-// writes only its own layer, loaded before and not loaded again. Whole
-// groups of kAhead layers run without a per-layer test, the remainder
-// after them (a test per step cost 6-19%, PERF.md).
-template <int NF, class Load, class Step>
-__device__ __forceinline__ void sweep(int nlay, bool down, Load&& load,
-                                      Step&& step) {
-    auto at = [&](int i) { return down ? i : nlay - 1 - i; };
-    float v[kAhead][NF];
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) load(at(u), v[u]);
-    int i0 = 0;
-    for (; i0 + kAhead <= nlay; i0 += kAhead) {
-#pragma unroll
-        for (int u = 0; u < kAhead; ++u) {
-            step(at(i0 + u), v[u]);
-            load(at(i0 + u + kAhead), v[u]);
-        }
-    }
-#pragma unroll
-    for (int u = 0; u < kAhead - 1; ++u)
-        if (i0 + u < nlay) step(at(i0 + u), v[u]);
-}
 
 __device__ __forceinline__ float geometric_mean(float a, float b) {
     float pp = a * b;
@@ -349,7 +320,7 @@ solver_lw_kernel(const LwArgs a) {
         // down (reference lw_transport_noscat_dn :681-708): level l + 1's
         // flux in place of layer l's sdn; with RESCALE the radiance at
         // each layer top kept, the sources left for the later sweeps
-        sweep<2>(nlay, true,
+        rte::ring_sweep<2>(nlay, true,
                  [&](int l, float* v) {
                      v[0] = tr[l * ld];
                      v[1] = sd[l * ld];
@@ -367,7 +338,7 @@ solver_lw_kernel(const LwArgs a) {
     auto jacobian = [&]() {
         float rjac = active ? e * a.sfc_jac.at(g, c) : 0.0f;
         ex_s[2 * chunk + lane] = rjac;
-        sweep<1>(nlay, false,
+        rte::ring_sweep<1>(nlay, false,
                  [&](int l, float* v) { v[0] = tr[l * ld]; },
                  [&](int l, const float* v) {
                      if (active) rjac = v[0] * rjac;
@@ -384,7 +355,7 @@ solver_lw_kernel(const LwArgs a) {
         }
         ex_s[chunk + lane] = rup;
         // t, sup, and with RESCALE sdn, cn and the radiance
-        sweep<RESCALE ? 5 : 2>(
+        rte::ring_sweep<RESCALE ? 5 : 2>(
             nlay, false,
             [&](int l, float* v) {
                 v[0] = tr[l * ld];
@@ -419,7 +390,7 @@ solver_lw_kernel(const LwArgs a) {
             // second down sweep, adjusted from the upwelling field: t,
             // sdn, sup, cn and the radiance
             rdn = rdn_top;
-            sweep<5>(nlay, true,
+            rte::ring_sweep<5>(nlay, true,
                      [&](int l, float* v) {
                          v[0] = tr[l * ld];
                          v[1] = sd[l * ld];

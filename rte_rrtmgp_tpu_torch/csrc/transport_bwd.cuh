@@ -40,9 +40,12 @@ __device__ __forceinline__ float dmax(float x, float c) {
 // ---------------------------------------------------------------------------
 
 // Cotangents of one layer's inputs: the optical depth along the ray, the
-// layer source and the sources at its top and bottom levels.
+// layer source and the sources at its top and bottom levels; and coef, of
+// which bot = coef * sdn_b and top = coef * sup_b (a kernel that adds the
+// bottom term into a level's cotangent forms it as one fused multiply-add
+// with coef, as a compiler fuses bot's product into that sum).
 struct LwBars {
-    float tl, lay, top, bot;
+    float tl, lay, top, bot, coef;
 };
 
 // Step A1 (solver_lw_bwd.py:34-44): from the cotangents of the layer's
@@ -63,6 +66,7 @@ __device__ __forceinline__ LwBars lw_source_adjoint(float tl, float lay,
     float coef = 1.0f - t - 2.0f * fact;
     b.bot = coef * sdn_b;
     b.top = coef * sup_b;
+    b.coef = coef;
     float fact_b = 2.0f * ((lay - bot) * sdn_b + (lay - top) * sup_b);
     trans_b -= bot * sdn_b + top * sup_b;
     float dfact;
@@ -76,8 +80,10 @@ __device__ __forceinline__ LwBars lw_source_adjoint(float tl, float lay,
     return b;
 }
 
-// The one-angle no-scattering solve's adjoint (steps A2-A5). The Col
-// gives layer l's optical depth along the ray and sources:
+// The one-angle no-scattering solve's adjoint (steps A2-A5), which the
+// fused LW adjoint calls (solver_lw_bwd.cu runs the same steps from
+// shared memory, in the same expressions). The Col gives layer l's optical
+// depth along the ray and sources:
 // col.down(l, &tl, &lay, &top, &bot) on the down pass (l = 0 .. nlay-1
 // in order, so a Col may compute its layers there), col.up(l, ...) on
 // the up pass (l = nlay-1 .. 0), and col.surface_source() after the down
@@ -123,7 +129,7 @@ __device__ __forceinline__ void lw_adjoint(
         R_n = RR[(nlay - 1) * ls];
     }
     for (int l = nlay - 1; l >= 0; --l) {
-        LwBars b = {0.0f, 0.0f, 0.0f, 0.0f};
+        LwBars b = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
         if (active) {
             float rdn_l = rdn_n, R_l = R_n;
             if (l > 0) {

@@ -65,10 +65,15 @@ def _minor(tau, co, kminor, minors, meta, scaling):
 
 
 def _rayleigh(tau, co, krayl, gpoint_flavor, rayscale, scattering):
-    """gas_rayleigh out of place: (tau + tau_rayleigh, ssa or None)."""
+    """gas_rayleigh out of place: (tau + tau_rayleigh, ssa or None); the
+    kernel reads ``tau`` and writes a new tensor, ``tau`` untouched. A None
+    ``tau`` gives the Rayleigh optical depth alone (0 + Rayleigh)."""
+    def kernel(t, c, k, f, r):
+        out = torch.empty(tuple(c.jtemp.shape) + (k.shape[2],),
+                          dtype=r.dtype, device=r.device)
+        return gas_rayleigh(t, c, k, f, r, scattering=scattering, out=out)
     return with_twin_grad(
-        lambda t, *a: gas_rayleigh(t.clone(), *a, scattering=scattering),
-        lambda *a: rayleigh_combine(*a, scattering=scattering),
+        kernel, lambda *a: rayleigh_combine(*a, scattering=scattering),
         tau, co, krayl, gpoint_flavor, rayscale)
 
 
@@ -215,8 +220,8 @@ class GasOpticsRRTMGP:
             return tau, second, pfrac
         rayl = (co, kd.krayl, self.gpoint_flavor, col_gas[idx_h2o] + col_dry)
         if split_rayleigh:
-            # 0 + Rayleigh: the kernel's own sum gives tau_ray exactly
-            ray, _ = _rayleigh(torch.zeros_like(tau), *rayl, False)
+            # 0 + Rayleigh: the Rayleigh optical depth alone
+            ray, _ = _rayleigh(None, *rayl, False)
             return tau, ray, pfrac
         tau, ssa = _rayleigh(tau, *rayl, scattering)
         return tau, ssa, pfrac

@@ -9,13 +9,13 @@ reference gas_optical_depths_minor) and ``::rayleigh_k_lane`` (via
 the absorption/Rayleigh combine of ``models/rrtmgp/gas_optics.py:344-358``
 (reference combine_abs_and_rayleigh).
 
-Both add into ``tau`` (cells of any shape S, then g-points) in place;
-:func:`gas_minor` writes into a separate ``out`` instead where one is
-given, ``tau`` untouched. A CUDA tensor goes to the kernel (float32 only;
-anything else raises), a CPU tensor to the twin. The kernels have no
-backward of their own: on CUDA they refuse inputs that require grad, and
-gas_optics takes the twins' gradient out of place (the minors into a new
-tensor, Rayleigh on a copy of tau; :func:`rayleigh_combine` and
+Both add into ``tau`` (cells of any shape S, then g-points) in place,
+or write into a separate ``out`` where one is given, ``tau`` untouched
+(:func:`gas_rayleigh` also from no tau: the Rayleigh optical depth
+alone). A CUDA tensor goes to the kernel (float32 only; anything else
+raises), a CPU tensor to the twin. The kernels have no backward of their
+own: on CUDA they refuse inputs that require grad, and gas_optics calls
+them out of place, with the twins' gradient (:func:`rayleigh_combine` and
 ``ops/gas_optics.py::tau_minor``) through ``autodiff.with_twin_grad``.
 """
 from __future__ import annotations
@@ -27,7 +27,8 @@ from ._build import check_args, launch, on_cpu, query
 from .autodiff import refuse_grad
 
 __all__ = ["gas_minor", "gas_minor_plain", "gas_minor_occupancy",
-           "gas_rayleigh", "gas_rayleigh_plain", "rayleigh_combine"]
+           "gas_rayleigh", "gas_rayleigh_plain", "gas_rayleigh_occupancy",
+           "rayleigh_combine"]
 
 _HINT = ("gas_optics differentiates it out of place through "
          "autodiff.with_twin_grad")
@@ -96,23 +97,29 @@ gas_minor.launches = 0
 
 
 def gas_rayleigh_plain(tau, co: InterpCoeffs, krayl, gpoint_flavor,
-                       rayscale, scattering: bool = True):
+                       rayscale, scattering: bool = True, out=None):
     """Add the Rayleigh optical depth (krayl (ntemp, neta, ngpt, 2) in the
     cell's atmosphere, times ``rayscale`` = col_h2o + col_dry, (*S)) into
-    ``tau`` (*S, ngpt) in place. Returns (tau, ssa), ssa = tau_rayleigh /
-    tau where tau > 2 tiny (else 0), or None without ``scattering``."""
+    ``tau`` (*S, ngpt) in place, or with ``out`` (*S, ngpt) write tau plus
+    it into ``out``, ``tau`` untouched; a None ``tau`` (with ``out``)
+    reads as 0: the Rayleigh optical depth alone. Returns (tau or out,
+    ssa), ssa = tau_rayleigh / that where it exceeds 2 tiny (else 0), or
+    None without ``scattering``."""
+    if tau is None and out is None:
+        raise ValueError("gas_rayleigh: no tau needs an out")
     t, ssa = rayleigh_combine(tau, co, krayl, gpoint_flavor, rayscale,
                               scattering)
-    tau.copy_(t)
-    return tau, ssa
+    dst = tau if out is None else out
+    dst.copy_(t)
+    return dst, ssa
 
 
 def rayleigh_combine(tau, co: InterpCoeffs, krayl, gpoint_flavor, rayscale,
                      scattering: bool = True):
     """:func:`gas_rayleigh_plain` out of place: (tau + tau_rayleigh, ssa or
-    None), ``tau`` untouched."""
+    None), ``tau`` untouched; a None ``tau`` reads as 0."""
     ray = tau_rayleigh(co, krayl, gpoint_flavor, rayscale).movedim(0, -1)
-    t = tau + ray
+    t = ray if tau is None else tau + ray
     ssa = None
     if scattering:
         big = t > 2.0 * torch.finfo(t.dtype).tiny
@@ -120,14 +127,26 @@ def rayleigh_combine(tau, co: InterpCoeffs, krayl, gpoint_flavor, rayscale,
     return t, ssa
 
 
+def gas_rayleigh_occupancy(ngpt: int) -> int:
+    """Resident blocks per SM of the Rayleigh kernel at ngpt g-points
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the launcher starts
+    that many per SM, each taking a run of consecutive cells."""
+    return query("gas_minor", "occupancy_gas_rayleigh", ngpt)
+
+
 def gas_rayleigh(tau, co: InterpCoeffs, krayl, gpoint_flavor, rayscale,
-                 scattering: bool = True):
+                 scattering: bool = True, out=None):
     """:func:`gas_rayleigh_plain` semantics; on CUDA, one launch of the
-    hand-written kernel (counted in ``gas_rayleigh.launches``)."""
-    if on_cpu(tau, "gas_rayleigh"):
+    hand-written kernel (counted in ``gas_rayleigh.launches``), which
+    reads tau (nothing where it is None) and writes ``out`` (tau itself
+    without one)."""
+    ref = tau if tau is not None else rayscale
+    if on_cpu(ref, "gas_rayleigh"):
         return gas_rayleigh_plain(tau, co, krayl, gpoint_flavor, rayscale,
-                                  scattering)
-    refuse_grad("gas_rayleigh", tau, co, krayl, rayscale, hint=_HINT)
+                                  scattering, out)
+    if tau is None and out is None:
+        raise ValueError("gas_rayleigh: no tau needs an out")
+    refuse_grad("gas_rayleigh", tau, co, krayl, rayscale, out, hint=_HINT)
     cells = tuple(co.jtemp.shape)
     ncell = co.jtemp.numel()
     ntemp, neta, ngpt, _ = krayl.shape
@@ -136,8 +155,11 @@ def gas_rayleigh(tau, co: InterpCoeffs, krayl, gpoint_flavor, rayscale,
         raise ValueError(f"gas_rayleigh: {ngpt} g-points exceed one CUDA "
                          "block")
     f32, i32 = torch.float32, torch.int32
-    check_args("gas_rayleigh", tau.device, {
-        "tau": (tau, cells + (ngpt,), f32),
+    dst = tau if out is None else out
+    specs = {"out": (dst, cells + (ngpt,), f32)}
+    if tau is not None:
+        specs["tau"] = (tau, cells + (ngpt,), f32)
+    specs.update({
         "jtemp": (co.jtemp, cells, i32), "ftemp": (co.ftemp, cells, f32),
         "tropo": (co.tropo, cells, torch.bool),
         "jeta": (co.jeta, (2, nflav) + cells, i32),
@@ -145,12 +167,13 @@ def gas_rayleigh(tau, co: InterpCoeffs, krayl, gpoint_flavor, rayscale,
         "krayl": (krayl, (ntemp, neta, ngpt, 2), f32),
         "gpoint_flavor": (gpoint_flavor, (2, ngpt), i32),
         "rayscale": (rayscale, cells, f32)})
-    ssa = torch.empty_like(tau) if scattering else None
+    check_args("gas_rayleigh", rayscale.device, specs)
+    ssa = torch.empty_like(dst) if scattering else None
     launch("gas_minor", "launch_gas_rayleigh", "gas_rayleigh",
-           tau, ssa, co.jtemp, co.ftemp, co.tropo.to(i32), co.jeta, co.feta,
+           tau, dst, ssa, co.jtemp, co.ftemp, co.tropo, co.jeta, co.feta,
            krayl, gpoint_flavor, rayscale, ncell, ngpt, neta, nflav)
     gas_rayleigh.launches += 1
-    return tau, ssa
+    return dst, ssa
 
 
 gas_rayleigh.launches = 0

@@ -4,12 +4,14 @@ memory: the fused LW and SW steps (``csrc/fused_lw.cu``,
 staged paths (``csrc/solver_lw.cu``, all three launchers), the LW
 two-stream solve (``csrc/solver_lw_2str.cu``), the SW two-stream solve of
 the public and staged paths (``csrc/solver_sw.cu``, all three launchers)
-and its adjoint (``csrc/solver_sw_bwd.cu``).
+and its adjoint (``csrc/solver_sw_bwd.cu``), and the LW no-scattering
+solve's adjoint (``csrc/solver_lw_bwd.cu``).
 
 A column's g-points are cut into chunks of ``chunk`` g-points, one thread
 block per chunk, and the column's chunks form one thread-block cluster
-(at most 8 blocks, the portable cluster size). A block keeps its chunk's
-layer fields and its partial sums in shared memory, at most
+(at most 8 blocks, the portable cluster size; the LW adjoint's blocks
+share nothing and launch without one). A block keeps its chunk's layer
+fields and its partial sums in shared memory, at most
 :data:`SMEM_LIMIT` bytes, so the column height is bounded: past it
 :func:`onchip_geometry` raises, and no other kernel takes over.
 
@@ -33,9 +35,12 @@ MAX_CHUNKS = 8
 THREADS = 256
 # fields each kernel sums: SW up, diffuse dn, dir; LW up, dn (the LW
 # no-scattering solve also its broadband Jacobian where asked for); the SW
-# adjoint the mu0 cotangent of each layer and the beam's seed at the top
+# adjoint the mu0 cotangent of each layer and the beam's seed at the top;
+# the LW adjoint none
 _FIELDS = {"fused_lw": 2, "fused_sw": 3, "lw_2stream": 2, "solver_lw": 2,
-           "solver_sw": 3, "solver_sw_bwd": 2}
+           "solver_sw": 3, "solver_sw_bwd": 2, "solver_lw_bwd": 0}
+# layers the ring sweeps load ahead (transport.cuh::kRingAhead)
+_RING_AHEAD = 4
 
 
 class Geometry(NamedTuple):
@@ -58,7 +63,16 @@ def _smem(kernel: str, nlay: int, chunk: int, nband: int, nminor: int,
           rescale: bool = False, jacobian: bool = False,
           pfrac: bool = False) -> int:
     """The launchers' smem_bytes (csrc/fused_lw.cu, fused_sw.cu,
-    solver_lw.cu, solver_lw_2str.cu, solver_sw.cu, solver_sw_bwd.cu)."""
+    solver_lw.cu, solver_lw_2str.cu, solver_sw.cu, solver_sw_bwd.cu,
+    solver_lw_bwd.cu)."""
+    if kernel == "solver_lw_bwd":
+        # per (layer, g-point) tau * ds (then the top level's term), the
+        # down source (then the forward down radiance), the up source
+        # (then the up radiance, then the bottom level's coefficient) and
+        # the sweeps' two cotangents R and D, after _RING_AHEAD padding
+        # rows, and lev (nlay + 1 rows); per level the column's two flux
+        # cotangents
+        return 4 * (chunk * (6 * nlay + 1 + _RING_AHEAD) + 2 * (nlay + 1))
     if kernel == "solver_lw":
         # per (layer, g-point) the transmittance (then the Jacobian's
         # flux), the down source (then the down flux) and the up source
@@ -70,7 +84,8 @@ def _smem(kernel: str, nlay: int, chunk: int, nband: int, nminor: int,
         # Jacobian and the surface source; the sums: up and dn (by band),
         # the Jacobian broadband
         nlev = nlay + 1
-        fields = (5 if rescale else 4 if pfrac else 3) * (nlay + 8)
+        fields = (5 if rescale else 4 if pfrac else 3) * (
+            nlay + 2 * _RING_AHEAD)
         if nband > 0:
             sums = _sums_bytes(2, chunk, nlev, nband) + (
                 _sums_bytes(1, chunk, nlev, 0) if jacobian else 0)
@@ -116,9 +131,10 @@ def onchip_geometry(kernel: str, nlay: int, ngpt: int, nband: int = 0,
                     jacobian: bool = False, pfrac: bool = False) -> Geometry:
     """Chunk width, cluster size, threads and shared memory per block of
     ``kernel`` ("fused_lw", "fused_sw", "solver_lw", "lw_2stream",
-    "solver_sw" or "solver_sw_bwd") at nlay layers and ngpt g-points, with
-    per-band sums over ``nband`` bands (0: broadband; the adjoint takes
-    broadband cotangents only), for the fused steps nminor minor gases,
+    "solver_sw", "solver_sw_bwd" or "solver_lw_bwd") at nlay layers and
+    ngpt g-points, with per-band sums over ``nband`` bands (0: broadband;
+    the adjoints take broadband cotangents only), for the fused steps
+    nminor minor gases,
     and for "solver_lw" its variant: Tang ``rescale``-ing, the surface
     ``jacobian``, the in-kernel Planck sources (``pfrac``).
     The chunk is the narrowest power of two from 32 up with at most

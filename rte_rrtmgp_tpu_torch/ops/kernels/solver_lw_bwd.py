@@ -8,7 +8,10 @@ secant, no rescaling and no Jacobian (the dispatch rule of the JAX
 package's ``ops/solver_lw.py:338-350``), the cotangents of tau, the layer
 and level sources, the surface emissivity and source and the incident
 flux from those of the broadband up and down fluxes. The plain twin is
-``torch.autograd.grad`` of ``lw_noscat_plain``.
+``torch.autograd.grad`` of ``lw_noscat_plain``. The kernel keeps a column's
+state in shared memory (:func:`lw_noscat_bwd_geometry`), so on CUDA the
+column height is bounded and a taller one raises ValueError naming the
+limit; the twin has no limit.
 """
 from __future__ import annotations
 
@@ -17,17 +20,34 @@ import torch
 from ...constants import PI
 from ._build import check_args, launch, on_cpu, query
 from .autodiff import refuse_grad, with_adjoint
+from .onchip import Geometry, onchip_geometry
 from .solver_lw import lw_noscat, lw_noscat_plain
 
 __all__ = ["lw_noscat_vjp", "lw_noscat_bwd", "lw_noscat_bwd_plain",
+           "lw_noscat_bwd_geometry", "lw_noscat_bwd_scratch_bytes",
            "lw_noscat_bwd_occupancy"]
 
 
-def lw_noscat_bwd_occupancy(ngpt: int) -> int:
-    """Resident blocks per SM of the adjoint kernel for ngpt g-points
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); it needs no
-    scratch."""
-    return query("solver_lw_bwd", "occupancy_solver_lw_bwd", ngpt)
+def lw_noscat_bwd_geometry(nlay: int, ngpt: int) -> Geometry:
+    """Chunk width, blocks per column, threads and shared memory per
+    block of the adjoint kernel at nlay layers and ngpt g-points
+    (:func:`onchip.onchip_geometry`); raises ValueError where a column's
+    state does not fit on chip."""
+    return onchip_geometry("solver_lw_bwd", nlay, ngpt)
+
+
+def lw_noscat_bwd_scratch_bytes(ncol: int, nlay: int, ngpt: int) -> int:
+    """Device scratch of one :func:`lw_noscat_bwd` launch: none, the
+    state stays in shared memory."""
+    return 0
+
+
+def lw_noscat_bwd_occupancy(nlay: int, ngpt: int) -> int:
+    """Resident blocks per SM of the adjoint kernel at these sizes
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its shared
+    memory)."""
+    return query("solver_lw_bwd", "occupancy_solver_lw_bwd", nlay,
+                 lw_noscat_bwd_geometry(nlay, ngpt).chunk)
 
 
 def lw_noscat_bwd_plain(tau, lay, lev, sfc_emis, sfc_src, inc_flux, g_up,
@@ -45,16 +65,14 @@ def lw_noscat_bwd_plain(tau, lay, lev, sfc_emis, sfc_src, inc_flux, g_up,
 def lw_noscat_bwd(tau, lay, lev, sfc_emis, sfc_src, inc_flux, g_up, g_dn, *,
                   ds: float, weight: float):
     """:func:`lw_noscat_bwd_plain` semantics; on CUDA, one launch of the
-    hand-written adjoint kernel (counted in ``lw_noscat_bwd.launches``)."""
+    hand-written adjoint kernel (counted in ``lw_noscat_bwd.launches``);
+    raises ValueError past the tallest column it holds."""
     if on_cpu(tau, "lw_noscat_bwd"):
         return lw_noscat_bwd_plain(tau, lay, lev, sfc_emis, sfc_src,
                                    inc_flux, g_up, g_dn, ds=ds, weight=weight)
     refuse_grad("lw_noscat_bwd", tau, lay, lev, sfc_emis, sfc_src, inc_flux,
                 g_up, g_dn, hint="the adjoints have no backward of their own")
     ncol, nlay, ngpt = tau.shape
-    if ngpt > 1024:
-        raise ValueError(f"lw_noscat_bwd: {ngpt} g-points exceed one CUDA "
-                         "block")
     f32 = torch.float32
     lay3, bc, lev2 = (ncol, nlay, ngpt), (ncol, ngpt), (ncol, nlay + 1)
     g_up, g_dn = g_up.contiguous(), g_dn.contiguous()
@@ -65,12 +83,13 @@ def lw_noscat_bwd(tau, lay, lev, sfc_emis, sfc_src, inc_flux, g_up, g_dn, *,
         "sfc_emis": (sfc_emis, bc, f32), "sfc_src": (sfc_src, bc, f32),
         "inc_flux": (inc_flux, bc, f32), "g_up": (g_up, lev2, f32),
         "g_dn": (g_dn, lev2, f32)})
+    geo = lw_noscat_bwd_geometry(nlay, ngpt)
     outs = (torch.empty_like(tau), torch.empty_like(tau),
             torch.empty_like(lev), torch.empty_like(sfc_emis),
             torch.empty_like(sfc_emis), torch.empty_like(sfc_emis))
     launch("solver_lw_bwd", "launch_solver_lw_bwd", "lw_noscat_bwd",
            tau, lay, lev, sfc_emis, sfc_src, inc_flux, g_up, g_dn, *outs,
-           ncol, nlay, ngpt, float(ds), PI * float(weight))
+           ncol, nlay, ngpt, float(ds), PI * float(weight), geo.chunk)
     lw_noscat_bwd.launches += 1
     return outs
 

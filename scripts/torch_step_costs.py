@@ -3,12 +3,14 @@
 run them, for one checkout, on one CUDA GPU, at the flagship size (4096 x
 72, LW 256 g-points, SW 224):
 
-    python3 scripts/torch_step_costs.py [CHECKOUT]
+    python3 scripts/torch_step_costs.py [CHECKOUT] [--only NAME[,NAME...]]
 
 CHECKOUT is the root of a checkout of this repository (default: the one
 holding this script), so that two commits are compared on one card by
-running the script on both, in turns, in one session. It imports that
-checkout's ``rte_rrtmgp_tpu_torch`` and ``chip_smoke.py`` (MAIN,
+running the script on both in turns. ``--only`` times just the kernel
+cases whose names start with one of the NAMEs, and no step (a variant
+of one kernel, built in a copy of a checkout, in a few seconds).
+It imports that checkout's ``rte_rrtmgp_tpu_torch`` and ``chip_smoke.py`` (MAIN,
 NONBANDED, cuda_ms, lw2_step, step_fn, train_loss) and never JAX, and
 calls only entry points that checkouts from before the SW solver's
 on-chip redesign have too (the major gather gets the interleaved LW
@@ -23,6 +25,11 @@ row 11), the minor gather (row 5, in place on a copy of the major-gas tau,
 the call every checkout has, and, where the checkout's ``gas_minor`` takes
 ``out``, also out of place as the gas optics and chip_smoke.py's api_rows
 call it; LW 256 and SW 224 g-points, each atmosphere's minors), the
+Rayleigh gather (row 6 at SW 224, with ssa and split: 0 + Rayleigh, no
+ssa; in place on a copy of the major-gas tau or a zeros tensor, and where
+the checkout's ``gas_rayleigh`` takes ``out``, out of place as the gas
+optics call it), the LW no-scattering solve's adjoint (row 14, on
+chip_smoke.py's adjoint_rows inputs), the
 SW solver of the public path (row 9, broadband and by band, on the path's
 optics and delta-scaled clouds, night columns and mu0 varying by layer,
 a diffuse incident flux), the staged path's SW lane solvers (row 12 on
@@ -35,8 +42,9 @@ for the fused
 forward step, the LW two-stream step, the fused gradient step, the
 public-API forward step, the staged forward step and the public-API
 gradient step, the median wall time of 5 steps ending in a synchronize,
-the device time per step under torch.profiler (3 steps) and the peak
-device memory of one step (torch.cuda.max_memory_allocated).
+the device time per step under torch.profiler (3 steps), and of it the
+copies' (kernels named copy, memcpy) and the fills' (fill, memset), and
+the peak device memory of one step (torch.cuda.max_memory_allocated).
 """
 import hashlib
 import json
@@ -250,6 +258,76 @@ def minor_cases(prob, cs):
     return out
 
 
+def rayleigh_cases(prob, cs):
+    """Row 6 at SW 224 g-points on the public path's cells: with ssa on a
+    copy of the major-gas tau, and split (0 + Rayleigh, no ssa) on a zeros
+    tensor, in place (``gas_rayleigh(tau, ...)``, the call both checkouts
+    have): {name: ms, largest difference from the twin over its largest
+    value, digest}; and where the checkout's ``gas_rayleigh`` takes
+    ``out``, the gas optics' out-of-place call (``_rayleigh``: from tau,
+    or from no tau for split): ms_out, digest_out."""
+    import inspect
+    import torch
+    from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import gas_major_plain
+    from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (
+        gas_rayleigh, gas_rayleigh_plain)
+    inp, gas, out = prob.inputs, prob.gas_sw, {}
+    kd = gas.kdist
+    cg, dry, h2o = gas.col_gas(inp.play, inp.plev, inp.gas_concs)
+    co = gas.interp(inp.play, inp.tlay, cg)
+    tau = gas_major_plain(co, kd.kmajor, None, gas.gpoint_flavor)[0]
+    a = (co, kd.krayl, gas.gpoint_flavor, (cg[h2o] + dry).contiguous())
+    oop = "out" in inspect.signature(gas_rayleigh).parameters
+    for name, t0, scattering in (("gas_rayleigh", tau, True),
+                                 ("gas_rayleigh split",
+                                  torch.zeros_like(tau), False)):
+        got = gas_rayleigh(t0.clone(), *a, scattering)
+        ref = gas_rayleigh_plain(t0.clone(), *a, scattering)
+        err = max(float((g - r).abs().max()) / float(r.abs().max())
+                  for g, r in zip(got, ref) if g is not None)
+        sha = digest(got)
+        del got, ref
+        t = t0.clone()
+        row = out[name] = dict(ms=cs.cuda_ms(lambda: gas_rayleigh(
+            t, *a, scattering)), rel_err=err, digest=sha)
+        del t
+        if oop:
+            src = tau if scattering else None
+            call = lambda: gas_rayleigh(src, *a, scattering,
+                                        out=torch.empty_like(tau))
+            row.update(digest_out=digest(call()), ms_out=cs.cuda_ms(call))
+    return out
+
+
+def lw_adjoint_case(prob, dev):
+    """{"solver_lw_bwd": (kernel call, twin call)}: row 14 on chip_smoke.py
+    adjoint_rows' inputs at the flagship size (the public path's optics
+    with the clouds' absorption, its sources, zero incident flux, flux
+    cotangents 0.5 + uniform from seeds 6 and 7, the first Gauss secant,
+    weight 1)."""
+    import torch
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_bwd import (
+        lw_noscat_bwd, lw_noscat_bwd_plain)
+    from rte_rrtmgp_tpu_torch.ops.solver_lw import GAUSS_DS
+    from rte_rrtmgp_tpu_torch.optical_props import increment
+    i, gl = prob.inputs, prob.gas_lw
+    ncol, nlay = i.play.shape
+    props, src = gl.gas_optics_lw(i.play, i.plev, i.tlay, i.tsfc,
+                                  i.gas_concs, tlev=i.tlev, top_at_1=True)
+    props = increment(props, prob.cld_lw.cloud_optics(
+        i.lwp, i.iwp, i.rel, i.dei, scattering=False))
+    ngpt = props.tau.shape[2]
+    emis = i.sfc_emis.expand(ncol, ngpt).contiguous()
+    cot = lambda seed: 0.5 + torch.rand(
+        (ncol, nlay + 1), generator=torch.Generator(device=dev).manual_seed(
+            seed), device=dev)
+    a = (props.tau.contiguous(), src.lay_source, src.lev_source, emis,
+         src.sfc_source, torch.zeros_like(emis), cot(6), cot(7))
+    kw = dict(ds=float(GAUSS_DS[0][0]), weight=1.0)
+    return {"solver_lw_bwd": (lambda: lw_noscat_bwd(*a, **kw),
+                              lambda: lw_noscat_bwd_plain(*a, **kw))}
+
+
 def digest(outs):
     """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
     h = hashlib.sha256()
@@ -313,9 +391,15 @@ def tall_column_replay(cs, dev):
 
 
 def main():
-    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+    args, only = sys.argv[1:], None
+    if "--only" in args:
+        i = args.index("--only")
+        only = tuple(args[i + 1].split(","))
+        del args[i:i + 2]
+    root = os.path.abspath(args[0] if args else os.path.join(
         os.path.dirname(os.path.abspath(__file__)), os.pardir))
     sys.path.insert(0, root)
+    want = lambda name: only is None or name.startswith(only)
     import torch
     if not torch.cuda.is_available():
         print("torch_step_costs: no CUDA device", file=sys.stderr)
@@ -370,6 +454,8 @@ def main():
          lambda: lw_2stream_plain(*lw)),
         ("solver_lw_2str byband", lambda: lw_2stream(*lw, *bands, **nb),
          lambda: lw_2stream_plain(*lw, *bands, **nb))]
+    cases = [c for c in cases if want(c[0])]
+    got = ref = None
     for name, kernel, plain in cases:
         got, ref = kernel(), plain()
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
@@ -378,17 +464,26 @@ def main():
                          digest=digest(got))
     del x, xb, xl, xlb, lw, got, ref, cases
     torch.cuda.empty_cache()
-    out.update(minor_cases(prob, cs))
-    torch.cuda.empty_cache()
+    if want("gas_minor"):
+        out.update(minor_cases(prob, cs))
+        torch.cuda.empty_cache()
+    if want("gas_rayleigh"):
+        out.update(rayleigh_cases(prob, cs))
+        torch.cuda.empty_cache()
 
-    aer = build_allsky(**cs.MAIN, device=dev, use_aerosols=True)
-    nonb = build_allsky(**cs.NONBANDED, device=dev, use_aerosols=True)
-    cases = dict(lw_solver_cases(aer, nonb, dev))
-    cases.update(sw_solver_cases(cs, aer, nonb, dev))
+    cases = lw_adjoint_case(prob, dev) if want("solver_lw_bwd") else {}
+    aer = nonb = None
+    if any(want(n) for n in ("gas_major", "solver_lw", "solver_sw")):
+        aer = build_allsky(**cs.MAIN, device=dev, use_aerosols=True)
+        nonb = build_allsky(**cs.NONBANDED, device=dev, use_aerosols=True)
+        cases.update(lw_solver_cases(aer, nonb, dev))
+        cases.update(sw_solver_cases(cs, aer, nonb, dev))
+    cases = {k: v for k, v in cases.items() if want(k)}
+    kernel = plain = None
     for name, (kernel, plain) in cases.items():
         got, ref = (tuple(x for x in f() if x is not None)
                     for f in (kernel, plain))
-        if name == "solver_sw_bwd":
+        if name.endswith("_bwd"):
             err = [float((g - r).abs().max()) / float(r.abs().max())
                    for g, r in zip(got, ref)]
         else:
@@ -401,8 +496,12 @@ def main():
     # the cases' inputs (about 2 GB) must not count in the steps' peaks
     del aer, nonb, kernel, plain, cases
     torch.cuda.empty_cache()
-    out["solver_sw_bwd tallest column"] = tall_column_replay(cs, dev)
-    torch.cuda.empty_cache()
+    if want("solver_sw_bwd tallest column"):
+        out["solver_sw_bwd tallest column"] = tall_column_replay(cs, dev)
+        torch.cuda.empty_cache()
+    if only is not None:
+        print(json.dumps(out), flush=True)
+        return 0
 
     step, inputs = build_allsky_step(**cs.MAIN, device=dev)
     lw2 = cs.lw2_step(prob)
@@ -434,13 +533,18 @@ def main():
             for _ in range(3):
                 fn()
             torch.cuda.synchronize()
-        device = sum(
-            getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0))
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA) / 3e3
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        ms = lambda es: sum(getattr(e, "self_device_time_total",
+                                    getattr(e, "self_cuda_time_total", 0))
+                            for e in es) / 3e3
+        named = lambda *ws: [e for e in on_card
+                             if any(w in e.key.lower() for w in ws)]
         out[name] = dict(wall_ms=statistics.median(walls) * 1e3,
-                         device_ms=device, peak_bytes=peak)
+                         device_ms=ms(on_card),
+                         copy_ms=ms(named("copy", "memcpy")),
+                         fill_ms=ms(named("fill", "memset")),
+                         peak_bytes=peak)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -3,22 +3,27 @@ fused LW step and the minor-gas gather (``csrc/common.cuh``,
 ``csrc/transport.cuh``), at two small cases, which
 ``tests/golden/kernel_digests_frozen.json`` records: rows 2 (the fused LW
 step), 3 (the fused SW step), 5 (the minor-gas gather), 6 (the Rayleigh
-gather) and 16 (the fused LW adjoint); and rows 4 (the major-gas gather,
-LW with the Planck fraction and SW), 7 (the LW no-scattering solve: one
-scalar secant broadband, as the public path calls it, by band, and
-rescaled with the Jacobian and a secant field), 10 (its lane layout,
-plain and rescaled with the Jacobian) and 11 (with in-kernel Planck
-sources, with and without cloud), the solvers on inputs drawn from
-numpy's default_rng(23) at the case's widths; on tests/test_torch_cuda.py's
-DIMS["g24"] (7 columns, 12 layers, LW 24 g-points / 3 bands, SW 40 / 5)
-and its FLAGSHIP (3 columns, 72 layers, LW 256 / 16, SW 224 / 14), clouds
-on; incident fluxes and flux cotangents uniform from numpy's
-default_rng(17). Each entry "<case> <kernel> <variant>" is the first 16
-hex digits of the SHA-256 of the returned tensors' bytes, in order. The
-record holds the minor gathers in place (``gas_minor(tau, ...)``, the only
-call of the checkout it was taken from); ``record(dev, minor_out=True)``
-takes them out of place, as the gas optics call them
-(``models/rrtmgp/gas_optics.py::_minor``), under the same names. Used by
+gather, with ssa, and its split variant: 0 + Rayleigh, no ssa) and 16
+(the fused LW adjoint); and rows 4 (the major-gas gather, LW with the
+Planck fraction and SW), 7 (the LW no-scattering solve: one scalar secant
+broadband, as the public path calls it, by band, and rescaled with the
+Jacobian and a secant field), 10 (its lane layout, plain and rescaled
+with the Jacobian) and 11 (with in-kernel Planck sources, with and
+without cloud), the solvers on inputs drawn from numpy's default_rng(23)
+at the case's widths; and row 14 (the LW no-scattering solve's adjoint)
+on the public path's optics and sources with clouds, zero incident flux
+and seeded flux cotangents, as chip_smoke.py's adjoint_rows builds them;
+on tests/test_torch_cuda.py's DIMS["g24"] (7 columns, 12 layers, LW 24
+g-points / 3 bands, SW 40 / 5) and its FLAGSHIP (3 columns, 72 layers, LW
+256 / 16, SW 224 / 14), clouds on; incident fluxes and flux cotangents
+uniform from numpy's default_rng(17). Each entry "<case> <kernel>
+<variant>" is the first 16 hex digits of the SHA-256 of the returned
+tensors' bytes, in order. The record holds the minor and Rayleigh gathers
+in place (``gas_minor(tau, ...)``, ``gas_rayleigh(tau, ...)``, the split
+variant on a zeros tensor: the calls of the checkouts it was taken from);
+``record(dev, out_of_place=True)`` takes them out of place, as the gas
+optics call them (``models/rrtmgp/gas_optics.py::_minor``, ``_rayleigh``:
+the split variant from no tau at all), under the same names. Used by
 tests/test_torch_cuda.py::test_kernels_match_frozen_digests and by
 scripts/freeze_kernel_digests.py, which writes the record. Every call
 goes through an entry point that checkouts from before the LW solver and
@@ -26,7 +31,10 @@ the major gather were rewritten have too; the major gather gets the
 interleaved LW table only where its wrapper takes one. The record holds
 the outputs of the kernels before each was rewritten, but for row 11's
 four entries: the rewritten kernel's, which nvcc compiles to other bits
-(an ulp or two, PERF.md).
+(an ulp or two, PERF.md), and row 14's two entries: its rewritten
+kernel's, whose tau cotangent nvcc fuses otherwise (PERF.md lists the
+parent's). Row 6's split entries were taken from the checkout before it
+was rewritten.
 """
 import hashlib
 import inspect
@@ -46,10 +54,12 @@ def digest(outs):
     return h.hexdigest()[:16]
 
 
-def _gathers(p, gas, sw, minor_out):
+def _gathers(p, gas, sw, out_of_place):
     """(name, call) of the minor gathers of both atmospheres and, for SW,
-    the Rayleigh gather, each on a fresh copy of the major-gas tau (with
-    ``minor_out``, the minor gathers from tau into a new tensor)."""
+    the Rayleigh gather and its split variant (0 + Rayleigh, no ssa), each
+    on a fresh copy of the major-gas tau or a zeros tensor (with
+    ``out_of_place``, from tau into a new tensor, the split variant from
+    no tau)."""
     import torch
     from rte_rrtmgp_tpu_torch.ops.gas_optics import minor_scaling
     from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import gas_major_plain
@@ -71,12 +81,21 @@ def _gathers(p, gas, sw, minor_out):
                     lambda ktab=ktab, minors=minors, meta=meta, sc=sc: (
                         gas_minor(tau, co, ktab, minors, meta, sc,
                                   out=torch.empty_like(tau))
-                        if minor_out else
+                        if out_of_place else
                         gas_minor(tau.clone(), co, ktab, minors, meta, sc),)))
     if sw:
         rs = (cg[h2o] + dry).contiguous()
-        out.append(("rayleigh", lambda: gas_rayleigh(
-            tau.clone(), co, kd.krayl, gas.gpoint_flavor, rs, True)))
+        ray = (co, kd.krayl, gas.gpoint_flavor, rs)
+        if out_of_place:
+            out += [("rayleigh", lambda: gas_rayleigh(
+                        tau, *ray, True, out=torch.empty_like(tau))),
+                    ("rayleigh split", lambda: gas_rayleigh(
+                        None, *ray, False, out=torch.empty_like(tau)))]
+        else:
+            out += [("rayleigh", lambda: gas_rayleigh(tau.clone(), *ray,
+                                                      True)),
+                    ("rayleigh split", lambda: gas_rayleigh(
+                        torch.zeros_like(tau), *ray, False))]
     return out
 
 
@@ -147,9 +166,48 @@ def _lw_solvers(p, dev):
             **one))]
 
 
-def record(dev, minor_out=False):
+def _lw_adjoint(p, dev):
+    """Row 14 on the public path's optics (the gas optics plus the clouds'
+    absorption) and sources, zero incident flux and flux cotangents
+    0.5 + uniform from torch.Generator seeds 6 and 7 on ``dev``, the
+    Gauss secant of one angle and weight 1: chip_smoke.py's adjoint_rows'
+    inputs at the case's size."""
+    import torch
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_bwd import lw_noscat_bwd
+    from rte_rrtmgp_tpu_torch.ops.solver_lw import GAUSS_DS
+    from rte_rrtmgp_tpu_torch.optical_props import increment
+    i, gl = p.inputs, p.gas_lw
+    ncol, nlay = i.play.shape
+    props, src = gl.gas_optics_lw(i.play, i.plev, i.tlay, i.tsfc,
+                                  i.gas_concs, tlev=i.tlev, top_at_1=True)
+    props = increment(props, p.cld_lw.cloud_optics(
+        i.lwp, i.iwp, i.rel, i.dei, scattering=False))
+    ngpt = props.tau.shape[2]
+    emis = i.sfc_emis.expand(ncol, ngpt).contiguous()
+    cot = lambda seed: 0.5 + torch.rand(
+        (ncol, nlay + 1), generator=torch.Generator(device=dev).manual_seed(
+            seed), device=dev)
+    a = (props.tau.contiguous(), src.lay_source, src.lev_source, emis,
+         src.sfc_source, torch.zeros_like(emis), cot(6), cot(7))
+    return lambda: lw_noscat_bwd(*a, ds=float(GAUSS_DS[0][0]), weight=1.0)
+
+
+def record(dev, out_of_place=False):
     """{"<case> <kernel> <variant>": digest} at CASES on ``dev``; with
-    ``minor_out`` the minor gathers out of place."""
+    ``out_of_place`` the minor and Rayleigh gathers out of place."""
+    return {name: digest(call()) for name, call in _calls(dev, out_of_place)}
+
+
+def outputs(dev, match):
+    """{"<case> <kernel> <variant>": the returned tensors, on the CPU} of
+    the entries whose name holds ``match``: what the digests are taken
+    of, for comparing two checkouts element by element."""
+    return {name: tuple(t.detach().cpu() for t in call() if t is not None)
+            for name, call in _calls(dev, False) if match in name}
+
+
+def _calls(dev, out_of_place):
+    """("<case> <kernel> <variant>", call) of every entry, case by case."""
     import torch
     from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
                                                      allsky_sw_inputs,
@@ -157,7 +215,6 @@ def record(dev, minor_out=False):
     from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import (lw_fused,
                                                            lw_fused_bwd)
     from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import sw_fused
-    out = {}
     for tag, dims in CASES.items():
         p = build_allsky(*dims, device=dev)
         xl = allsky_lw_inputs(p.inputs, p.gas_lw, cloud_optics=p.cld_lw)
@@ -181,13 +238,14 @@ def record(dev, minor_out=False):
                 incdif=incdif))),
             ("fused_lw_bwd broadband", lambda: lw_fused_bwd(xl, *cots))]
         calls += [(f"gas_minor lw {n}", f) for n, f in _gathers(
-            p, p.gas_lw, False, minor_out)]
-        calls += [(f"gas_minor sw {n}" if n != "rayleigh"
-                   else "gas_rayleigh sw", f)
-                  for n, f in _gathers(p, p.gas_sw, True, minor_out)]
+            p, p.gas_lw, False, out_of_place)]
+        ray = {"rayleigh": "gas_rayleigh sw",
+               "rayleigh split": "gas_rayleigh sw split"}
+        calls += [(ray.get(n, f"gas_minor sw {n}"), f)
+                  for n, f in _gathers(p, p.gas_sw, True, out_of_place)]
         calls += [("gas_major lw", _major(p, p.gas_lw)),
                   ("gas_major sw", _major(p, p.gas_sw))]
         calls += _lw_solvers(p, dev)
+        calls.append(("solver_lw_bwd path", _lw_adjoint(p, dev)))
         for name, call in calls:
-            out[f"{tag} {name}"] = digest(call())
-    return out
+            yield f"{tag} {name}", call

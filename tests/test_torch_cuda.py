@@ -1322,6 +1322,50 @@ def test_onchip_sw_tallest_column_and_past_it(cuda, monkeypatch):
             assert sw_2stream_bwd.launches == n0
 
 
+def test_onchip_lw_noscat_bwd_tallest_column_and_past_it(cuda, monkeypatch):
+    """Row 14 in the tallest column that a 32-wide chunk holds and one of
+    a single chunk with idle lanes (24 g-points), seeded optical depths
+    from 1e-6 to 10, sources and flux cotangents, against the twin's
+    autograd (each cotangent within TOL_ADJ of its largest twin value, or
+    the float64 twin's rule of test_adjoint_kernels_match_twins); one
+    layer more raises ValueError naming the limit and launches
+    nothing."""
+    ncol = 3
+    rng = np.random.default_rng(16)
+    u = lambda lo, hi, *s: torch.from_numpy(
+        rng.uniform(lo, hi, s).astype(np.float32)).to(cuda)
+    kw = dict(ds=1.66, weight=0.5)
+    for ngpt in (32, 24):
+        nlay = _tallest("solver_lw_bwd", ngpt)
+        for n, fits in ((nlay, True), (nlay + 1, False)):
+            lay3 = (ncol, n, ngpt)
+            tau = torch.from_numpy((10.0 ** rng.uniform(-6.0, 1.0, lay3))
+                                   .astype(np.float32)).to(cuda)
+            a = (tau, u(0.5, 1.5, *lay3), u(0.5, 1.5, ncol, n + 1, ngpt),
+                 u(0.8, 1.0, ncol, ngpt), u(0.5, 1.5, ncol, ngpt),
+                 u(0.0, 0.5, ncol, ngpt), u(0.5, 1.5, ncol, n + 1),
+                 u(0.5, 1.5, ncol, n + 1))
+            n0 = lw_noscat_bwd.launches
+            if not fits:
+                with pytest.raises(ValueError,
+                                   match=f"at most {nlay} layers"):
+                    lw_noscat_bwd(*a, **kw)
+                assert lw_noscat_bwd.launches == n0
+                continue
+            got, ref = lw_noscat_bwd(*a, **kw), lw_noscat_bwd_plain(*a, **kw)
+            assert lw_noscat_bwd.launches == n0 + 1
+            ref64 = None
+            for i, (g, r) in enumerate(zip(got, ref)):
+                if float((g - r).abs().max()) <= (
+                        TOL_ADJ * float(r.abs().max())):
+                    continue
+                if ref64 is None:
+                    ref64 = _twin_f64(lw_noscat_bwd_plain, a, kw,
+                                      monkeypatch)
+                k64, t64 = _against_f64(got, ref, ref64, i)
+                assert t64 > TOL_ADJ and k64 <= TOL_ADJ, f"cotangent {i}"
+
+
 def test_onchip_sw_2stream_bwd_tallest_column_near_clamp(cuda, monkeypatch):
     """Row 15 in the tallest column that a 32-wide chunk holds, mu0 per
     layer in [0.3, 0.9], so that k mu0 reaches the clamp at 1: each
@@ -1464,6 +1508,40 @@ def test_onchip_fused_lw_tallest_column_and_past_it(cuda, byband):
             with pytest.raises(ValueError, match=f"at most {nlay} layers"):
                 lw_fused(x)
             assert lw_fused.launches == n0
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["ssa", "split"])
+@pytest.mark.parametrize("dims", sorted(ONCHIP_CASES))
+def test_gas_rayleigh_out_of_place_matches_twin(cuda, dims, split):
+    """The Rayleigh gather as the gas optics call it (``_rayleigh``): from
+    tau with ssa, or from no tau without (the split variant, 0 +
+    Rayleigh): within 1e-6 of the twin's largest value, tau untouched,
+    bit for bit the in-place call (on tau, or on a zeros tensor), and
+    bit-identical over two runs."""
+    from rte_rrtmgp_tpu_torch.models.rrtmgp.gas_optics import _rayleigh
+    p = build_allsky(*ONCHIP_CASES[dims], device=cuda)
+    gas = p.gas_sw
+    co, cg, dry, h2o = _descriptors(p, gas)
+    kd = gas.kdist
+    tau = gas_major_plain(co, kd.kmajor, None, gas.gpoint_flavor)[0]
+    args = (co, kd.krayl, gas.gpoint_flavor, (cg[h2o] + dry).contiguous(),
+            not split)
+    src = None if split else tau
+    before = tau.clone()
+    n0 = gas_rayleigh.launches
+    got = _rayleigh(src, *args)
+    assert gas_rayleigh.launches == n0 + 1
+    assert torch.equal(tau, before)
+    base = torch.zeros_like(tau) if split else tau.clone()
+    ref = tuple(x for x in gas_rayleigh_plain(base.clone(), *args)
+                if x is not None)
+    got = tuple(x for x in got if x is not None)
+    assert len(got) == len(ref) == (1 if split else 2)
+    _close(got, ref, 1e-6)
+    inplace = gas_rayleigh(base, *args)
+    again = _rayleigh(src, *args)
+    for g, i, a in zip(got, inplace, again):
+        assert torch.equal(g, i) and torch.equal(g, a)
 
 
 @pytest.mark.parametrize("dims", sorted(ONCHIP_CASES))
@@ -1706,15 +1784,17 @@ def test_gas_major_many_cells_matches_twin(cuda, dims):
 def test_kernels_match_frozen_digests(cuda):
     """Rows 2 (the fused LW step, broadband, by band, with an incident
     flux and without clouds) and 5 (the minor gather), both rewritten,
-    and rows 3 (the fused SW step), 6 (the Rayleigh gather) and 16 (the
-    fused LW adjoint), which share csrc/common.cuh and transport.cuh with
-    them; and rows 4 (the major gather, LW and SW), 7 (the LW
-    no-scattering solve as the public path calls it, by band, rescaled
-    with the Jacobian and a secant field), 10 (plain and rescaled with the
-    Jacobian) and 11 (with and without cloud), rewritten later, give bit
-    for bit the outputs recorded from them before each was rewritten, row
-    11 those of its rewritten kernel, whose arithmetic nvcc compiles to
-    other bits than the one-block kernel's
+    and rows 3 (the fused SW step) and 16 (the fused LW adjoint), which
+    share csrc/common.cuh and transport.cuh with them; and rows 4 (the
+    major gather, LW and SW), 7 (the LW no-scattering solve as the public
+    path calls it, by band, rescaled with the Jacobian and a secant
+    field), 10 (plain and rescaled with the Jacobian) and 6 (the Rayleigh
+    gather, with ssa and split: 0 + Rayleigh), rewritten later, give bit
+    for bit the outputs recorded from them before each was rewritten, in
+    place and out of place as the gas optics call the gathers; rows 11
+    (with and without cloud) and 14 (the LW no-scattering solve's
+    adjoint) those of their rewritten kernels, whose arithmetic nvcc
+    compiles to other bits than the one-block kernels'
     (tests/golden/kernel_digests_frozen.json:
     kernel_digest_record.record, written by
     scripts/freeze_kernel_digests.py). The bits are those of one CUDA
@@ -1728,7 +1808,7 @@ def test_kernels_match_frozen_digests(cuda):
                            "kernel_digests_frozen.json")) as f:
         rec = json.load(f)
     got = record(cuda)
-    assert len(rec) == 2 * 22
+    assert len(rec) == 2 * 24
     assert got == rec
-    out = record(cuda, minor_out=True)
+    out = record(cuda, out_of_place=True)
     assert out == rec

@@ -1,5 +1,6 @@
-"""The minor-gas gather out of place (``ops/kernels/gas_minor.py::
-gas_minor`` with ``out``; ``models/rrtmgp/gas_optics.py::_minor``), on
+"""The minor-gas and Rayleigh gathers out of place
+(``ops/kernels/gas_minor.py::gas_minor`` and ``gas_rayleigh`` with
+``out``; ``models/rrtmgp/gas_optics.py::_minor`` and ``_rayleigh``), on
 the CPU.
 
 The public and staged gas optics add each atmosphere's minor gases into a
@@ -11,7 +12,11 @@ the gradient of its twin; ``gas_minor`` with and without ``out`` agree
 bit for bit; and on the CUDA branch (taken here on CPU tensors with the
 launch replaced by a record of its arguments) ``_minor`` hands the
 launcher the caller's tau itself, no copy, and a separate contiguous
-output, while the in-place call hands it tau as both.
+output, while the in-place call hands it tau as both. The same for the
+Rayleigh gather with ssa, and for its split variant (0 + Rayleigh, the
+staged path's ``split_rayleigh``), which hands the launcher no tau at all:
+no zeros tensor, no clone; both match the JAX package's ``tau_rayleigh``
+(XLA path) plus the absorption/Rayleigh combine in float64.
 """
 import numpy as np
 import pytest
@@ -36,10 +41,10 @@ from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import _split_minors  # noqa: E40
 NCOL, NLAY, NGPT = 16, 6, 32
 
 
-def _setup(dtype):
-    """The JAX and port gas optics on one synthetic LW table set, the
-    all-sky atmosphere for both, and each side's descriptors."""
-    jkd = jax_kdist(sw=False, dtype=getattr(jnp, dtype), ngpt=NGPT, nbnd=4,
+def _setup(dtype, sw=False):
+    """The JAX and port gas optics on one synthetic LW (or SW) table set,
+    the all-sky atmosphere for both, and each side's descriptors."""
+    jkd = jax_kdist(sw=sw, dtype=getattr(jnp, dtype), ngpt=NGPT, nbnd=4,
                     ntemp=6, npres=12)
     tdt = getattr(torch, dtype)
     gas = go.GasOpticsRRTMGP(kdist_from_jax(jkd, dtype=tdt, device="cpu"))
@@ -136,3 +141,126 @@ def test_minor_passes_tau_itself_to_the_kernel(monkeypatch):
     assert dst.is_contiguous() and dst.shape == tau.shape
     gm.gas_minor(*args)
     assert calls[1][0] is tau and calls[1][1] is tau
+
+
+# ---- the Rayleigh gather ----
+
+def _rayleigh_setup(dtype):
+    """The SW gas optics' Rayleigh arguments on both sides: the JAX
+    package's (descriptors, krayl_x, keywords) and the port's (co, krayl,
+    gpoint_flavor, col_h2o + col_dry)."""
+    jgas, inp, (jco, _, jh2o), gas, t, (co, cg, h2o) = _setup(dtype, sw=True)
+    jcg, jdry, _ = jgas._col_gas(inp.play, inp.plev, inp.tlay,
+                                 inp.gas_concs, None)
+    _, dry, _ = gas.col_gas(t["play"], t["plev"], _port_gas(inp, dtype))
+    jkd = jgas.kdist
+    jargs = (jco, jkd.krayl_x, dict(
+        gpoint_flavor=jkd.gpoint_flavor,
+        band_lims_gpt=jkd.grid.band_lims_gpt_array, col_gas=jcg,
+        col_dry=jdry, idx_h2o=jh2o))
+    return jargs, (co, gas.kdist.krayl, gas.gpoint_flavor,
+                   (cg[h2o] + dry).contiguous())
+
+
+def _port_gas(inp, dtype):
+    gc = GasConcs.empty()
+    for k in inp.gas_concs.names:
+        gc = gc.set_vmr(k, np.asarray(inp.gas_concs.get_vmr(k, NCOL, NLAY)))
+    return gc.to(dtype=getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["ssa", "split"])
+def test_rayleigh_out_of_place_matches_jax_f64(split):
+    """``_rayleigh`` from tau (with ssa) or from no tau (the split
+    variant: the Rayleigh optical depth alone) against the JAX package's
+    tau_rayleigh (XLA path) plus the combine of its gas optics
+    (models/rrtmgp/gas_optics.py:344-358), in float64 within 1e-12 of the
+    largest value: tau untouched, no kernel launched on CPU tensors, and
+    the twin's gradient with respect to tau (1 everywhere)."""
+    (jco, jkrayl, jkw), ray_args = _rayleigh_setup("float64")
+    ray = np.asarray(jops.tau_rayleigh(jco, jkrayl, **jkw), np.float64)
+    tau0 = np.random.default_rng(6).uniform(0.0, 0.1, (NCOL, NLAY, NGPT))
+    n0 = gm.gas_rayleigh.launches
+    if split:
+        out, ssa = go._rayleigh(None, *ray_args, False)
+        ref, ref_ssa = ray, None
+    else:
+        tau = torch.tensor(tau0, requires_grad=True)
+        before = tau.detach().clone()
+        out, ssa = go._rayleigh(tau, *ray_args, True)
+        ref = tau0 + ray
+        ref_ssa = np.where(ref > 2.0 * np.finfo(np.float64).tiny,
+                           ray / ref, 0.0)
+        assert torch.equal(tau.detach(), before)
+        assert out.data_ptr() != tau.data_ptr()
+        grad, = torch.autograd.grad(out.sum(), tau)
+        assert torch.equal(grad, torch.ones_like(grad))
+    assert gm.gas_rayleigh.launches == n0
+    assert out.shape == (NCOL, NLAY, NGPT)
+    scale = np.abs(ref).max()
+    assert np.abs(out.detach().numpy() - ref).max() <= 1e-12 * scale
+    if ref_ssa is None:
+        assert ssa is None
+    else:
+        assert np.abs(ssa.detach().numpy() - ref_ssa).max() <= 1e-12
+
+
+@pytest.mark.parametrize("scattering", [True, False], ids=["2str", "1scl"])
+def test_gas_rayleigh_out_equals_in_place(scattering):
+    """``gas_rayleigh`` with ``out`` equals the in-place call bit for bit,
+    tau untouched; from no tau it equals the in-place call on a zeros
+    tensor bit for bit (0 + x is x for the non-negative Rayleigh depth)."""
+    _, ray_args = _rayleigh_setup("float32")
+    tau0 = torch.from_numpy(np.random.default_rng(7).uniform(
+        0.0, 2.0, (NCOL, NLAY, NGPT)).astype(np.float32))
+    tau = tau0.clone()
+    out = torch.empty_like(tau0)
+    got = gm.gas_rayleigh(tau, *ray_args, scattering, out=out)
+    assert got[0] is out and torch.equal(tau, tau0)
+    inplace = gm.gas_rayleigh(tau, *ray_args, scattering)
+    assert inplace[0] is tau
+    for a, b in zip(got, inplace):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert not torch.equal(out, tau0)
+    split = gm.gas_rayleigh(None, *ray_args, scattering,
+                            out=torch.empty_like(tau0))
+    zeros = gm.gas_rayleigh(torch.zeros_like(tau0), *ray_args, scattering)
+    for a, b in zip(split, zeros):
+        assert (a is None and b is None) or torch.equal(a, b)
+    with pytest.raises(ValueError, match="needs an out"):
+        gm.gas_rayleigh(None, *ray_args, scattering)
+
+
+def test_rayleigh_passes_tau_itself_to_the_kernel(monkeypatch):
+    """On the CUDA branch ``_rayleigh`` launches the kernel once with the
+    caller's tau (no clone) as input and a new contiguous tensor as
+    output, and the SW gas optics' split path (``_taus(split_rayleigh=
+    True)``) hands it no tau at all (no zeros tensor, no clone) and no
+    ssa; the in-place ``gas_rayleigh`` passes tau as both."""
+    jgas, inp, _, gas, t, _ = _setup("float32", sw=True)
+    _, ray_args = _rayleigh_setup("float32")
+    calls = []
+    monkeypatch.setattr(gm, "on_cpu", lambda x, what: False)
+    monkeypatch.setattr(gm, "launch", lambda *a: calls.append(a[1:]))
+    tau = torch.from_numpy(np.random.default_rng(8).uniform(
+        0.0, 2.0, (NCOL, NLAY, NGPT)).astype(np.float32))
+    n0 = gm.gas_rayleigh.launches
+    out, ssa = go._rayleigh(tau, *ray_args, True)
+    assert len(calls) == 1 and gm.gas_rayleigh.launches == n0 + 1
+    fn, what, src, dst, s = calls[0][:5]
+    assert (fn, what) == ("launch_gas_rayleigh", "gas_rayleigh")
+    assert src is tau and dst is out and s is ssa
+    assert dst.data_ptr() != tau.data_ptr() and dst.is_contiguous()
+    assert dst.shape == tau.shape
+    gm.gas_rayleigh(tau, *ray_args, True)
+    assert calls[1][2] is tau and calls[1][3] is tau
+    # the split path of the SW gas optics: the minor gathers' launches are
+    # recorded too (their outputs unset), the Rayleigh launch reads no tau
+    del calls[:]
+    _, second, _ = gas._taus(t["play"], t["plev"], t["tlay"],
+                             _port_gas(inp, "float32"), None, False,
+                             split_rayleigh=True)
+    ray = [c for c in calls if c[0] == "launch_gas_rayleigh"]
+    assert len(ray) == 1
+    src, dst, s = ray[0][2:5]
+    assert src is None and s is None and dst is second

@@ -1,9 +1,9 @@
 """The on-chip geometry and summation order of the kernels that hold their
 transport in shared memory (``ops/kernels/onchip.py``): the fused LW and
 SW kernels, the LW no-scattering solver of the public and staged paths
-(its three launchers and their variants), the LW two-stream kernel, the
-SW two-stream solver of the public and staged paths and its adjoint, on
-the CPU.
+(its three launchers and their variants) and its adjoint, the LW
+two-stream kernel, the SW two-stream solver of the public and staged
+paths and its adjoint, on the CPU.
 
 The kernels cut a column's g-points into chunks, one thread block per
 chunk and the column's chunks one thread-block cluster, keep the layer
@@ -28,6 +28,7 @@ from rte_rrtmgp_tpu_torch.drivers.allsky import (  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels import solver_lanes  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw  # noqa: E402
+from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_bwd  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import (  # noqa: E402
@@ -171,6 +172,121 @@ SOLVER_LW_TALLEST = {
 }
 
 
+# the LW solve's adjoint, (nlay, ngpt) -> (chunk, nchunk, threads, smem):
+# the flagship's 256 g-points, the SW width 224, the g24 case and 1024.
+# smem by hand: 4 B x chunk x (6 nlay + 1 + 4) (tau * ds, the down and up
+# sources and the sweeps' two cotangents, nlay rows each; lev, nlay + 1;
+# 4 padding rows before the swept fields for the up sweep's loads 4
+# layers ahead) + 8 B x (nlay + 1) (the column's two flux cotangents); no
+# sums, no cluster
+SOLVER_LW_BWD = {(72, 256): (32, 8, 256, 128 * 437 + 584),
+                 (72, 224): (32, 7, 256, 128 * 437 + 584),
+                 (12, 24): (32, 1, 256, 128 * 77 + 104),
+                 (72, 1024): (128, 8, 256, 512 * 437 + 584)}
+# its tallest column: ngpt -> nlay
+SOLVER_LW_BWD_TALLEST = {256: 298,     # 776 nlay + 648 B
+                         1024: 74}     # 3080 nlay + 2568 B
+
+
+@pytest.mark.parametrize("case", sorted(SOLVER_LW_BWD), ids=str)
+def test_solver_lw_bwd_geometry(case):
+    """onchip_geometry("solver_lw_bwd", ...): the narrowest chunk with at
+    most 8 per column, no idle block, and the launcher's shared memory
+    (smem_solver_lw_bwd, whose count chip_smoke.py holds this one to on
+    the card), pinned by hand."""
+    nlay, ngpt = case
+    geo = onchip_geometry("solver_lw_bwd", nlay, ngpt)
+    assert tuple(geo) == SOLVER_LW_BWD[case]
+    assert geo == solver_lw_bwd.lw_noscat_bwd_geometry(nlay, ngpt)
+    assert geo.nchunk <= MAX_CHUNKS and geo.chunk * geo.nchunk >= ngpt
+    assert geo.chunk * (geo.nchunk - 1) < ngpt
+    assert geo.smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("ngpt", sorted(SOLVER_LW_BWD_TALLEST))
+def test_solver_lw_bwd_tallest_column_and_past_it(ngpt):
+    """The tallest column the adjoint holds, at least 200 layers at the
+    flagship's 256 g-points (the repository's configurations have 61-72);
+    one layer more raises, naming the limit. It has no variants."""
+    nlay = SOLVER_LW_BWD_TALLEST[ngpt]
+    geo = onchip_geometry("solver_lw_bwd", nlay, ngpt)
+    assert geo.smem <= SMEM_LIMIT
+    assert SOLVER_LW_BWD_TALLEST[256] >= 200
+    with pytest.raises(ValueError, match=f"at most {nlay} layers"):
+        onchip_geometry("solver_lw_bwd", nlay + 1, ngpt)
+    with pytest.raises(ValueError, match="no variants"):
+        onchip_geometry("solver_lw_bwd", 72, ngpt, rescale=True)
+
+
+def _lw_bwd_args(rng, ncol, nlay, ngpt):
+    """lw_noscat_bwd's arguments on seeded inputs: optical depths from
+    1e-6 to 10, sources, surface, incident flux and flux cotangents."""
+    u = lambda lo, hi, *s: torch.from_numpy(rng.uniform(lo, hi, s).astype(
+        np.float32))
+    lay3, bc = (ncol, nlay, ngpt), (ncol, ngpt)
+    tau = torch.from_numpy((10.0 ** rng.uniform(-6.0, 1.0, lay3)).astype(
+        np.float32))
+    return (tau, u(0.5, 1.5, *lay3), u(0.5, 1.5, ncol, nlay + 1, ngpt),
+            u(0.8, 1.0, *bc), u(0.5, 1.5, *bc), u(0.0, 0.5, *bc),
+            u(0.5, 1.5, ncol, nlay + 1), u(0.5, 1.5, ncol, nlay + 1))
+
+
+def _lw_bwd_cuda_branch(monkeypatch, calls):
+    monkeypatch.setattr(solver_lw_bwd, "on_cpu", lambda t, what: False)
+    monkeypatch.setattr(solver_lw_bwd, "launch",
+                        lambda *a: calls.append(a[3:]))
+
+
+def test_lw_noscat_bwd_passes_no_scratch(monkeypatch):
+    """The adjoint's wrapper hands its launcher the inputs, the six
+    cotangents it returns and sizes only: no device scratch (the
+    one-block kernel kept its forward radiance and up-sweep cotangent in
+    the outputs' memory), and the chunk onchip_geometry gives it."""
+    calls = []
+    _lw_bwd_cuda_branch(monkeypatch, calls)
+    ncol, nlay, ngpt = 3, 9, 40
+    args = _lw_bwd_args(np.random.default_rng(10), ncol, nlay, ngpt)
+    out = solver_lw_bwd.lw_noscat_bwd(*args, ds=1.66, weight=0.5)
+    assert len(calls) == 1 and len(out) == 6
+    given = {t.data_ptr() for t in args}
+    returned = {o.data_ptr() for o in out}
+    tensors = [a for a in calls[0] if isinstance(a, torch.Tensor)]
+    assert len(tensors) == 14
+    assert all(t.data_ptr() in given | returned for t in tensors)
+    assert returned <= {t.data_ptr() for t in tensors}
+    ints = [a for a in calls[0] if isinstance(a, int)]
+    assert ints == [ncol, nlay, ngpt,
+                    onchip_geometry("solver_lw_bwd", nlay, ngpt).chunk]
+    assert solver_lw_bwd.lw_noscat_bwd_scratch_bytes(4096, 72, 256) == 0
+
+
+def test_lw_noscat_bwd_raises_past_the_limit(monkeypatch):
+    """On the CUDA branch a column one layer taller than the adjoint's
+    block holds raises ValueError naming the limit, and nothing is
+    launched; at the limit the launch goes ahead. On CPU tensors the twin
+    of the taller call runs (no height limit), launching nothing, with
+    finite cotangents of the inputs' shapes."""
+    ngpt, ncol = 32, 2
+    rng = np.random.default_rng(11)
+    with pytest.raises(ValueError, match="at most") as e:
+        onchip_geometry("solver_lw_bwd", 10 ** 6, ngpt)
+    top = int(str(e.value).split("at most ")[1].split()[0])
+    fn = solver_lw_bwd.lw_noscat_bwd
+    args = _lw_bwd_args(rng, ncol, top + 1, ngpt)
+    n0 = fn.launches
+    out = fn(*args, ds=1.66, weight=0.5)
+    assert fn.launches == n0
+    for o, a in zip(out, args):
+        assert o.shape == a.shape and bool(torch.isfinite(o).all())
+    calls = []
+    _lw_bwd_cuda_branch(monkeypatch, calls)
+    with pytest.raises(ValueError, match=f"at most {top} layers"):
+        fn(*args, ds=1.66, weight=0.5)
+    assert calls == []
+    fn(*_lw_bwd_args(rng, ncol, top, ngpt), ds=1.66, weight=0.5)
+    assert len(calls) == 1
+
+
 def _lw_variant(rescale, jacobian, pfrac):
     return dict(rescale=rescale, jacobian=jacobian, pfrac=pfrac)
 
@@ -235,7 +351,7 @@ def test_tallest_column_and_past_it(case):
 @pytest.mark.parametrize("ngpt", [1025, 2048])
 def test_too_many_gpoints_raise(ngpt):
     for kernel in ("fused_lw", "fused_sw", "lw_2stream", "solver_sw",
-                   "solver_sw_bwd"):
+                   "solver_sw_bwd", "solver_lw_bwd"):
         with pytest.raises(ValueError, match="g-points exceed"):
             onchip_geometry(kernel, 72, ngpt)
 
