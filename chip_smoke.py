@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's three all-sky paths, the LW two-stream path, and
-gradient steps through two of them, on one CUDA GPU and check them.
+"""Run the PyTorch port's three all-sky paths, the LW two-stream path,
+gradient steps through two of them, the RFMIP driver (its fused and
+generic routes and SSM) and the pod-scale stream on one CUDA GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -38,7 +40,11 @@ Phases (any failure ends the run with a non-zero exit and no result):
      fused LW step, the LW no-scattering solver (as the public path calls
      it, and rescaled with the Jacobian) and its adjoint, the SW solver
      and its adjoint hold, against their twins, and one layer more
-     raising ValueError;
+     raising ValueError; the fused LW and SW steps on the RFMIP driver's
+     inputs at 1800 x 61 (100 sites x 18 experiments; the SW direct
+     incident flux scaled to each column's TSI, drawn from a fixed seed,
+     mu0 = 1 on the night columns) and the LW and SW solvers at SSM's 41
+     g-points on the same profiles, as variants;
   4. golden gates at the production configuration (256 x 72): the float32
      fused step, public-API path and staged path against
      tests/golden/production.npz, and the float32 aerosols step (fused)
@@ -48,7 +54,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
      float32 training-loss gradients against the float64 twin's on the
      CPU (printed as the gradient noise floor); the float32 LW two-stream
      path against the port's float64 twin of it on the CPU (no two-stream
-     golden is committed), within the same 3x noise floor;
+     golden is committed), within the same 3x noise floor; the float32
+     RFMIP driver at the golden's shape (6 x 20 x 3, 32 g-points) against
+     tests/golden/rfmip.npz, each field within 3x the distance of the
+     port's float32 twin of it on the CPU, measured in the same run;
   5. the paths at 4096 x 72, each with the launch counters set to 0 just
      before it, the kernels it must and must not launch, finite
      non-negative outputs, TOA SW down equal to the solar source times
@@ -75,7 +84,18 @@ Phases (any failure ends the run with a non-zero exit and no result):
      clouds, then with aerosols, and on the public-API path, with the
      adjoint kernels each launched once per step, gradients finite and
      bit-identical over the two, the step time beside the forward's, the
-     fused step's peak device memory and its profile;
+     fused step's peak device memory and its profile; the RFMIP driver
+     at 1800 x 61 (rfmip_lw_sw): fused_lw and fused_sw once per step and
+     nothing else, finite non-negative fluxes, night columns zero, TOA SW
+     down = TSI mu0 by day, against its generic route (the gathers and
+     the public solvers) within rtol 3e-5 / atol 5e-4 W/m2, blocked (100
+     columns a block) against one launch, its median step with the host
+     readback and chained on the device, and a profile; RFMIP through SSM
+     (solver_lw and solver_sw once per step) and its step; the pod-scale
+     configuration, 1,000,000 columns resident and 100,000 streamed in
+     chunks of 4096 x 72, columns/s of each, cloud_props twice and the
+     fused steps once per chunk, the streamed run's last chunk bit for
+     bit the resident run's and the fused step's;
   6. rte_lw with 3 quadrature angles and with compute_optimal_angles
      secants, on the card against the twins on the CPU (512 columns); the
      secant of lw_solver_noscat as a tuple, a 0-d tensor, a 1-D tensor and
@@ -104,6 +124,22 @@ MAIN = dict(ncol=4096, nlay=72, ngpt_lw=256, nbnd_lw=16, ngpt_sw=224,
 PROD = dict(MAIN, ncol=256)
 # bands of 12 g-points: the staged path takes the plain lane solvers
 NONBANDED = dict(MAIN, ngpt_lw=192, ngpt_sw=168)
+# bench.py's rfmip configuration (:171-255): 100 sites x 18 experiments x
+# 61 layers through the RFMIP drivers, LW 256 / 16, SW 224 / 14; each
+# column's TSI drawn from seed 5 in [1300, 1420] W/m2
+RFMIP = dict(nsite=100, nlay=61, nexp=18)
+RFMIP_TSI = (5, 1300.0, 1420.0)
+# the RFMIP golden's case (tests/test_golden_regression.py:25-37)
+RFMIP_GOLDEN = dict(nsite=6, nlay=20, nexp=3)
+RFMIP_GOLDEN_KD = dict(ngpt=32, nbnd=4, ntemp=6, npres=12)
+CHAINED = 10              # steps per chained window (bench.py BENCH_INNER)
+# bench.py's podscale configuration (:258-305): 1,000,000 columns
+# resident, then a tenth of them streamed, in chunks of 4096 x 72
+PODSCALE_COLS, PODSCALE_STREAMED = 1_000_000, 100_000
+# the streamed run's distinct host chunks: 3 against 2 device buffers, so
+# that a chunk read from the wrong buffer is another chunk's data (25
+# chunks: the last is entry 0, the resident chunk)
+PODSCALE_POOL = 3
 # kernel vs twin, same float32 inputs: the two differ only in summation
 # order, fused multiply-adds and expf's last bit. The gathers (cloud
 # optics, major/minor/Rayleigh) are lerps of a few products per value;
@@ -279,6 +315,19 @@ def check_kernel(name, kernel, plain, args, tol, source, replaces, work,
                 library_ms=None)
 
 
+def fused_ops(lw, sw, ncell):
+    """The operations of the fused LW and SW steps on ``ncell`` cells."""
+    gpt = lambda x: sum(w for (_, _, _, w, _) in x.minors)
+    ngl, ngs = lw.kmajor.shape[3], sw.kmajor.shape[3]
+    ops_lw = ncell * (ngl * (8 * (OPS_MAJOR_CORNER + OPS_PFRAC_CORNER)
+                             + OPS_PLANCK + OPS_LW_LAYER)
+                      + gpt(lw) * OPS_MINOR)
+    ops_sw = ncell * (ngs * (8 * OPS_MAJOR_CORNER + OPS_RAYLEIGH
+                             + OPS_SW_COMBINE + OPS_SW_LAYER)
+                      + gpt(sw) * OPS_MINOR)
+    return ops_lw, ops_sw
+
+
 def fused_rows(prob, dev, variants):
     """Phase 3, the fused path's kernels: cloud optics and the fused
     LW and SW steps; into ``variants`` the fused steps by band and with
@@ -301,14 +350,7 @@ def fused_rows(prob, dev, variants):
     nbnd_c = cloud_args[3].shape[2]
     lw = allsky_lw_inputs(inp, prob.gas_lw, cloud_optics=prob.cld_lw)
     sw = allsky_sw_inputs(inp, prob.gas_sw, cloud_optics=prob.cld_sw)
-    gpt = lambda x: sum(w for (_, _, _, w, _) in x.minors)
-    ngl, ngs = lw.kmajor.shape[3], sw.kmajor.shape[3]
-    ops_lw = ncell * (ngl * (8 * (OPS_MAJOR_CORNER + OPS_PFRAC_CORNER)
-                             + OPS_PLANCK + OPS_LW_LAYER)
-                      + gpt(lw) * OPS_MINOR)
-    ops_sw = ncell * (ngs * (8 * OPS_MAJOR_CORNER + OPS_RAYLEIGH
-                             + OPS_SW_COMBINE + OPS_SW_LAYER)
-                      + gpt(sw) * OPS_MINOR)
+    ops_lw, ops_sw = fused_ops(lw, sw, ncell)
     rows = [
         check_kernel("cloud_props", lambda a: cloud_props(*a),
                      lambda a: cloud_props_plain(*a), cloud_args, TOL_GATHER,
@@ -643,6 +685,303 @@ def lanes_rows(prob, nonbanded):
             f"{lanes}:{line}", (nbytes(args) + nout, ncol * nlay * ngpt * ops)))
         del args
     return rows
+
+
+def rfmip_problem(dev):
+    """The RFMIP configuration (RFMIP, RFMIP_TSI) with the flagship LW
+    and SW k-distributions (seed 0), on ``dev``: (data, gas_lw, gas_sw)."""
+    import dataclasses
+    import numpy as np
+    from rte_rrtmgp_tpu_torch.drivers.rfmip import synthetic_rfmip
+    from rte_rrtmgp_tpu_torch.models.rrtmgp.gas_optics import GasOpticsRRTMGP
+    from rte_rrtmgp_tpu_torch.utils.synthetic import synthetic_kdist
+    data = synthetic_rfmip(**RFMIP)
+    seed, lo, hi = RFMIP_TSI
+    data = dataclasses.replace(data, tsi=np.random.default_rng(seed).uniform(
+        lo, hi, data.ncol).astype(np.float32))
+    kw = dict(ntemp=MAIN["ntemp"], npres=MAIN["npres"], device=dev)
+    return (data, GasOpticsRRTMGP(synthetic_kdist(
+        sw=False, ngpt=MAIN["ngpt_lw"], nbnd=MAIN["nbnd_lw"], **kw)),
+        GasOpticsRRTMGP(synthetic_kdist(sw=True, ngpt=MAIN["ngpt_sw"],
+                                        nbnd=MAIN["nbnd_sw"], **kw)))
+
+
+def rfmip_rows(rf, dev, variants):
+    """Phase 3, into ``variants``: rows 2 and 3 on the RFMIP driver's
+    fused inputs at 1800 x 61 (61 layers, not a multiple of the ring
+    sweeps' 4; the SW direct incident flux the solar source scaled to
+    each column's TSI, mu0 = 1 on the night columns), and rows 7 and 9 at
+    SSM's 41 g-points in 41 bands (a chunk of 32 and a ragged one of 9) on
+    the same profiles, as the driver's generic route calls them."""
+    import torch
+    from rte_rrtmgp_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_tpu_torch.models.ssm import (ssm_lw_defaults,
+                                                 ssm_sw_defaults)
+    from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import (lw_fused,
+                                                           lw_fused_plain)
+    from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import (sw_fused,
+                                                           sw_fused_plain)
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import (lw_noscat,
+                                                            lw_noscat_plain)
+    from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw import (sw_2stream,
+                                                            sw_2stream_plain)
+    from rte_rrtmgp_tpu_torch.ops.solver_lw import GAUSS_DS, GAUSS_WTS
+    data, g_lw, g_sw = rf
+    x = rfmip._inputs(data, g_lw)
+    ncol, nlay = x["play"].shape
+    nlev = nlay + 1
+    args, kw = rfmip._lw_fused_args(g_lw, True, *rfmip._lw_args(x))
+    lw = g_lw.lw_fused_inputs(*args, **kw)
+    usecol, mu0 = rfmip._sun(x["sza"])
+    args, kw = rfmip._sw_fused_args(g_sw, True, x["play"], x["plev"],
+                                    x["tlay"], x["sfc_alb"], x["tsi"], mu0,
+                                    x["gas_concs"])
+    sw = g_sw.sw_fused_inputs(*args, **kw)
+    log(f"rfmip: {ncol} columns x {nlay} layers, {int((~usecol).sum())} "
+        f"night columns, TSI {float(x['tsi'].min()):.1f}-"
+        f"{float(x['tsi'].max()):.1f} W/m2")
+    ops_lw, ops_sw = fused_ops(lw, sw, ncol * nlay)
+    variants.append(check_kernel(
+        "fused_lw rfmip", lw_fused, lw_fused_plain, lw, TOL_FLUX,
+        "rte_rrtmgp_tpu_torch/csrc/fused_lw.cu",
+        "rte_rrtmgp_tpu/ops/pallas/fused_lw.py:368",
+        (nbytes(tuple(lw)) + 2 * nlev * ncol * 4, ops_lw)))
+    variants.append(check_kernel(
+        "fused_sw rfmip tsi", sw_fused, sw_fused_plain, sw, TOL_FLUX,
+        "rte_rrtmgp_tpu_torch/csrc/fused_sw.cu",
+        "rte_rrtmgp_tpu/ops/pallas/fused_sw.py:309",
+        (nbytes(tuple(sw)) + 3 * nlev * ncol * 4, ops_sw)))
+    del lw, sw
+
+    ssm = ssm_lw_defaults(device=dev)
+    props, src = ssm.gas_optics_lw(x["play"], x["plev"], x["tlay"],
+                                   x["sfc_t"], x["gas_concs"],
+                                   tlev=x["tlev"], top_at_1=True)
+    ngpt = ssm.ngpt
+    emis = x["sfc_emis"][:, None].expand(-1, ngpt).contiguous()
+    path = (props.tau, src.lay_source, src.lev_source, emis, src.sfc_source,
+            torch.zeros_like(emis),
+            dict(ds=float(GAUSS_DS[0][0]), weight=float(GAUSS_WTS[0][0])))
+    call = lambda f: lambda a: f(*a[:6], **a[6])
+    variants.append(check_kernel(
+        "solver_lw ssm", call(lw_noscat), call(lw_noscat_plain), path,
+        TOL_FLUX, "rte_rrtmgp_tpu_torch/csrc/solver_lw.cu",
+        "rte_rrtmgp_tpu/ops/pallas/solver_lw_kernel.py:239",
+        (nbytes(path) + 2 * ncol * nlev * 4, ncol * nlay * ngpt * OPS_LW_LAYER)))
+    ssm = ssm_sw_defaults(device=dev)
+    props, toa = ssm.gas_optics_sw(x["play"], x["plev"], x["tlay"],
+                                   x["gas_concs"], top_at_1=True)
+    alb = x["sfc_alb"][:, None].expand(-1, ngpt).contiguous()
+    args = (props.tau, props.ssa, props.g,
+            mu0[:, None].expand(-1, nlay).contiguous(), alb, alb,
+            (toa * (x["tsi"] / toa.sum(-1))[:, None]).contiguous())
+    variants.append(check_kernel(
+        "solver_sw ssm", lambda a: sw_2stream(*a),
+        lambda a: sw_2stream_plain(*a), args, TOL_FLUX,
+        "rte_rrtmgp_tpu_torch/csrc/solver_sw.cu",
+        "rte_rrtmgp_tpu/ops/pallas/solver_sw_kernel.py:222",
+        (nbytes(args) + 3 * ncol * nlev * 4, ncol * nlay * ngpt * OPS_SW_LAYER)))
+
+
+def rfmip_gate(dev):
+    """Phase 4, the float32 RFMIP driver (its fused route) on the card at
+    the golden's shape against tests/golden/rfmip.npz: each field within
+    3x the distance of the port's float32 twin of the same driver on the
+    CPU from the same golden, measured in this run."""
+    import numpy as np
+    from rte_rrtmgp_tpu_torch.drivers.rfmip import (rfmip_lw, rfmip_sw,
+                                                    synthetic_rfmip)
+    from rte_rrtmgp_tpu_torch.models.rrtmgp.gas_optics import GasOpticsRRTMGP
+    from rte_rrtmgp_tpu_torch.utils.synthetic import synthetic_kdist
+    golden = np.load(os.path.join(HERE, "tests", "golden", "rfmip.npz"))
+
+    def run(device):
+        data = synthetic_rfmip(**RFMIP_GOLDEN)
+        kd = dict(RFMIP_GOLDEN_KD, device=device)
+        out = (rfmip_lw(data, GasOpticsRRTMGP(synthetic_kdist(sw=False, **kd)))
+               + rfmip_sw(data, GasOpticsRRTMGP(synthetic_kdist(sw=True,
+                                                                **kd))))
+        return dict(zip(("lw_up", "lw_dn", "sw_up", "sw_dn"), out))
+
+    card, twin = run(dev), run("cpu")
+    for key, ref in golden.items():
+        d = float(np.abs(card[key] - ref).max())
+        t = float(np.abs(twin[key] - ref).max())
+        log(f"golden rfmip {key}: max |f32 card - f64 golden| {d:.4g} "
+            f"(limit {3 * t:.4g}: 3x the float32 twin's {t:.4g})")
+        if not d <= 3 * t:
+            raise SystemExit(f"golden gate failed on rfmip {key}")
+
+
+def wall_ms(fn, inner=1):
+    """Median over REPS of the wall time of ``inner`` calls of fn ending
+    in one torch.cuda.synchronize(), per call, in ms."""
+    import torch
+    fn()
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / inner)
+    return statistics.median(times) * 1e3
+
+
+def counted(name, counters, fn, exact=None, launched=(), per=1):
+    """fn() with the counters set to 0 just before it, and its launches
+    divided by ``per`` (the steps fn takes): each kernel in ``exact``
+    (name -> launches) launched so many times, each in ``launched`` at
+    least once, no other. Returns (fn's result, the launches)."""
+    import torch
+    exact = exact or {}
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: c.launches // per for k, c in counters.items()}
+    log(f"{name} launches: {launches}")
+    for k, n in launches.items():
+        if k in exact and n != exact[k]:
+            raise SystemExit(f"{name} launched {k} {n} times, expected "
+                             f"{exact[k]}")
+        if k in launched and n == 0:
+            raise SystemExit(f"{name} never launched {k}")
+        if k not in exact and k not in launched and n != 0:
+            raise SystemExit(f"{name} launched {k}")
+    return out, launches
+
+
+def rfmip_paths(rf, dev, counters, card):
+    """Phase 5, the RFMIP driver at 1800 x 61 through rfmip_lw_sw: fused_lw
+    and fused_sw once per step and nothing else; finite non-negative
+    fluxes, the night columns zero, TOA SW down = TSI mu0 by day; the
+    host-readback result the device result; against the generic route
+    (gathers and public solvers) within PATH_RTOL / PATH_ATOL; blocked
+    (100 columns a block) against one launch within tests/test_rfmip.py's
+    bounds; the median step with the host readback and chained on the
+    device (bench.py's two lines), and a profile. Then RFMIP through SSM:
+    solver_lw and solver_sw once per step, finite fluxes, its step."""
+    import numpy as np
+    import torch
+    from rte_rrtmgp_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_tpu_torch.drivers.rfmip import rfmip_lw_sw
+    from rte_rrtmgp_tpu_torch.models.ssm import (ssm_lw_defaults,
+                                                 ssm_sw_defaults)
+    data, g_lw, g_sw = rf
+    ncol = data.ncol
+    host, launches = counted(
+        "rfmip", counters, lambda: rfmip_lw_sw(data, g_lw, g_sw),
+        {"fused_lw": 1, "fused_sw": 1})
+    out = rfmip_lw_sw(data, g_lw, g_sw, device_out=True)
+    if not np.array_equal(out.cpu().numpy(), np.stack(host)):
+        raise SystemExit("rfmip: the host readback differs from the "
+                         "device result")
+    if not bool(torch.isfinite(out).all()) or bool((out < 0).any()):
+        raise SystemExit("rfmip fluxes not finite or negative")
+    x = rfmip._inputs(data, g_lw)
+    usecol, mu0 = rfmip._sun(x["sza"])
+    if bool((out[2:, ~usecol] != 0).any()):
+        raise SystemExit("rfmip: night columns not zero")
+    toa = (x["tsi"] * mu0)[usecol].double()
+    toa_err = float(((out[3, usecol, 0].double() - toa).abs() / toa).max())
+    log(f"rfmip sw_dn at TOA vs TSI * mu0 on {int(usecol.sum())} day "
+        f"columns: rel err {toa_err:.2e}")
+    if toa_err > 1e-5:
+        raise SystemExit("rfmip: sw_dn at TOA does not equal TSI * mu0")
+    lw = rfmip._lw_compute(g_lw, True, False, 1)
+    sw = rfmip._sw_compute(g_sw, True, False)
+    gen, _ = counted(
+        "rfmip generic route", counters,
+        lambda: lw(*rfmip._lw_args(x)) + sw(*rfmip._sw_args(x)),
+        {"gas_major": 2, "gas_minor": 4, "gas_rayleigh": 1, "solver_lw": 1,
+         "solver_sw": 1})
+    agree("rfmip generic route", gen, tuple(out))
+    blk = rfmip_lw_sw(data, g_lw, g_sw, block_size=RFMIP["nsite"])
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(blk, host))
+    log(f"rfmip blocked ({RFMIP['nsite']} columns a block) vs one launch: "
+        f"max |diff| {diff:.3e} W/m2")
+    for a, b in zip(blk, host):
+        if not np.allclose(a, b, rtol=2e-6, atol=1e-5):
+            raise SystemExit("rfmip: blocked and unblocked disagree")
+    del out, gen, blk
+    t_host = wall_ms(lambda: rfmip_lw_sw(data, g_lw, g_sw))
+    t_chain = wall_ms(lambda: rfmip_lw_sw(data, g_lw, g_sw,
+                                          device_out=True), CHAINED)
+    log(f"rfmip step ({card}): {t_host:.3f} ms median of {REPS} with the "
+        f"host readback ({ncol / t_host * 1e3:.1f} columns/s), "
+        f"{t_chain:.3f} ms chained over {CHAINED} steps on the device "
+        f"({ncol / t_chain * 1e3:.1f} columns/s)")
+    profile_path("rfmip", lambda _: rfmip_lw_sw(data, g_lw, g_sw,
+                                                 device_out=True), None)
+
+    s_lw, s_sw = ssm_lw_defaults(device=dev), ssm_sw_defaults(device=dev)
+    out, _ = counted("rfmip ssm", counters,
+                     lambda: rfmip_lw_sw(data, s_lw, s_sw, device_out=True),
+                     {"solver_lw": 1, "solver_sw": 1})
+    if not bool(torch.isfinite(out).all()):
+        raise SystemExit("rfmip ssm fluxes not finite")
+    t_ssm = wall_ms(lambda: rfmip_lw_sw(data, s_lw, s_sw))
+    log(f"rfmip ssm step ({card}): {t_ssm:.3f} ms median of {REPS} with "
+        f"the host readback ({ncol / t_ssm * 1e3:.1f} columns/s)")
+    return launches
+
+
+def podscale_paths(dev, counters, card):
+    """Phase 5, the pod-scale configuration at bench.py's defaults:
+    PODSCALE_COLS resident, then PODSCALE_STREAMED streamed, in chunks of
+    4096 x 72: columns/s for each; cloud_props twice, fused_lw and
+    fused_sw once per step (each chunk and the untimed first step). The
+    streamed run cycles PODSCALE_POOL distinct host chunks through two
+    device buffers, out of phase: each chunk's outputs bit for bit the
+    fused step's on its pool entry, and the last chunk (entry 0) the
+    resident run's."""
+    import torch
+    from rte_rrtmgp_tpu_torch.drivers.allsky import build_allsky_step
+    from rte_rrtmgp_tpu_torch.parallel.scaling import _podscale, _pool_entry
+    kw = dict(chunk_cols_per_device=MAIN["ncol"], reps_per_chunk=1,
+              host_pool=PODSCALE_POOL, verbose=False, device=dev,
+              **{k: MAIN[k] for k in ("ngpt_lw", "nbnd_lw", "ngpt_sw",
+                                      "nbnd_sw", "ntemp", "npres")})
+    outs = []
+    for what, total, stream in (("resident", PODSCALE_COLS, False),
+                                ("streamed", PODSCALE_STREAMED, True)):
+        n = -(-total // MAIN["ncol"]) + 1
+        (r, out), _ = counted(
+            f"podscale {what}", counters,
+            lambda: _podscale(total, MAIN["nlay"], stream=stream,
+                              keep=stream, **kw),
+            {"cloud_props": 2 * n, "fused_lw": n, "fused_sw": n})
+        log(f"podscale {what} ({card}): {r['n_chunks']} chunks of "
+            f"{r['chunk_columns']} x {MAIN['nlay']}, {r['total_columns']:,} "
+            f"columns in {r['seconds']:.3f} s, {r['cols_per_s']:.1f} "
+            "columns/s")
+        outs.append(out)
+    resident, streamed = outs
+    if (len(streamed) - 1) % PODSCALE_POOL:
+        raise SystemExit("podscale: the last streamed chunk is not pool "
+                         "entry 0")
+    step, inputs = build_allsky_step(**MAIN, device=dev)
+    refs = []
+    for j in range(PODSCALE_POOL):
+        lw_up, _, sw_up, _, _ = step(_pool_entry(inputs, j))
+        refs.append((lw_up[:, 0], sw_up[:, 0]))
+    if any(torch.equal(a, b) for j in range(1, PODSCALE_POOL)
+           for a, b in zip(refs[0], refs[j])):
+        raise SystemExit("podscale: two pool entries give the same outputs")
+    wrong = [k for k, out in enumerate(streamed)
+             if not all(map(torch.equal, out, refs[k % PODSCALE_POOL]))]
+    same = all(map(torch.equal, streamed[-1], resident[0]))
+    log(f"podscale: {len(streamed) - len(wrong)} of {len(streamed)} "
+        f"streamed chunks bit for bit the fused step's on their pool "
+        f"entry; the last {'is' if same else 'is not'} bit for bit the "
+        "resident run's")
+    if wrong or not same:
+        raise SystemExit(f"podscale: streamed chunks {wrong} differ from "
+                         "their pool entries, or the last from the "
+                         "resident run's")
 
 
 def subset_inputs(inputs, n):
@@ -1432,21 +1771,10 @@ def training_steps(name, step, inputs, counters, exact, launched):
     are not all zero and bit-identical over the two steps; then the median
     step time beside the forward's. Returns the launches of one step."""
     import torch
-    torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
-    runs = [train_loss(step, inputs) for _ in range(2)]
-    torch.cuda.synchronize()
-    launches = {k: fn.launches // 2 for k, fn in counters.items()}
-    log(f"{name} training step launches: {launches}")
-    for k, n in launches.items():
-        if k in exact and n != exact[k]:
-            raise SystemExit(f"{name} training step launched {k} {n} times,"
-                             f" expected {exact[k]}")
-        if k in launched and n == 0:
-            raise SystemExit(f"{name} training step never launched {k}")
-        if k not in exact and k not in launched and n != 0:
-            raise SystemExit(f"{name} training step launched {k}")
+    runs, launches = counted(
+        f"{name} training step", counters,
+        lambda: [train_loss(step, inputs) for _ in range(2)], exact,
+        launched, per=2)
     (_, ga), (_, gb) = runs
     for k in ga:
         if not bool(torch.isfinite(ga[k]).all()) or not bool(
@@ -1459,19 +1787,10 @@ def training_steps(name, step, inputs, counters, exact, launched):
     log(f"{name} training step: gradients finite and bit-identical over "
         "two runs; max |d loss / d x|: " + ", ".join(
             f"{k} {float(v.abs().max()):.3e}" for k, v in ga.items()))
-    times = {}
-    for what, fn in (("forward+backward", lambda: train_loss(step, inputs)),
-                     ("forward", lambda: step(inputs))):
-        ts = []
-        for _ in range(REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t0)
-        times[what] = statistics.median(ts) * 1e3
-    log(f"{name} training step: {times['forward+backward']:.3f} ms median "
-        f"of {REPS} (forward alone {times['forward']:.3f} ms)")
+    t_train = wall_ms(lambda: train_loss(step, inputs))
+    t_fwd = wall_ms(lambda: step(inputs))
+    log(f"{name} training step: {t_train:.3f} ms median of {REPS} "
+        f"(forward alone {t_fwd:.3f} ms)")
     return launches
 
 
@@ -1525,30 +1844,16 @@ def agree(what, out, ref):
         raise SystemExit(f"{what} and its reference disagree")
 
 
-def run_path(name, step, inputs, counters, must, must_not, solar,
-             once=(), nonneg=True):
+def run_path(name, step, inputs, counters, must, solar, once=(),
+             nonneg=True):
     """Drive one path with the counters set to 0 just before it; check
-    the launches (those in ``once`` exactly one), finite (and with
-    ``nonneg`` non-negative) outputs and, with ``solar``, TOA SW; time it.
-    Returns (outputs, launches)."""
+    the launches (each in ``must`` at least once, those in ``once``
+    exactly once, no other), finite (and with ``nonneg`` non-negative)
+    outputs and, with ``solar``, TOA SW; time it. Returns (outputs,
+    launches)."""
     import torch
-    torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
-    out = step(inputs)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
-    log(f"{name} path launches: {launches}")
-    for k in must:
-        if launches[k] == 0:
-            raise SystemExit(f"{name} path never launched {k}")
-    for k in must_not:
-        if launches[k] != 0:
-            raise SystemExit(f"{name} path launched {k}")
-    for k in once:
-        if launches[k] != 1:
-            raise SystemExit(f"{name} path launched {k} {launches[k]} "
-                             "times, expected once")
+    out, launches = counted(f"{name} path", counters, lambda: step(inputs),
+                            {k: 1 for k in once}, must)
     ncol, nlev = inputs.play.shape[0], inputs.play.shape[1] + 1
     for o in out:
         if tuple(o.shape[:2]) != (ncol, nlev):
@@ -1567,16 +1872,9 @@ def run_path(name, step, inputs, counters, must, must_not, solar,
         if toa_err > 1e-5:
             raise SystemExit(f"{name}: sw_dn at TOA does not equal the "
                              "incident flux")
-    times = []
-    for _ in range(REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(inputs)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    t_step = statistics.median(times)
-    log(f"{name} path step: {t_step * 1e3:.3f} ms median of {REPS}, "
-        f"{ncol / t_step:.1f} columns/s")
+    t_step = wall_ms(lambda: step(inputs))
+    log(f"{name} path step: {t_step:.3f} ms median of {REPS}, "
+        f"{ncol / t_step * 1e3:.1f} columns/s")
     return out, launches
 
 
@@ -1756,6 +2054,10 @@ def main():
     adjoint_report(prob, reports)
     onchip_report(prob, reports)
     onchip_limits(dev)
+    t0 = time.perf_counter()
+    rf = rfmip_problem(dev)
+    rfmip_rows(rf, dev, variants)
+    added = {"phase 3": time.perf_counter() - t0}
     log(f"variants checked against their twins: "
         f"{', '.join(v['name'] for v in variants)}")
     solar = float(prob.gas_sw.kdist.solar_source.double().sum())
@@ -1786,6 +2088,9 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     golden_gate("two-stream vs f64 twin", lw2_step(prod)(prod.inputs), twin)
     del prod, prod64, step64, inputs64, twin
+    t0 = time.perf_counter()
+    rfmip_gate(dev)
+    added["phase 4"] = time.perf_counter() - t0
     gradient_gates(dev)
     torch.cuda.empty_cache()
 
@@ -1818,8 +2123,7 @@ def main():
               nonneg=True):
         must = tuple(k for k in launched[kind]
                      if clouds or k != "cloud_props")
-        return run_path(name, step, inputs, counters, must,
-                        [k for k in counters if k not in must], solar, once,
+        return run_path(name, step, inputs, counters, must, solar, once,
                         nonneg)
 
     step, inputs = build_allsky_step(**MAIN, device=dev)
@@ -1914,6 +2218,18 @@ def main():
     launches.update({k: got[k] for k in ("solver_lw_bwd", "solver_sw_bwd")})
     del step
     torch.cuda.empty_cache()
+
+    # the RFMIP driver (fused and generic routes, SSM) and the pod-scale
+    # stream
+    t0 = time.perf_counter()
+    rfmip_paths(rf, dev, counters, card)
+    del rf
+    podscale_paths(dev, counters, card)
+    torch.cuda.empty_cache()
+    added["phase 5"] = time.perf_counter() - t0
+    log("RFMIP, SSM and podscale additions: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in added.items())
+        + f", {sum(added.values()):.1f} s in all")
 
     # ---- 6. multi-angle and optimal-angle LW against the twins; the
     # secant's forms ----

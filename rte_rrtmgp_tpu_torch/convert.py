@@ -1,7 +1,7 @@
 """Carry state across from the JAX package: its ``KDist``,
-``CloudOpticsRRTMGP`` and ``AerosolOpticsMERRA`` become the port's
-objects holding the very same tables, so one test can run both packages
-on identical data.
+``CloudOpticsRRTMGP``, ``AerosolOpticsMERRA``, ``OpticsSSM`` and
+``GasConcs`` become the port's objects holding the very same tables and
+values, so one test can run both packages on identical data.
 
 The JAX objects are read only through their fields, as numpy arrays
 (``np.asarray``); this module imports no JAX.
@@ -12,13 +12,15 @@ import numpy as np
 import torch
 
 from .config import resolve_device
+from .gas_concs import GasConcs
 from .models.rrtmgp.aerosol_optics import AerosolOpticsMERRA
 from .models.rrtmgp.cloud_optics import CloudOpticsRRTMGP
 from .models.rrtmgp.kdist import KDist, MinorSet
+from .models.ssm import OpticsSSM
 from .spectral import SpectralGrid
 
 __all__ = ["kdist_from_jax", "cloud_optics_from_jax",
-           "aerosol_optics_from_jax"]
+           "aerosol_optics_from_jax", "ssm_from_jax", "gas_concs_from_jax"]
 
 
 def _grid(g) -> SpectralGrid:
@@ -90,3 +92,28 @@ def aerosol_optics_from_jax(aer, *, dtype=torch.float32,
         **{f: t(getattr(aer, f)) for f in (
             "dust_tbl", "salt_tbl", "sulf_tbl", "bcar_tbl", "bcar_rh_tbl",
             "ocar_tbl", "ocar_rh_tbl")})
+
+
+def ssm_from_jax(ssm, *, device=None) -> OpticsSSM:
+    """The port's OpticsSSM with the configuration and tables of a JAX
+    one (float64, as both compute them), on ``device`` (default: the CUDA
+    device)."""
+    device = resolve_device(device)
+    t = lambda x: _tensor(x, torch.float64, device)
+    return OpticsSSM(
+        grid=_grid(ssm.grid), gas_names=tuple(ssm.gas_names),
+        mol_weights=np.array(ssm.mol_weights, np.float64),
+        absorption_coeffs=t(ssm.absorption_coeffs), nus=t(ssm.nus),
+        dnus=t(ssm.dnus), toa_src=t(ssm.toa_src),
+        **{f: float(getattr(ssm, f)) for f in (
+            "tstar", "tsi", "pref", "m_dry", "kappa_cld", "g_cld",
+            "ssa_cld")})
+
+
+def gas_concs_from_jax(gas_concs, *, device=None) -> GasConcs:
+    """The port's GasConcs with the names and values of a JAX one, each
+    value in its own dtype, on ``device`` (default: the CUDA device)."""
+    device = resolve_device(device)
+    return GasConcs(names=tuple(gas_concs.names), values=tuple(
+        torch.as_tensor(np.array(v), device=device)
+        for v in gas_concs.values))

@@ -358,20 +358,31 @@ def allsky_staged_sw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
     return Fluxes(flux_up=up, flux_dn=dn, flux_net=dn - up, flux_dn_dir=fdir)
 
 
+def _clouds(inputs: AllSkyInputs, gas_optics, cloud_optics, **kw):
+    """The clouds' optical properties: the cloud optics', or without one
+    the gas optics' gray clouds from the water paths in kg/m2 (SSM; JAX
+    drivers/allsky.py:397-404, :436-439)."""
+    i = inputs
+    if cloud_optics is None:
+        return gas_optics.cloud_optics(i.lwp * 1e-3, i.iwp * 1e-3, **kw)
+    return cloud_optics.cloud_optics(i.lwp, i.iwp, i.rel, i.dei, **kw)
+
+
 def allsky_api_lw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
                   cloud_optics=None, use_clouds=True, aerosol_optics=None,
                   use_aerosols=False, byband=False) -> Fluxes:
     """One LW all-sky step through the public API (the JAX driver's
     generic branch, drivers/allsky.py:393-411): gas optics and Planck
-    sources, the absorption-only cloud and aerosol increments, then
-    ``rte_lw`` (``byband``: per-band sums)."""
+    sources, the absorption-only cloud and aerosol increments (without
+    ``cloud_optics``, the gas optics' gray clouds: SSM), then ``rte_lw``
+    (``byband``: per-band sums)."""
     i = inputs
     props, sources = gas_optics.gas_optics_lw(
         i.play, i.plev, i.tlay, i.tsfc, i.gas_concs, tlev=i.tlev,
         top_at_1=True)
     if use_clouds:
-        props = increment(props, cloud_optics.cloud_optics(
-            i.lwp, i.iwp, i.rel, i.dei, scattering=False))
+        props = increment(props, _clouds(i, gas_optics, cloud_optics,
+                                         scattering=False))
     if use_aerosols:
         props = increment(props, aerosol_optics.aerosol_optics(
             i.aero_type, i.aero_size, i.aero_mass, i.relhum,
@@ -383,14 +394,15 @@ def allsky_api_sw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
                   cloud_optics=None, use_clouds=True, aerosol_optics=None,
                   use_aerosols=False, byband=False) -> Fluxes:
     """One SW all-sky step through the public API (drivers/allsky.py:
-    431-446): gas optics, the delta-scaled cloud and aerosol increments,
-    then ``rte_sw`` (``byband``: per-band sums)."""
+    431-446): gas optics, the delta-scaled cloud and aerosol increments
+    (without ``cloud_optics``, the gas optics' gray clouds: SSM), then
+    ``rte_sw`` (``byband``: per-band sums)."""
     i = inputs
     props, toa = gas_optics.gas_optics_sw(i.play, i.plev, i.tlay,
                                           i.gas_concs, top_at_1=True)
     if use_clouds:
-        props = increment(props, delta_scale(cloud_optics.cloud_optics(
-            i.lwp, i.iwp, i.rel, i.dei)))
+        props = increment(props, delta_scale(_clouds(i, gas_optics,
+                                                     cloud_optics)))
     if use_aerosols:
         props = increment(props, delta_scale(aerosol_optics.aerosol_optics(
             i.aero_type, i.aero_size, i.aero_mass, i.relhum)))

@@ -57,6 +57,10 @@ class GasConcs:
     def __contains__(self, name: str) -> bool:
         return _norm(name) in self.names
 
+    @property
+    def gas_names(self) -> tuple:
+        return self.names
+
     def get_vmr(self, name: str, ncol: int, nlay: int) -> torch.Tensor:
         """VMR broadcast to (ncol, nlay) (reference ``get_vmr`` 2-D,
         mo_gas_concentrations.F90:331-401)."""
@@ -71,3 +75,10 @@ class GasConcs:
             raise ValueError(f"get_vmr({name}): field shape "
                              f"{tuple(arr.shape)} != {(ncol, nlay)}")
         return arr.expand(ncol, nlay)
+
+    def get_subset(self, start: int, n: int) -> "GasConcs":
+        """Columns [start, start + n) (reference ``get_subset_range``):
+        fields are sliced, scalars and profiles pass through."""
+        values = tuple(v if v.ndim < 2 else v[start:start + n]
+                       for v in self.values)
+        return GasConcs(names=self.names, values=values)

@@ -133,6 +133,10 @@ class GasOpticsRRTMGP:
     def ngpt(self) -> int:
         return self.kdist.ngpt
 
+    @property
+    def device(self) -> torch.device:
+        return self.kdist.kmajor.device
+
     def source_is_internal(self) -> bool:
         return self.kdist.source_is_internal()
 

@@ -41,7 +41,10 @@ major-gas gather from the interleaved LW table at the paths' widths; and
 the rewritten kernels (rows 2, 4, 5, 7, 10, 11) with the kernels that
 share device code with them (rows 3, 6, 16) bit for bit the outputs
 recorded from them before (tests/golden/kernel_digests_frozen.json; row
-11 its rewritten kernel's).
+11 its rewritten kernel's). The RFMIP driver's and SSM's shapes: rows 2
+and 3 at 61 layers with a per-column TSI incident flux and night columns,
+rows 7 and 9 at SSM's 41 g-points; the RFMIP block loop against one
+launch; the pod-scale stream against the resident chunk, bit for bit.
 """
 import numpy as np
 import pytest
@@ -1812,3 +1815,191 @@ def test_kernels_match_frozen_digests(cuda):
     assert got == rec
     out = record(cuda, out_of_place=True)
     assert out == rec
+
+
+# ---- the RFMIP driver, SSM and the pod-scale stream: the kernels at the
+# shapes these paths give them ----
+
+RFMIP_FLAGSHIP = (256, 16, 224, 14, 14, 59)
+
+
+def _rfmip(cuda, nsite=8, nlay=61, nexp=3, seed=5):
+    """An RFMIP problem (61 layers: not a multiple of the ring sweeps' 4)
+    with a per-column TSI from a fixed seed and night columns, and the
+    flagship LW and SW providers, on the card."""
+    import dataclasses
+    from rte_rrtmgp_tpu_torch.drivers.rfmip import synthetic_rfmip
+    from rte_rrtmgp_tpu_torch.models.rrtmgp.gas_optics import GasOpticsRRTMGP
+    from rte_rrtmgp_tpu_torch.utils.synthetic import synthetic_kdist
+    data = synthetic_rfmip(nsite, nlay, nexp)
+    rng = np.random.default_rng(seed)
+    data = dataclasses.replace(data, tsi=rng.uniform(
+        1300.0, 1420.0, data.ncol).astype(np.float32))
+    ngl, nbl, ngs, nbs, ntemp, npres = RFMIP_FLAGSHIP
+    kw = dict(ntemp=ntemp, npres=npres, device=cuda)
+    return (data, GasOpticsRRTMGP(synthetic_kdist(sw=False, ngpt=ngl,
+                                                  nbnd=nbl, **kw)),
+            GasOpticsRRTMGP(synthetic_kdist(sw=True, ngpt=ngs, nbnd=nbs,
+                                            **kw)))
+
+
+def test_rfmip_fused_kernels_match_twins(cuda):
+    """Rows 2 and 3 at 61 layers on the RFMIP driver's inputs: the fused
+    SW kernel with the TSI-scaled direct incident flux and mu0 = 1 on the
+    night columns."""
+    from rte_rrtmgp_tpu_torch.drivers import rfmip
+    data, g_lw, g_sw = _rfmip(cuda)
+    x = rfmip._inputs(data, g_lw)
+    args, kw = rfmip._lw_fused_args(g_lw, True, *rfmip._lw_args(x))
+    lw = g_lw.lw_fused_inputs(*args, **kw)
+    n0 = lw_fused.launches
+    _flux_close(lw_fused(lw), lw_fused_plain(lw))
+    assert lw_fused.launches == n0 + 1
+    usecol, mu0 = rfmip._sun(x["sza"])
+    assert bool((~usecol).any()) and bool(usecol.any())
+    args, kw = rfmip._sw_fused_args(g_sw, True, x["play"], x["plev"],
+                                    x["tlay"], x["sfc_alb"], x["tsi"], mu0,
+                                    x["gas_concs"])
+    sw = g_sw.sw_fused_inputs(*args, **kw)
+    assert float(sw.inc.std(dim=1).max()) > 0   # the TSI varies by column
+    n0 = sw_fused.launches
+    _flux_close(sw_fused(sw), sw_fused_plain(sw))
+    assert sw_fused.launches == n0 + 1
+
+
+@pytest.mark.parametrize("band", ["lw", "sw"])
+def test_ssm_solvers_match_twins(cuda, band):
+    """Rows 7 and 9 at SSM's 41 g-points in 41 bands (a chunk of 32 and a
+    ragged one of 9) on RFMIP's 61 layers, as rte_lw and rte_sw call them
+    on the RFMIP driver's generic route."""
+    from rte_rrtmgp_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_tpu_torch.models.ssm import (ssm_lw_defaults,
+                                                 ssm_sw_defaults)
+    from rte_rrtmgp_tpu_torch.ops.solver_lw import GAUSS_DS, GAUSS_WTS
+    data = _rfmip(cuda)[0]
+    if band == "lw":
+        ssm = ssm_lw_defaults(device=cuda)
+        x = rfmip._inputs(data, ssm)
+        props, src = ssm.gas_optics_lw(x["play"], x["plev"], x["tlay"],
+                                       x["sfc_t"], x["gas_concs"],
+                                       tlev=x["tlev"], top_at_1=True)
+        emis = x["sfc_emis"][:, None].expand(-1, 41).contiguous()
+        args = (props.tau, src.lay_source, src.lev_source, emis,
+                src.sfc_source, torch.zeros_like(emis))
+        kw = dict(ds=float(GAUSS_DS[0][0]), weight=float(GAUSS_WTS[0][0]))
+        n0 = lw_noscat.launches
+        fluxes = lambda f: tuple(v for v in f(*args, **kw) if v is not None)
+        _flux_close(fluxes(lw_noscat), fluxes(lw_noscat_plain))
+        assert lw_noscat.launches == n0 + 1
+    else:
+        ssm = ssm_sw_defaults(device=cuda)
+        x = rfmip._inputs(data, ssm)
+        props, toa = ssm.gas_optics_sw(x["play"], x["plev"], x["tlay"],
+                                       x["gas_concs"], top_at_1=True)
+        _, mu0 = rfmip._sun(x["sza"])
+        alb = x["sfc_alb"][:, None].expand(-1, 41).contiguous()
+        args = (props.tau, props.ssa, props.g,
+                mu0[:, None].expand(-1, props.tau.shape[1]).contiguous(),
+                alb, alb, (toa * (x["tsi"] / toa.sum(-1))[:, None])
+                .contiguous())
+        n0 = sw_2stream.launches
+        _flux_close(sw_2stream(*args), sw_2stream_plain(*args))
+        assert sw_2stream.launches == n0 + 1
+
+
+def test_rfmip_blocked_equals_unblocked_on_card(cuda):
+    """rfmip_lw_sw's block loop against one launch, within
+    tests/test_rfmip.py's bounds; fused_lw and fused_sw once per block."""
+    from rte_rrtmgp_tpu_torch.drivers.rfmip import rfmip_lw_sw
+    data, g_lw, g_sw = _rfmip(cuda)
+    whole = rfmip_lw_sw(data, g_lw, g_sw)
+    n0 = (lw_fused.launches, sw_fused.launches)
+    blk = rfmip_lw_sw(data, g_lw, g_sw, block_size=data.nsite)
+    assert (lw_fused.launches - n0[0], sw_fused.launches - n0[1]) == \
+        (data.nexp, data.nexp)
+    for a, b in zip(blk, whole):
+        assert np.all(np.isfinite(a))
+        np.testing.assert_allclose(a, b, rtol=2e-6, atol=1e-5)
+    dev = rfmip_lw_sw(data, g_lw, g_sw, device_out=True)
+    assert dev.device.type == "cuda"
+    np.testing.assert_array_equal(dev.cpu().numpy(), np.stack(whole))
+
+
+def test_podscale_streamed_equals_resident(cuda):
+    """The pod-scale loop over a few chunks, streamed (a pinned pool of 3
+    distinct chunks, copy stream, two device buffers in turn) and
+    resident: each streamed chunk's outputs bit for bit the fused step's
+    on its pool entry, the last the resident run's; cloud_props twice,
+    fused_lw and fused_sw once per chunk."""
+    from rte_rrtmgp_tpu_torch.parallel.scaling import _podscale, _pool_entry
+    dims = dict(chunk_cols_per_device=64, ngpt_lw=32, nbnd_lw=4, ngpt_sw=32,
+                nbnd_sw=4, ntemp=5, npres=10, reps_per_chunk=1,
+                host_pool=3, verbose=False, device=cuda)
+    counters = (cloud_props, lw_fused, sw_fused)
+    n0 = [k.launches for k in counters]
+    # chunk k reads pool entry k % 3 from buffer k % 2; the last, entry 0
+    r, streamed = _podscale(7 * 64, 9, stream=True, keep=True, **dims)
+    assert r["n_chunks"] == 7 and len(streamed) == 7
+    # the untimed first step and one step per chunk
+    assert [k.launches - n for k, n in zip(counters, n0)] == [16, 8, 8]
+    _, resident = _podscale(3 * 64, 9, stream=False, **dims)
+    step, inputs = build_allsky_step(64, 9, 32, 4, 32, 4, 5, 10,
+                                     device=cuda)
+    refs = []
+    for j in range(3):
+        lw_up, _, sw_up, _, _ = step(_pool_entry(inputs, j))
+        refs.append((lw_up[:, 0], sw_up[:, 0]))
+    for k, out in enumerate(streamed):
+        for a, ref in zip(out, refs[k % 3]):
+            assert bool(torch.isfinite(a).all())
+            assert torch.equal(a, ref)
+    for a, b in zip(streamed[-1], resident[0]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("late", ["step", "upload"])
+def test_podscale_uploads_keep_their_order(cuda, monkeypatch, late):
+    """The streamed loop's event order, with steps that make no host wait
+    (the all-sky step's host waits keep the card from falling behind):
+    each step spins the card, then reads its chunk's tlay and tlev; with
+    ``late="step"`` the card runs chunks behind the host, so an upload
+    that did not wait for the step last reading its buffer overwrites
+    that step's inputs; with ``late="upload"`` each upload spins the copy
+    stream first, so a step that did not wait for its upload reads the
+    buffer's previous chunk. Each chunk reads pool entry k % 3."""
+    from types import SimpleNamespace
+    from rte_rrtmgp_tpu_torch.parallel import scaling
+    spin = 10_000_000                          # cycles: about 5 ms
+    if late == "step":
+        def read(field):
+            def step(inputs, *args, **kw):
+                torch.cuda._sleep(spin)
+                return SimpleNamespace(flux_up=getattr(inputs, field) * 1.0)
+            return step
+        monkeypatch.setattr(scaling, "allsky_step_lw", read("tlay"))
+        monkeypatch.setattr(scaling, "allsky_step_sw", read("tlev"))
+    else:
+        for name, field in (("allsky_step_lw", "tlay"),
+                            ("allsky_step_sw", "tlev")):
+            monkeypatch.setattr(scaling, name,
+                                lambda i, *a, f=field, **k: SimpleNamespace(
+                                    flux_up=getattr(i, f) * 1.0))
+        put = scaling._Uploads.put
+
+        def slow_put(self, k):
+            with torch.cuda.stream(self.copy):
+                torch.cuda._sleep(spin)
+            put(self, k)
+
+        monkeypatch.setattr(scaling._Uploads, "put", slow_put)
+    n = 9
+    _, outs = scaling._podscale(
+        n * 64, 9, stream=True, keep=True, chunk_cols_per_device=64,
+        ngpt_lw=32, nbnd_lw=4, ngpt_sw=32, nbnd_sw=4, ntemp=5, npres=10,
+        reps_per_chunk=1, host_pool=3, verbose=False, device=cuda)
+    _, inputs = build_allsky_step(64, 9, 32, 4, 32, 4, 5, 10, device=cuda)
+    refs = [(e.tlay[:, 0], e.tlev[:, 0])
+            for e in (scaling._pool_entry(inputs, j) for j in range(3))]
+    wrong = [k for k, out in enumerate(outs)
+             if not all(map(torch.equal, out, refs[k % 3]))]
+    assert len(outs) == n and wrong == []
