@@ -1,0 +1,9 @@
+"""Row 16, the fused LW step's adjoint: the share, in %, of its device time
+in the traced window that its bound would take (the larger of its bytes
+at the card's bandwidth and its operations at the float32 peak,
+``work/fused_lw_bwd.py``)."""
+LAYER = "kernels"
+
+
+def read(run):
+    return run.roofline("fused_lw_bwd_kernel", "fused_lw_bwd")

@@ -1,0 +1,9 @@
+"""Row 17, the fused SW step's adjoint: the share, in %, of its device time
+in the traced window that its bound would take (the larger of its bytes
+at the card's bandwidth and its operations at the float32 peak,
+``work/fused_sw_bwd.py``)."""
+LAYER = "kernels"
+
+
+def read(run):
+    return run.roofline("fused_sw_bwd_kernel", "fused_sw_bwd")
