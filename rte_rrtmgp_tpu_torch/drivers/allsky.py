@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import constants
+from .. import constants, trace
 from ..config import check_dtype, resolve_device
 from ..fluxes import Fluxes
 from ..gas_concs import GasConcs
@@ -250,6 +250,7 @@ def allsky_sw_inputs(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
         sfc_alb_dir=alb, sfc_alb_dif=alb, cloud=cloud, byband=byband)
 
 
+@trace.spanned("allsky.lw")
 def allsky_step_lw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
                    cloud_optics=None, use_clouds=True, aerosol_optics=None,
                    use_aerosols=False, byband=False) -> Fluxes:
@@ -265,6 +266,7 @@ def allsky_step_lw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
     return Fluxes(flux_up=up, flux_dn=dn, flux_net=dn - up)
 
 
+@trace.spanned("allsky.sw")
 def allsky_step_sw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
                    cloud_optics=None, use_clouds=True, aerosol_optics=None,
                    use_aerosols=False, byband=False) -> Fluxes:
@@ -368,6 +370,7 @@ def _clouds(inputs: AllSkyInputs, gas_optics, cloud_optics, **kw):
     return cloud_optics.cloud_optics(i.lwp, i.iwp, i.rel, i.dei, **kw)
 
 
+@trace.spanned("allsky_api.lw")
 def allsky_api_lw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
                   cloud_optics=None, use_clouds=True, aerosol_optics=None,
                   use_aerosols=False, byband=False) -> Fluxes:
@@ -390,6 +393,7 @@ def allsky_api_lw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
     return rte_lw(props, sources, i.sfc_emis, byband=byband)
 
 
+@trace.spanned("allsky_api.sw")
 def allsky_api_sw(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,
                   cloud_optics=None, use_clouds=True, aerosol_optics=None,
                   use_aerosols=False, byband=False) -> Fluxes:

@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..gas_concs import GasConcs
 from ..ops.solver_lw import GAUSS_DS, GAUSS_WTS
 from ..rte import rte_lw, rte_sw
@@ -255,6 +256,12 @@ def _lw_compute(gas_optics, top_at_1: bool, fused_ok: bool,
     return solve
 
 
+def _readback(flux: torch.Tensor) -> np.ndarray:
+    """Fluxes as a numpy array: the host waits for the device."""
+    with trace.wait("rfmip.readback"):
+        return flux.cpu().numpy()
+
+
 def _lw_args(x: dict) -> tuple:
     return (x["play"], x["plev"], x["tlay"], x["tlev"], x["sfc_t"],
             x["sfc_emis"], x["gas_concs"])
@@ -270,7 +277,7 @@ def rfmip_lw(data: RFMIPData, gas_optics, *, block_size: Optional[int] = None,
                         n_gauss_angles)
 
     def run_block(start, n):
-        return tuple(f.cpu().numpy() for f in solve(
+        return tuple(_readback(f) for f in solve(
             *_lw_args(_inputs(data, gas_optics, start, n))))
 
     return _block_map(run_block, data, block_size)
@@ -343,12 +350,13 @@ def rfmip_sw(data: RFMIPData, gas_optics, *, block_size: Optional[int] = None
                         _fused(gas_optics, "sw_fused_solve"))
 
     def run_block(start, n):
-        return tuple(f.cpu().numpy() for f in solve(
+        return tuple(_readback(f) for f in solve(
             *_sw_args(_inputs(data, gas_optics, start, n))))
 
     return _block_map(run_block, data, block_size)
 
 
+@trace.spanned("rfmip.lw_sw")
 def rfmip_lw_sw(data: RFMIPData, gas_optics_lw, gas_optics_sw, *,
                 block_size: Optional[int] = None, n_gauss_angles: int = 1,
                 device_out: bool = False):
@@ -379,8 +387,8 @@ def rfmip_lw_sw(data: RFMIPData, gas_optics_lw, gas_optics_sw, *,
     bs = ncol if block_size is None or block_size >= ncol else block_size
     if ncol % bs:
         raise ValueError("rfmip: number of columns doesn't fit evenly into blocks")
-    out = torch.cat([launch(b * bs, bs) for b in range(ncol // bs)],
-                    dim=1).cpu().numpy()
+    out = _readback(torch.cat([launch(b * bs, bs)
+                               for b in range(ncol // bs)], dim=1))
     return out[0], out[1], out[2], out[3]
 
 

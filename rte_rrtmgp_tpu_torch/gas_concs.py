@@ -8,10 +8,13 @@ profile ``(nlay,)`` or a field ``(ncol, nlay)``; reads broadcast to
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
+
+from . import trace
 
 __all__ = ["GasConcs"]
 
@@ -39,7 +42,11 @@ class GasConcs:
                else torch.as_tensor(np.array(vmr, np.float64)))
         if arr.ndim > 2:
             raise ValueError(f"set_vmr({name}): vmr must be scalar, 1-D, or 2-D")
-        if bool(((arr < 0.0) | (arr > 1.0)).any()):
+        read = (trace.wait("vmr") if isinstance(vmr, torch.Tensor)
+                else contextlib.nullcontext())   # host data: no wait
+        with trace.span("check.vmr"), read:
+            bad = bool(((arr < 0.0) | (arr > 1.0)).any())
+        if bad:
             raise ValueError(f"set_vmr({name}): values outside [0,1]")
         names = list(self.names)
         values = list(self.values)

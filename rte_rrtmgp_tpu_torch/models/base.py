@@ -5,6 +5,8 @@ rte/frontend/gas-optics-template/mo_gas_optics.F90:41-126).
 """
 from __future__ import annotations
 
+from .. import trace
+
 __all__ = ["infer_top_at_1"]
 
 
@@ -15,4 +17,5 @@ def infer_top_at_1(play, top_at_1=None) -> bool:
     index. Inferring reads two values of ``play`` back from its device."""
     if top_at_1 is not None:
         return bool(top_at_1)
-    return bool(play[0, 0] < play[0, -1])
+    with trace.wait("top_at_1"):
+        return bool(play[0, 0] < play[0, -1])

@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ... import trace
 from ...config import get_config, resolve_device
 from ...ops.kernels.autodiff import with_twin_grad
 from ...ops.kernels.cloud_props import cloud_props, cloud_props_plain
@@ -108,6 +109,7 @@ class CloudOpticsRRTMGP:
                 ciwp * (ciwp > 0.0).to(ciwp.dtype))
         return lm(li, ii), lm(lf, if_), wp
 
+    @trace.spanned("cloud.optics")
     def cloud_optics_lanes(self, clwp, ciwp, reliq, dgice):
         """By-band (tau, tau*ssa, tau*ssa*g), each (nbnd, nlay, ncol), from
         (ncol, nlay) water paths [g/m2] and particle sizes [microns]
@@ -118,6 +120,7 @@ class CloudOpticsRRTMGP:
         out = _cloud_props(idx, fint, wp, *self.tables())
         return out[0], out[1], out[2]
 
+    @trace.spanned("cloud.optics")
     def cloud_optics(self, clwp, ciwp, reliq, dgice, *,
                      scattering: bool = True,
                      top_at_1: bool = True) -> OpticalProps:
@@ -141,13 +144,18 @@ class CloudOpticsRRTMGP:
             g=taussag / torch.clamp(taussa, min=eps), grid=self.grid,
             top_at_1=top_at_1)
 
+    @trace.spanned("check.cloud")
     def validate_inputs(self, clwp, ciwp, reliq, dgice) -> None:
         """Range checks (reference :346-353); one host read per check."""
         liq = clwp > 0
         ice = ciwp > 0
-        if bool((liq & ((reliq < self.radliq_lwr)
-                        | (reliq > self.radliq_upr))).any()):
+        with trace.wait("cloud.reliq"):
+            bad = bool((liq & ((reliq < self.radliq_lwr)
+                               | (reliq > self.radliq_upr))).any())
+        if bad:
             raise ValueError("cloud optics: liquid effective radius is out of bounds")
-        if bool((ice & ((dgice < self.diamice_lwr)
-                        | (dgice > self.diamice_upr))).any()):
+        with trace.wait("cloud.dgice"):
+            bad = bool((ice & ((dgice < self.diamice_lwr)
+                               | (dgice > self.diamice_upr))).any())
+        if bad:
             raise ValueError("cloud optics: ice effective diameter is out of bounds")

@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ... import constants
+from ... import constants, trace
 from ...gas_concs import GasConcs
 from ...optical_props import (OpticalProps, OpticalProps1scl,
                               OpticalProps2str)
@@ -44,6 +44,7 @@ from .kdist import KDist
 __all__ = ["GasOpticsRRTMGP", "get_col_dry", "interp_tlev"]
 
 
+@trace.spanned("optics.major")
 def _major(co, kmajor, planck_frac, gpoint_flavor, kmajor_pfrac=None):
     """gas_major with its twin's gradient; the kernel reads the LW table of
     (kmajor, planck_frac) pairs, which an LW call on CUDA must pass."""
@@ -51,6 +52,7 @@ def _major(co, kmajor, planck_frac, gpoint_flavor, kmajor_pfrac=None):
                           planck_frac, gpoint_flavor, kmajor_pfrac)
 
 
+@trace.spanned("optics.minor")
 def _minor(tau, co, kminor, minors, meta, scaling):
     """gas_minor out of place: the kernel reads ``tau`` and writes a new
     tensor, ``tau`` untouched."""
@@ -61,9 +63,10 @@ def _minor(tau, co, kminor, minors, meta, scaling):
         kernel,
         lambda t, c, k, m, _, s: tau_minor(t.movedim(-1, 0), c, k, m,
                                            s).movedim(0, -1),
-        tau, co, kminor, minors, meta, scaling)
+        tau, co, kminor, minors, meta, scaling, name="gas_minor")
 
 
+@trace.spanned("optics.rayleigh")
 def _rayleigh(tau, co, krayl, gpoint_flavor, rayscale, scattering):
     """gas_rayleigh out of place: (tau + tau_rayleigh, ssa or None); the
     kernel reads ``tau`` and writes a new tensor, ``tau`` untouched. A None
@@ -74,7 +77,7 @@ def _rayleigh(tau, co, krayl, gpoint_flavor, rayscale, scattering):
         return gas_rayleigh(t, c, k, f, r, scattering=scattering, out=out)
     return with_twin_grad(
         kernel, lambda *a: rayleigh_combine(*a, scattering=scattering),
-        tau, co, krayl, gpoint_flavor, rayscale)
+        tau, co, krayl, gpoint_flavor, rayscale, name="gas_rayleigh")
 
 
 def get_col_dry(vmr_h2o, plev):
@@ -143,6 +146,7 @@ class GasOpticsRRTMGP:
     def source_is_external(self) -> bool:
         return self.kdist.source_is_external()
 
+    @trace.spanned("check.key_species")
     def _check_key_species_present(self, gas_concs: GasConcs):
         """Reference check_key_species_present (:1403-1422)."""
         kd = self.kdist
@@ -152,6 +156,7 @@ class GasOpticsRRTMGP:
         if missing:
             raise ValueError(f"gas_optics: required gases {missing} are not provided")
 
+    @trace.spanned("gas.col_gas")
     def col_gas(self, play, plev, gas_concs: GasConcs, col_dry=None):
         """VMR gather + column amounts (reference compute_gas_taus
         :538-609): (ngas+1, ncol, nlay) with col_gas[0] = col_dry and
@@ -200,11 +205,12 @@ class GasOpticsRRTMGP:
         combine_abs_and_rayleigh :1954-2036) with ``scattering``, None
         without; with ``split_rayleigh``, tau is the absorption alone and
         ``second`` the Rayleigh optical depth (zero without krayl)."""
-        self._check_key_species_present(gas_concs)
         kd = self.kdist
-        col_gas, col_dry, idx_h2o = self.col_gas(play, plev, gas_concs,
-                                                 col_dry)
-        co = self.interp(play, tlay, col_gas)
+        with trace.span("gas.descriptors"):
+            self._check_key_species_present(gas_concs)
+            col_gas, col_dry, idx_h2o = self.col_gas(play, plev, gas_concs,
+                                                     col_dry)
+            co = self.interp(play, tlay, col_gas)
         tau, pfrac = _major(co, kd.kmajor, kd.planck_frac,
                             self.gpoint_flavor, self.kmajor_pfrac)
         nlo = len(kd.minor_lower)
@@ -356,6 +362,7 @@ class GasOpticsRRTMGP:
     # ------------------------------------------------------------------
     # the fused kernels' inputs
     # ------------------------------------------------------------------
+    @trace.spanned("gas.descriptors")
     def _descriptors(self, play, plev, tlay, gas_concs, col_dry=None):
         """Layer-major interpolation state and minor scaling rows."""
         self._check_key_species_present(gas_concs)
@@ -381,6 +388,7 @@ class GasOpticsRRTMGP:
             raise ValueError("fused by-band path requires uniform band "
                              f"widths; got {widths.tolist()}")
 
+    @trace.spanned("gas.fused_inputs")
     def lw_fused_inputs(self, play, plev, tlay, tsfc, gas_concs, *,
                         sfc_emis, inc_flux=None, tlev=None, col_dry=None,
                         cloud_tau_abs=None, ds, weight,
@@ -420,6 +428,7 @@ class GasOpticsRRTMGP:
         return lw_fused(self.lw_fused_inputs(play, plev, tlay, tsfc,
                                              gas_concs, **kw))
 
+    @trace.spanned("gas.fused_inputs")
     def sw_fused_inputs(self, play, plev, tlay, gas_concs, *, mu0,
                         sfc_alb_dir, sfc_alb_dif, inc_flux=None,
                         inc_flux_dif=None, col_dry=None, cloud=None,

@@ -22,6 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
+
 __all__ = ["InterpCoeffs", "interpolation", "tau_major", "tau_minor",
            "minor_scaling", "tau_rayleigh", "interp1d_table", "planck_sources",
            "planck_bands_lanes", "level_pfrac"]
@@ -38,6 +40,7 @@ class InterpCoeffs(NamedTuple):
     feta: torch.Tensor      # (2, nflav, *S)
 
 
+@trace.spanned("gas.interp")
 def interpolation(play, tlay, col_gas, *, flavor, neta: int, press_ref_log,
                   temp_ref, press_ref_log_delta, temp_ref_min,
                   temp_ref_delta, press_ref_trop_log,
@@ -54,7 +57,8 @@ def interpolation(play, tlay, col_gas, *, flavor, neta: int, press_ref_log,
     # temperature (reference :106-108); ftemp anchors at the CLAMPED node
     loctemp = (tlay - (temp_ref_min - temp_ref_delta)) / temp_ref_delta
     jtemp1 = torch.clamp(torch.floor(loctemp).to(torch.int32), 1, ntemp - 1)
-    temp_ref_t = torch.as_tensor(temp_ref, dtype=dtype, device=dev)
+    with trace.wait("interp.temp_ref"):
+        temp_ref_t = torch.as_tensor(temp_ref, dtype=dtype, device=dev)
     ftemp = (tlay - temp_ref_t[jtemp1.long() - 1]) / temp_ref_delta
     jtemp = jtemp1 - 1
 
@@ -70,11 +74,16 @@ def interpolation(play, tlay, col_gas, *, flavor, neta: int, press_ref_log,
     # eta per flavor and reference temperature (reference :121-168)
     g1, g2 = np.asarray(flavor[0]), np.asarray(flavor[1])
     vmr_ref = np.asarray(vmr_ref)
-    ratio = torch.as_tensor(vmr_ref[:, g1, :] / vmr_ref[:, g2, :],
-                            dtype=dtype, device=dev)     # (2, nflav, ntemp)
+    with trace.wait("interp.vmr_ratio"):
+        ratio = torch.as_tensor(vmr_ref[:, g1, :] / vmr_ref[:, g2, :],
+                                dtype=dtype, device=dev)  # (2, nflav, ntemp)
     tiny = torch.finfo(dtype).tiny
-    cg1 = col_gas[torch.as_tensor(g1, device=dev)]       # (nflav, *S)
-    cg2 = col_gas[torch.as_tensor(g2, device=dev)]
+    with trace.wait("interp.flavor_g1"):
+        g1_t = torch.as_tensor(g1, device=dev)
+    with trace.wait("interp.flavor_g2"):
+        g2_t = torch.as_tensor(g2, device=dev)
+    cg1 = col_gas[g1_t]                                  # (nflav, *S)
+    cg2 = col_gas[g2_t]
     cms, jes, fes = [], [], []
     for it in (0, 1):
         jt_i = torch.clamp(jtemp + it, 0, ntemp - 1).long()
@@ -136,6 +145,7 @@ def tau_major(co: InterpCoeffs, kmajor, planck_frac, gpoint_flavor):
     return tau, pf
 
 
+@trace.spanned("gas.minor_scaling")
 def minor_scaling(co: InterpCoeffs, mset, *, lower: bool, play, tlay,
                   col_gas, idx_h2o: int):
     """Per-minor-gas scaling rows with the atmosphere mask applied
@@ -222,6 +232,7 @@ def interp1d_table(val, offset, delta, table):
     return lo + frac[..., None] * (hi - lo)
 
 
+@trace.spanned("sources.planck")
 def planck_sources(pfrac, *, totplnk, totplnk_delta, temp_ref_min, gpt2band,
                    tlay, tlev, tsfc, top_at_1: bool):
     """Planck sources in the public layout (reference
@@ -230,7 +241,11 @@ def planck_sources(pfrac, *, totplnk, totplnk_delta, temp_ref_min, gpt2band,
     surface Jacobian by a 1 K difference. pfrac (ncol, nlay, ngpt);
     tlay (ncol, nlay), tlev (ncol, nlay+1), tsfc (ncol,). Returns
     (sfc_src, lay_src, lev_src, sfc_src_jac)."""
-    band = torch.as_tensor(gpt2band, device=pfrac.device).long()
+    if isinstance(gpt2band, torch.Tensor):
+        band = gpt2band.to(pfrac.device).long()
+    else:
+        with trace.wait("planck.gpt2band"):
+            band = torch.as_tensor(gpt2band, device=pfrac.device).long()
     pb = lambda t: interp1d_table(t, temp_ref_min, totplnk_delta,
                                   totplnk).index_select(-1, band)
     pf_sfc = pfrac[:, -1 if top_at_1 else 0, :]

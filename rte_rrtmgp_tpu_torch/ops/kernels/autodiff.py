@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import trace
 from ._build import on_cpu
 
 __all__ = ["with_twin_grad", "with_adjoint", "refuse_grad", "none_like"]
@@ -95,8 +96,9 @@ def refuse_grad(what: str, *args, hint: str = "") -> None:
 class _KernelCall(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spec, *tensors):
-        kernel_fn, plain_fn, adjoint_fn, args = spec
-        out = kernel_fn(*_rebuild(args, iter(tensors)))
+        kernel_fn, plain_fn, adjoint_fn, args, name = spec
+        with trace.span("kernel." + name):
+            out = kernel_fn(*_rebuild(args, iter(tensors)))
         ctx.spec = spec
         ctx.single = isinstance(out, torch.Tensor)
         ctx.save_for_backward(*tensors)
@@ -104,46 +106,51 @@ class _KernelCall(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        kernel_fn, plain_fn, adjoint_fn, args = ctx.spec
-        tensors = ctx.saved_tensors
-        need = ctx.needs_input_grad[1:]
-        if adjoint_fn is not None and not on_cpu(tensors[0], "backward"):
-            res = adjoint_fn(_rebuild(args, iter(tensors)), *grads)
-            got = _grads_at_tensors(args, res, [])
-            return (None,) + tuple(g if n else None
-                                   for g, n in zip(got, need))
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(bool(n))
-                      for t, n in zip(tensors, need)]
-            out = plain_fn(*_rebuild(args, iter(leaves)))
-            outs = (out,) if ctx.single else tuple(out)
-            pairs = [(o, g) for o, g in zip(outs, grads)
-                     if g is not None and o is not None and o.requires_grad]
-            wrt = [x for x in leaves if x.requires_grad]
-            got = [None] * len(wrt)
-            if pairs and wrt:
-                got = list(torch.autograd.grad(
-                    [o for o, _ in pairs], wrt, [g for _, g in pairs],
-                    allow_unused=True))
-        it = iter(got)
-        return (None,) + tuple(next(it) if x.requires_grad else None
-                               for x in leaves)
+        kernel_fn, plain_fn, adjoint_fn, args, name = ctx.spec
+        with trace.span("backward." + name):
+            tensors = ctx.saved_tensors
+            need = ctx.needs_input_grad[1:]
+            if adjoint_fn is not None and not on_cpu(tensors[0], "backward"):
+                res = adjoint_fn(_rebuild(args, iter(tensors)), *grads)
+                got = _grads_at_tensors(args, res, [])
+                return (None,) + tuple(g if n else None
+                                       for g, n in zip(got, need))
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(bool(n))
+                          for t, n in zip(tensors, need)]
+                out = plain_fn(*_rebuild(args, iter(leaves)))
+                outs = (out,) if ctx.single else tuple(out)
+                pairs = [(o, g) for o, g in zip(outs, grads)
+                         if g is not None and o is not None
+                         and o.requires_grad]
+                wrt = [x for x in leaves if x.requires_grad]
+                got = [None] * len(wrt)
+                if pairs and wrt:
+                    got = list(torch.autograd.grad(
+                        [o for o, _ in pairs], wrt, [g for _, g in pairs],
+                        allow_unused=True))
+            it = iter(got)
+            return (None,) + tuple(next(it) if x.requires_grad else None
+                                   for x in leaves)
 
 
-def with_adjoint(kernel_fn, plain_fn, adjoint_fn, *args):
+def with_adjoint(kernel_fn, plain_fn, adjoint_fn, *args, name=None):
     """``kernel_fn(*args)`` (a tensor or a flat tuple of tensors and
     Nones) as one autograd node. Its backward on CUDA tensors is
     ``adjoint_fn(args, *output_grads)``, which returns a structure
     parallel to ``args`` with a gradient or None at each tensor; on CPU
     tensors, or with ``adjoint_fn`` None, it is the gradient of
     ``plain_fn(*args)`` (same outputs) recomputed from the saved inputs.
-    Output gradients the loss does not reach arrive as zeros."""
+    Output gradients the loss does not reach arrive as zeros. ``name``
+    (default ``kernel_fn``'s) names the node's trace spans,
+    ``kernel.<name>`` and ``backward.<name>``."""
     tensors = _tensors(args, [])
     return _KernelCall.apply(
-        (kernel_fn, plain_fn, adjoint_fn, _template(args)), *tensors)
+        (kernel_fn, plain_fn, adjoint_fn, _template(args),
+         name or kernel_fn.__name__), *tensors)
 
 
-def with_twin_grad(kernel_fn, plain_fn, *args):
+def with_twin_grad(kernel_fn, plain_fn, *args, name=None):
     """``kernel_fn(*args)`` with the gradient of its plain twin
     ``plain_fn`` on both devices (the JAX package's ``with_xla_grad``)."""
-    return with_adjoint(kernel_fn, plain_fn, None, *args)
+    return with_adjoint(kernel_fn, plain_fn, None, *args, name=name)

@@ -345,10 +345,12 @@ def lw_fused(x: LWFusedInputs):
     twin's gradient on the CPU; the by-band backward the twin's gradient on
     both."""
     if x.byband:
-        return with_twin_grad(_lw_fused_kernel, lw_fused_plain, x)
+        return with_twin_grad(_lw_fused_kernel, lw_fused_plain, x,
+                              name="lw_fused")
     return with_adjoint(
         _lw_fused_kernel, lw_fused_plain,
-        lambda a, *g: (_fused_adjoint(lw_fused_bwd, LW_DIFF, *a, *g),), x)
+        lambda a, *g: (_fused_adjoint(lw_fused_bwd, LW_DIFF, *a, *g),), x,
+        name="lw_fused")
 
 
 lw_fused.launches = 0

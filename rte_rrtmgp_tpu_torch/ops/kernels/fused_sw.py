@@ -276,10 +276,12 @@ def sw_fused(x: SWFusedInputs):
     twin's gradient on the CPU; the by-band backward the twin's gradient on
     both."""
     if x.byband:
-        return with_twin_grad(_sw_fused_kernel, sw_fused_plain, x)
+        return with_twin_grad(_sw_fused_kernel, sw_fused_plain, x,
+                              name="sw_fused")
     return with_adjoint(
         _sw_fused_kernel, sw_fused_plain,
-        lambda a, *g: (_fused_adjoint(sw_fused_bwd, SW_DIFF, *a, *g),), x)
+        lambda a, *g: (_fused_adjoint(sw_fused_bwd, SW_DIFF, *a, *g),), x,
+        name="sw_fused")
 
 
 sw_fused.launches = 0

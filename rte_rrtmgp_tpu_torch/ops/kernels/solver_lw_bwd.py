@@ -109,4 +109,4 @@ def lw_noscat_vjp(tau, lay, lev, sfc_emis, sfc_src, inc_flux, *, ds: float,
         lambda *a: lw_noscat_plain(*a, ds=ds, weight=weight)[:2],
         lambda a, g_up, g_dn: lw_noscat_bwd(*a, g_up, g_dn, ds=ds,
                                             weight=weight),
-        tau, lay, lev, sfc_emis, sfc_src, inc_flux)
+        tau, lay, lev, sfc_emis, sfc_src, inc_flux, name="lw_noscat")

@@ -227,7 +227,8 @@ def lw_solver_noscat(tau, lay_source, lev_source, sfc_emis, sfc_src,
                 u, dd, j = with_twin_grad(
                     _one_angle(lw_noscat, float(w), nband),
                     _one_angle(lw_noscat_plain, float(w), nband), *fields,
-                    c(d), c(sfc_src_jac), c(ssa), c(g), gpt2band)
+                    c(d), c(sfc_src_jac), c(ssa), c(g), gpt2band,
+                    name="lw_noscat")
         up = u if up is None else up + u
         dn = dd if dn is None else dn + dd
         jac = j if jac is None else jac + j
@@ -345,7 +346,7 @@ def lw_solver_2stream(tau, ssa, g, lay_source, lev_source, sfc_emis,
             lambda *a: lw_2stream_plain(*a, nband=nband),
             *(x.contiguous() for x in (tau, ssa, g, lay_source, lev_source,
                                        sfc_emis, sfc_src, inc_flux)),
-            gpt2band)
+            gpt2band, name="lw_2stream")
     if not top_at_1:
         up, dn = torch.flip(up, [1]), torch.flip(dn, [1])
     return LWFluxes(flux_up=up, flux_dn=dn, flux_up_jac=None)

@@ -154,7 +154,7 @@ def sw_solver_2stream(tau, ssa, g, mu0, sfc_alb_dir, sfc_alb_dif,
             up, dn, fdir = with_twin_grad(
                 lambda *a: sw_2stream(*a, nband=nband),
                 lambda *a: sw_2stream_plain(*a, nband=nband), *args,
-                gpt2band)
+                gpt2band, name="sw_2stream")
     if not top_at_1:
         up, dn, fdir = (torch.flip(x, [1]) for x in (up, dn, fdir))
     return SWFluxes(flux_up=up, flux_dn=dn, flux_dir=fdir)

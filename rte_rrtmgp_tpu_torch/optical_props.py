@@ -17,6 +17,7 @@ from typing import Optional, Union
 
 import torch
 
+from . import trace
 from .config import get_config
 from .spectral import SpectralGrid
 
@@ -70,6 +71,7 @@ class OpticalPropsNstr(_Shape):
 OpticalProps = Union[OpticalProps1scl, OpticalProps2str, OpticalPropsNstr]
 
 
+@trace.spanned("optics.delta_scale")
 def delta_scale(props: OpticalProps,
                 f: Optional[torch.Tensor] = None) -> OpticalProps:
     """Delta-Eddington scaling with forward fraction ``f`` (default g**2;
@@ -81,7 +83,9 @@ def delta_scale(props: OpticalProps,
     if isinstance(props, OpticalPropsNstr):
         raise NotImplementedError("delta_scale for n-stream not implemented")
     if f is not None and get_config().check_values:
-        if bool(((f < 0.0) | (f > 1.0)).any()):
+        with trace.wait("delta_scale.f"):
+            bad = bool(((f < 0.0) | (f > 1.0)).any())
+        if bad:
             raise ValueError("delta_scale: values of f out of bounds [0, 1]")
     g = props.g
     f = g * g if f is None else f
@@ -104,14 +108,16 @@ def expand_to_gpt(arr: torch.Tensor, source_grid: SpectralGrid,
         return arr
     if (arr.shape[-1] == source_grid.nband
             and source_grid.bands_are_equal(target_grid)):
-        band = torch.as_tensor(target_grid.gpt2band, dtype=torch.long,
-                               device=arr.device)
+        with trace.wait("increment.gpt2band"):
+            band = torch.as_tensor(target_grid.gpt2band, dtype=torch.long,
+                                   device=arr.device)
         return arr.index_select(-1, band)
     raise ValueError(
         f"increment: incompatible spectral discretizations ({arr.shape[-1]} "
         f"vs target ngpt={target_grid.ngpt} / nband={target_grid.nband})")
 
 
+@trace.spanned("optics.increment")
 def increment(target: OpticalProps, other: OpticalProps) -> OpticalProps:
     """``target += other`` in optical-property space; returns new props.
     Every pairing of {1scl, 2str, nstr}, on the same g-point grid or by
@@ -201,17 +207,24 @@ def to_1scl(props: OpticalProps) -> OpticalProps1scl:
                             grid=props.grid, top_at_1=props.top_at_1)
 
 
+@trace.spanned("check.props")
 def validate(props: OpticalProps) -> None:
     """Value checks of the reference ``validate()``: tau >= 0 and finite,
     ssa in [0, 1], g in [-1, 1]. Raises ValueError; each check reads one
     boolean back from the device."""
     tau = props.tau
-    if bool(((tau < 0.0) | ~torch.isfinite(tau)).any()):
+    with trace.wait("props.tau"):
+        bad = bool(((tau < 0.0) | ~torch.isfinite(tau)).any())
+    if bad:
         raise ValueError("validate: tau values out of range "
                          "(negative or non-finite)")
     if isinstance(props, (OpticalProps2str, OpticalPropsNstr)):
-        if bool(((props.ssa < 0.0) | (props.ssa > 1.0)).any()):
+        with trace.wait("props.ssa"):
+            bad = bool(((props.ssa < 0.0) | (props.ssa > 1.0)).any())
+        if bad:
             raise ValueError("validate: ssa values out of range [0,1]")
     if isinstance(props, OpticalProps2str):
-        if bool(((props.g < -1.0) | (props.g > 1.0)).any()):
+        with trace.wait("props.g"):
+            bad = bool(((props.g < -1.0) | (props.g > 1.0)).any())
+        if bad:
             raise ValueError("validate: g values out of range [-1,1]")

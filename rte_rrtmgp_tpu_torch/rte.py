@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from . import trace
 from .config import get_config
 from .fluxes import Fluxes, sum_byband
 from .optical_props import (OpticalProps, OpticalProps1scl, OpticalProps2str,
@@ -58,6 +59,7 @@ def _expand_bc(arr, grid, ncol, what, like):
                      f"expected nband={grid.nband} or ngpt={grid.ngpt}")
 
 
+@trace.spanned("rte.lw")
 def rte_lw(optical_props: OpticalProps, sources: SourcesLW, sfc_emis, *,
            inc_flux=None, n_gauss_angles: int = 1, use_2stream: bool = False,
            lw_ds=None, compute_jacobian: bool = False,
@@ -135,6 +137,7 @@ def rte_lw(optical_props: OpticalProps, sources: SourcesLW, sfc_emis, *,
                   flux_up_jac=res.flux_up_jac)
 
 
+@trace.spanned("rte.sw")
 def rte_sw(optical_props: OpticalProps, mu0, inc_flux, sfc_alb_dir,
            sfc_alb_dif, *, inc_flux_dif=None, spectral: bool = False,
            byband: bool = False) -> Fluxes:
@@ -159,7 +162,9 @@ def rte_sw(optical_props: OpticalProps, mu0, inc_flux, sfc_alb_dir,
     mu0 = mu0.contiguous()
     if get_config().check_values:
         validate_props(optical_props)
-        if bool(((mu0 < -1.0) | (mu0 > 1.0)).any()):
+        with trace.span("check.mu0"), trace.wait("mu0"):
+            bad = bool(((mu0 < -1.0) | (mu0 > 1.0)).any())
+        if bad:
             raise ValueError("rte_sw: one or more mu0 < -1 or > 1")
 
     inc = _expand_bc(inc_flux, grid, ncol, "inc_flux", tau)
