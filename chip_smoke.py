@@ -163,6 +163,8 @@ OPS_PFRAC_CORNER = 2
 OPS_MINOR = 16             # per (cell, g-point) a minor gas covers
 OPS_RAYLEIGH = 18          # 2-D lerp (14), x scale, combine (3)
 OPS_RAYLEIGH_SPLIT = 16    # 2-D lerp (14), x scale, 0 + it
+OPS_SCALE = 5              # per (window, cell): density, fraction, mask
+OPS_SCALE_BWD = 12         # per (window, cell): the scaling's adjoint
 OPS_CLOUD = 27             # per (cell, band): 2 phases x (3 lerps + 3)
 OPS_LW_LAYER = 24          # per (column, layer, g-point): source, sweeps
 OPS_LW_RESCALE = 14        # Tang terms and the second down sweep
@@ -203,6 +205,10 @@ TOL_ADJ = 5e-4
 # held to the float64 twin instead, no further than this many times the
 # float32 twin is (see check_kernel).
 TOL_COND = 2.0
+# the minor-scaling adjoint against the float64 twin's autograd: each
+# cotangent within this share of its largest value (float32 rounding of
+# a few products per window and cell)
+TOL_SCALE_ADJ = 1e-5
 
 
 def log(msg):
@@ -229,6 +235,36 @@ def cuda_ms(fn, reps=REPS, burst_ms=10.0):
     fn()                                                  # warm-up
     n = max(1, min(1000, int(burst_ms / burst(1))))
     return statistics.median(burst(n) for _ in range(reps))
+
+
+def queued_ms(fn, n=100, reps=REPS):
+    """Median over ``reps`` runs of fn's device time per call, in ms, for
+    a kernel the card runs faster than the host launches it (where
+    :func:`cuda_ms` times the host): the card first spins
+    (``torch.cuda._sleep``, twice the host's time to queue the calls at
+    2 GHz) while the host queues ``n`` calls, so they run back to back
+    and the events around them time the card alone."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    cycles = int(2.0 * (time.perf_counter() - t0) * 2e9)
+
+    def once():
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / n
+
+    return statistics.median(once() for _ in range(reps))
 
 
 def as_tuple(x):
@@ -266,9 +302,10 @@ def bound(moved_bytes, ops):
 
 
 def check_kernel(name, kernel, plain, args, tol, source, replaces, work,
-                 fresh=lambda a: a, ill_conditioned=False):
+                 fresh=lambda a: a, ill_conditioned=False, timer=None):
     """Kernel vs twin on fresh copies of the inputs (``fresh`` clones what
-    a kernel updates in place), then both timed. ``work`` is (bytes the
+    a kernel updates in place), then both timed, the kernel by ``timer``
+    (default :func:`cuda_ms`). ``work`` is (bytes the
     function must move, its operations). With ``ill_conditioned``, a
     kernel beyond ``tol`` of its float32 twin passes when it is no further
     than TOL_COND times the float32 twin from the twin run in float64
@@ -300,7 +337,7 @@ def check_kernel(name, kernel, plain, args, tol, source, replaces, work,
         agrees = k64 <= TOL_COND * t64
         del ref64
     del got, ref
-    ms = cuda_ms(lambda: kernel(args))
+    ms = (timer or cuda_ms)(lambda: kernel(args))
     plain_ms = cuda_ms(lambda: plain(args))
     b = bound(*work)
     log(f"kernel {name}: max_abs_err {err:.3e} (limit {tol * scale:.3e}), "
@@ -385,6 +422,89 @@ def fused_rows(prob, dev, variants):
                 src == "fused_sw")]["replaces"],
             (nbytes(tuple(x)) + nout * nlev * ncol * 4,
              ops_lw if src == "fused_lw" else ops_sw)))
+    return rows
+
+
+def scale_rows(prob, variants):
+    """Phase 3, the minor-gas scaling rows of every window in one launch
+    (csrc/minor_scale.cu; no TPU kernel: the JAX package forms them in
+    plain JAX, rte_rrtmgp_tpu/ops/gas_optics.py:297-309) and their
+    adjoint, LW and SW, on the layer-major views the fused gas optics hand
+    over (play.T, col_gas.transpose(1, 2)): the rows bit for bit the
+    twin's (the per-window loop), the adjoint's cotangents within
+    TOL_SCALE_ADJ of the float64 twin's autograd on seeded cotangents and
+    the same bits twice; each timed beside its twin (the loop; the
+    float32 twin's autograd), bound by the bytes it reads and writes; the
+    kernels by :func:`queued_ms` (the card runs them faster than the host
+    launches them), the twins by :func:`cuda_ms` (the host's pace). The
+    LW call's rows are the kernels line's; the SW call's forward goes into
+    ``variants``, its adjoint is logged."""
+    import torch
+    from rte_rrtmgp_tpu_torch.ops.kernels.minor_scale import (
+        minor_scale, minor_scale_bwd, minor_scale_plain)
+    inp = prob.inputs
+    rows = []
+    for band, gas in (("lw", prob.gas_lw), ("sw", prob.gas_sw)):
+        cg, _, h2o = gas.col_gas(inp.play, inp.plev, inp.gas_concs)
+        x = (inp.play.T, inp.tlay.T, cg.transpose(1, 2))
+        tropo = gas.interp(*x).tropo
+        args = (tropo, *x, h2o, gas.minor_windows, gas.minor_scale_table)
+        nwin, ncell = len(gas.minor_windows), tropo.numel()
+        cells = nbytes(*args[:4])
+        fwd = check_kernel(
+            f"minor_scale {band}", lambda a: minor_scale(*a),
+            lambda a: minor_scale_plain(*a), args, 0.0,
+            "rte_rrtmgp_tpu_torch/csrc/minor_scale.cu",
+            "none (plain JAX, rte_rrtmgp_tpu/ops/gas_optics.py:297-309)",
+            (cells + nwin * ncell * 4, OPS_SCALE * nwin * ncell),
+            timer=queued_ms)
+        if not torch.equal(minor_scale(*args), minor_scale_plain(*args)):
+            raise SystemExit(f"minor_scale {band}: rows not bit for bit "
+                             "the twin's")
+        gen = torch.Generator(device=tropo.device).manual_seed(9)
+        g = torch.randn((nwin,) + tuple(tropo.shape), generator=gen,
+                        device=tropo.device)
+        got = minor_scale_bwd(*args, g)
+        if not all(map(torch.equal, got, minor_scale_bwd(*args, g))):
+            raise SystemExit(f"minor_scale_bwd {band}: two runs differ")
+
+        def twin_grad(dtype):
+            xs = [t.detach().to(dtype).requires_grad_() for t in x]
+            out = minor_scale_plain(tropo, *xs, h2o, gas.minor_windows)
+            grads = torch.autograd.grad(out, xs, g.to(dtype))
+            return grads[2], grads[0], grads[1]
+        ref = twin_grad(torch.float64)
+        errs = []
+        for name, a, r in zip(("col_gas", "play", "tlay"), got, ref):
+            scale = float(r.abs().max())
+            errs.append(float((a.double() - r).abs().max()))
+            log(f"kernel minor_scale_bwd {band}: {name} cotangent max_abs_err"
+                f" {errs[-1]:.3e} against the float64 twin (limit "
+                f"{TOL_SCALE_ADJ * scale:.3e})")
+            if not (bool(torch.isfinite(a).all())
+                    and errs[-1] <= TOL_SCALE_ADJ * scale):
+                raise SystemExit(f"minor_scale_bwd {band}: {name} cotangent "
+                                 "disagrees with the twin")
+        del ref
+        ms = queued_ms(lambda: minor_scale_bwd(*args, g))
+        plain_ms = cuda_ms(lambda: twin_grad(torch.float32), reps=3)
+        b = bound(cells + nbytes(g) + nbytes(got),
+                  OPS_SCALE_BWD * nwin * ncell)
+        log(f"kernel minor_scale_bwd {band}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms (the twin's autograd), bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+            f"({b['bytes'] / 1e9:.3f} GB, {b['ops'] / 1e9:.3f} Gop)")
+        fwd["name"] = "minor_scale" if band == "lw" else "minor_scale sw"
+        (rows if band == "lw" else variants).append(fwd)
+        if band == "lw":
+            rows.append(dict(
+                name="minor_scale_bwd", route="cuda",
+                source="rte_rrtmgp_tpu_torch/csrc/minor_scale.cu",
+                replaces=fwd["replaces"], max_abs_err=max(errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], library_ms=None))
+        del got, g, args
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -874,7 +994,7 @@ def rfmip_paths(rf, dev, counters, card):
     ncol = data.ncol
     host, launches = counted(
         "rfmip", counters, lambda: rfmip_lw_sw(data, g_lw, g_sw),
-        {"fused_lw": 1, "fused_sw": 1})
+        {"fused_lw": 1, "fused_sw": 1, "minor_scale": 2})
     out = rfmip_lw_sw(data, g_lw, g_sw, device_out=True)
     if not np.array_equal(out.cpu().numpy(), np.stack(host)):
         raise SystemExit("rfmip: the host readback differs from the "
@@ -897,7 +1017,7 @@ def rfmip_paths(rf, dev, counters, card):
         "rfmip generic route", counters,
         lambda: lw(*rfmip._lw_args(x)) + sw(*rfmip._sw_args(x)),
         {"gas_major": 2, "gas_minor": 4, "gas_rayleigh": 1, "solver_lw": 1,
-         "solver_sw": 1})
+         "solver_sw": 1, "minor_scale": 2})
     agree("rfmip generic route", gen, tuple(out))
     blk = rfmip_lw_sw(data, g_lw, g_sw, block_size=RFMIP["nsite"])
     diff = max(float(np.abs(a - b).max()) for a, b in zip(blk, host))
@@ -953,7 +1073,8 @@ def podscale_paths(dev, counters, card):
             f"podscale {what}", counters,
             lambda: _podscale(total, MAIN["nlay"], stream=stream,
                               keep=stream, **kw),
-            {"cloud_props": 2 * n, "fused_lw": n, "fused_sw": n})
+            {"cloud_props": 2 * n, "fused_lw": n, "fused_sw": n,
+             "minor_scale": 2 * n})
         log(f"podscale {what} ({card}): {r['n_chunks']} chunks of "
             f"{r['chunk_columns']} x {MAIN['nlay']}, {r['total_columns']:,} "
             f"columns in {r['seconds']:.3f} s, {r['cols_per_s']:.1f} "
@@ -1845,15 +1966,16 @@ def agree(what, out, ref):
 
 
 def run_path(name, step, inputs, counters, must, solar, once=(),
-             nonneg=True):
+             nonneg=True, exact=None):
     """Drive one path with the counters set to 0 just before it; check
     the launches (each in ``must`` at least once, those in ``once``
-    exactly once, no other), finite (and with ``nonneg`` non-negative)
-    outputs and, with ``solar``, TOA SW; time it. Returns (outputs,
-    launches)."""
+    exactly once, those in ``exact`` (name -> launches) so many times, no
+    other), finite (and with ``nonneg`` non-negative) outputs and, with
+    ``solar``, TOA SW; time it. Returns (outputs, launches)."""
     import torch
     out, launches = counted(f"{name} path", counters, lambda: step(inputs),
-                            {k: 1 for k in once}, must)
+                            dict({k: 1 for k in once}, **(exact or {})),
+                            must)
     ncol, nlev = inputs.play.shape[0], inputs.play.shape[1] + 1
     for o in out:
         if tuple(o.shape[:2]) != (ncol, nlev):
@@ -1885,7 +2007,8 @@ HAND_KERNELS = ("cloud_props_kernel", "fused_lw_kernel", "fused_sw_kernel",
                 "solver_lw_kernel", "solver_lw_2str_kernel",
                 "solver_sw_kernel", "fused_lw_bwd_kernel",
                 "fused_sw_bwd_kernel", "solver_lw_bwd_kernel",
-                "solver_sw_bwd_kernel")
+                "solver_sw_bwd_kernel", "minor_scale_kernel",
+                "minor_scale_bwd_kernel")
 
 
 def profile_path(name, step, inputs, n=3, top=8):
@@ -2014,6 +2137,8 @@ def main():
     from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import gas_major
     from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (gas_minor,
                                                             gas_rayleigh)
+    from rte_rrtmgp_tpu_torch.ops.kernels.minor_scale import (
+        minor_scale, minor_scale_bwd)
     from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import lw_noscat
     from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_2str import lw_2stream
     from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_bwd import lw_noscat_bwd
@@ -2047,7 +2172,8 @@ def main():
     prob = build_allsky(**MAIN, device=dev, use_aerosols=True)
     nonbanded = build_allsky(**NONBANDED, device=dev, use_aerosols=True)
     variants = []
-    rows = (fused_rows(prob, dev, variants) + api_rows(prob, dev, variants)
+    rows = (fused_rows(prob, dev, variants) + scale_rows(prob, variants)
+            + api_rows(prob, dev, variants)
             + lw2_rows(prob, dev, variants) + lanes_rows(prob, nonbanded))
     torch.cuda.empty_cache()
     rows += adjoint_rows(prob, dev, variants)
@@ -2106,25 +2232,32 @@ def main():
                 "solver_lw_2str": lw_2stream,
                 "fused_lw_bwd": lw_fused_bwd, "fused_sw_bwd": sw_fused_bwd,
                 "solver_lw_bwd": lw_noscat_bwd,
-                "solver_sw_bwd": sw_2stream_bwd}
+                "solver_sw_bwd": sw_2stream_bwd,
+                "minor_scale": minor_scale,
+                "minor_scale_bwd": minor_scale_bwd}
     gathers = ("gas_major", "gas_minor", "gas_rayleigh")
     launched = {
-        "fused": ("cloud_props", "fused_lw", "fused_sw"),
+        "fused": ("cloud_props", "fused_lw", "fused_sw", "minor_scale"),
         "public API": ("cloud_props",) + gathers + ("solver_lw",
-                                                    "solver_sw"),
+                                                    "solver_sw",
+                                                    "minor_scale"),
         "staged": ("cloud_props",) + gathers + ("solver_lw_pfrac",
-                                                "solver_sw_combined"),
+                                                "solver_sw_combined",
+                                                "minor_scale"),
         "staged non-banded": ("cloud_props",) + gathers + (
-            "solver_lw_lanes", "solver_sw_lanes"),
+            "solver_lw_lanes", "solver_sw_lanes", "minor_scale"),
         "two-stream": ("cloud_props", "gas_major", "gas_minor",
-                       "solver_lw_2str")}
+                       "solver_lw_2str", "minor_scale")}
+    # the scaling rows: one launch per gas-optics call (LW and SW; the
+    # two-stream path's LW alone)
+    scale_calls = {"two-stream": 1}
 
     def drive(name, kind, step, inputs, solar, clouds=True, once=(),
               nonneg=True):
         must = tuple(k for k in launched[kind]
                      if clouds or k != "cloud_props")
         return run_path(name, step, inputs, counters, must, solar, once,
-                        nonneg)
+                        nonneg, {"minor_scale": scale_calls.get(kind, 2)})
 
     step, inputs = build_allsky_step(**MAIN, device=dev)
     fused_out, path_launches = drive("fused", "fused", step, inputs, solar)
@@ -2201,11 +2334,13 @@ def main():
     # path once per step (cloud optics once per band set), each backward
     # kernel once
     fused_step = {"fused_lw": 1, "fused_sw": 1, "fused_lw_bwd": 1,
-                  "fused_sw_bwd": 1, "cloud_props": 2}
+                  "fused_sw_bwd": 1, "cloud_props": 2, "minor_scale": 2,
+                  "minor_scale_bwd": 2}
     step, _ = build_allsky_step(**MAIN, device=dev)
     got = training_steps("fused", step, inputs, counters, fused_step, ())
     peak_memory("fused training step", lambda: train_loss(step, inputs))
-    launches.update({k: got[k] for k in ("fused_lw_bwd", "fused_sw_bwd")})
+    launches.update({k: got[k] for k in ("fused_lw_bwd", "fused_sw_bwd",
+                                         "minor_scale_bwd")})
     profile_path("fused training step", lambda i: train_loss(step, i),
                  inputs)
     step, _ = build_allsky_step(**MAIN, device=dev, use_aerosols=True)
@@ -2213,7 +2348,8 @@ def main():
     got = training_steps(
         "public API", step_fn(prob, "api"), inputs, counters,
         {"solver_lw_bwd": 1, "solver_sw_bwd": 1, "solver_lw": 1,
-         "solver_sw": 1, "cloud_props": 2},
+         "solver_sw": 1, "cloud_props": 2, "minor_scale": 2,
+         "minor_scale_bwd": 2},
         ("gas_major", "gas_minor", "gas_rayleigh"))
     launches.update({k: got[k] for k in ("solver_lw_bwd", "solver_sw_bwd")})
     del step

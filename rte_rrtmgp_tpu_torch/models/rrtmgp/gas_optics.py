@@ -29,14 +29,16 @@ from ... import constants, trace
 from ...gas_concs import GasConcs
 from ...optical_props import (OpticalProps, OpticalProps1scl,
                               OpticalProps2str)
-from ...ops.gas_optics import (InterpCoeffs, interpolation, minor_scaling,
-                               planck_bands_lanes, planck_sources, tau_minor)
+from ...ops.gas_optics import (InterpCoeffs, interpolation,
+                               planck_bands_lanes, planck_sources, tau_minor,
+                               window_rows)
 from ...ops.kernels.autodiff import with_twin_grad
 from ...ops.kernels.fused_lw import (LWFusedInputs, _split_minors,
                                      interleave_kmajor_pfrac, lw_fused)
 from ...ops.kernels.fused_sw import SWFusedInputs, sw_fused
 from ...ops.kernels.gas_major import gas_major, gas_major_plain
 from ...ops.kernels.gas_minor import gas_minor, gas_rayleigh, rayleigh_combine
+from ...ops.kernels.minor_scale import minor_scale
 from ...sources import SourcesLW
 from ..base import infer_top_at_1
 from .kdist import KDist
@@ -126,6 +128,13 @@ class GasOpticsRRTMGP:
         self.minors = tuple(minors)
         self.minor_meta = torch.as_tensor(self.minors, dtype=i32,
                                           device=dev).reshape(-1, 5)
+        # the minor windows' scaling rows, lower first (ops/kernels/
+        # minor_scale: the host rows for the twin, their device table for
+        # the kernel)
+        self.minor_windows = (window_rows(kdist.minor_lower, True)
+                              + window_rows(kdist.minor_upper, False))
+        self.minor_scale_table = torch.as_tensor(
+            self.minor_windows, dtype=i32, device=dev).reshape(-1, 5)
         # the LW gather table of the fused LW kernel (LWFusedInputs.
         # kmajor_pfrac) and of the major-gas gather
         self.kmajor_pfrac = (
@@ -181,6 +190,13 @@ class GasOpticsRRTMGP:
         col_gas = torch.stack([col_dry] + [v * col_dry for v in vmrs])
         return col_gas, col_dry, idx_h2o
 
+    @trace.spanned("gas.minor_scaling")
+    def _minor_scale(self, co, play, tlay, col_gas, idx_h2o: int):
+        """The scaling rows of every minor window, lower first ((nminor,
+        *S), one kernel launch on CUDA; ``ops/kernels/minor_scale``)."""
+        return minor_scale(co.tropo, play, tlay, col_gas, idx_h2o,
+                           self.minor_windows, self.minor_scale_table)
+
     def interp(self, play, tlay, col_gas) -> InterpCoeffs:
         kd = self.kdist
         return interpolation(
@@ -215,14 +231,13 @@ class GasOpticsRRTMGP:
                             self.gpoint_flavor, self.kmajor_pfrac)
         nlo = len(kd.minor_lower)
         minors_lo, minors_up = _split_minors(self.minors)
-        kw = dict(play=play, tlay=tlay, col_gas=col_gas, idx_h2o=idx_h2o)
-        for lower, mset, ktab, minors, meta in (
-                (True, kd.minor_lower, kd.kminor_lower, minors_lo,
-                 self.minor_meta[:nlo]),
-                (False, kd.minor_upper, kd.kminor_upper, minors_up,
-                 self.minor_meta[nlo:])):
+        msc = self._minor_scale(co, play, tlay, col_gas, idx_h2o)
+        for ktab, minors, meta, scaling in (
+                (kd.kminor_lower, minors_lo, self.minor_meta[:nlo],
+                 msc[:nlo]),
+                (kd.kminor_upper, minors_up, self.minor_meta[nlo:],
+                 msc[nlo:])):
             if minors:
-                scaling = minor_scaling(co, mset, lower=lower, **kw)
                 tau = _minor(tau, co, ktab, minors, meta, scaling)
         if kd.krayl is None:
             second = (torch.zeros_like(tau) if scattering or split_rayleigh
@@ -366,18 +381,14 @@ class GasOpticsRRTMGP:
     def _descriptors(self, play, plev, tlay, gas_concs, col_dry=None):
         """Layer-major interpolation state and minor scaling rows."""
         self._check_key_species_present(gas_concs)
-        kd = self.kdist
         col_gas, col_dry, idx_h2o = self.col_gas(play, plev, gas_concs,
                                                  col_dry)
         play_c, tlay_c = play.T, tlay.T
         col_gas_c = col_gas.transpose(1, 2)
         co = self.interp(play_c, tlay_c, col_gas_c)
         co = InterpCoeffs(*(t.contiguous() for t in co))
-        kw = dict(play=play_c, tlay=tlay_c, col_gas=col_gas_c,
-                  idx_h2o=idx_h2o)
-        msc = torch.cat([minor_scaling(co, kd.minor_lower, lower=True, **kw),
-                         minor_scaling(co, kd.minor_upper, lower=False, **kw)])
-        return co, msc.contiguous(), col_gas_c, col_dry.T, idx_h2o
+        msc = self._minor_scale(co, play_c, tlay_c, col_gas_c, idx_h2o)
+        return co, msc, col_gas_c, col_dry.T, idx_h2o
 
     def _check_byband(self, byband: bool) -> None:
         """The fused solves' by-band output needs uniform band widths (the

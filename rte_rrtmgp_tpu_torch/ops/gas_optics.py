@@ -25,8 +25,9 @@ import torch
 from .. import trace
 
 __all__ = ["InterpCoeffs", "interpolation", "tau_major", "tau_minor",
-           "minor_scaling", "tau_rayleigh", "interp1d_table", "planck_sources",
-           "planck_bands_lanes", "level_pfrac"]
+           "minor_scaling", "window_rows", "scaling_rows", "tau_rayleigh",
+           "interp1d_table", "planck_sources", "planck_bands_lanes",
+           "level_pfrac"]
 
 
 class InterpCoeffs(NamedTuple):
@@ -145,29 +146,47 @@ def tau_major(co: InterpCoeffs, kmajor, planck_frac, gpoint_flavor):
     return tau, pf
 
 
-@trace.spanned("gas.minor_scaling")
-def minor_scaling(co: InterpCoeffs, mset, *, lower: bool, play, tlay,
-                  col_gas, idx_h2o: int):
-    """Per-minor-gas scaling rows with the atmosphere mask applied
-    (reference gas_optical_depths_minor :461-480): (nminor, *S)."""
+def window_rows(mset, lower: bool) -> tuple:
+    """One (lower, idx_minor, scales_with_density, idx_minor_scaling,
+    scale_by_complement) row of ints per minor window of ``mset``, the
+    atmosphere's: what :func:`scaling_rows` reads of a window."""
+    return tuple((int(lower), int(mset.idx_minor[m]),
+                  int(bool(mset.scales_with_density[m])),
+                  int(mset.idx_minor_scaling[m]),
+                  int(bool(mset.scale_by_complement[m])))
+                 for m in range(len(mset.kminor_start)))
+
+
+def scaling_rows(tropo, play, tlay, col_gas, idx_h2o: int, windows):
+    """The scaling row of each window of :func:`window_rows` (either
+    atmosphere's, in any order) with its atmosphere mask applied
+    (reference gas_optical_depths_minor :461-480): (len(windows), *S)."""
     dtype = play.dtype
-    maskf = (co.tropo if lower else ~co.tropo).to(dtype)
+    masks = {}
     inv_col_dry = 1.0 / col_gas[0]
     dry_fact = 1.0 / (1.0 + col_gas[idx_h2o] * inv_col_dry)
     rows = []
-    for m in range(len(mset.kminor_start)):
-        scaling = col_gas[int(mset.idx_minor[m])]
-        if mset.scales_with_density[m]:
+    for lower, idx, density, isc, complement in windows:
+        scaling = col_gas[idx]
+        if density:
             scaling = scaling * (0.01 * play / tlay)
-            isc = int(mset.idx_minor_scaling[m])
             if isc > 0:
                 frac = col_gas[isc] * inv_col_dry * dry_fact
-                scaling = scaling * ((1.0 - frac)
-                                     if mset.scale_by_complement[m] else frac)
-        rows.append(scaling * maskf)
+                scaling = scaling * ((1.0 - frac) if complement else frac)
+        if lower not in masks:
+            masks[lower] = (tropo if lower else ~tropo).to(dtype)
+        rows.append(scaling * masks[lower])
     if not rows:
         return play.new_zeros((0,) + tuple(play.shape))
     return torch.stack(rows)
+
+
+def minor_scaling(co: InterpCoeffs, mset, *, lower: bool, play, tlay,
+                  col_gas, idx_h2o: int):
+    """Per-minor-gas scaling rows of one atmosphere with its mask applied
+    (reference gas_optical_depths_minor :461-480): (nminor, *S)."""
+    return scaling_rows(co.tropo, play, tlay, col_gas, idx_h2o,
+                        window_rows(mset, lower))
 
 
 def tau_minor(tau, co: InterpCoeffs, kminor, minors, scaling):

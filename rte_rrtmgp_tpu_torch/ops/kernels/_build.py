@@ -28,7 +28,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("cloud_props", "fused_lw", "fused_sw", "gas_major", "gas_minor",
            "solver_lw", "solver_lw_2str", "solver_sw", "fused_lw_bwd",
-           "fused_sw_bwd", "solver_lw_bwd", "solver_sw_bwd")
+           "fused_sw_bwd", "solver_lw_bwd", "solver_sw_bwd", "minor_scale")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

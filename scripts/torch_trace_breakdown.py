@@ -58,6 +58,8 @@ KERNEL_SPANS = {
     "solver_lw_bwd_kernel": "backward.lw_noscat",
     "solver_sw_kernel": "kernel.sw_2stream",
     "solver_sw_bwd_kernel": "backward.sw_2stream",
+    "minor_scale_kernel": "kernel.minor_scale",
+    "minor_scale_bwd_kernel": "backward.minor_scale",
 }
 # the entry points' spans, the program's and the benchmark's
 ENTRIES = ("allsky.lw", "allsky.sw", "allsky_api.lw", "allsky_api.sw",

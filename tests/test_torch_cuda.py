@@ -35,7 +35,14 @@ likewise on chip, its three launchers in every variant (as the public
 path calls it, by band, rescaled with the Jacobian and a secant field;
 the lane layout plain and rescaled; the in-kernel Planck sources with and
 without cloud), in the tallest column each variant holds (one layer more
-raises). The minor-gas gather in place and out of place (the public
+raises). The minor-gas scaling rows of every window in one launch, at
+the paths' shapes (all-sky 4096 x 72 with the flagship LW and SW
+k-distributions, RFMIP's 1800 x 60) in both layouts (the fused gas
+optics' transposed views read through their strides), bit for bit the
+twins' rows, and so the fused fluxes bit for bit those on the twins'
+rows; their adjoint within 1e-5 of the float64 twin's autograd, the same
+bits twice, once per gas-optics call of a gradient step. The minor-gas
+gather in place and out of place (the public
 paths' call), on both atmospheres and with a scaling row of zeros; the
 major-gas gather from the interleaved LW table at the paths' widths; and
 the rewritten kernels (rows 2, 4, 5, 7, 10, 11) with the kernels that
@@ -55,6 +62,7 @@ torch.set_num_threads(1)
 from rte_rrtmgp_tpu_torch.drivers.allsky import (  # noqa: E402
     allsky_api_lw, allsky_api_sw, allsky_lw_inputs, allsky_staged_lw,
     allsky_staged_sw, allsky_sw_inputs, build_allsky, build_allsky_step)
+from rte_rrtmgp_tpu_torch.drivers.rfmip import synthetic_rfmip  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.gas_optics import minor_scaling  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels.cloud_props import (  # noqa: E402
     cloud_props, cloud_props_plain)
@@ -66,6 +74,8 @@ from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import (  # noqa: E402
     gas_major, gas_major_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (  # noqa: E402
     gas_minor, gas_minor_plain, gas_rayleigh, gas_rayleigh_plain)
+from rte_rrtmgp_tpu_torch.ops.kernels.minor_scale import (  # noqa: E402
+    minor_scale, minor_scale_bwd, minor_scale_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.onchip import (  # noqa: E402
     onchip_geometry)
 from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import (  # noqa: E402
@@ -225,6 +235,142 @@ def test_gas_rayleigh_matches_twin(cuda, scattering):
                 if x is not None)
     assert len(got) == len(ref) == (2 if scattering else 1)
     _close(got, ref, 1e-6)
+
+
+# the minor-gas scaling rows at the paths' shapes: the all-sky problem
+# (4096 x 72, the flagship LW and SW k-distributions) and RFMIP's cells
+# (100 sites x 18 experiments x 60 layers) through the same gas optics
+FLAGSHIP = (4096, 72, 256, 16, 224, 14, 14, 59)
+
+
+@pytest.fixture(scope="module")
+def scale_cases():
+    """(label, gas optics, tropo, play, tlay, col_gas, idx_h2o) for each
+    shape, k-distribution and layout: the public (ncol, nlay) cells and
+    the fused gas optics' layer-major views (play.T,
+    col_gas.transpose(1, 2)), as the two routes hand them over."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    p = build_allsky(*FLAGSHIP, device=dev)
+    rf = synthetic_rfmip(nsite=100, nlay=60, nexp=18).device_inputs(
+        dev, torch.float32)
+    cases = []
+    for shape, (play, plev, tlay, concs) in (
+            ("allsky", (p.inputs.play, p.inputs.plev, p.inputs.tlay,
+                        p.inputs.gas_concs)),
+            ("rfmip", (rf["play"], rf["plev"], rf["tlay"],
+                       rf["gas_concs"]))):
+        for band, gas in (("lw", p.gas_lw), ("sw", p.gas_sw)):
+            cg, _, h2o = gas.col_gas(play, plev, concs)
+            for layout in ("public", "fused"):
+                x = ((play, tlay, cg) if layout == "public"
+                     else (play.T, tlay.T, cg.transpose(1, 2)))
+                tropo = gas.interp(*x).tropo
+                cases.append((f"{shape} {band} {layout}", gas, tropo, *x,
+                              h2o))
+    return cases
+
+
+def _scale_twins(gas, tropo, play, tlay, cg, h2o):
+    """The two atmospheres' minor_scaling twins, concatenated."""
+    kd = gas.kdist
+    co = gas.interp(play, tlay, cg)._replace(tropo=tropo)
+    kw = dict(play=play, tlay=tlay, col_gas=cg, idx_h2o=h2o)
+    return torch.cat([minor_scaling(co, kd.minor_lower, lower=True, **kw),
+                      minor_scaling(co, kd.minor_upper, lower=False, **kw)])
+
+
+def test_minor_scale_matches_twins_bit_for_bit(scale_cases):
+    for label, gas, tropo, play, tlay, cg, h2o in scale_cases:
+        n0 = minor_scale.launches
+        got = minor_scale(tropo, play, tlay, cg, h2o, gas.minor_windows,
+                          gas.minor_scale_table)
+        assert minor_scale.launches == n0 + 1, label
+        ref = _scale_twins(gas, tropo, play, tlay, cg, h2o)
+        assert got.is_contiguous() and got.shape == ref.shape, label
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), (
+            label, float((got - ref).abs().max()))
+
+
+def test_minor_scale_float64_matches_twin(cuda):
+    p = build_allsky(*DIMS["g24"], device=cuda, dtype=torch.float64)
+    inp = p.inputs
+    for gas in (p.gas_lw, p.gas_sw):
+        cg, _, h2o = gas.col_gas(inp.play, inp.plev, inp.gas_concs)
+        x = (inp.play.T, inp.tlay.T, cg.transpose(1, 2))
+        tropo = gas.interp(*x).tropo
+        got = minor_scale(tropo, *x, h2o, gas.minor_windows,
+                          gas.minor_scale_table)
+        assert torch.equal(got, _scale_twins(gas, tropo, *x, h2o))
+
+
+def test_minor_scale_adjoint_matches_f64_twin(scale_cases):
+    """The adjoint's col_gas, play and tlay cotangents against autograd of
+    the twin in float64, on seeded cotangents: within 1e-5 of each
+    gradient's largest value; the same bits twice."""
+    for i, (label, gas, tropo, play, tlay, cg, h2o) in enumerate(
+            scale_cases):
+        gen = torch.Generator(device=play.device).manual_seed(20 + i)
+        g = torch.randn((len(gas.minor_windows),) + tuple(play.shape),
+                        generator=gen, device=play.device)
+        args = (tropo, play, tlay, cg, h2o, gas.minor_windows,
+                gas.minor_scale_table, g)
+        n0 = minor_scale_bwd.launches
+        got = minor_scale_bwd(*args)
+        again = minor_scale_bwd(*args)
+        assert minor_scale_bwd.launches == n0 + 2, label
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), label
+        assert got[0].stride() == cg.stride(), label
+        x = [t.detach().double().requires_grad_() for t in (cg, play, tlay)]
+        rows = minor_scale_plain(tropo, x[1], x[2], x[0], h2o,
+                                 gas.minor_windows)
+        want = torch.autograd.grad(rows, x, g.double())
+        del rows, x
+        for name, a, b in zip(("col_gas", "play", "tlay"), got, want):
+            scale = float(b.abs().max())
+            err = float((a.double() - b).abs().max())
+            assert bool(torch.isfinite(a).all()) and err <= 1e-5 * scale, (
+                label, name, err / scale)
+        del got, again, want
+    torch.cuda.empty_cache()
+
+
+def test_fused_fluxes_on_kernel_rows_equal_twin_rows(cuda):
+    """The fused LW and SW kernels on the rows from the kernel and on the
+    twins' rows: the same fluxes, bit for bit (the rows are)."""
+    p = build_allsky(*FLAGSHIP, device=cuda)
+    inp = p.inputs
+    for inputs, gas, fused in (
+            (allsky_lw_inputs(inp, p.gas_lw, cloud_optics=p.cld_lw),
+             p.gas_lw, lw_fused),
+            (allsky_sw_inputs(inp, p.gas_sw, cloud_optics=p.cld_sw),
+             p.gas_sw, sw_fused)):
+        cg, _, h2o = gas.col_gas(inp.play, inp.plev, inp.gas_concs)
+        twin = _scale_twins(gas, inputs.co.tropo, inp.play.T, inp.tlay.T,
+                            cg.transpose(1, 2), h2o)
+        got = fused(inputs)
+        ref = fused(inputs._replace(minor_scale=twin.contiguous()))
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("path", ["fused", "api"])
+def test_gradient_step_launches_minor_scale_adjoint(cuda, path):
+    """The rows once per gas-optics call (LW and SW) forward and their
+    adjoint once per call backward: 2 and 2 a gradient step."""
+    if path == "api":
+        p = build_allsky(*DIMS["g32"], device=cuda)
+        step, inputs = _api_step(p), p.inputs
+    else:
+        step, inputs = build_allsky_step(*DIMS["g32"], device=cuda)
+    n0 = (minor_scale.launches, minor_scale_bwd.launches)
+    grads = _train_grads(step, inputs)
+    torch.cuda.synchronize()
+    assert (minor_scale.launches - n0[0],
+            minor_scale_bwd.launches - n0[1]) == (2, 2)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 @pytest.mark.parametrize("variant", ["plain", "rescale-jac-ds"])
