@@ -24,16 +24,19 @@ a row ``(name, request, parent, thread, t0_ns, t1_ns)``:
     ``torch.profiler`` trace through them.
 
 ``rec.counters`` holds ``waits`` (the calls of :func:`wait` inside the
-block) and ``launches.<kernel>``: how far each hand-written kernel
+block), ``launches.<kernel>``: how far each hand-written kernel
 wrapper's ``.launches`` count (``ops/kernels/*``) moved during the
-block, read at its start and end.
+block, read at its start and end, and what :func:`count` added (the
+whole-grid stream's ``stream.*`` counters).
 
 Span names follow the layers: ``allsky.lw`` and the other entry points,
 ``gas.*`` (the gas optics' input prep), ``check.*`` (value checks),
 ``cloud.optics``, ``optics.*``, ``sources.planck``, ``rte.lw``/``rte.sw``
-(the public front ends), ``kernel.<name>`` (the host's dispatch of one
-hand-written kernel), ``backward.<name>`` (its gradient, on autograd's
-thread) and ``wait.<site>``.
+(the public front ends), ``stream.*`` (the whole-grid stream's sweep,
+uploads, chunks, day gathers and readbacks, ``parallel/scaling.py``),
+``kernel.<name>`` (the host's dispatch of one hand-written kernel),
+``backward.<name>`` (its gradient, on autograd's thread) and
+``wait.<site>``.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ import threading
 import time
 from contextlib import contextmanager
 
-__all__ = ["span", "spanned", "wait", "collect", "Recorder"]
+__all__ = ["span", "spanned", "wait", "count", "collect", "Recorder"]
 
 _rec = None                   # the open collect() block's recorder
 _local = threading.local()    # .stack: the thread's open spans
@@ -123,6 +126,15 @@ def wait(site: str):
     with rec._lock:
         rec.counters["waits"] += 1
     return _Span(rec, "wait." + site)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to the counter ``name``; nothing while tracing is off."""
+    rec = _rec
+    if rec is None:
+        return
+    with rec._lock:
+        rec.counters[name] = rec.counters.get(name, 0) + n
 
 
 def _launch_counts() -> dict:

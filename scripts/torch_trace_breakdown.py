@@ -21,6 +21,12 @@ writes it to ``--out``):
   * the device's idle seconds, each gap labelled by the innermost program
     span the host was in when the device went idle (the benchmark's own
     span where none is open), beside the benchmark's labels;
+  * for the whole-grid cell, the stream's counters per sweep
+    (``stream.chunks``, ``stream.sw_columns``, ``stream.bytes_up``,
+    ``stream.bytes_down``) beside ``torch_bench/work/stream_copy.py``'s
+    bytes for the grids swept, and the trace's copies by the span that
+    launched them beside the copies the stream makes (its spans and its
+    wait are among the spans and waits above);
   * the clock check: the share of the hand-written kernels' CUDA runtime
     launch events that lie inside their ``kernel.<name>`` or
     ``backward.<name>`` span once the profiler's times are mapped through
@@ -63,9 +69,12 @@ KERNEL_SPANS = {
 }
 # the entry points' spans, the program's and the benchmark's
 ENTRIES = ("allsky.lw", "allsky.sw", "allsky_api.lw", "allsky_api.sw",
-           "rfmip.lw_sw")
+           "rfmip.lw_sw", "stream.sweep")
 BENCH_ENTRIES = ("allsky_step_lw", "allsky_step_sw", "allsky_api_lw",
-                 "allsky_api_sw", "rfmip_lw_sw")
+                 "allsky_api_sw", "rfmip_lw_sw", "ne30pg2_stream")
+# the whole-grid stream's counters (parallel/scaling.AllSkyStream)
+STREAM_COUNTERS = ("stream.chunks", "stream.sw_columns", "stream.bytes_up",
+                   "stream.bytes_down")
 
 
 def _kernel_of(name: str):
@@ -172,6 +181,56 @@ def profile_events(prof, want):
             runtime[e.correlation_id()] = (e.start_ns(), e.name())
     dev.sort()
     return dev, runtime
+
+
+def stream_copies(spec, entry, steps, counters, dev, runtime, timeline,
+                  to_perf) -> dict:
+    """The whole-grid stream's counters per sweep beside what
+    ``torch_bench/work/stream_copy.py`` gives for the grids the window
+    swept (step i on grid i mod K), and the trace's copies per sweep by
+    the span that launched them beside the copies the stream makes: per
+    chunk one per field it sends up (the step's fields, the per-column
+    gases, the day indices of a chunk with both day and night columns)
+    and five down; per sweep one per scalar or profile gas."""
+    from rte_rrtmgp_tpu_torch.parallel.scaling import STEP_FIELDS
+    from torch_bench import harness
+    from torch_bench.traffic import generator
+    work = harness.load("work", "stream_copy")
+    shapes = generator.shapes(spec["config"])
+    chunk = spec["config"]["chunk"]
+    grids = entry.inputs
+    up, down, h2d = 0, 0, 0
+    for i in range(steps):
+        x = grids[i % len(grids)]
+        nday = work.day_indices(x.mu0, chunk)
+        u, d = work.copy_bytes(shapes, nday)
+        up, down = up + u, down + d
+        values = x.gas_concs.values
+        nchunk = -(-x.mu0.shape[0] // chunk)
+        mixed = sum(0 < int((x.mu0[c0:c0 + chunk] > 0).sum())
+                    < x.mu0[c0:c0 + chunk].shape[0]
+                    for c0 in range(0, x.mu0.shape[0], chunk))
+        h2d += (nchunk * (len(STEP_FIELDS) + sum(v.ndim == 2
+                                                 for v in values))
+                + mixed + sum(v.ndim < 2 for v in values))
+    copies = collections.Counter()
+    for a, b, name, corr, linked in dev[1:]:
+        if not name.startswith(("Memcpy HtoD", "Memcpy DtoH")):
+            continue
+        call = runtime.get(corr) or runtime.get(linked)
+        where = label_at(timeline, to_perf(call[0])) if call else None
+        copies[f"{name.split(' (')[0]} in {where}"] += 1
+    total = {k: counters.get(k, 0) for k in STREAM_COUNTERS}
+    return dict(
+        counters_per_sweep={k: v / steps for k, v in total.items()},
+        work_bytes_per_sweep=dict(up=up / steps, down=down / steps),
+        bytes_equal_work=(total["stream.bytes_up"] == up
+                          and total["stream.bytes_down"] == down),
+        copies_per_sweep={k: v / steps for k, v in copies.most_common()},
+        expected_copies_per_sweep={
+            "Memcpy HtoD in stream.upload": h2d / steps,
+            "Memcpy DtoH in stream.readback":
+                5 * total["stream.chunks"] / steps})
 
 
 def breakdown(spec, seed: int, seconds: float, device) -> dict:
@@ -305,6 +364,9 @@ def breakdown(spec, seed: int, seconds: float, device) -> dict:
                                          if nk else None),
             by_kernel={k: [contained[k], n]
                        for k, n in handwritten.items()}))
+    if any(k in rec.counters for k in STREAM_COUNTERS):
+        out["stream"] = stream_copies(spec, entry, steps, rec.counters, dev,
+                                      runtime, timeline, to_perf)
     # the benchmark takes the first device op for its marker, launched at
     # t_mark on an idle device: here each of the first ops' start after
     # t_mark, in us

@@ -52,6 +52,10 @@ recorded from them before (tests/golden/kernel_digests_frozen.json; row
 and 3 at 61 layers with a per-column TSI incident flux and night columns,
 rows 7 and 9 at SSM's 41 g-points; the RFMIP block loop against one
 launch; the pod-scale stream against the resident chunk, bit for bit.
+The whole-grid stream at ne30pg2's 21,600 x 72 and the flagship widths:
+every sweep's LW bit for bit the fused step run resident on each chunk,
+its SW likewise on each chunk's day columns and 0 at night, its counts
+and launches; its readbacks wait for each chunk's step.
 """
 import numpy as np
 import pytest
@@ -61,7 +65,8 @@ torch.set_num_threads(1)
 
 from rte_rrtmgp_tpu_torch.drivers.allsky import (  # noqa: E402
     allsky_api_lw, allsky_api_sw, allsky_lw_inputs, allsky_staged_lw,
-    allsky_staged_sw, allsky_sw_inputs, build_allsky, build_allsky_step)
+    allsky_staged_sw, allsky_step_lw, allsky_step_sw, allsky_sw_inputs,
+    build_allsky, build_allsky_step)
 from rte_rrtmgp_tpu_torch.drivers.rfmip import synthetic_rfmip  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.gas_optics import minor_scaling  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.kernels.cloud_props import (  # noqa: E402
@@ -2132,10 +2137,10 @@ def test_podscale_uploads_keep_their_order(cuda, monkeypatch, late):
                                     flux_up=getattr(i, f) * 1.0))
         put = scaling._Uploads.put
 
-        def slow_put(self, k):
+        def slow_put(self, *args):
             with torch.cuda.stream(self.copy):
                 torch.cuda._sleep(spin)
-            put(self, k)
+            put(self, *args)
 
         monkeypatch.setattr(scaling._Uploads, "put", slow_put)
     n = 9
@@ -2149,3 +2154,107 @@ def test_podscale_uploads_keep_their_order(cuda, monkeypatch, late):
     wrong = [k for k, out in enumerate(outs)
              if not all(map(torch.equal, out, refs[k % 3]))]
     assert len(outs) == n and wrong == []
+
+
+def _host(x):
+    """All-sky inputs with every tensor in host memory."""
+    from rte_rrtmgp_tpu_torch.gas_concs import GasConcs
+    cpu = lambda t: None if t is None else t.cpu()
+    gas = x.gas_concs
+    return x._replace(
+        gas_concs=GasConcs(names=gas.names,
+                           values=tuple(cpu(v) for v in gas.values)),
+        **{f: cpu(getattr(x, f)) for f in x._fields if f != "gas_concs"})
+
+
+def test_stream_whole_grid_equals_resident_chunks(cuda):
+    """ne30pg2 (21,600 columns: 5 chunks of 4096 and one of 1,120) at 72
+    layers and the flagship widths, sun uniform on [-1, 1]: three sweeps
+    over two grids (value checks on, then off); each sweep's LW bit for
+    bit allsky_step_lw on each chunk resident on the card, its SW bit for
+    bit allsky_step_sw on each chunk's day columns gathered on the card,
+    exactly 0 on the night columns; 6 chunks, the day columns and the
+    bytes counted; fused_lw and fused_sw once per chunk."""
+    import contextlib
+
+    from rte_rrtmgp_tpu_torch import trace
+    from rte_rrtmgp_tpu_torch.config import checks_disabled
+    from rte_rrtmgp_tpu_torch.gas_concs import GasConcs
+    from rte_rrtmgp_tpu_torch.parallel.scaling import (
+        STEP_FIELDS, AllSkyStream, _columns, _pool_entry)
+    ncol, chunk = 21_600, 4096
+    p = build_allsky(ncol, 72, 256, 16, 224, 14, 14, 59, device=cuda)
+    g = torch.Generator().manual_seed(11)
+    grids = [_pool_entry(p.inputs, j)._replace(
+        mu0=(torch.rand(ncol, generator=g) * 2 - 1).to(cuda))
+        for j in range(2)]
+    stream = AllSkyStream(p.gas_lw, p.gas_sw, p.cld_lw, p.cld_sw,
+                          chunk=chunk, device=cuda)
+    hosts = [stream.pin(_host(x)) for x in grids]
+    for sweep, j in enumerate((0, 1, 0)):
+        n0 = (lw_fused.launches, sw_fused.launches)
+        checks = checks_disabled() if sweep else contextlib.nullcontext()
+        with checks, trace.collect() as rec:
+            out = [f.clone() for f in stream.run(hosts[j])]
+        c = rec.counters
+        mu0 = hosts[j].mu0
+        assert c["stream.chunks"] == 6
+        assert c["stream.sw_columns"] == int((mu0 > 0).sum())
+        assert c["stream.bytes_down"] == 5 * ncol * 73 * 4
+        assert (lw_fused.launches - n0[0], sw_fused.launches - n0[1]) == \
+            (6, 6)
+        grid = grids[j]
+        for c0 in range(0, ncol, chunk):
+            c1 = min(c0 + chunk, ncol)
+            x = _columns(grid, c0, c1)
+            lw = allsky_step_lw(x, p.gas_lw, cloud_optics=p.cld_lw)
+            assert torch.equal(out[0][c0:c1], lw.flux_up.cpu())
+            assert torch.equal(out[1][c0:c1], lw.flux_dn.cpu())
+            day = torch.nonzero(mu0[c0:c1] > 0).flatten()
+            i = day.to(cuda)
+            gas = x.gas_concs
+            sub = x._replace(
+                gas_concs=GasConcs(names=gas.names, values=tuple(
+                    v[i] if v.ndim == 2 else v for v in gas.values)),
+                **{f: getattr(x, f)[i] for f in STEP_FIELDS})
+            sw = allsky_step_sw(sub, p.gas_sw, cloud_optics=p.cld_sw)
+            night = mu0[c0:c1] <= 0
+            for o, f in zip(out[2:], (sw.flux_up, sw.flux_dn,
+                                      sw.flux_dn_dir)):
+                assert torch.equal(o[c0:c1][day], f.cpu())
+                assert bool((o[c0:c1][night] == 0).all())
+    torch.cuda.synchronize()
+
+
+def test_stream_readback_waits_for_each_chunk(cuda, monkeypatch):
+    """The stream's event order with steps that make no host wait: each
+    step spins the card (about 5 ms), then returns fluxes read from its
+    chunk's inputs; the host runs chunks ahead of the card, so a readback
+    that did not wait for its chunk's step, or an upload that did not
+    wait for the step last reading its buffer, puts other values in the
+    host buffers. 9 chunks of 64 and one of 17, half night."""
+    from types import SimpleNamespace
+    from rte_rrtmgp_tpu_torch.parallel import scaling
+    spin = 10_000_000
+
+    def step(x, *a, **k):
+        torch.cuda._sleep(spin)
+        return SimpleNamespace(flux_up=x.plev * 1.0, flux_dn=x.plev * 2.0,
+                               flux_dn_dir=x.plev * 3.0)
+
+    monkeypatch.setattr(scaling, "allsky_step_lw", step)
+    monkeypatch.setattr(scaling, "allsky_step_sw", step)
+    ncol = 9 * 64 + 17
+    p = build_allsky(ncol, 9, 32, 4, 32, 4, 5, 10, device=cuda)
+    g = torch.Generator().manual_seed(5)
+    grid = _host(p.inputs)._replace(
+        plev=torch.rand(ncol, 10, generator=g) * 1e5,
+        mu0=torch.rand(ncol, generator=g) * 2 - 1)
+    stream = scaling.AllSkyStream(p.gas_lw, p.gas_sw, p.cld_lw, p.cld_sw,
+                                  chunk=64, device=cuda)
+    out = stream.run(stream.pin(grid))
+    day = (grid.mu0 > 0)[:, None]
+    for o, k, lit in zip(out, (1.0, 2.0, 1.0, 2.0, 3.0),
+                         (False, False, True, True, True)):
+        want = grid.plev * k
+        assert torch.equal(o, torch.where(day, want, 0.0) if lit else want)

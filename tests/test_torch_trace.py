@@ -5,7 +5,8 @@
     recorded.
   * Under ``collect()``: nesting sets each span's parent and request, a
     second thread starts a stack (and a request) of its own, ``wait``
-    counts, the kernels' ``.launches`` are read and left as they are.
+    counts, ``count`` adds to its counter (nothing while off), the
+    kernels' ``.launches`` are read and left as they are.
   * Whole steps at 24 columns (the fused all-sky step, the public API,
     RFMIP, the fused step's gradient): the layer spans with their parents,
     the same number of waits on two consecutive steps, equal to the count
@@ -99,6 +100,17 @@ def test_wait_counts_and_nests():
     assert rec.counters["waits"] == 2
     assert [(r[0], r[2]) for r in rec.spans] == [
         ("wait.site", "check.x"), ("check.x", None), ("wait.other", None)]
+
+
+def test_count_adds_inside_collect_and_nothing_off():
+    assert trace.count("x.n", 5) is None           # off: nothing kept
+    with trace.collect() as rec:
+        trace.count("x.n")
+        trace.count("x.n", 3)
+        trace.count("x.bytes", 1 << 40)
+    assert rec.counters["x.n"] == 4 and rec.counters["x.bytes"] == 1 << 40
+    trace.count("x.n")
+    assert rec.counters["x.n"] == 4
 
 
 def test_collect_reads_launches_and_does_not_nest():
