@@ -209,6 +209,17 @@ TOL_COND = 2.0
 # cotangent within this share of its largest value (float32 rounding of
 # a few products per window and cell)
 TOL_SCALE_ADJ = 1e-5
+# the gas descriptors per cell: the column amounts (a product per gas, the
+# dry column's 12), the temperature and pressure coefficients (12, a log),
+# and per flavor and temperature corner the mix, eta and its split (8);
+# the adjoint: per flavor and corner 12, per gas 3, the cell's terms 16
+OPS_DESC_CELL = 24
+OPS_DESC_FLAVOR = 8
+OPS_DESC_BWD_CELL = 16
+OPS_DESC_BWD_FLAVOR = 12
+# the descriptors' adjoint against the float64 twin's autograd: each
+# cotangent within this share of its largest value
+TOL_DESC_ADJ = 1e-6
 
 
 def log(msg):
@@ -504,6 +515,128 @@ def scale_rows(prob, variants):
                 plain_ms=plain_ms, bound_ms=b["bound_ms"],
                 bound_by=b["bound_by"], library_ms=None))
         del got, g, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def descriptor_rows(prob, variants):
+    """Phase 3, the gas-optics descriptors of one call in one launch
+    (csrc/gas_descriptors.cu; no TPU kernel: the JAX package forms the
+    column amounts and the interpolation coefficients in plain JAX,
+    rte_rrtmgp_tpu/ops/gas_optics.py) and their adjoint, LW and SW, in the
+    fused layout (layer-major outputs) and the public one: every output
+    bit for bit the twin's (ops/gas_optics.py::column_amounts and
+    interpolation), the adjoint's cotangents of play, tlay, plev and the
+    water vapour within TOL_DESC_ADJ of the float64 twin's autograd on
+    seeded cotangents and the same bits twice; each timed beside its twin,
+    the kernels by :func:`queued_ms`, the twins by :func:`cuda_ms`, bound
+    by the bytes each reads and writes. The LW fused call's forward and
+    adjoint are the kernels lines; the others go into ``variants`` or are
+    logged."""
+    import torch
+    from rte_rrtmgp_tpu_torch.models.rrtmgp.gas_optics import vmr_rows
+    from rte_rrtmgp_tpu_torch.ops.kernels.gas_descriptors import (
+        gas_descriptors, gas_descriptors_bwd, gas_descriptors_plain)
+    inp = prob.inputs
+    ncol, nlay = inp.play.shape
+    ncell = ncol * nlay
+    rows = []
+    for band, gas in (("lw", prob.gas_lw), ("sw", prob.gas_sw)):
+        vmrs, h2o = vmr_rows(gas.kdist, inp.gas_concs, ncol, nlay)
+        tables = gas.interp_tables[torch.float32]
+        nflav = tables.flavor.shape[1]
+        for layout in ("fused", "public"):
+            lm = layout == "fused"
+            args = (inp.play, inp.tlay, inp.plev, vmrs, None, h2o, tables,
+                    lm)
+            floats = lambda cg, co: (cg, co.ftemp, co.fpress, co.col_mix,
+                                     co.feta)
+            got, ref = gas_descriptors(*args), gas_descriptors_plain(*args)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("col_gas",) + tuple(got[1]._fields),
+                                  (got[0], *got[1]), (ref[0], *ref[1])):
+                bits = (lambda x: x.view(torch.int32)
+                        if x.dtype == torch.float32 else x)
+                if a.shape != b.shape or not torch.equal(bits(a), bits(b)):
+                    raise SystemExit(f"gas_descriptors {band} {layout}: "
+                                     f"{name} not bit for bit the twin's")
+            moved = nbytes(inp.play, inp.tlay, inp.plev, *vmrs, *got)
+            label = f"gas_descriptors {band} {layout}"
+            fwd = check_kernel(
+                label, lambda a: floats(*gas_descriptors(*a)),
+                lambda a: floats(*gas_descriptors_plain(*a)), args, 0.0,
+                "rte_rrtmgp_tpu_torch/csrc/gas_descriptors.cu",
+                "none (plain JAX, rte_rrtmgp_tpu/ops/gas_optics.py)",
+                (moved, ncell * (OPS_DESC_CELL + len(vmrs)
+                                 + 2 * nflav * OPS_DESC_FLAVOR)),
+                timer=queued_ms)
+            log(f"kernel {label}: bit for bit the twin's (col_gas and "
+                "every coefficient)")
+            gen = torch.Generator(device=inp.play.device).manual_seed(19)
+            g = tuple(torch.randn(x.shape, generator=gen,
+                                  device=inp.play.device)
+                      for x in floats(*got))
+            req = tuple(None if v is None else
+                        v.expand(ncol, nlay).contiguous().requires_grad_(
+                            k == h2o - 1) for k, v in enumerate(vmrs))
+            plev = inp.plev.clone().requires_grad_()
+            bargs = (inp.play, inp.tlay, plev, req, None, h2o, tables, lm,
+                     g)
+            with torch.no_grad():
+                dg = gas_descriptors_bwd(*bargs)
+                again = gas_descriptors_bwd(*bargs)
+            flat = lambda r: (r[0], r[1], r[2], r[4][h2o - 1])
+            dg, again = flat(dg), flat(again)
+            if not all(map(torch.equal, dg, again)):
+                raise SystemExit(f"{label} adjoint: two runs differ")
+
+            def twin_grad(dtype):
+                tab = gas.interp_tables[dtype]
+                xs = [t.detach().to(dtype).requires_grad_()
+                      for t in (inp.play, inp.tlay, inp.plev,
+                                req[h2o - 1])]
+                vs = tuple(xs[3] if k == h2o - 1 else
+                           (None if v is None else v.detach())
+                           for k, v in enumerate(req))
+                cg, co = gas_descriptors_plain(xs[0], xs[1], xs[2], vs,
+                                               None, h2o, tab, lm)
+                return torch.autograd.grad(
+                    floats(cg, co), xs, tuple(x.to(dtype) for x in g))
+            want = twin_grad(torch.float64)
+            errs = []
+            for name, a, r in zip(("play", "tlay", "plev", "h2o"), dg, want):
+                scale = float(r.abs().max())
+                errs.append(float((a.double() - r).abs().max()) / scale)
+                log(f"kernel {label} adjoint: {name} cotangent max_abs_err "
+                    f"{errs[-1]:.3e} of the float64 twin's largest (limit "
+                    f"{TOL_DESC_ADJ:.0e})")
+                if not (bool(torch.isfinite(a).all())
+                        and errs[-1] <= TOL_DESC_ADJ):
+                    raise SystemExit(f"{label} adjoint: {name} cotangent "
+                                     "disagrees with the twin")
+            del want
+            with torch.no_grad():
+                ms = queued_ms(lambda: gas_descriptors_bwd(*bargs))
+            plain_ms = cuda_ms(lambda: twin_grad(torch.float32), reps=3)
+            b = bound(moved + nbytes(*g) + nbytes(*dg),
+                      ncell * (OPS_DESC_BWD_CELL + 3 * len(vmrs)
+                               + 2 * nflav * OPS_DESC_BWD_FLAVOR))
+            log(f"kernel {label} adjoint: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms (the twin's autograd), bound "
+                f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+                f"({b['bytes'] / 1e9:.3f} GB, {b['ops'] / 1e9:.3f} Gop)")
+            if band == "lw" and lm:
+                fwd["name"] = "gas_descriptors"
+                rows.append(fwd)
+                rows.append(dict(
+                    name="gas_descriptors_bwd", route="cuda",
+                    source=fwd["source"], replaces=fwd["replaces"],
+                    max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                    bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                    library_ms=None))
+            else:
+                variants.append(fwd)
+            del got, ref, g, dg, again, bargs
     torch.cuda.empty_cache()
     return rows
 
@@ -994,7 +1127,8 @@ def rfmip_paths(rf, dev, counters, card):
     ncol = data.ncol
     host, launches = counted(
         "rfmip", counters, lambda: rfmip_lw_sw(data, g_lw, g_sw),
-        {"fused_lw": 1, "fused_sw": 1, "minor_scale": 2})
+        {"fused_lw": 1, "fused_sw": 1, "minor_scale": 2,
+         "gas_descriptors": 2})
     out = rfmip_lw_sw(data, g_lw, g_sw, device_out=True)
     if not np.array_equal(out.cpu().numpy(), np.stack(host)):
         raise SystemExit("rfmip: the host readback differs from the "
@@ -1017,7 +1151,7 @@ def rfmip_paths(rf, dev, counters, card):
         "rfmip generic route", counters,
         lambda: lw(*rfmip._lw_args(x)) + sw(*rfmip._sw_args(x)),
         {"gas_major": 2, "gas_minor": 4, "gas_rayleigh": 1, "solver_lw": 1,
-         "solver_sw": 1, "minor_scale": 2})
+         "solver_sw": 1, "minor_scale": 2, "gas_descriptors": 2})
     agree("rfmip generic route", gen, tuple(out))
     blk = rfmip_lw_sw(data, g_lw, g_sw, block_size=RFMIP["nsite"])
     diff = max(float(np.abs(a - b).max()) for a, b in zip(blk, host))
@@ -1074,7 +1208,7 @@ def podscale_paths(dev, counters, card):
             lambda: _podscale(total, MAIN["nlay"], stream=stream,
                               keep=stream, **kw),
             {"cloud_props": 2 * n, "fused_lw": n, "fused_sw": n,
-             "minor_scale": 2 * n})
+             "minor_scale": 2 * n, "gas_descriptors": 2 * n})
         log(f"podscale {what} ({card}): {r['n_chunks']} chunks of "
             f"{r['chunk_columns']} x {MAIN['nlay']}, {r['total_columns']:,} "
             f"columns in {r['seconds']:.3f} s, {r['cols_per_s']:.1f} "
@@ -2008,7 +2142,8 @@ HAND_KERNELS = ("cloud_props_kernel", "fused_lw_kernel", "fused_sw_kernel",
                 "solver_sw_kernel", "fused_lw_bwd_kernel",
                 "fused_sw_bwd_kernel", "solver_lw_bwd_kernel",
                 "solver_sw_bwd_kernel", "minor_scale_kernel",
-                "minor_scale_bwd_kernel")
+                "minor_scale_bwd_kernel", "gas_descriptors_kernel",
+                "gas_descriptors_bwd_kernel")
 
 
 def profile_path(name, step, inputs, n=3, top=8):
@@ -2134,6 +2269,8 @@ def main():
                                                            lw_fused_bwd)
     from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import (sw_fused,
                                                            sw_fused_bwd)
+    from rte_rrtmgp_tpu_torch.ops.kernels.gas_descriptors import (
+        gas_descriptors, gas_descriptors_bwd)
     from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import gas_major
     from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (gas_minor,
                                                             gas_rayleigh)
@@ -2173,6 +2310,7 @@ def main():
     nonbanded = build_allsky(**NONBANDED, device=dev, use_aerosols=True)
     variants = []
     rows = (fused_rows(prob, dev, variants) + scale_rows(prob, variants)
+            + descriptor_rows(prob, variants)
             + api_rows(prob, dev, variants)
             + lw2_rows(prob, dev, variants) + lanes_rows(prob, nonbanded))
     torch.cuda.empty_cache()
@@ -2234,22 +2372,23 @@ def main():
                 "solver_lw_bwd": lw_noscat_bwd,
                 "solver_sw_bwd": sw_2stream_bwd,
                 "minor_scale": minor_scale,
-                "minor_scale_bwd": minor_scale_bwd}
+                "minor_scale_bwd": minor_scale_bwd,
+                "gas_descriptors": gas_descriptors,
+                "gas_descriptors_bwd": gas_descriptors_bwd}
     gathers = ("gas_major", "gas_minor", "gas_rayleigh")
+    prep = ("minor_scale", "gas_descriptors")
     launched = {
-        "fused": ("cloud_props", "fused_lw", "fused_sw", "minor_scale"),
+        "fused": ("cloud_props", "fused_lw", "fused_sw") + prep,
         "public API": ("cloud_props",) + gathers + ("solver_lw",
-                                                    "solver_sw",
-                                                    "minor_scale"),
+                                                    "solver_sw") + prep,
         "staged": ("cloud_props",) + gathers + ("solver_lw_pfrac",
-                                                "solver_sw_combined",
-                                                "minor_scale"),
+                                                "solver_sw_combined") + prep,
         "staged non-banded": ("cloud_props",) + gathers + (
-            "solver_lw_lanes", "solver_sw_lanes", "minor_scale"),
+            "solver_lw_lanes", "solver_sw_lanes") + prep,
         "two-stream": ("cloud_props", "gas_major", "gas_minor",
-                       "solver_lw_2str", "minor_scale")}
-    # the scaling rows: one launch per gas-optics call (LW and SW; the
-    # two-stream path's LW alone)
+                       "solver_lw_2str") + prep}
+    # the scaling rows and the descriptors: one launch each per gas-optics
+    # call (LW and SW; the two-stream path's LW alone)
     scale_calls = {"two-stream": 1}
 
     def drive(name, kind, step, inputs, solar, clouds=True, once=(),
@@ -2257,7 +2396,7 @@ def main():
         must = tuple(k for k in launched[kind]
                      if clouds or k != "cloud_props")
         return run_path(name, step, inputs, counters, must, solar, once,
-                        nonneg, {"minor_scale": scale_calls.get(kind, 2)})
+                        nonneg, {k: scale_calls.get(kind, 2) for k in prep})
 
     step, inputs = build_allsky_step(**MAIN, device=dev)
     fused_out, path_launches = drive("fused", "fused", step, inputs, solar)
@@ -2335,12 +2474,14 @@ def main():
     # kernel once
     fused_step = {"fused_lw": 1, "fused_sw": 1, "fused_lw_bwd": 1,
                   "fused_sw_bwd": 1, "cloud_props": 2, "minor_scale": 2,
-                  "minor_scale_bwd": 2}
+                  "minor_scale_bwd": 2, "gas_descriptors": 2,
+                  "gas_descriptors_bwd": 2}
     step, _ = build_allsky_step(**MAIN, device=dev)
     got = training_steps("fused", step, inputs, counters, fused_step, ())
     peak_memory("fused training step", lambda: train_loss(step, inputs))
     launches.update({k: got[k] for k in ("fused_lw_bwd", "fused_sw_bwd",
-                                         "minor_scale_bwd")})
+                                         "minor_scale_bwd",
+                                         "gas_descriptors_bwd")})
     profile_path("fused training step", lambda i: train_loss(step, i),
                  inputs)
     step, _ = build_allsky_step(**MAIN, device=dev, use_aerosols=True)
@@ -2349,7 +2490,8 @@ def main():
         "public API", step_fn(prob, "api"), inputs, counters,
         {"solver_lw_bwd": 1, "solver_sw_bwd": 1, "solver_lw": 1,
          "solver_sw": 1, "cloud_props": 2, "minor_scale": 2,
-         "minor_scale_bwd": 2},
+         "minor_scale_bwd": 2, "gas_descriptors": 2,
+         "gas_descriptors_bwd": 2},
         ("gas_major", "gas_minor", "gas_rayleigh"))
     launches.update({k: got[k] for k in ("solver_lw_bwd", "solver_sw_bwd")})
     del step

@@ -71,6 +71,12 @@ class GasConcs:
     def get_vmr(self, name: str, ncol: int, nlay: int) -> torch.Tensor:
         """VMR broadcast to (ncol, nlay) (reference ``get_vmr`` 2-D,
         mo_gas_concentrations.F90:331-401)."""
+        return self.stored_vmr(name, ncol, nlay).expand(ncol, nlay)
+
+    def stored_vmr(self, name: str, ncol: int, nlay: int) -> torch.Tensor:
+        """The VMR as stored, a scalar, (nlay,) profile or (ncol, nlay)
+        field, checked against the (ncol, nlay) cells as :meth:`get_vmr`
+        checks it."""
         key = _norm(name)
         if key not in self.names:
             raise KeyError(f"gas '{name}' not present in GasConcs")
@@ -81,7 +87,7 @@ class GasConcs:
         if arr.ndim == 2 and tuple(arr.shape) != (ncol, nlay):
             raise ValueError(f"get_vmr({name}): field shape "
                              f"{tuple(arr.shape)} != {(ncol, nlay)}")
-        return arr.expand(ncol, nlay)
+        return arr
 
     def get_subset(self, start: int, n: int) -> "GasConcs":
         """Columns [start, start + n) (reference ``get_subset_range``):

@@ -3,8 +3,11 @@
 Counterpart of ``rte_rrtmgp_tpu.models.rrtmgp.gas_optics`` (reference
 ``ty_gas_optics_rrtmgp`` run-time methods, rrtmgp/frontend/
 mo_gas_optics_rrtmgp.F90): column amounts, the interpolation descriptors,
-the minor-gas scaling rows and Rayleigh scaling (the descriptor prep,
-plain PyTorch as it is plain JAX in the JAX package), then three routes:
+the minor-gas scaling rows and Rayleigh scaling (the descriptor prep:
+the column amounts and interpolation descriptors one launch of
+``ops/kernels/gas_descriptors`` and the minor-gas scaling rows one launch of
+``ops/kernels/minor_scale`` per call on the card, where the JAX package
+forms them in plain JAX), then three routes:
 
   * the public API, ``gas_optics_lw`` / ``gas_optics_sw`` (reference
     gas_optics_int :220-331 / gas_optics_ext :337-414), returning optical
@@ -25,17 +28,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ... import constants, trace
+from ... import trace
 from ...gas_concs import GasConcs
 from ...optical_props import (OpticalProps, OpticalProps1scl,
                               OpticalProps2str)
-from ...ops.gas_optics import (InterpCoeffs, interpolation,
+from ...ops.gas_optics import (InterpCoeffs, column_amounts, get_col_dry,
+                               interp_tables, interpolation,
                                planck_bands_lanes, planck_sources, tau_minor,
                                window_rows)
 from ...ops.kernels.autodiff import with_twin_grad
 from ...ops.kernels.fused_lw import (LWFusedInputs, _split_minors,
                                      interleave_kmajor_pfrac, lw_fused)
 from ...ops.kernels.fused_sw import SWFusedInputs, sw_fused
+from ...ops.kernels.gas_descriptors import gas_descriptors
 from ...ops.kernels.gas_major import gas_major, gas_major_plain
 from ...ops.kernels.gas_minor import gas_minor, gas_rayleigh, rayleigh_combine
 from ...ops.kernels.minor_scale import minor_scale
@@ -43,7 +48,7 @@ from ...sources import SourcesLW
 from ..base import infer_top_at_1
 from .kdist import KDist
 
-__all__ = ["GasOpticsRRTMGP", "get_col_dry", "interp_tlev"]
+__all__ = ["GasOpticsRRTMGP", "get_col_dry", "interp_tlev", "vmr_rows"]
 
 
 @trace.spanned("optics.major")
@@ -82,14 +87,17 @@ def _rayleigh(tau, co, krayl, gpoint_flavor, rayscale, scattering):
         tau, co, krayl, gpoint_flavor, rayscale, name="gas_rayleigh")
 
 
-def get_col_dry(vmr_h2o, plev):
-    """Dry-air molecules per cm^2 per layer (reference
-    ``get_layer_number``, rte/kernels/mo_gas_optics_utils.F90:127-152)."""
-    delta_plev = torch.abs(plev[:, :-1] - plev[:, 1:])
-    fact = 1.0 / (1.0 + vmr_h2o)
-    m_air = (constants.m_dry + constants.m_h2o * vmr_h2o) * fact
-    return (10.0 * delta_plev * constants.avogad * fact
-            / (1000.0 * m_air * 100.0 * constants.grav))
+def vmr_rows(kdist: KDist, gas_concs: GasConcs, ncol: int, nlay: int):
+    """One stored vmr (scalar, profile or field) or None (absent) per
+    col_gas row past dry air, and the 1-based h2o row (a None row is
+    appended when the k-distribution has no h2o)."""
+    vmrs = tuple(gas_concs.stored_vmr(g, ncol, nlay)
+                 if g in gas_concs else None for g in kdist.gas_names)
+    idx_h2o = kdist.idx_gas("h2o")
+    if idx_h2o < 0:
+        vmrs += (None,)
+        idx_h2o = len(vmrs)
+    return vmrs, idx_h2o
 
 
 def interp_tlev(tlay, play, plev):
@@ -140,6 +148,11 @@ class GasOpticsRRTMGP:
         self.kmajor_pfrac = (
             None if kdist.planck_frac is None
             else interleave_kmajor_pfrac(kdist.kmajor, kdist.planck_frac))
+        # the interpolation's tables on the device, per dtype (ops/
+        # gas_optics.interp_tables): the kernel and its twin read these,
+        # so no call copies from the host
+        self.interp_tables = {dt: interp_tables(kdist, dt, dev)
+                              for dt in (torch.float32, torch.float64)}
 
     @property
     def ngpt(self) -> int:
@@ -165,30 +178,33 @@ class GasOpticsRRTMGP:
         if missing:
             raise ValueError(f"gas_optics: required gases {missing} are not provided")
 
-    @trace.spanned("gas.col_gas")
     def col_gas(self, play, plev, gas_concs: GasConcs, col_dry=None):
         """VMR gather + column amounts (reference compute_gas_taus
         :538-609): (ngas+1, ncol, nlay) with col_gas[0] = col_dry and
         col_gas[i] = vmr_i * col_dry; plus col_dry (computed from the
         pressures unless given) and the 1-based h2o row (a zeros row is
-        appended when the k-distribution has no h2o)."""
-        kd = self.kdist
-        ncol, nlay = play.shape
-        vmrs = [gas_concs.get_vmr(g, ncol, nlay).to(play.dtype)
-                if g in gas_concs else torch.zeros_like(play)
-                for g in kd.gas_names]
-        idx_h2o = kd.idx_gas("h2o")
-        if col_dry is None:
-            vmr_h2o = (vmrs[idx_h2o - 1] if idx_h2o > 0
-                       else torch.zeros_like(play))
-            col_dry = get_col_dry(vmr_h2o, plev)
-        col_dry = torch.as_tensor(col_dry, dtype=play.dtype,
-                                  device=play.device)
-        if idx_h2o < 0:
-            vmrs = vmrs + [torch.zeros_like(play)]
-            idx_h2o = len(vmrs)
-        col_gas = torch.stack([col_dry] + [v * col_dry for v in vmrs])
-        return col_gas, col_dry, idx_h2o
+        appended when the k-distribution has no h2o). The plain twin of
+        the kernel's col_gas (:meth:`_gas_descriptors`)."""
+        vmrs, idx_h2o = vmr_rows(self.kdist, gas_concs, *play.shape)
+        col_gas = column_amounts(play, plev, vmrs, col_dry, idx_h2o)
+        return col_gas, col_gas[0], idx_h2o
+
+    def _gas_descriptors(self, play, plev, tlay, gas_concs: GasConcs,
+                         col_dry, layer_major: bool):
+        """The key species' check, then col_gas (ngas+1, *S) and the
+        interpolation coefficients of one call in one kernel launch on
+        CUDA (``ops/kernels/gas_descriptors``), contiguous in the layout
+        asked (S = (nlay, ncol) with ``layer_major``, else (ncol, nlay)),
+        and the h2o row."""
+        self._check_key_species_present(gas_concs)
+        vmrs, idx_h2o = vmr_rows(self.kdist, gas_concs, *play.shape)
+        if col_dry is not None:
+            col_dry = torch.as_tensor(col_dry, dtype=play.dtype,
+                                      device=play.device)
+        col_gas, co = gas_descriptors(play, tlay, plev, vmrs, col_dry,
+                                      idx_h2o, self.interp_tables[play.dtype],
+                                      layer_major)
+        return col_gas, co, idx_h2o
 
     @trace.spanned("gas.minor_scaling")
     def _minor_scale(self, co, play, tlay, col_gas, idx_h2o: int):
@@ -198,13 +214,10 @@ class GasOpticsRRTMGP:
                            self.minor_windows, self.minor_scale_table)
 
     def interp(self, play, tlay, col_gas) -> InterpCoeffs:
-        kd = self.kdist
-        return interpolation(
-            play, tlay, col_gas, flavor=kd.flavor, neta=kd.neta,
-            press_ref_log=kd.press_ref_log, temp_ref=kd.temp_ref,
-            press_ref_log_delta=kd.press_ref_log_delta,
-            temp_ref_min=kd.temp_ref_min, temp_ref_delta=kd.temp_ref_delta,
-            press_ref_trop_log=kd.press_ref_trop_log, vmr_ref=kd.vmr_ref)
+        """The interpolation coefficients of ``col_gas``'s cells (the
+        plain twin of the kernel's, :meth:`_gas_descriptors`)."""
+        return interpolation(play, tlay, col_gas,
+                             self.interp_tables[play.dtype])
 
     # ------------------------------------------------------------------
     # the public API
@@ -223,10 +236,9 @@ class GasOpticsRRTMGP:
         ``second`` the Rayleigh optical depth (zero without krayl)."""
         kd = self.kdist
         with trace.span("gas.descriptors"):
-            self._check_key_species_present(gas_concs)
-            col_gas, col_dry, idx_h2o = self.col_gas(play, plev, gas_concs,
-                                                     col_dry)
-            co = self.interp(play, tlay, col_gas)
+            col_gas, co, idx_h2o = self._gas_descriptors(
+                play, plev, tlay, gas_concs, col_dry, layer_major=False)
+        col_dry = col_gas[0]
         tau, pfrac = _major(co, kd.kmajor, kd.planck_frac,
                             self.gpoint_flavor, self.kmajor_pfrac)
         nlo = len(kd.minor_lower)
@@ -379,16 +391,13 @@ class GasOpticsRRTMGP:
     # ------------------------------------------------------------------
     @trace.spanned("gas.descriptors")
     def _descriptors(self, play, plev, tlay, gas_concs, col_dry=None):
-        """Layer-major interpolation state and minor scaling rows."""
-        self._check_key_species_present(gas_concs)
-        col_gas, col_dry, idx_h2o = self.col_gas(play, plev, gas_concs,
-                                                 col_dry)
-        play_c, tlay_c = play.T, tlay.T
-        col_gas_c = col_gas.transpose(1, 2)
-        co = self.interp(play_c, tlay_c, col_gas_c)
-        co = InterpCoeffs(*(t.contiguous() for t in co))
-        msc = self._minor_scale(co, play_c, tlay_c, col_gas_c, idx_h2o)
-        return co, msc, col_gas_c, col_dry.T, idx_h2o
+        """Layer-major interpolation state and minor scaling rows: (co,
+        minor_scale, col_gas, col_dry, idx_h2o), each contiguous (nlay,
+        ncol) cells."""
+        col_gas, co, idx_h2o = self._gas_descriptors(
+            play, plev, tlay, gas_concs, col_dry, layer_major=True)
+        msc = self._minor_scale(co, play.T, tlay.T, col_gas, idx_h2o)
+        return co, msc, col_gas, col_gas[0], idx_h2o
 
     def _check_byband(self, byband: bool) -> None:
         """The fused solves' by-band output needs uniform band widths (the

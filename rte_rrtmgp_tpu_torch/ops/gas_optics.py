@@ -22,9 +22,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import trace
+from .. import constants, trace
 
-__all__ = ["InterpCoeffs", "interpolation", "tau_major", "tau_minor",
+__all__ = ["InterpCoeffs", "InterpTables", "interp_tables", "get_col_dry",
+           "column_amounts", "interpolation", "tau_major", "tau_minor",
            "minor_scaling", "window_rows", "scaling_rows", "tau_rayleigh",
            "interp1d_table", "planck_sources", "planck_bands_lanes",
            "level_pfrac"]
@@ -41,54 +42,109 @@ class InterpCoeffs(NamedTuple):
     feta: torch.Tensor      # (2, nflav, *S)
 
 
-@trace.spanned("gas.interp")
-def interpolation(play, tlay, col_gas, *, flavor, neta: int, press_ref_log,
-                  temp_ref, press_ref_log_delta, temp_ref_min,
-                  temp_ref_delta, press_ref_trop_log,
-                  vmr_ref) -> InterpCoeffs:
-    """Temperature/pressure/eta interpolation coefficients (reference
-    ``rrtmgp_interpolation``, kernels :37-170). Each index and its
-    fraction derive from ONE computed value (eager PyTorch materializes
-    it once), so an index never pairs with the other side's fraction."""
+class InterpTables(NamedTuple):
+    """What the interpolation reads of a k-distribution, made once per
+    k-distribution and dtype (:func:`interp_tables`): the device tables
+    and the scalars, as the reference's ``rrtmgp_interpolation`` takes
+    them."""
+    temp_ref: torch.Tensor     # (ntemp,)
+    vmr_ratio: torch.Tensor    # (2, nflav, ntemp): vmr_ref of g1 over g2
+    flavor: torch.Tensor       # (2, nflav) int64, rows of col_gas
+    trop: float                # the tropopause pressure, exp of its log
+    neta: int
+    npres: int
+    press_ref_log0: float
+    press_ref_log_delta: float
+    temp_ref_min: float
+    temp_ref_delta: float
+
+
+def interp_tables(kdist, dtype, device) -> InterpTables:
+    """The interpolation's tables of ``kdist`` in ``dtype`` on ``device``:
+    the only host-to-device copies the interpolation needs, made here
+    once."""
+    g1, g2 = np.asarray(kdist.flavor[0]), np.asarray(kdist.flavor[1])
+    vmr_ref = np.asarray(kdist.vmr_ref)
+    return InterpTables(
+        temp_ref=torch.as_tensor(np.ascontiguousarray(kdist.temp_ref),
+                                 dtype=dtype, device=device),
+        vmr_ratio=torch.as_tensor(np.ascontiguousarray(
+            vmr_ref[:, g1, :] / vmr_ref[:, g2, :]), dtype=dtype,
+            device=device),
+        flavor=torch.as_tensor(np.stack([g1, g2]), dtype=torch.int64,
+                               device=device),
+        trop=float(torch.exp(torch.tensor(kdist.press_ref_trop_log,
+                                          dtype=dtype))),
+        neta=int(kdist.neta), npres=int(kdist.press_ref_log.shape[0]),
+        press_ref_log0=float(kdist.press_ref_log[0]),
+        press_ref_log_delta=float(kdist.press_ref_log_delta),
+        temp_ref_min=float(kdist.temp_ref_min),
+        temp_ref_delta=float(kdist.temp_ref_delta))
+
+
+def get_col_dry(vmr_h2o, plev):
+    """Dry-air molecules per cm^2 per layer (reference
+    ``get_layer_number``, rte/kernels/mo_gas_optics_utils.F90:127-152)."""
+    delta_plev = torch.abs(plev[:, :-1] - plev[:, 1:])
+    fact = 1.0 / (1.0 + vmr_h2o)
+    m_air = (constants.m_dry + constants.m_h2o * vmr_h2o) * fact
+    return (10.0 * delta_plev * constants.avogad * fact
+            / (1000.0 * m_air * 100.0 * constants.grav))
+
+
+@trace.spanned("gas.col_gas")
+def column_amounts(play, plev, vmrs, col_dry=None, idx_h2o: int = 1):
+    """Column amounts (reference compute_gas_taus :538-609): (ngas+1,
+    ncol, nlay) with row 0 col_dry and row i vmrs[i-1] * col_dry. ``vmrs``
+    holds a tensor (a scalar, a (nlay,) profile or an (ncol, nlay) field)
+    or None (the gas is absent: zeros) per row; col_dry is computed from
+    the pressures and row ``idx_h2o``'s vmr unless given."""
     dtype = play.dtype
-    dev = play.device
-    ntemp = temp_ref.shape[0]
-    npres = press_ref_log.shape[0]
+    vmrs = [torch.zeros_like(play) if v is None else v.to(dtype)
+            for v in vmrs]
+    if col_dry is None:
+        col_dry = get_col_dry(vmrs[idx_h2o - 1], plev)
+    col_dry = torch.as_tensor(col_dry, dtype=dtype, device=play.device)
+    return torch.stack([col_dry] + [v * col_dry for v in vmrs])
+
+
+@trace.spanned("gas.interp")
+def interpolation(play, tlay, col_gas, tables: InterpTables) -> InterpCoeffs:
+    """Temperature/pressure/eta interpolation coefficients (reference
+    ``rrtmgp_interpolation``, kernels :37-170) from the k-distribution's
+    :func:`interp_tables`, already on the cells' device. Each index and
+    its fraction derive from ONE computed value (eager PyTorch
+    materializes it once), so an index never pairs with the other side's
+    fraction."""
+    t = tables
+    dtype = play.dtype
+    ntemp = t.temp_ref.shape[0]
 
     # temperature (reference :106-108); ftemp anchors at the CLAMPED node
-    loctemp = (tlay - (temp_ref_min - temp_ref_delta)) / temp_ref_delta
+    loctemp = (tlay - (t.temp_ref_min - t.temp_ref_delta)) / t.temp_ref_delta
     jtemp1 = torch.clamp(torch.floor(loctemp).to(torch.int32), 1, ntemp - 1)
-    with trace.wait("interp.temp_ref"):
-        temp_ref_t = torch.as_tensor(temp_ref, dtype=dtype, device=dev)
-    ftemp = (tlay - temp_ref_t[jtemp1.long() - 1]) / temp_ref_delta
+    ftemp = (tlay - t.temp_ref[jtemp1.long() - 1]) / t.temp_ref_delta
     jtemp = jtemp1 - 1
 
     # pressure (reference :111-114)
-    locpress = 1.0 + (torch.log(play) - float(press_ref_log[0])) \
-        / press_ref_log_delta
-    jpress_f = torch.clamp(torch.trunc(locpress), 1.0, float(npres - 1))
+    locpress = 1.0 + (torch.log(play) - t.press_ref_log0) \
+        / t.press_ref_log_delta
+    jpress_f = torch.clamp(torch.trunc(locpress), 1.0, float(t.npres - 1))
     fpress = locpress - jpress_f
     jpress = jpress_f.to(torch.int32) - 1
 
-    tropo = play > torch.exp(torch.tensor(press_ref_trop_log, dtype=dtype))
+    tropo = play > t.trop
 
     # eta per flavor and reference temperature (reference :121-168)
-    g1, g2 = np.asarray(flavor[0]), np.asarray(flavor[1])
-    vmr_ref = np.asarray(vmr_ref)
-    with trace.wait("interp.vmr_ratio"):
-        ratio = torch.as_tensor(vmr_ref[:, g1, :] / vmr_ref[:, g2, :],
-                                dtype=dtype, device=dev)  # (2, nflav, ntemp)
+    neta = t.neta
     tiny = torch.finfo(dtype).tiny
-    with trace.wait("interp.flavor_g1"):
-        g1_t = torch.as_tensor(g1, device=dev)
-    with trace.wait("interp.flavor_g2"):
-        g2_t = torch.as_tensor(g2, device=dev)
-    cg1 = col_gas[g1_t]                                  # (nflav, *S)
-    cg2 = col_gas[g2_t]
+    cg1 = col_gas[t.flavor[0]]                           # (nflav, *S)
+    cg2 = col_gas[t.flavor[1]]
     cms, jes, fes = [], [], []
     for it in (0, 1):
         jt_i = torch.clamp(jtemp + it, 0, ntemp - 1).long()
-        r = torch.where(tropo, ratio[0][:, jt_i], ratio[1][:, jt_i])
+        r = torch.where(tropo, t.vmr_ratio[0][:, jt_i],
+                        t.vmr_ratio[1][:, jt_i])
         cm = cg1 + r * cg2
         big = cm > 2.0 * tiny
         eta = torch.where(big, cg1 / torch.where(big, cm, 1.0), 0.5)

@@ -28,7 +28,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("cloud_props", "fused_lw", "fused_sw", "gas_major", "gas_minor",
            "solver_lw", "solver_lw_2str", "solver_sw", "fused_lw_bwd",
-           "fused_sw_bwd", "solver_lw_bwd", "solver_sw_bwd", "minor_scale")
+           "fused_sw_bwd", "solver_lw_bwd", "solver_sw_bwd", "minor_scale",
+           "gas_descriptors")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -172,9 +173,10 @@ def strided(t, ndim: int) -> tuple:
 def launch(name: str, fn: str, what: str, *args) -> None:
     """Call launcher ``fn`` of library ``name`` on the current stream of
     the first tensor's device. Tensors pass as ``void*`` (None as a null
-    pointer), Python ints as ``int``, floats as ``float``; the stream is
-    appended last. The tensors' device is the current one during the
-    call, and the caller's is restored after it."""
+    pointer), Python ints as ``int``, floats as ``float``, ctypes arrays
+    (host data the launcher reads) as a pointer to their first element;
+    the stream is appended last. The tensors' device is the current one
+    during the call, and the caller's is restored after it."""
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     types, vals = [], []
     for a in args:
@@ -187,6 +189,9 @@ def launch(name: str, fn: str, what: str, *args) -> None:
         elif isinstance(a, float):
             types.append(ctypes.c_float)
             vals.append(a)
+        elif isinstance(a, ctypes.Array):
+            types.append(ctypes.c_void_p)
+            vals.append(ctypes.addressof(a))
         else:
             raise TypeError(f"{what}: cannot pass {type(a).__name__} to {fn}")
     types.append(ctypes.c_void_p)

@@ -66,6 +66,8 @@ KERNEL_SPANS = {
     "solver_sw_bwd_kernel": "backward.sw_2stream",
     "minor_scale_kernel": "kernel.minor_scale",
     "minor_scale_bwd_kernel": "backward.minor_scale",
+    "gas_descriptors_kernel": "kernel.gas_descriptors",
+    "gas_descriptors_bwd_kernel": "backward.gas_descriptors",
 }
 # the entry points' spans, the program's and the benchmark's
 ENTRIES = ("allsky.lw", "allsky.sw", "allsky_api.lw", "allsky_api.sw",

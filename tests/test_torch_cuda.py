@@ -41,7 +41,15 @@ k-distributions, RFMIP's 1800 x 60) in both layouts (the fused gas
 optics' transposed views read through their strides), bit for bit the
 twins' rows, and so the fused fluxes bit for bit those on the twins'
 rows; their adjoint within 1e-5 of the float64 twin's autograd, the same
-bits twice, once per gas-optics call of a gradient step. The minor-gas
+bits twice, once per gas-optics call of a gradient step. The gas-optics
+descriptors (column amounts and interpolation coefficients) in one launch
+at the same shapes and the whole-grid stream's ragged 1,120-column chunk,
+in both layouts, with fields, profiles, host and device scalars, float64
+vmrs and a given col_dry: bit for bit the twins', and the fused fluxes on
+them bit for bit those on the twins'; their adjoint within 1e-6 of the
+float64 twin's autograd, the same bits twice, once per gas-optics call of
+a gradient step; the fused step with the value checks off makes no host
+wait. The minor-gas
 gather in place and out of place (the public
 paths' call), on both atmospheres and with a scaling row of zeros; the
 major-gas gather from the interleaved LW table at the paths' widths; and
@@ -75,6 +83,11 @@ from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import (  # noqa: E402
     lw_fused, lw_fused_bwd, lw_fused_bwd_plain, lw_fused_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import (  # noqa: E402
     sw_fused, sw_fused_bwd, sw_fused_bwd_plain, sw_fused_plain)
+from rte_rrtmgp_tpu_torch.models.rrtmgp.gas_optics import (  # noqa: E402
+    vmr_rows)
+from rte_rrtmgp_tpu_torch.ops.gas_optics import InterpCoeffs  # noqa: E402
+from rte_rrtmgp_tpu_torch.ops.kernels.gas_descriptors import (  # noqa: E402
+    gas_descriptors, gas_descriptors_bwd, gas_descriptors_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import (  # noqa: E402
     gas_major, gas_major_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (  # noqa: E402
@@ -376,6 +389,220 @@ def test_gradient_step_launches_minor_scale_adjoint(cuda, path):
     assert (minor_scale.launches - n0[0],
             minor_scale_bwd.launches - n0[1]) == (2, 2)
     assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+# the gas-optics descriptors (column amounts and interpolation
+# coefficients) of one call in one launch, at the paths' shapes: the
+# all-sky problem (4096 x 72, flagship LW and SW), RFMIP's cells (1800 x
+# 60) and the whole-grid stream's ragged last chunk (1,120 columns)
+@pytest.fixture(scope="module")
+def desc_cases():
+    """(label, gas optics, play, plev, tlay, gas store) per shape and
+    k-distribution."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    p = build_allsky(*FLAGSHIP, device=dev)
+    rf = synthetic_rfmip(nsite=100, nlay=60, nexp=18).device_inputs(
+        dev, torch.float32)
+    inp = p.inputs
+    n = 1120
+    shapes = (("allsky", (inp.play, inp.plev, inp.tlay, inp.gas_concs)),
+              ("rfmip", (rf["play"], rf["plev"], rf["tlay"],
+                         rf["gas_concs"])),
+              ("ragged", (inp.play[:n], inp.plev[:n], inp.tlay[:n],
+                          inp.gas_concs.get_subset(0, n))))
+    return [(f"{shape} {band}", gas, *x) for shape, x in shapes
+            for band, gas in (("lw", p.gas_lw), ("sw", p.gas_sw))]
+
+
+def _bits(x):
+    """A tensor's bits, for comparisons that see -0 and NaN."""
+    if x.dtype == torch.float32:
+        return x.view(torch.int32)
+    if x.dtype == torch.float64:
+        return x.view(torch.int64)
+    return x
+
+
+def _desc_equal(got, ref, label):
+    """col_gas and every coefficient bit for bit; on a mismatch, the
+    field and its largest distance in ulps."""
+    for name, a, b in zip(("col_gas",) + InterpCoeffs._fields,
+                          (got[0], *got[1]), (ref[0], *ref[1])):
+        assert a.shape == b.shape and a.dtype == b.dtype, (label, name)
+        assert a.is_contiguous(), (label, name)
+        ulps = int((_bits(a).long() - _bits(b).long()).abs().max())
+        assert ulps == 0, (label, name, ulps)
+
+
+@pytest.mark.parametrize("layout", ["public", "fused"])
+def test_gas_descriptors_match_twin_bit_for_bit(desc_cases, layout):
+    for label, gas, play, plev, tlay, concs in desc_cases:
+        vmrs, h2o = vmr_rows(gas.kdist, concs, *play.shape)
+        args = (play, tlay, plev, vmrs, None, h2o,
+                gas.interp_tables[torch.float32], layout == "fused")
+        n0 = gas_descriptors.launches
+        got = gas_descriptors(*args)
+        assert gas_descriptors.launches == n0 + 1, label
+        _desc_equal(got, gas_descriptors_plain(*args), label)
+
+
+def test_gas_descriptors_gas_kinds_and_col_dry(desc_cases):
+    """Gases as fields, a profile, a host scalar (a CPU float64 tensor,
+    passed by value), a device scalar and a float64 field, and a given
+    col_dry: bit for bit the twin's, in both layouts."""
+    from rte_rrtmgp_tpu_torch.gas_concs import GasConcs
+    label, gas, play, plev, tlay, concs = desc_cases[0]
+    ncol, nlay = play.shape
+    mixed = GasConcs.empty()
+    for i, name in enumerate(concs.names):
+        v = concs.get_vmr(name, ncol, nlay)
+        v = (v.contiguous(), v[0].contiguous(),
+             v[0, 0].double().cpu(), v[0, 0].clone(),
+             v.double().contiguous())[i % 5]
+        mixed = mixed.set_vmr(name, v)
+    vmrs, h2o = vmr_rows(gas.kdist, mixed, ncol, nlay)
+    assert any(v is not None and v.device.type == "cpu" for v in vmrs)
+    dry = 1.01 * gas.col_gas(play, plev, concs)[1]
+    for col_dry in (None, dry):
+        for lm in (False, True):
+            args = (play, tlay, plev, vmrs, col_dry, h2o,
+                    gas.interp_tables[torch.float32], lm)
+            _desc_equal(gas_descriptors(*args),
+                        gas_descriptors_plain(*args), (label, lm))
+
+
+def test_gas_descriptors_float64_match_twin(cuda):
+    p = build_allsky(*DIMS["g24"], device=cuda, dtype=torch.float64)
+    inp = p.inputs
+    for gas in (p.gas_lw, p.gas_sw):
+        vmrs, h2o = vmr_rows(gas.kdist, inp.gas_concs, *inp.play.shape)
+        for lm in (False, True):
+            args = (inp.play, inp.tlay, inp.plev, vmrs, None, h2o,
+                    gas.interp_tables[torch.float64], lm)
+            _desc_equal(gas_descriptors(*args),
+                        gas_descriptors_plain(*args), lm)
+
+
+def test_fused_fluxes_on_kernel_descriptors_equal_twin(cuda):
+    """The fused LW and SW kernels on the kernel's descriptors and on the
+    twin's (with the scaling rows and Rayleigh scale of the twin's
+    columns): the same fluxes, bit for bit."""
+    p = build_allsky(*FLAGSHIP, device=cuda)
+    inp = p.inputs
+    for inputs, gas, fused in (
+            (allsky_lw_inputs(inp, p.gas_lw, cloud_optics=p.cld_lw),
+             p.gas_lw, lw_fused),
+            (allsky_sw_inputs(inp, p.gas_sw, cloud_optics=p.cld_sw),
+             p.gas_sw, sw_fused)):
+        vmrs, h2o = vmr_rows(gas.kdist, inp.gas_concs, *inp.play.shape)
+        cg, co = gas_descriptors_plain(
+            inp.play, inp.tlay, inp.plev, vmrs, None, h2o,
+            gas.interp_tables[torch.float32], True)
+        twin = dict(co=co, minor_scale=_scale_twins(
+            gas, co.tropo, inp.play.T, inp.tlay.T, cg, h2o).contiguous())
+        if fused is sw_fused:
+            twin["rayscale"] = (cg[h2o] + cg[0]).contiguous()
+        got = fused(inputs)
+        ref = fused(inputs._replace(**twin))
+        for a, b in zip(got, ref):
+            assert torch.equal(_bits(a), _bits(b))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("col_dry", ["computed", "given"])
+def test_gas_descriptors_adjoint_matches_f64_twin(desc_cases, col_dry):
+    """The adjoint's cotangents of play, tlay, plev (or a given col_dry)
+    and the vmr fields against autograd of the twin in float64, on seeded
+    cotangents of col_gas, ftemp, fpress, col_mix and feta: within 1e-6
+    of each gradient's largest value; the same bits twice."""
+    for i, (label, gas, play, plev, tlay, concs) in enumerate(desc_cases):
+        ncol, nlay = play.shape
+        vmrs, h2o = vmr_rows(gas.kdist, concs, ncol, nlay)
+        vmrs = tuple(None if v is None else
+                     v.expand(ncol, nlay).contiguous().requires_grad_()
+                     for v in vmrs)
+        dry = (None if col_dry == "computed" else
+               gas.col_gas(play, plev, concs)[1].clone().requires_grad_())
+        pl = plev.clone().requires_grad_(dry is None)
+        tables, lm = gas.interp_tables[torch.float32], i % 2 == 1
+        with torch.no_grad():
+            cg, co = gas_descriptors(play, tlay, pl, vmrs, dry, h2o, tables,
+                                     lm)
+        gen = torch.Generator(device=play.device).manual_seed(30 + i)
+        g = tuple(torch.randn(x.shape, generator=gen, device=play.device)
+                  for x in (cg, co.ftemp, co.fpress, co.col_mix, co.feta))
+        args = (play, tlay, pl, vmrs, dry, h2o, tables, lm, g)
+        n0 = gas_descriptors_bwd.launches
+        with torch.no_grad():
+            got = gas_descriptors_bwd(*args)
+            again = gas_descriptors_bwd(*args)
+        assert gas_descriptors_bwd.launches == n0 + 2, label
+        flat = lambda r: [r[0], r[1], r[2] if dry is None else r[3]] + [
+            d for d in r[4] if d is not None]
+        got, again = flat(got), flat(again)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), label
+        d64 = lambda x: None if x is None else (
+            x.detach().double().requires_grad_())
+        x64 = [d64(play), d64(tlay), d64(plev if dry is None else dry)]
+        v64 = tuple(d64(v) for v in vmrs)
+        with torch.enable_grad():
+            cg64, co64 = gas_descriptors_plain(
+                x64[0], x64[1], x64[2] if dry is None else plev.double(),
+                v64, None if dry is None else x64[2], h2o,
+                gas.interp_tables[torch.float64], lm)
+            want = torch.autograd.grad(
+                (cg64, co64.ftemp, co64.fpress, co64.col_mix, co64.feta),
+                x64 + [v for v in v64 if v is not None],
+                tuple(x.double() for x in g))
+        del cg64, co64
+        names = ["play", "tlay", "plev" if dry is None else "col_dry"] + [
+            f"vmr {k + 1}" for k, v in enumerate(vmrs) if v is not None]
+        for name, a, b in zip(names, got, want):
+            scale = float(b.abs().max())
+            err = float((a.double() - b).abs().max())
+            assert bool(torch.isfinite(a).all()) and err <= 1e-6 * scale, (
+                label, name, err / scale)
+        del got, again, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("path", ["fused", "api"])
+def test_gradient_step_launches_gas_descriptors_adjoint(cuda, path):
+    """The descriptors once per gas-optics call (LW and SW) forward and
+    their adjoint once per call backward: 2 and 2 a gradient step."""
+    if path == "api":
+        p = build_allsky(*DIMS["g32"], device=cuda)
+        step, inputs = _api_step(p), p.inputs
+    else:
+        step, inputs = build_allsky_step(*DIMS["g32"], device=cuda)
+    n0 = (gas_descriptors.launches, gas_descriptors_bwd.launches)
+    grads = _train_grads(step, inputs)
+    torch.cuda.synchronize()
+    assert (gas_descriptors.launches - n0[0],
+            gas_descriptors_bwd.launches - n0[1]) == (2, 2)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def test_fused_step_makes_no_host_wait(cuda):
+    """With the value checks off, the fused all-sky step (LW, then SW)
+    makes no host wait: torch's sync debug mode set to raise stays
+    silent."""
+    from rte_rrtmgp_tpu_torch.config import checks_disabled
+    p = build_allsky(*FLAGSHIP, device=cuda)
+    inp = p.inputs
+    step = lambda: (allsky_step_lw(inp, p.gas_lw, cloud_optics=p.cld_lw),
+                    allsky_step_sw(inp, p.gas_sw, cloud_optics=p.cld_sw))
+    with checks_disabled():
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("variant", ["plain", "rescale-jac-ds"])

@@ -253,7 +253,10 @@ def test_cuda_branch_one_launch_per_call(allsky, card, path):
         assert a[7:9] == tlay.stride() and a[10:13] == col.stride()
         assert a[14] == len(gas.minor_windows)
         if path == "fused":
-            assert play.stride() == (1, NLAY) and col.stride()[1] == 1
+            # play a layer-major view; col_gas the descriptors kernel's
+            # contiguous layer-major output
+            assert play.stride() == (1, NLAY)
+            assert col.is_contiguous() and col.shape[1:] == (NLAY, NCOL)
     names = {(r[0], r[2]) for r in rec.spans}
     assert ("kernel.minor_scale", "gas.minor_scaling") in names
 

@@ -160,7 +160,7 @@ def _grad(p, x):
 
 # (step, waits per step (PERF.md), (span, parent) pairs it must record)
 PATHS = {
-    "fused": (_fused, 12, {
+    "fused": (_fused, 4, {
         ("allsky.lw", None), ("allsky.sw", None),
         ("cloud.optics", "allsky.lw"), ("check.cloud", "cloud.optics"),
         ("wait.cloud.reliq", "check.cloud"),
@@ -169,17 +169,13 @@ PATHS = {
         ("gas.fused_inputs", "allsky.sw"),
         ("gas.descriptors", "gas.fused_inputs"),
         ("check.key_species", "gas.descriptors"),
-        ("gas.col_gas", "gas.descriptors"),
-        ("gas.interp", "gas.descriptors"),
+        ("kernel.gas_descriptors", "gas.descriptors"),
         ("gas.minor_scaling", "gas.descriptors"),
-        ("wait.interp.temp_ref", "gas.interp"),
-        ("wait.interp.vmr_ratio", "gas.interp"),
-        ("wait.interp.flavor_g1", "gas.interp"),
-        ("wait.interp.flavor_g2", "gas.interp"),
         ("kernel.lw_fused", "allsky.lw"), ("kernel.sw_fused", "allsky.sw")}),
-    "api": (_api, 22, {
+    "api": (_api, 14, {
         ("allsky_api.lw", None), ("allsky_api.sw", None),
         ("gas.descriptors", "allsky_api.lw"),
+        ("kernel.gas_descriptors", "gas.descriptors"),
         ("gas.minor_scaling", "allsky_api.sw"),
         ("optics.major", "allsky_api.lw"),
         ("kernel.gas_major", "optics.major"),
@@ -194,10 +190,12 @@ PATHS = {
         ("check.props", "rte.sw"), ("wait.props.g", "check.props"),
         ("check.mu0", "rte.sw"), ("wait.mu0", "check.mu0"),
         ("kernel.lw_noscat", "rte.lw"), ("kernel.sw_2stream", "rte.sw")}),
-    "grad": (_grad, 13, {
+    "grad": (_grad, 5, {
         ("check.vmr", None), ("wait.vmr", "check.vmr"),
         ("allsky.lw", None), ("kernel.lw_fused", "allsky.lw"),
-        ("backward.lw_fused", None), ("backward.sw_fused", None)}),
+        ("backward.lw_fused", None), ("backward.sw_fused", None),
+        ("kernel.gas_descriptors", "gas.descriptors"),
+        ("backward.gas_descriptors", None)}),
 }
 
 
@@ -230,7 +228,7 @@ def test_rfmip_spans_waits_and_bits():
     for _ in range(2):
         with trace.collect() as rec:
             out = rfmip_lw_sw(data, gas_lw, gas_sw)
-        assert rec.counters["waits"] == 9
+        assert rec.counters["waits"] == 1
         got = {(r[0], r[2]) for r in rec.spans}
         assert {("rfmip.lw_sw", None),
                 ("gas.fused_inputs", "rfmip.lw_sw"),
