@@ -1,145 +1,84 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's three all-sky paths, the LW two-stream path,
-gradient steps through two of them, the RFMIP driver (its fused and
-generic routes and SSM) and the pod-scale stream on one CUDA GPU and
-check them.
+"""The kernel table of the PyTorch port on one CUDA GPU: each hand-written
+kernel at the shapes its path gives it, against its plain-PyTorch twin,
+timed beside the twin and against the card's lower bound for its work.
 
     python3 chip_smoke.py
 
-Phases (any failure ends the run with a non-zero exit and no result):
+Phases (a kernel that disagrees with its twin ends the run with a
+non-zero exit and no result, so the table never times a wrong kernel):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from rte_rrtmgp_tpu_torch/csrc (nvcc, one
-     process per source, in parallel) and print the build time;
-  3. each kernel against its plain-PyTorch twin on the device at the
-     shapes its path gives it (4096 x 72, LW 256 g-points / 16 bands,
-     SW 224 / 14, ntemp 14, npres 59; the staged path's plain lane
-     solvers on the non-banded configuration, LW 192 / 16 and SW 168 / 14,
-     the only one on which the JAX package's dispatch reaches them; the
-     lane solvers with clouds and aerosols; the LW two-stream kernel on
-     the two-stream path's inputs, clouds at scattering=True), with the
-     median CUDA-event time of both and the card's lower bound for the same
-     work (the LW no-scattering solver as the public path calls it: one
-     scalar secant, no rescaling, no Jacobian; the minor and Rayleigh
-     gathers out of place, as the gas optics call them); the four adjoint
-     kernels against the twins' autograd on the same inputs and seeded
-     flux cotangents (see TOL_ADJ); then the variants the paths can ask
-     for, each against its twin and timed, logged but not in the kernels
-     line: by-band output of the fused LW and SW steps and of the LW
-     no-scattering, LW two-stream and SW solvers, the LW no-scattering
-     solver with Tang rescaling, the Jacobian and a secant field (also by
-     band), the Rayleigh gather's split variant (0 + Rayleigh, no ssa),
-     the fused steps with an incident flux (LW) and a diffuse one (SW),
-     and their adjoints with the same; for the adjoints of rows 16 and 17
-     their ptxas registers and spills, resident blocks per SM and scratch
-     bytes; for the kernels that hold their transport on chip (fused_lw,
-     fused_sw, solver_lw in its variants, solver_lw_2str, the SW solver's
-     plain and COMBINED instantiations and the adjoints solver_sw_bwd and
-     solver_lw_bwd) the same and their shared memory per block, cluster
-     size and tallest column, broadband and by band; the minor, Rayleigh
-     and major gathers' resident blocks per SM; the tallest column the
-     fused LW step, the LW no-scattering solver (as the public path calls
-     it, and rescaled with the Jacobian) and its adjoint, the SW solver
-     and its adjoint hold, against their twins, and one layer more
-     raising ValueError; the fused LW and SW steps on the RFMIP driver's
-     inputs at 1800 x 61 (100 sites x 18 experiments; the SW direct
-     incident flux scaled to each column's TSI, drawn from a fixed seed,
-     mu0 = 1 on the night columns) and the LW and SW solvers at SSM's 41
-     g-points on the same profiles, as variants;
-  4. golden gates at the production configuration (256 x 72): the float32
-     fused step, public-API path and staged path against
-     tests/golden/production.npz, and the float32 aerosols step (fused)
-     against the port's float64 twin of that step on the CPU, each field
-     within 3x tests/golden/production_f32_noise.json; the fused path's
-     d(TOA LW up)/d(tsfc) against the analytic surface Jacobian, and the
-     float32 training-loss gradients against the float64 twin's on the
-     CPU (printed as the gradient noise floor); the float32 LW two-stream
-     path against the port's float64 twin of it on the CPU (no two-stream
-     golden is committed), within the same 3x noise floor; the float32
-     RFMIP driver at the golden's shape (6 x 20 x 3, 32 g-points) against
-     tests/golden/rfmip.npz, each field within 3x the distance of the
-     port's float32 twin of it on the CPU, measured in the same run;
-  5. the paths at 4096 x 72, each with the launch counters set to 0 just
-     before it, the kernels it must and must not launch, finite
-     non-negative outputs, TOA SW down equal to the solar source times
-     mu0, and its median step time: the fused path
-     (build_allsky_step(...) then step(inputs)); the public-API path
-     (gas_optics_lw/sw -> cloud_optics -> increment -> rte_lw/rte_sw);
-     the staged lane-layout path (allsky_staged_lw/sw), banded and on the
-     non-banded configuration; the aerosols configuration on the fused,
-     staged and public-API paths; the clear-sky configuration on the
-     fused and staged paths (no cloud optics launched). Every path is
-     held against the fused one on the same inputs within rtol 3e-5 /
-     atol 5e-4 W/m2. The fused step by band, its band sums against its
-     broadband fluxes; the LW two-stream path (gas_optics_lw(scattering=
-     True) -> cloud_optics(scattering=True) -> increment -> rte_lw(
-     use_2stream=True)), broadband and by band, the two-stream kernel once
-     per step and no no-scattering solver, finite non-negative fluxes, the
-     band sums against the broadband fluxes; then where the time goes
-     (torch.profiler over 3 steps of the fused, public-API, staged,
-     aerosols fused and two-stream paths: device time by kernel, each
-     hand-written kernel on a line of its own, device busy share) and the
-     peak device memory of the fused and two-stream
-     steps; then two gradient steps
-     (forward + backward of a weighted flux loss) on the fused path with
-     clouds, then with aerosols, and on the public-API path, with the
-     adjoint kernels each launched once per step, gradients finite and
-     bit-identical over the two, the step time beside the forward's, the
-     fused step's peak device memory and its profile; the RFMIP driver
-     at 1800 x 61 (rfmip_lw_sw): fused_lw and fused_sw once per step and
-     nothing else, finite non-negative fluxes, night columns zero, TOA SW
-     down = TSI mu0 by day, against its generic route (the gathers and
-     the public solvers) within rtol 3e-5 / atol 5e-4 W/m2, blocked (100
-     columns a block) against one launch, its median step with the host
-     readback and chained on the device, and a profile; RFMIP through SSM
-     (solver_lw and solver_sw once per step) and its step; the pod-scale
-     configuration, 1,000,000 columns resident and 100,000 streamed in
-     chunks of 4096 x 72, columns/s of each, cloud_props twice and the
-     fused steps once per chunk, the streamed run's last chunk bit for
-     bit the resident run's and the fused step's;
-  6. rte_lw with 3 quadrature angles and with compute_optimal_angles
-     secants, on the card against the twins on the CPU (512 columns); the
-     secant of lw_solver_noscat as a tuple, a 0-d tensor, a 1-D tensor and
-     a tuple holding a 0-d tensor: bit-identical fluxes on the card;
-  7. a ``{"kernels": [...]}`` line (launches from the path that runs each
-     kernel: the fused path for the fused kernels and cloud optics, the
-     public-API path for the gathers and the public solvers, the staged
-     paths for the lane solvers, the two-stream path for its kernel, the
-     gradient steps for the adjoints),
-     then the last line
-     ``{"ok": true, "device": {...}}``.
+     process per source, in parallel), print the build time and ptxas's
+     registers and spills;
+  3. each kernel against its twin on the device at the shapes its path
+     gives it (4096 x 72, LW 256 g-points / 16 bands, SW 224 / 14, ntemp
+     14, npres 59; the staged path's plain lane solvers on the non-banded
+     configuration, LW 192 / 16 and SW 168 / 14, the only one on which the
+     JAX package's dispatch reaches them; the lane solvers with clouds and
+     aerosols; the LW two-stream kernel on the two-stream path's inputs,
+     clouds at scattering=True), with the median CUDA-event time of both
+     and the card's lower bound for the same work (the LW no-scattering
+     solver as the public path calls it: one scalar secant, no rescaling,
+     no Jacobian; the minor gather as the four out-of-place launches of a
+     public-path step, the Rayleigh gather out of place, as the gas optics
+     call them); the minor-gas scaling rows and the gas-optics descriptors
+     within 0 of their twins and their adjoints against the float64 twins'
+     autograd; the four adjoint kernels against the twins' autograd on
+     the same inputs and seeded flux cotangents (see TOL_ADJ); then the
+     variants the paths can ask for, each against its twin and timed,
+     logged but not in the kernels line: by-band output of the fused LW
+     and SW steps and of the LW no-scattering, LW two-stream and SW
+     solvers, the LW no-scattering solver with Tang rescaling, the
+     Jacobian and a secant field (also by band), the Rayleigh gather's
+     split variant (0 + Rayleigh, no ssa), the fused steps with an
+     incident flux (LW) and a diffuse one (SW), and their adjoints with
+     the same; the adjoints of rows 16 and 17: ptxas registers and
+     spills, resident blocks per SM and scratch bytes; the kernels that
+     hold their transport on chip (fused_lw, fused_sw, solver_lw in its
+     variants, solver_lw_2str, the SW solver's plain and COMBINED
+     instantiations and the adjoints solver_sw_bwd and solver_lw_bwd):
+     the same, their shared memory per block, cluster size and tallest
+     column, broadband and by band; the minor, Rayleigh and major
+     gathers' resident blocks per SM; the fused LW and SW steps on the
+     RFMIP driver's inputs at 1800 x 61 (100 sites x 18 experiments; the
+     SW direct incident flux scaled to each column's TSI, drawn from a
+     fixed seed, mu0 = 1 on the night columns) and the LW and SW solvers
+     at SSM's 41 g-points on the same profiles, as variants;
+  4. each path the cuda tests hold, run once at those shapes with the
+     launch counters set to 0 just before it: each kernel's launches
+     (see path_launches);
+  5. a ``{"kernels": [...], "paths": {...}}`` line (a row's launches are
+     those of the first path that launches its kernel), then the last
+     line ``{"ok": true, "device": {...}}``.
+
+The bounds of the six kernels the benchmark counts (fused_lw, fused_sw,
+gas_minor, solver_sw, fused_lw_bwd, fused_sw_bwd) are its own counts,
+torch_bench/work/<kernel>.py at the row's shapes, over the card's peaks,
+torch_bench/peaks.py. Pass/fail on the card (paths, goldens, gradients,
+launch counts, column-height limits, RFMIP, SSM, the streams) is
+``python -m pytest -m cuda tests/test_torch_cuda.py``; the paths'
+numbers are the benchmark's (torch_bench/run.py) and
+scripts/torch_trace_breakdown.py's.
 
 Without a CUDA device it exits with code 2 before doing anything.
 """
 import contextlib
 import json
-import os
 import statistics
 import subprocess
 import sys
 import time
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 MAIN = dict(ncol=4096, nlay=72, ngpt_lw=256, nbnd_lw=16, ngpt_sw=224,
             nbnd_sw=14, ntemp=14, npres=59)
-PROD = dict(MAIN, ncol=256)
 # bands of 12 g-points: the staged path takes the plain lane solvers
 NONBANDED = dict(MAIN, ngpt_lw=192, ngpt_sw=168)
-# bench.py's rfmip configuration (:171-255): 100 sites x 18 experiments x
-# 61 layers through the RFMIP drivers, LW 256 / 16, SW 224 / 14; each
-# column's TSI drawn from seed 5 in [1300, 1420] W/m2
+# the RFMIP configuration: 100 sites x 18 experiments x 61 layers through
+# the RFMIP drivers, LW 256 / 16, SW 224 / 14; each column's TSI drawn
+# from seed 5 in [1300, 1420] W/m2
 RFMIP = dict(nsite=100, nlay=61, nexp=18)
 RFMIP_TSI = (5, 1300.0, 1420.0)
-# the RFMIP golden's case (tests/test_golden_regression.py:25-37)
-RFMIP_GOLDEN = dict(nsite=6, nlay=20, nexp=3)
-RFMIP_GOLDEN_KD = dict(ngpt=32, nbnd=4, ntemp=6, npres=12)
-CHAINED = 10              # steps per chained window (bench.py BENCH_INNER)
-# bench.py's podscale configuration (:258-305): 1,000,000 columns
-# resident, then a tenth of them streamed, in chunks of 4096 x 72
-PODSCALE_COLS, PODSCALE_STREAMED = 1_000_000, 100_000
-# the streamed run's distinct host chunks: 3 against 2 device buffers, so
-# that a chunk read from the wrong buffer is another chunk's data (25
-# chunks: the last is entry 0, the resident chunk)
-PODSCALE_POOL = 3
 # kernel vs twin, same float32 inputs: the two differ only in summation
 # order, fused multiply-adds and expf's last bit. The gathers (cloud
 # optics, major/minor/Rayleigh) are lerps of a few products per value;
@@ -148,44 +87,7 @@ PODSCALE_POOL = 3
 # on an H100: gathers below 1e-7, fluxes about 2e-7).
 TOL_GATHER = 1e-6    # x max |twin|
 TOL_FLUX = 2e-6      # x max |twin| (about 3e-3 W/m2 on LW fluxes)
-# public-API path vs the fused path, same inputs (the JAX package's own
-# bound for its fused-vs-generic test, tests/test_pallas_gas_optics.py:275)
-PATH_RTOL, PATH_ATOL = 3e-5, 5e-4
 REPS = 5
-# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
-# bandwidth and float32 outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-# float operations per unit of work, counted from the kernels' arithmetic
-# (an exp or a division counts as one)
-OPS_MAJOR_CORNER = 5       # weight (2), x col_mix, multiply-add
-OPS_PFRAC_CORNER = 2
-OPS_MINOR = 16             # per (cell, g-point) a minor gas covers
-OPS_RAYLEIGH = 18          # 2-D lerp (14), x scale, combine (3)
-OPS_RAYLEIGH_SPLIT = 16    # 2-D lerp (14), x scale, 0 + it
-OPS_SCALE = 5              # per (window, cell): density, fraction, mask
-OPS_SCALE_BWD = 12         # per (window, cell): the scaling's adjoint
-OPS_CLOUD = 27             # per (cell, band): 2 phases x (3 lerps + 3)
-OPS_LW_LAYER = 24          # per (column, layer, g-point): source, sweeps
-OPS_LW_RESCALE = 14        # Tang terms and the second down sweep
-OPS_PLANCK = 12            # totplnk lerps, level geometric mean
-OPS_SW_LAYER = 62          # Meador-Weaver (47), direct beam, adding (12)
-OPS_SW_COMBINE = 12        # Rayleigh and cloud combine
-OPS_PFRAC_SOURCES = 8      # layer source, two level geometric means, cloud
-# per (column, layer, g-point) of the LW two-stream solve: Meador-Weaver
-# Rdif/Tdif (21), the Toon sources (27), the adding build and sweep (19),
-# the level sums (2)
-OPS_LW2_LAYER = 69
-# the adjoints, per (column, layer, g-point): the layer terms recomputed
-# twice and the sweeps' and sources' adjoints (LW); the coefficients,
-# beam and adding recomputed, their adjoints and the Meador-Weaver chain
-# transposed (SW); per corner of the major lookup, its five cotangents
-OPS_LW_ADJ = 70
-OPS_SW_ADJ = 300
-OPS_MAJOR_ADJ_CORNER = 14
-OPS_MINOR_ADJ = 12         # per (cell, g-point) a minor gas covers
-OPS_RAYLEIGH_ADJ = 12
-OPS_COMBINE_ADJ = 30       # Rayleigh combine and cloud increment transposed
 # an adjoint kernel against the twin's autograd, same float32 inputs and
 # cotangents: each cotangent within this share of its largest twin value
 # (the JAX package's float32 bound, tests/test_fused_autodiff.py:641-642).
@@ -209,6 +111,24 @@ TOL_COND = 2.0
 # cotangent within this share of its largest value (float32 rounding of
 # a few products per window and cell)
 TOL_SCALE_ADJ = 1e-5
+# the descriptors' adjoint against the float64 twin's autograd: each
+# cotangent within this share of its largest value
+TOL_DESC_ADJ = 1e-6
+# float operations per unit of work of the rows the benchmark does not
+# count, counted from the kernels' arithmetic (an exp or a division
+# counts as one); they stay here until the benchmark gives these kernels
+# a roofline. The others (OPS_MAJOR_CORNER, OPS_LW_LAYER, ...) are read
+# from torch_bench/work (bench()).
+OPS_RAYLEIGH_SPLIT = 16    # 2-D lerp (14), x scale, 0 + it
+OPS_SCALE = 5              # per (window, cell): density, fraction, mask
+OPS_SCALE_BWD = 12         # per (window, cell): the scaling's adjoint
+OPS_CLOUD = 27             # per (cell, band): 2 phases x (3 lerps + 3)
+OPS_LW_RESCALE = 14        # Tang terms and the second down sweep
+OPS_PFRAC_SOURCES = 8      # layer source, two level geometric means, cloud
+# per (column, layer, g-point) of the LW two-stream solve: Meador-Weaver
+# Rdif/Tdif (21), the Toon sources (27), the adding build and sweep (19),
+# the level sums (2)
+OPS_LW2_LAYER = 69
 # the gas descriptors per cell: the column amounts (a product per gas, the
 # dry column's 12), the temperature and pressure coefficients (12, a log),
 # and per flavor and temperature corner the mix, eta and its split (8);
@@ -217,9 +137,6 @@ OPS_DESC_CELL = 24
 OPS_DESC_FLAVOR = 8
 OPS_DESC_BWD_CELL = 16
 OPS_DESC_BWD_FLAVOR = 12
-# the descriptors' adjoint against the float64 twin's autograd: each
-# cotangent within this share of its largest value
-TOL_DESC_ADJ = 1e-6
 
 
 def log(msg):
@@ -302,11 +219,42 @@ def nbytes(*xs):
     return total
 
 
+def bench(kernel):
+    """The benchmark's count of ``kernel``'s work,
+    torch_bench/work/<kernel>.py: ``work(shapes)`` -> (bytes, operations)
+    of one step's launches, and its OPS_* per unit of work."""
+    from torch_bench.harness import load
+    return load("work", kernel)
+
+
+def shapes(gas_lw, gas_sw, ncol, nlay, clouds=True):
+    """The sizes the benchmark's work counts read, as
+    torch_bench/traffic/generator.shapes derives them from a
+    configuration: here the configuration, in torch_bench/configs' keys,
+    of the problem a row runs on. generator.shapes counts each minor
+    window a band wide, as the port's synthetic k-distributions make
+    them."""
+    from torch_bench.traffic import generator
+    lw = gas_lw.kdist
+    config = dict(ncol=ncol, nlay=nlay, ntemp=lw.kmajor.shape[0],
+                  neta=lw.neta, npres=lw.kmajor.shape[2] - 1,
+                  ntemp_planck=lw.totplnk.shape[0])
+    for side, gas in (("lw", gas_lw), ("sw", gas_sw)):
+        kd = gas.kdist
+        config[f"kdist_{side}"] = dict(
+            ngpt=kd.ngpt, nbnd=gas.grid.nband,
+            nminor_lower=len(kd.minor_lower.limits_gpt),
+            nminor_upper=len(kd.minor_upper.limits_gpt))
+    return dict(generator.shapes(config), clouds=clouds)
+
+
 def bound(moved_bytes, ops):
     """The least time the card could take: bytes over HBM bandwidth or
-    operations over the float32 peak, whichever is larger."""
-    t_bytes = moved_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_PER_S * 1e3
+    operations over the float32 peak (torch_bench/peaks.py), whichever is
+    larger."""
+    from torch_bench import peaks
+    t_bytes = moved_bytes / peaks.BYTES_PER_S * 1e3
+    t_ops = ops / peaks.F32_PER_S * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=moved_bytes, ops=ops)
@@ -362,20 +310,6 @@ def check_kernel(name, kernel, plain, args, tol, source, replaces, work,
                 bound_ms=b["bound_ms"], bound_by=b["bound_by"],
                 library_ms=None)
 
-
-def fused_ops(lw, sw, ncell):
-    """The operations of the fused LW and SW steps on ``ncell`` cells."""
-    gpt = lambda x: sum(w for (_, _, _, w, _) in x.minors)
-    ngl, ngs = lw.kmajor.shape[3], sw.kmajor.shape[3]
-    ops_lw = ncell * (ngl * (8 * (OPS_MAJOR_CORNER + OPS_PFRAC_CORNER)
-                             + OPS_PLANCK + OPS_LW_LAYER)
-                      + gpt(lw) * OPS_MINOR)
-    ops_sw = ncell * (ngs * (8 * OPS_MAJOR_CORNER + OPS_RAYLEIGH
-                             + OPS_SW_COMBINE + OPS_SW_LAYER)
-                      + gpt(sw) * OPS_MINOR)
-    return ops_lw, ops_sw
-
-
 def fused_rows(prob, dev, variants):
     """Phase 3, the fused path's kernels: cloud optics and the fused
     LW and SW steps; into ``variants`` the fused steps by band and with
@@ -398,7 +332,8 @@ def fused_rows(prob, dev, variants):
     nbnd_c = cloud_args[3].shape[2]
     lw = allsky_lw_inputs(inp, prob.gas_lw, cloud_optics=prob.cld_lw)
     sw = allsky_sw_inputs(inp, prob.gas_sw, cloud_optics=prob.cld_sw)
-    ops_lw, ops_sw = fused_ops(lw, sw, ncell)
+    s = shapes(prob.gas_lw, prob.gas_sw, ncol, nlay)
+    work = {k: bench(k).work(s) for k in ("fused_lw", "fused_sw")}
     rows = [
         check_kernel("cloud_props", lambda a: cloud_props(*a),
                      lambda a: cloud_props_plain(*a), cloud_args, TOL_GATHER,
@@ -409,30 +344,33 @@ def fused_rows(prob, dev, variants):
         check_kernel("fused_lw", lw_fused, lw_fused_plain, lw, TOL_FLUX,
                      "rte_rrtmgp_tpu_torch/csrc/fused_lw.cu",
                      "rte_rrtmgp_tpu/ops/pallas/fused_lw.py:368",
-                     (nbytes(tuple(lw)) + 2 * nlev * ncol * 4, ops_lw)),
+                     work["fused_lw"]),
         check_kernel("fused_sw", sw_fused, sw_fused_plain, sw, TOL_FLUX,
                      "rte_rrtmgp_tpu_torch/csrc/fused_sw.cu",
                      "rte_rrtmgp_tpu/ops/pallas/fused_sw.py:309",
-                     (nbytes(tuple(sw)) + 3 * nlev * ncol * 4, ops_sw)),
+                     work["fused_sw"]),
     ]
     gen = torch.Generator(device=dev).manual_seed(3)
     inc = 3.0 * torch.rand(lw.inc.shape, generator=gen, device=dev)
     nbl, nbs = lw.totplnk.shape[1], sw.nband
-    for name, kernel, plain, x, nout in (
+    # the benchmark's count of the broadband step, and the by-band fluxes
+    # beyond its broadband ones
+    for name, kernel, plain, x, extra in (
             ("fused_lw byband", lw_fused, lw_fused_plain,
-             lw._replace(byband=True), 2 * nbl),
+             lw._replace(byband=True), 2 * (nbl - 1)),
             ("fused_sw byband", sw_fused, sw_fused_plain,
-             sw._replace(byband=True), 3 * nbs),
-            ("fused_lw inc", lw_fused, lw_fused_plain, lw._replace(inc=inc), 2),
+             sw._replace(byband=True), 3 * (nbs - 1)),
+            ("fused_lw inc", lw_fused, lw_fused_plain, lw._replace(inc=inc),
+             0),
             ("fused_sw incdif", sw_fused, sw_fused_plain,
-             sw._replace(incdif=0.05 * sw.inc * inc[:sw.inc.shape[0]]), 3)):
+             sw._replace(incdif=0.05 * sw.inc * inc[:sw.inc.shape[0]]), 0)):
         src = "fused_lw" if name.startswith("fused_lw") else "fused_sw"
+        moved, ops = work[src]
         variants.append(check_kernel(
             name, kernel, plain, x, TOL_FLUX,
             f"rte_rrtmgp_tpu_torch/csrc/{src}.cu", rows[1 + (
                 src == "fused_sw")]["replaces"],
-            (nbytes(tuple(x)) + nout * nlev * ncol * 4,
-             ops_lw if src == "fused_lw" else ops_sw)))
+            (moved + extra * nlev * ncol * 4, ops)))
     return rows
 
 
@@ -441,10 +379,10 @@ def scale_rows(prob, variants):
     (csrc/minor_scale.cu; no TPU kernel: the JAX package forms them in
     plain JAX, rte_rrtmgp_tpu/ops/gas_optics.py:297-309) and their
     adjoint, LW and SW, on the layer-major views the fused gas optics hand
-    over (play.T, col_gas.transpose(1, 2)): the rows bit for bit the
-    twin's (the per-window loop), the adjoint's cotangents within
-    TOL_SCALE_ADJ of the float64 twin's autograd on seeded cotangents and
-    the same bits twice; each timed beside its twin (the loop; the
+    over (play.T, col_gas.transpose(1, 2)): the rows within 0 of the
+    twin's (the per-window loop), the adjoint's cotangents' error against
+    the float64 twin's autograd on seeded cotangents beside TOL_SCALE_ADJ
+    (test_minor_scale_* hold both); each timed beside its twin (the loop; the
     float32 twin's autograd), bound by the bytes it reads and writes; the
     kernels by :func:`queued_ms` (the card runs them faster than the host
     launches them), the twins by :func:`cuda_ms` (the host's pace). The
@@ -469,15 +407,10 @@ def scale_rows(prob, variants):
             "none (plain JAX, rte_rrtmgp_tpu/ops/gas_optics.py:297-309)",
             (cells + nwin * ncell * 4, OPS_SCALE * nwin * ncell),
             timer=queued_ms)
-        if not torch.equal(minor_scale(*args), minor_scale_plain(*args)):
-            raise SystemExit(f"minor_scale {band}: rows not bit for bit "
-                             "the twin's")
         gen = torch.Generator(device=tropo.device).manual_seed(9)
         g = torch.randn((nwin,) + tuple(tropo.shape), generator=gen,
                         device=tropo.device)
         got = minor_scale_bwd(*args, g)
-        if not all(map(torch.equal, got, minor_scale_bwd(*args, g))):
-            raise SystemExit(f"minor_scale_bwd {band}: two runs differ")
 
         def twin_grad(dtype):
             xs = [t.detach().to(dtype).requires_grad_() for t in x]
@@ -492,10 +425,6 @@ def scale_rows(prob, variants):
             log(f"kernel minor_scale_bwd {band}: {name} cotangent max_abs_err"
                 f" {errs[-1]:.3e} against the float64 twin (limit "
                 f"{TOL_SCALE_ADJ * scale:.3e})")
-            if not (bool(torch.isfinite(a).all())
-                    and errs[-1] <= TOL_SCALE_ADJ * scale):
-                raise SystemExit(f"minor_scale_bwd {band}: {name} cotangent "
-                                 "disagrees with the twin")
         del ref
         ms = queued_ms(lambda: minor_scale_bwd(*args, g))
         plain_ms = cuda_ms(lambda: twin_grad(torch.float32), reps=3)
@@ -524,11 +453,12 @@ def descriptor_rows(prob, variants):
     (csrc/gas_descriptors.cu; no TPU kernel: the JAX package forms the
     column amounts and the interpolation coefficients in plain JAX,
     rte_rrtmgp_tpu/ops/gas_optics.py) and their adjoint, LW and SW, in the
-    fused layout (layer-major outputs) and the public one: every output
-    bit for bit the twin's (ops/gas_optics.py::column_amounts and
+    fused layout (layer-major outputs) and the public one: the float
+    outputs within 0 of the twin's (ops/gas_optics.py::column_amounts and
     interpolation), the adjoint's cotangents of play, tlay, plev and the
-    water vapour within TOL_DESC_ADJ of the float64 twin's autograd on
-    seeded cotangents and the same bits twice; each timed beside its twin,
+    water vapour, their error against the float64 twin's autograd on
+    seeded cotangents beside TOL_DESC_ADJ (test_gas_descriptors_* hold
+    both); each timed beside its twin,
     the kernels by :func:`queued_ms`, the twins by :func:`cuda_ms`, bound
     by the bytes each reads and writes. The LW fused call's forward and
     adjoint are the kernels lines; the others go into ``variants`` or are
@@ -551,15 +481,7 @@ def descriptor_rows(prob, variants):
                     lm)
             floats = lambda cg, co: (cg, co.ftemp, co.fpress, co.col_mix,
                                      co.feta)
-            got, ref = gas_descriptors(*args), gas_descriptors_plain(*args)
-            torch.cuda.synchronize()
-            for name, a, b in zip(("col_gas",) + tuple(got[1]._fields),
-                                  (got[0], *got[1]), (ref[0], *ref[1])):
-                bits = (lambda x: x.view(torch.int32)
-                        if x.dtype == torch.float32 else x)
-                if a.shape != b.shape or not torch.equal(bits(a), bits(b)):
-                    raise SystemExit(f"gas_descriptors {band} {layout}: "
-                                     f"{name} not bit for bit the twin's")
+            got = gas_descriptors(*args)
             moved = nbytes(inp.play, inp.tlay, inp.plev, *vmrs, *got)
             label = f"gas_descriptors {band} {layout}"
             fwd = check_kernel(
@@ -570,8 +492,6 @@ def descriptor_rows(prob, variants):
                 (moved, ncell * (OPS_DESC_CELL + len(vmrs)
                                  + 2 * nflav * OPS_DESC_FLAVOR)),
                 timer=queued_ms)
-            log(f"kernel {label}: bit for bit the twin's (col_gas and "
-                "every coefficient)")
             gen = torch.Generator(device=inp.play.device).manual_seed(19)
             g = tuple(torch.randn(x.shape, generator=gen,
                                   device=inp.play.device)
@@ -584,11 +504,7 @@ def descriptor_rows(prob, variants):
                      g)
             with torch.no_grad():
                 dg = gas_descriptors_bwd(*bargs)
-                again = gas_descriptors_bwd(*bargs)
-            flat = lambda r: (r[0], r[1], r[2], r[4][h2o - 1])
-            dg, again = flat(dg), flat(again)
-            if not all(map(torch.equal, dg, again)):
-                raise SystemExit(f"{label} adjoint: two runs differ")
+            dg = (dg[0], dg[1], dg[2], dg[4][h2o - 1])
 
             def twin_grad(dtype):
                 tab = gas.interp_tables[dtype]
@@ -610,10 +526,6 @@ def descriptor_rows(prob, variants):
                 log(f"kernel {label} adjoint: {name} cotangent max_abs_err "
                     f"{errs[-1]:.3e} of the float64 twin's largest (limit "
                     f"{TOL_DESC_ADJ:.0e})")
-                if not (bool(torch.isfinite(a).all())
-                        and errs[-1] <= TOL_DESC_ADJ):
-                    raise SystemExit(f"{label} adjoint: {name} cotangent "
-                                     "disagrees with the twin")
             del want
             with torch.no_grad():
                 ms = queued_ms(lambda: gas_descriptors_bwd(*bargs))
@@ -636,7 +548,7 @@ def descriptor_rows(prob, variants):
                     library_ms=None))
             else:
                 variants.append(fwd)
-            del got, ref, g, dg, again, bargs
+            del got, g, dg, bargs
     torch.cuda.empty_cache()
     return rows
 
@@ -644,10 +556,11 @@ def descriptor_rows(prob, variants):
 def api_rows(prob, dev, variants):
     """Phase 3, the public-API path's kernels: the staged major, minor and
     Rayleigh gathers and the LW and SW solvers, on inputs prepared as the
-    path prepares them; into ``variants`` the solvers by band."""
+    path prepares them (the minor gather as the four launches of a step:
+    LW and SW, lower and upper atmosphere); into ``variants`` the solvers
+    by band."""
     import torch
     from rte_rrtmgp_tpu_torch.ops.gas_optics import minor_scaling
-    from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import _split_minors
     from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import (gas_major,
                                                             gas_major_plain)
     from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (
@@ -661,12 +574,29 @@ def api_rows(prob, dev, variants):
     ncol, nlay = inp.play.shape
     ncell = ncol * nlay
     gl, gs = prob.gas_lw, prob.gas_sw
+    s = shapes(gl, gs, ncol, nlay)
+    lw_ops, sw_ops = bench("fused_lw"), bench("fused_sw")
 
     def cells(gas):
         col_gas, col_dry, idx_h2o = gas.col_gas(inp.play, inp.plev,
                                                 inp.gas_concs)
         return gas.interp(inp.play, inp.tlay, col_gas), col_gas, col_dry, \
             idx_h2o
+
+    def minor_calls(gas, co, col_gas, idx_h2o):
+        """The lower and upper atmosphere's gas_minor arguments."""
+        kd = gas.kdist
+        tau = gas_major_plain(co, kd.kmajor, None, gas.gpoint_flavor)[0]
+        nlo = len(kd.minor_lower)
+        return tuple(
+            (tau, co, ktab, tuple(m[1:] for m in gas.minors
+                                  if bool(m[0]) == lower), meta,
+             minor_scaling(co, mset, lower=lower, play=inp.play,
+                           tlay=inp.tlay, col_gas=col_gas, idx_h2o=idx_h2o))
+            for lower, mset, ktab, meta in (
+                (True, kd.minor_lower, kd.kminor_lower, gas.minor_meta[:nlo]),
+                (False, kd.minor_upper, kd.kminor_upper,
+                 gas.minor_meta[nlo:])))
 
     co, col_gas, _, idx_h2o = cells(gl)
     kd = gl.kdist
@@ -680,27 +610,23 @@ def api_rows(prob, dev, variants):
         major, TOL_GATHER, "rte_rrtmgp_tpu_torch/csrc/gas_major.cu",
         "rte_rrtmgp_tpu/ops/pallas/major_gather.py:188",
         (nbytes(major[:4]) + 2 * ncell * ngl * 4,
-         ncell * ngl * 8 * (OPS_MAJOR_CORNER + OPS_PFRAC_CORNER)))]
-
-    tau = gas_major_plain(*major)[0]
-    lo = _split_minors(gl.minors)[0]
-    scaling = minor_scaling(co, kd.minor_lower, lower=True, play=inp.play,
-                            tlay=inp.tlay, col_gas=col_gas, idx_h2o=idx_h2o)
-    minor = (tau, co, kd.kminor_lower, lo, gl.minor_meta[:len(lo)], scaling)
-    covered = sum(w for (_, _, w, _) in lo)
-    # out of place, as the gas optics call it (models/rrtmgp/gas_optics.py
-    # ::_minor): tau read, a new tensor written
-    rows.append(check_kernel(
-        "gas_minor", lambda a: gas_minor(*a, out=torch.empty_like(a[0])),
-        lambda a: gas_minor_plain(*a, out=torch.empty_like(a[0])),
-        minor, TOL_GATHER, "rte_rrtmgp_tpu_torch/csrc/gas_minor.cu",
-        "rte_rrtmgp_tpu/ops/pallas/minor_gather.py:100",
-        (nbytes(co.jtemp, co.ftemp, co.jeta, co.feta, kd.kminor_lower,
-                scaling) + 2 * tau.numel() * 4,
-         ncell * covered * OPS_MINOR)))
-    del minor, tau, scaling
+         ncell * ngl * 8 * (lw_ops.OPS_MAJOR_CORNER
+                            + lw_ops.OPS_PFRAC_CORNER)))]
+    minor = minor_calls(gl, co, col_gas, idx_h2o)
 
     co, col_gas, col_dry, idx_h2o = cells(gs)
+    minor += minor_calls(gs, co, col_gas, idx_h2o)
+    # out of place, as the gas optics call it (models/rrtmgp/gas_optics.py
+    # ::_minor): tau read, a new tensor written
+    oop_minor = lambda f: lambda a: tuple(
+        f(*c, out=torch.empty_like(c[0])) for c in a)
+    rows.append(check_kernel(
+        "gas_minor", oop_minor(gas_minor), oop_minor(gas_minor_plain),
+        minor, TOL_GATHER, "rte_rrtmgp_tpu_torch/csrc/gas_minor.cu",
+        "rte_rrtmgp_tpu/ops/pallas/minor_gather.py:100",
+        bench("gas_minor").work(s)))
+    del minor
+
     kds = gs.kdist
     ngs = kds.ngpt
     tau = gas_major_plain(co, kds.kmajor, None, gs.gpoint_flavor)[0]
@@ -719,7 +645,7 @@ def api_rows(prob, dev, variants):
         oop(gas_rayleigh_plain, True), rayl, TOL_GATHER,
         "rte_rrtmgp_tpu_torch/csrc/gas_minor.cu",
         "rte_rrtmgp_tpu/ops/pallas/minor_gather.py:161",
-        (descr + 3 * tau.numel() * 4, ncell * ngs * OPS_RAYLEIGH)))
+        (descr + 3 * tau.numel() * 4, ncell * ngs * sw_ops.OPS_RAYLEIGH)))
     split = (None,) + rayl[1:]
     variants.append(check_kernel(
         "gas_rayleigh split", oop(gas_rayleigh, False),
@@ -751,7 +677,7 @@ def api_rows(prob, dev, variants):
         "rte_rrtmgp_tpu_torch/csrc/solver_lw.cu",
         "rte_rrtmgp_tpu/ops/pallas/solver_lw_kernel.py:239",
         (nbytes(path) + 2 * ncol * (nlay + 1) * 4,
-         ncol * nlay * ngl * OPS_LW_LAYER)))
+         ncol * nlay * ngl * lw_ops.OPS_LW_LAYER)))
     resc = (props.tau, src.lay_source, src.lev_source, rand(bc, 0.8, 1.0),
             src.sfc_source, rand(bc, 0.0, 2.0),
             dict(ds=gl.compute_optimal_angles(props), weight=1.0,
@@ -759,12 +685,13 @@ def api_rows(prob, dev, variants):
                  g=rand(shape, 0.0, 0.9)))
     nbl = gl.grid.nband
     bands = dict(gpt2band=gl.gpt2band, nband=nbl)
+    layer = lw_ops.OPS_LW_LAYER
     for name, x, nout, ops in (
             ("solver_lw byband", path[:6] + (dict(path[6], **bands),),
-             2 * nbl, OPS_LW_LAYER),
-            ("solver_lw rescaled", resc, 3, OPS_LW_LAYER + OPS_LW_RESCALE),
+             2 * nbl, layer),
+            ("solver_lw rescaled", resc, 3, layer + OPS_LW_RESCALE),
             ("solver_lw rescaled byband", resc[:6] + (dict(resc[6], **bands),),
-             2 * nbl + 1, OPS_LW_LAYER + OPS_LW_RESCALE)):
+             2 * nbl + 1, layer + OPS_LW_RESCALE)):
         variants.append(check_kernel(
             name, call(lw_noscat), call(lw_noscat_plain), x, TOL_FLUX,
             rows[-1]["source"], rows[-1]["replaces"],
@@ -789,41 +716,32 @@ def api_rows(prob, dev, variants):
     inc = toa.contiguous()
     sw = (props.tau, props.ssa, props.g, mu0, rand(bc, 0.0, 0.3),
           rand(bc, 0.0, 0.3), inc, 0.05 * inc)
+    moved, ops = bench("solver_sw").work(s)
     rows.append(check_kernel(
         "solver_sw", lambda a: sw_2stream(*a), lambda a: sw_2stream_plain(*a),
         sw, TOL_FLUX, "rte_rrtmgp_tpu_torch/csrc/solver_sw.cu",
-        "rte_rrtmgp_tpu/ops/pallas/solver_sw_kernel.py:222",
-        (nbytes(sw) + 3 * ncol * (nlay + 1) * 4,
-         ncol * nlay * ngs * OPS_SW_LAYER)))
+        "rte_rrtmgp_tpu/ops/pallas/solver_sw_kernel.py:222", (moved, ops)))
+    # the benchmark's count of the broadband solve, and the by-band fluxes
+    # beyond its broadband ones
     nbs = gs.grid.nband
     swb = sw + (gs.gpt2band,)
     variants.append(check_kernel(
         "solver_sw byband", lambda a: sw_2stream(*a, nband=nbs),
         lambda a: sw_2stream_plain(*a, nband=nbs), swb, TOL_FLUX,
         rows[-1]["source"], rows[-1]["replaces"],
-        (nbytes(swb) + 3 * nbs * ncol * (nlay + 1) * 4,
-         ncol * nlay * ngs * OPS_SW_LAYER)))
+        (moved + 3 * (nbs - 1) * ncol * (nlay + 1) * 4, ops)))
     return rows
 
 
-def lw2_step(prob, byband=False):
-    """The LW two-stream path, reference check_variants' true two-stream
-    with clouds (examples/flux_variants.py:76-82): gas optics with
-    scattering, the 2-stream cloud optics, increment, then
-    rte_lw(use_2stream=True). Returns step(inputs) -> (flux_up, flux_dn),
-    (ncol, nlay+1) or by band (ncol, nlay+1, nband)."""
+def two_stream_optics(prob, i):
+    """The LW two-stream path's optics and sources on inputs ``i``: gas
+    optics with scattering, the 2-stream cloud optics added."""
     from rte_rrtmgp_tpu_torch.optical_props import increment
-    from rte_rrtmgp_tpu_torch.rte import rte_lw
-
-    def step(i):
-        props, src = prob.gas_lw.gas_optics_lw(
-            i.play, i.plev, i.tlay, i.tsfc, i.gas_concs, tlev=i.tlev,
-            scattering=True, top_at_1=True)
-        props = increment(props, prob.cld_lw.cloud_optics(
-            i.lwp, i.iwp, i.rel, i.dei, scattering=True))
-        f = rte_lw(props, src, i.sfc_emis, use_2stream=True, byband=byband)
-        return f.flux_up, f.flux_dn
-    return step
+    props, src = prob.gas_lw.gas_optics_lw(
+        i.play, i.plev, i.tlay, i.tsfc, i.gas_concs, tlev=i.tlev,
+        scattering=True, top_at_1=True)
+    return increment(props, prob.cld_lw.cloud_optics(
+        i.lwp, i.iwp, i.rel, i.dei, scattering=True)), src
 
 
 def lw2_rows(prob, dev, variants):
@@ -834,13 +752,8 @@ def lw2_rows(prob, dev, variants):
     import torch
     from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_2str import (
         lw_2stream, lw_2stream_plain)
-    from rte_rrtmgp_tpu_torch.optical_props import increment
     i = prob.inputs
-    props, src = prob.gas_lw.gas_optics_lw(
-        i.play, i.plev, i.tlay, i.tsfc, i.gas_concs, tlev=i.tlev,
-        scattering=True, top_at_1=True)
-    props = increment(props, prob.cld_lw.cloud_optics(
-        i.lwp, i.iwp, i.rel, i.dei, scattering=True))
+    props, src = two_stream_optics(prob, i)
     ncol, nlay, ngpt = props.tau.shape
     emis = i.sfc_emis.expand(ncol, ngpt).contiguous()
     args = (props.tau.contiguous(), props.ssa.contiguous(),
@@ -917,18 +830,20 @@ def lanes_rows(prob, nonbanded):
     src_lw = "rte_rrtmgp_tpu_torch/csrc/solver_lw.cu"
     src_sw = "rte_rrtmgp_tpu_torch/csrc/solver_sw.cu"
     lanes = "rte_rrtmgp_tpu/ops/pallas/solver_lanes.py"
+    lw_layer = bench("fused_lw").OPS_LW_LAYER
+    sw_ops = bench("fused_sw")
     for name, p, banded, kernel, plain, src, line, ops in (
             ("solver_lw_lanes", nonbanded, False, sl.lw_noscat_lanes,
-             sl.lw_noscat_lanes_plain, src_lw, 224, OPS_LW_LAYER),
+             sl.lw_noscat_lanes_plain, src_lw, 224, lw_layer),
             ("solver_lw_pfrac", prob, True, sl.lw_noscat_lanes_pfrac,
              sl.lw_noscat_lanes_pfrac_plain, src_lw, 372,
-             OPS_LW_LAYER + OPS_PFRAC_SOURCES),
+             lw_layer + OPS_PFRAC_SOURCES),
             ("solver_sw_lanes", nonbanded, False, sl.sw_2stream_lanes,
-             sl.sw_2stream_lanes_plain, src_sw, 675, OPS_SW_LAYER),
+             sl.sw_2stream_lanes_plain, src_sw, 675, sw_ops.OPS_SW_LAYER),
             ("solver_sw_combined", prob, True,
              sl.sw_2stream_lanes_combined,
              sl.sw_2stream_lanes_combined_plain, src_sw, 774,
-             OPS_SW_LAYER + OPS_SW_COMBINE)):
+             sw_ops.OPS_SW_LAYER + sw_ops.OPS_SW_COMBINE)):
         sw = name.startswith("solver_sw")
         args = (sw_args if sw else lw_args)(p, banded)
         ngpt, nlay, ncol = args[0].shape
@@ -993,17 +908,17 @@ def rfmip_rows(rf, dev, variants):
     log(f"rfmip: {ncol} columns x {nlay} layers, {int((~usecol).sum())} "
         f"night columns, TSI {float(x['tsi'].min()):.1f}-"
         f"{float(x['tsi'].max()):.1f} W/m2")
-    ops_lw, ops_sw = fused_ops(lw, sw, ncol * nlay)
+    s = shapes(g_lw, g_sw, ncol, nlay, clouds=False)
     variants.append(check_kernel(
         "fused_lw rfmip", lw_fused, lw_fused_plain, lw, TOL_FLUX,
         "rte_rrtmgp_tpu_torch/csrc/fused_lw.cu",
         "rte_rrtmgp_tpu/ops/pallas/fused_lw.py:368",
-        (nbytes(tuple(lw)) + 2 * nlev * ncol * 4, ops_lw)))
+        bench("fused_lw").work(s)))
     variants.append(check_kernel(
         "fused_sw rfmip tsi", sw_fused, sw_fused_plain, sw, TOL_FLUX,
         "rte_rrtmgp_tpu_torch/csrc/fused_sw.cu",
         "rte_rrtmgp_tpu/ops/pallas/fused_sw.py:309",
-        (nbytes(tuple(sw)) + 3 * nlev * ncol * 4, ops_sw)))
+        bench("fused_sw").work(s)))
     del lw, sw
 
     ssm = ssm_lw_defaults(device=dev)
@@ -1020,7 +935,8 @@ def rfmip_rows(rf, dev, variants):
         "solver_lw ssm", call(lw_noscat), call(lw_noscat_plain), path,
         TOL_FLUX, "rte_rrtmgp_tpu_torch/csrc/solver_lw.cu",
         "rte_rrtmgp_tpu/ops/pallas/solver_lw_kernel.py:239",
-        (nbytes(path) + 2 * ncol * nlev * 4, ncol * nlay * ngpt * OPS_LW_LAYER)))
+        (nbytes(path) + 2 * ncol * nlev * 4,
+         ncol * nlay * ngpt * bench("fused_lw").OPS_LW_LAYER)))
     ssm = ssm_sw_defaults(device=dev)
     props, toa = ssm.gas_optics_sw(x["play"], x["plev"], x["tlay"],
                                    x["gas_concs"], top_at_1=True)
@@ -1033,210 +949,7 @@ def rfmip_rows(rf, dev, variants):
         lambda a: sw_2stream_plain(*a), args, TOL_FLUX,
         "rte_rrtmgp_tpu_torch/csrc/solver_sw.cu",
         "rte_rrtmgp_tpu/ops/pallas/solver_sw_kernel.py:222",
-        (nbytes(args) + 3 * ncol * nlev * 4, ncol * nlay * ngpt * OPS_SW_LAYER)))
-
-
-def rfmip_gate(dev):
-    """Phase 4, the float32 RFMIP driver (its fused route) on the card at
-    the golden's shape against tests/golden/rfmip.npz: each field within
-    3x the distance of the port's float32 twin of the same driver on the
-    CPU from the same golden, measured in this run."""
-    import numpy as np
-    from rte_rrtmgp_tpu_torch.drivers.rfmip import (rfmip_lw, rfmip_sw,
-                                                    synthetic_rfmip)
-    from rte_rrtmgp_tpu_torch.models.rrtmgp.gas_optics import GasOpticsRRTMGP
-    from rte_rrtmgp_tpu_torch.utils.synthetic import synthetic_kdist
-    golden = np.load(os.path.join(HERE, "tests", "golden", "rfmip.npz"))
-
-    def run(device):
-        data = synthetic_rfmip(**RFMIP_GOLDEN)
-        kd = dict(RFMIP_GOLDEN_KD, device=device)
-        out = (rfmip_lw(data, GasOpticsRRTMGP(synthetic_kdist(sw=False, **kd)))
-               + rfmip_sw(data, GasOpticsRRTMGP(synthetic_kdist(sw=True,
-                                                                **kd))))
-        return dict(zip(("lw_up", "lw_dn", "sw_up", "sw_dn"), out))
-
-    card, twin = run(dev), run("cpu")
-    for key, ref in golden.items():
-        d = float(np.abs(card[key] - ref).max())
-        t = float(np.abs(twin[key] - ref).max())
-        log(f"golden rfmip {key}: max |f32 card - f64 golden| {d:.4g} "
-            f"(limit {3 * t:.4g}: 3x the float32 twin's {t:.4g})")
-        if not d <= 3 * t:
-            raise SystemExit(f"golden gate failed on rfmip {key}")
-
-
-def wall_ms(fn, inner=1):
-    """Median over REPS of the wall time of ``inner`` calls of fn ending
-    in one torch.cuda.synchronize(), per call, in ms."""
-    import torch
-    fn()
-    times = []
-    for _ in range(REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(inner):
-            fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) / inner)
-    return statistics.median(times) * 1e3
-
-
-def counted(name, counters, fn, exact=None, launched=(), per=1):
-    """fn() with the counters set to 0 just before it, and its launches
-    divided by ``per`` (the steps fn takes): each kernel in ``exact``
-    (name -> launches) launched so many times, each in ``launched`` at
-    least once, no other. Returns (fn's result, the launches)."""
-    import torch
-    exact = exact or {}
-    torch.cuda.synchronize()
-    for c in counters.values():
-        c.launches = 0
-    out = fn()
-    torch.cuda.synchronize()
-    launches = {k: c.launches // per for k, c in counters.items()}
-    log(f"{name} launches: {launches}")
-    for k, n in launches.items():
-        if k in exact and n != exact[k]:
-            raise SystemExit(f"{name} launched {k} {n} times, expected "
-                             f"{exact[k]}")
-        if k in launched and n == 0:
-            raise SystemExit(f"{name} never launched {k}")
-        if k not in exact and k not in launched and n != 0:
-            raise SystemExit(f"{name} launched {k}")
-    return out, launches
-
-
-def rfmip_paths(rf, dev, counters, card):
-    """Phase 5, the RFMIP driver at 1800 x 61 through rfmip_lw_sw: fused_lw
-    and fused_sw once per step and nothing else; finite non-negative
-    fluxes, the night columns zero, TOA SW down = TSI mu0 by day; the
-    host-readback result the device result; against the generic route
-    (gathers and public solvers) within PATH_RTOL / PATH_ATOL; blocked
-    (100 columns a block) against one launch within tests/test_rfmip.py's
-    bounds; the median step with the host readback and chained on the
-    device (bench.py's two lines), and a profile. Then RFMIP through SSM:
-    solver_lw and solver_sw once per step, finite fluxes, its step."""
-    import numpy as np
-    import torch
-    from rte_rrtmgp_tpu_torch.drivers import rfmip
-    from rte_rrtmgp_tpu_torch.drivers.rfmip import rfmip_lw_sw
-    from rte_rrtmgp_tpu_torch.models.ssm import (ssm_lw_defaults,
-                                                 ssm_sw_defaults)
-    data, g_lw, g_sw = rf
-    ncol = data.ncol
-    host, launches = counted(
-        "rfmip", counters, lambda: rfmip_lw_sw(data, g_lw, g_sw),
-        {"fused_lw": 1, "fused_sw": 1, "minor_scale": 2,
-         "gas_descriptors": 2})
-    out = rfmip_lw_sw(data, g_lw, g_sw, device_out=True)
-    if not np.array_equal(out.cpu().numpy(), np.stack(host)):
-        raise SystemExit("rfmip: the host readback differs from the "
-                         "device result")
-    if not bool(torch.isfinite(out).all()) or bool((out < 0).any()):
-        raise SystemExit("rfmip fluxes not finite or negative")
-    x = rfmip._inputs(data, g_lw)
-    usecol, mu0 = rfmip._sun(x["sza"])
-    if bool((out[2:, ~usecol] != 0).any()):
-        raise SystemExit("rfmip: night columns not zero")
-    toa = (x["tsi"] * mu0)[usecol].double()
-    toa_err = float(((out[3, usecol, 0].double() - toa).abs() / toa).max())
-    log(f"rfmip sw_dn at TOA vs TSI * mu0 on {int(usecol.sum())} day "
-        f"columns: rel err {toa_err:.2e}")
-    if toa_err > 1e-5:
-        raise SystemExit("rfmip: sw_dn at TOA does not equal TSI * mu0")
-    lw = rfmip._lw_compute(g_lw, True, False, 1)
-    sw = rfmip._sw_compute(g_sw, True, False)
-    gen, _ = counted(
-        "rfmip generic route", counters,
-        lambda: lw(*rfmip._lw_args(x)) + sw(*rfmip._sw_args(x)),
-        {"gas_major": 2, "gas_minor": 4, "gas_rayleigh": 1, "solver_lw": 1,
-         "solver_sw": 1, "minor_scale": 2, "gas_descriptors": 2})
-    agree("rfmip generic route", gen, tuple(out))
-    blk = rfmip_lw_sw(data, g_lw, g_sw, block_size=RFMIP["nsite"])
-    diff = max(float(np.abs(a - b).max()) for a, b in zip(blk, host))
-    log(f"rfmip blocked ({RFMIP['nsite']} columns a block) vs one launch: "
-        f"max |diff| {diff:.3e} W/m2")
-    for a, b in zip(blk, host):
-        if not np.allclose(a, b, rtol=2e-6, atol=1e-5):
-            raise SystemExit("rfmip: blocked and unblocked disagree")
-    del out, gen, blk
-    t_host = wall_ms(lambda: rfmip_lw_sw(data, g_lw, g_sw))
-    t_chain = wall_ms(lambda: rfmip_lw_sw(data, g_lw, g_sw,
-                                          device_out=True), CHAINED)
-    log(f"rfmip step ({card}): {t_host:.3f} ms median of {REPS} with the "
-        f"host readback ({ncol / t_host * 1e3:.1f} columns/s), "
-        f"{t_chain:.3f} ms chained over {CHAINED} steps on the device "
-        f"({ncol / t_chain * 1e3:.1f} columns/s)")
-    profile_path("rfmip", lambda _: rfmip_lw_sw(data, g_lw, g_sw,
-                                                 device_out=True), None)
-
-    s_lw, s_sw = ssm_lw_defaults(device=dev), ssm_sw_defaults(device=dev)
-    out, _ = counted("rfmip ssm", counters,
-                     lambda: rfmip_lw_sw(data, s_lw, s_sw, device_out=True),
-                     {"solver_lw": 1, "solver_sw": 1})
-    if not bool(torch.isfinite(out).all()):
-        raise SystemExit("rfmip ssm fluxes not finite")
-    t_ssm = wall_ms(lambda: rfmip_lw_sw(data, s_lw, s_sw))
-    log(f"rfmip ssm step ({card}): {t_ssm:.3f} ms median of {REPS} with "
-        f"the host readback ({ncol / t_ssm * 1e3:.1f} columns/s)")
-    return launches
-
-
-def podscale_paths(dev, counters, card):
-    """Phase 5, the pod-scale configuration at bench.py's defaults:
-    PODSCALE_COLS resident, then PODSCALE_STREAMED streamed, in chunks of
-    4096 x 72: columns/s for each; cloud_props twice, fused_lw and
-    fused_sw once per step (each chunk and the untimed first step). The
-    streamed run cycles PODSCALE_POOL distinct host chunks through two
-    device buffers, out of phase: each chunk's outputs bit for bit the
-    fused step's on its pool entry, and the last chunk (entry 0) the
-    resident run's."""
-    import torch
-    from rte_rrtmgp_tpu_torch.drivers.allsky import build_allsky_step
-    from rte_rrtmgp_tpu_torch.parallel.scaling import _podscale, _pool_entry
-    kw = dict(chunk_cols_per_device=MAIN["ncol"], reps_per_chunk=1,
-              host_pool=PODSCALE_POOL, verbose=False, device=dev,
-              **{k: MAIN[k] for k in ("ngpt_lw", "nbnd_lw", "ngpt_sw",
-                                      "nbnd_sw", "ntemp", "npres")})
-    outs = []
-    for what, total, stream in (("resident", PODSCALE_COLS, False),
-                                ("streamed", PODSCALE_STREAMED, True)):
-        n = -(-total // MAIN["ncol"]) + 1
-        (r, out), _ = counted(
-            f"podscale {what}", counters,
-            lambda: _podscale(total, MAIN["nlay"], stream=stream,
-                              keep=stream, **kw),
-            {"cloud_props": 2 * n, "fused_lw": n, "fused_sw": n,
-             "minor_scale": 2 * n, "gas_descriptors": 2 * n})
-        log(f"podscale {what} ({card}): {r['n_chunks']} chunks of "
-            f"{r['chunk_columns']} x {MAIN['nlay']}, {r['total_columns']:,} "
-            f"columns in {r['seconds']:.3f} s, {r['cols_per_s']:.1f} "
-            "columns/s")
-        outs.append(out)
-    resident, streamed = outs
-    if (len(streamed) - 1) % PODSCALE_POOL:
-        raise SystemExit("podscale: the last streamed chunk is not pool "
-                         "entry 0")
-    step, inputs = build_allsky_step(**MAIN, device=dev)
-    refs = []
-    for j in range(PODSCALE_POOL):
-        lw_up, _, sw_up, _, _ = step(_pool_entry(inputs, j))
-        refs.append((lw_up[:, 0], sw_up[:, 0]))
-    if any(torch.equal(a, b) for j in range(1, PODSCALE_POOL)
-           for a, b in zip(refs[0], refs[j])):
-        raise SystemExit("podscale: two pool entries give the same outputs")
-    wrong = [k for k, out in enumerate(streamed)
-             if not all(map(torch.equal, out, refs[k % PODSCALE_POOL]))]
-    same = all(map(torch.equal, streamed[-1], resident[0]))
-    log(f"podscale: {len(streamed) - len(wrong)} of {len(streamed)} "
-        f"streamed chunks bit for bit the fused step's on their pool "
-        f"entry; the last {'is' if same else 'is not'} bit for bit the "
-        "resident run's")
-    if wrong or not same:
-        raise SystemExit(f"podscale: streamed chunks {wrong} differ from "
-                         "their pool entries, or the last from the "
-                         "resident run's")
+        bench("solver_sw").work(dict(ncol=ncol, nlay=nlay, ngpt_sw=ngpt))))
 
 
 def subset_inputs(inputs, n):
@@ -1278,7 +991,7 @@ def float32_constants():
         torch.finfo = finfo
 
 
-def check_adjoint(name, kernel, plain, make, source, replaces, ops_per_col):
+def check_adjoint(name, kernel, plain, make, source, replaces, work):
     """An adjoint kernel against its plain version (the twin's autograd)
     on the same inputs and seeded cotangents, ``make(n)`` building them
     for n columns: compared at 4096 columns, or at the largest halving
@@ -1286,7 +999,8 @@ def check_adjoint(name, kernel, plain, make, source, replaces, ops_per_col):
     TOL_ADJ of its largest twin value, or, where the float32 twin is
     itself further than that from the float64 twin (run on the card with
     the float32 constants), within TOL_ADJ of the float64 twin's.
-    The kernel is timed at 4096."""
+    The kernel is timed at 4096; ``work(args, cotangents)`` gives the
+    bytes and operations of its bound there."""
     import torch
     ncol = MAIN["ncol"]
     n = ncol
@@ -1340,8 +1054,7 @@ def check_adjoint(name, kernel, plain, make, source, replaces, ops_per_col):
     torch.cuda.empty_cache()
     args = make(ncol)
     ms = cuda_ms(lambda: kernel(args))
-    b = bound(nbytes(args) + nbytes(as_tuple(kernel(args))),
-              ops_per_col * ncol)
+    b = bound(*work(args, as_tuple(kernel(args))))
     log(f"kernel {name}: compared at {n} columns, kernel {ms:.3f} ms at "
         f"{ncol}, plain {plain_ms:.3f} ms at {n}, bound {b['bound_ms']:.4f}"
         f" ms by {b['bound_by']} ({b['bytes'] / 1e9:.3f} GB, "
@@ -1413,16 +1126,17 @@ def adjoint_rows(prob, dev, variants):
                 torch.zeros_like(inc), cot((n, nlay + 1), 8),
                 cot((n, nlay + 1), 9), cot((n, nlay + 1), 10))
 
-    gpt = lambda g: sum(w for (_, _, _, w, _) in g.minors)
-    ngl, ngs = gl.ngpt, gs.ngpt
-    ops_flw = nlay * (ngl * (8 * (OPS_MAJOR_CORNER + OPS_PFRAC_CORNER
-                                  + OPS_MAJOR_ADJ_CORNER) + OPS_PLANCK
-                             + OPS_LW_ADJ)
-                      + gpt(gl) * (OPS_MINOR + OPS_MINOR_ADJ))
-    ops_fsw = nlay * (ngs * (8 * (OPS_MAJOR_CORNER + OPS_MAJOR_ADJ_CORNER)
-                             + OPS_RAYLEIGH + OPS_RAYLEIGH_ADJ
-                             + OPS_SW_COMBINE + OPS_COMBINE_ADJ + OPS_SW_ADJ)
-                      + gpt(gs) * (OPS_MINOR + OPS_MINOR_ADJ))
+    ncol, ngl, ngs = MAIN["ncol"], gl.ngpt, gs.ngpt
+    s = shapes(gl, gs, ncol, nlay)
+    flw_bwd, fsw_bwd = bench("fused_lw_bwd"), bench("fused_sw_bwd")
+    work_flw = lambda a, o: flw_bwd.work(s)
+    work_fsw = lambda a, o: fsw_bwd.work(s)
+    # the solver adjoints: the bytes of their arguments and cotangents, and
+    # the fused adjoints' per-(cell, g-point) count of the transport's
+    work_lw = lambda a, o: (nbytes(a) + nbytes(o),
+                            ncol * nlay * ngl * flw_bwd.OPS_LW_ADJ)
+    work_sw = lambda a, o: (nbytes(a) + nbytes(o),
+                            ncol * nlay * ngs * fsw_bwd.OPS_SW_ADJ)
     ds, wt = GAUSS_DS[0][0], 1.0
     pallas = "rte_rrtmgp_tpu/ops/pallas"
     csrc = "rte_rrtmgp_tpu_torch/csrc"
@@ -1440,29 +1154,29 @@ def adjoint_rows(prob, dev, variants):
         check_adjoint("fused_lw_bwd inc", lambda a: flw.lw_fused_bwd(*a),
                       lambda a: flw.lw_fused_bwd_plain(*a),
                       fused_lw_inc_args, f"{csrc}/fused_lw_bwd.cu",
-                      f"{pallas}/fused_lw_bwd.py:506", ops_flw),
+                      f"{pallas}/fused_lw_bwd.py:506", work_flw),
         check_adjoint("fused_sw_bwd incdif", lambda a: fsw.sw_fused_bwd(*a),
                       lambda a: fsw.sw_fused_bwd_plain(*a),
                       fused_sw_incdif_args, f"{csrc}/fused_sw_bwd.cu",
-                      f"{pallas}/fused_sw_bwd.py:694", ops_fsw)]
+                      f"{pallas}/fused_sw_bwd.py:694", work_fsw)]
     return [
         check_adjoint("fused_lw_bwd", lambda a: flw.lw_fused_bwd(*a),
                       lambda a: flw.lw_fused_bwd_plain(*a), fused_lw_args,
                       f"{csrc}/fused_lw_bwd.cu", f"{pallas}/fused_lw_bwd.py:506",
-                      ops_flw),
+                      work_flw),
         check_adjoint("fused_sw_bwd", lambda a: fsw.sw_fused_bwd(*a),
                       lambda a: fsw.sw_fused_bwd_plain(*a), fused_sw_args,
                       f"{csrc}/fused_sw_bwd.cu", f"{pallas}/fused_sw_bwd.py:694",
-                      ops_fsw),
+                      work_fsw),
         check_adjoint("solver_lw_bwd",
                       lambda a: slw.lw_noscat_bwd(*a, ds=ds, weight=wt),
                       lambda a: slw.lw_noscat_bwd_plain(*a, ds=ds, weight=wt),
                       lw_args, f"{csrc}/solver_lw_bwd.cu",
-                      f"{pallas}/solver_lw_bwd.py:207", nlay * ngl * OPS_LW_ADJ),
+                      f"{pallas}/solver_lw_bwd.py:207", work_lw),
         check_adjoint("solver_sw_bwd", lambda a: ssw.sw_2stream_bwd(*a),
                       lambda a: ssw.sw_2stream_bwd_plain(*a), sw_args,
                       f"{csrc}/solver_sw_bwd.cu",
-                      f"{pallas}/solver_sw_bwd.py:402", nlay * ngs * OPS_SW_ADJ),
+                      f"{pallas}/solver_sw_bwd.py:402", work_sw),
     ]
 
 
@@ -1495,8 +1209,6 @@ def adjoint_report(prob, reports):
         log(f"adjoint {name}: ptxas {regs}; {blocks} resident blocks per SM"
             f" at {ncol} x {nlay}; scratch {scratch} B "
             f"({scratch / 1e9:.3f} GB)")
-        if blocks < 1:
-            raise SystemExit(f"{name}: no block fits an SM ({blocks})")
     del xl, xs
 
 
@@ -1515,12 +1227,12 @@ def onchip_report(prob, reports):
     """Phase 3, the resources of the kernels that hold their transport on
     chip (rows 2, 3, 7, 8, 9, 10, 11, 12, 13, 14 and 15) at the main
     path's shapes, broadband and by band: ptxas registers and spills,
-    shared memory per block and cluster size (ops/kernels/onchip.py::
-    onchip_geometry, held against the launchers' own count; row 14's
-    blocks launch without a cluster), the tallest column, resident blocks
-    per SM and clusters the card holds at once
+    shared memory per block (ops/kernels/onchip.py::onchip_geometry, and
+    the launchers' own count beside it) and cluster size (row 14's blocks
+    launch without a cluster), the tallest column, resident blocks per SM
+    and clusters the card holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-    cudaOccupancyMaxActiveClusters), and device scratch (none). solver_lw
+    cudaOccupancyMaxActiveClusters), and device scratch. solver_lw
     is one kernel of nine instantiations: plain and rescaled, each with
     and without the Jacobian, broadband (rows 7 and 10) and by band (row
     7), and PFRAC (row 11); solver_sw one of two: the plain one of rows 9
@@ -1623,14 +1335,8 @@ def onchip_report(prob, reports):
             f"ptxas {regs}; chunk {geo.chunk} g-points, {blocks} blocks of "
             f"{geo.threads} threads, {geo.smem} B shared memory per block, "
             f"the tallest column {top} layers; {occ[0]} resident blocks per "
-            f"SM{clusters}; scratch {scratch} B at {ncol} x {nlay}")
-        if smem_c != geo.smem:
-            raise SystemExit(f"{name}: onchip_geometry counts {geo.smem} B of"
-                             f" shared memory, the launcher {smem_c}")
-        if occ[0] < 1 or (occ[1] is not None and occ[1] < 1):
-            raise SystemExit(f"{name}: no block or cluster fits ({occ})")
-        if scratch != 0:
-            raise SystemExit(f"{name}: {scratch} B of device scratch")
+            f"SM{clusters}; scratch {scratch} B at {ncol} x {nlay}; the "
+            f"launcher counts {smem_c} B of shared memory")
     rep = reports.get("gas_minor")
     regs = ("not rebuilt in this run" if rep is None else ", ".join(
         f"{r} registers, {ss_} B spill stores, {sl} B spill loads"
@@ -1642,13 +1348,9 @@ def onchip_report(prob, reports):
             blocks = gas_minor_occupancy(gas.ngpt, n)
             log(f"gas_minor {tag} {atm} ({gas.ngpt} g-points, {n} minors): "
                 f"{blocks} resident blocks per SM")
-            if blocks < 1:
-                raise SystemExit(f"gas_minor: no block fits an SM ({blocks})")
     blocks = gas_rayleigh_occupancy(prob.gas_sw.ngpt)
     log(f"gas_rayleigh SW ({prob.gas_sw.ngpt} g-points): {blocks} resident "
         "blocks per SM")
-    if blocks < 1:
-        raise SystemExit(f"gas_rayleigh: no block fits an SM ({blocks})")
     log(f"gas_minor: ptxas {regs} (the gas_minor_kernel and "
         "gas_rayleigh_kernel instantiations)")
     rep = reports.get("gas_major")
@@ -1661,597 +1363,142 @@ def onchip_report(prob, reports):
         log(f"gas_major {tag} ({ngpt} g-points"
             f"{', Planck fraction' if planck else ''}): {blocks} resident "
             "blocks per SM")
-        if blocks < 1:
-            raise SystemExit(f"gas_major: no block fits an SM ({blocks})")
     log(f"gas_major: ptxas {regs} (its instantiations with and without the "
         "Planck fraction, of 256 and 1024 threads)")
     del xs, xl
 
 
-def onchip_limits(dev):
-    """Phase 3, the column-height limits of the fused LW step, the LW
-    no-scattering solve (as the public path calls it, and rescaled with
-    the Jacobian) and its adjoint, the SW solve and its adjoint on the
-    card, at the
-    flagship's 256 and 224 g-points (chunks of 32): the tallest column
-    each holds (from onchip_geometry's message), 4 columns of the flagship
-    problem (the fused LW step) or of seeded optics, against the twin
-    (fluxes within TOL_FLUX of the
-    largest twin flux; each cotangent within TOL_ADJ of its largest twin
-    value, or, where the float32 twin itself misses that against the
-    float64 twin, within TOL_ADJ of the float64 twin's: check_adjoint's
-    rule); one layer more raises ValueError naming the limit and launches
-    nothing. Then the adjoint's tallest column with mu0 up to the clamp at
-    k mu0 = 1, where float32 resolves the ssa, g and mu0 cotangents in no
-    implementation: there a cotangent that the float32 twin misses is held
-    within TOL_COND times the twin's distance from the float64 twin."""
-    import numpy as np
+def train(step, inputs):
+    """One gradient step of a path: the benchmark's loss of its fluxes
+    (torch_bench/steps/grad.py) and its gradients with respect to tlay,
+    tsfc, lwp, rel and the water vapour."""
     import torch
-    from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_lw_inputs,
-                                                     build_allsky)
-    from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw as flw
-    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw as slw
-    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_bwd as lwb
-    from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw as ss
-    from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd as ssw
-    ncol, ngpt = 4, MAIN["ngpt_sw"]
-
-    # the fused LW step on 4 columns of the flagship problem, as tall as
-    # a block holds, with clouds and a non-zero incident flux
-    lw_dims = dict(MAIN, ncol=ncol)
-    p = build_allsky(**dict(lw_dims, nlay=8), device=dev)
-    nminor = len(allsky_lw_inputs(p.inputs, p.gas_lw,
-                                  use_clouds=False).minors)
-    nlay = tallest_column("fused_lw", MAIN["ngpt_lw"], 0, nminor)
-    for n in (nlay, nlay + 1):
-        p = build_allsky(**dict(lw_dims, nlay=n), device=dev)
-        x = allsky_lw_inputs(p.inputs, p.gas_lw, cloud_optics=p.cld_lw)
-        x = x._replace(inc=0.5 + torch.rand(
-            x.inc.shape, generator=torch.Generator(device=dev).manual_seed(
-                22), device=dev))
-        n0 = flw.lw_fused.launches
-        if n == nlay:
-            got, ref = flw.lw_fused(x), flw.lw_fused_plain(x)
-            torch.cuda.synchronize()
-            err = (max(float((g - r).abs().max()) for g, r in zip(got, ref))
-                   / max(float(r.abs().max()) for r in ref))
-            log(f"fused_lw: the tallest column, {n} layers at "
-                f"{x.kmajor.shape[3]} g-points, against the twin: {err:.3e}"
-                f" of the largest twin flux (limit {TOL_FLUX})")
-            if not err <= TOL_FLUX or flw.lw_fused.launches != n0 + 1:
-                raise SystemExit("fused_lw: the tallest column disagrees "
-                                 "with the twin")
-            continue
-        try:
-            flw.lw_fused(x)
-        except ValueError as e:
-            if f"at most {nlay} layers" not in str(e):
-                raise
-            log(f"fused_lw: {n} layers raise ValueError: {e}")
-        else:
-            raise SystemExit(f"fused_lw: {n} layers did not raise")
-        if flw.lw_fused.launches != n0:
-            raise SystemExit("fused_lw: launched past its limit")
-    del p, x
-
-    # the LW no-scattering solve as the public path calls it and rescaled
-    # with the Jacobian and a secant field, at the flagship's 256
-    # g-points, on 4 columns of seeded sources and optical depths from
-    # 1e-6 to 10
-    rng = np.random.default_rng(24)
-    u = lambda lo, hi, *shape: torch.from_numpy(rng.uniform(
-        lo, hi, shape).astype(np.float32)).to(dev)
-    ngl = MAIN["ngpt_lw"]
-    for variant in (dict(), dict(rescale=True, jacobian=True)):
-        nlay = tallest_column("solver_lw", ngl, **variant)
-        for n in (nlay, nlay + 1):
-            lay3 = (ncol, n, ngl)
-            tau = torch.from_numpy((10.0 ** rng.uniform(-6.0, 1.0, lay3))
-                                   .astype(np.float32)).to(dev)
-            a = (tau, u(0.5, 1.5, *lay3), u(0.5, 1.5, ncol, n + 1, ngl),
-                 u(0.8, 1.0, ncol, ngl), u(0.5, 1.5, ncol, ngl),
-                 u(0.0, 0.5, ncol, ngl))
-            kw = dict(ds=1.66, weight=0.5)
-            if variant:
-                kw.update(ds=u(1.0, 2.0, ncol, ngl), sfc_src_jac=u(
-                    0.0, 0.1, ncol, ngl), ssa=u(0.0, 0.6, *lay3),
-                    g=u(0.0, 0.9, *lay3))
-            what = "rescaled + Jacobian" if variant else "path"
-            n0 = slw.lw_noscat.launches
-            if n == nlay:
-                got = as_tuple(slw.lw_noscat(*a, **kw))
-                ref = as_tuple(slw.lw_noscat_plain(*a, **kw))
-                torch.cuda.synchronize()
-                err = (max(float((g - r).abs().max())
-                           for g, r in zip(got, ref))
-                       / max(float(r.abs().max()) for r in ref))
-                log(f"solver_lw {what}: the tallest column, {n} layers at "
-                    f"{ngl} g-points, against the twin: {err:.3e} of the "
-                    f"largest twin flux (limit {TOL_FLUX})")
-                if not err <= TOL_FLUX or slw.lw_noscat.launches != n0 + 1:
-                    raise SystemExit(f"solver_lw {what}: the tallest column "
-                                     "disagrees with the twin")
-                continue
-            try:
-                slw.lw_noscat(*a, **kw)
-            except ValueError as e:
-                if f"at most {nlay} layers" not in str(e):
-                    raise
-                log(f"solver_lw {what}: {n} layers raise ValueError: {e}")
-            else:
-                raise SystemExit(f"solver_lw {what}: {n} layers did not "
-                                 "raise")
-            if slw.lw_noscat.launches != n0:
-                raise SystemExit("solver_lw: launched past its limit")
-    del a, tau
-
-    # its adjoint (row 14) at the flagship's 256 g-points, as rte_lw's
-    # gradient calls it, on 4 columns of seeded sources, flux cotangents
-    # and optical depths from 1e-6 to 10
-    nlay = tallest_column("solver_lw_bwd", ngl)
-    for n in (nlay, nlay + 1):
-        lay3 = (ncol, n, ngl)
-        tau = torch.from_numpy((10.0 ** rng.uniform(-6.0, 1.0, lay3))
-                               .astype(np.float32)).to(dev)
-        a = (tau, u(0.5, 1.5, *lay3), u(0.5, 1.5, ncol, n + 1, ngl),
-             u(0.8, 1.0, ncol, ngl), u(0.5, 1.5, ncol, ngl),
-             u(0.0, 0.5, ncol, ngl), u(0.5, 1.5, ncol, n + 1),
-             u(0.5, 1.5, ncol, n + 1))
-        kw = dict(ds=1.66, weight=0.5)
-        n0 = lwb.lw_noscat_bwd.launches
-        if n == nlay:
-            got = lwb.lw_noscat_bwd(*a, **kw)
-            ref = lwb.lw_noscat_bwd_plain(*a, **kw)
-            torch.cuda.synchronize()
-            errs = [float((g - r).abs().max()) / float(r.abs().max())
-                    for g, r in zip(got, ref)]
-            log(f"solver_lw_bwd: the tallest column, {n} layers at {ngl} "
-                "g-points, against the twin: "
-                + ", ".join(f"{e:.3e}" for e in errs)
-                + f" of the largest twin value (limit {TOL_ADJ})")
-            beyond = [i for i, e in enumerate(errs) if not e <= TOL_ADJ]
-            if beyond:
-                with float32_constants():
-                    ref64 = lwb.lw_noscat_bwd_plain(*to_f64(a), **kw)
-                for i in list(beyond):
-                    scale = float(ref64[i].abs().max())
-                    k64 = float((got[i].double() - ref64[i]).abs().max()) \
-                        / scale
-                    t64 = float((ref[i].double() - ref64[i]).abs().max()) \
-                        / scale
-                    log(f"solver_lw_bwd: cotangent {i} against the float64 "
-                        f"twin: kernel {k64:.3e}, float32 twin {t64:.3e}")
-                    if t64 > TOL_ADJ and k64 <= TOL_ADJ:
-                        beyond.remove(i)
-            if beyond or lwb.lw_noscat_bwd.launches != n0 + 1:
-                raise SystemExit("solver_lw_bwd: the tallest column "
-                                 "disagrees with the twin")
-            del got, ref
-            continue
-        try:
-            lwb.lw_noscat_bwd(*a, **kw)
-        except ValueError as e:
-            if f"at most {nlay} layers" not in str(e):
-                raise
-            log(f"solver_lw_bwd: {n} layers raise ValueError: {e}")
-        else:
-            raise SystemExit(f"solver_lw_bwd: {n} layers did not raise")
-        if lwb.lw_noscat_bwd.launches != n0:
-            raise SystemExit("solver_lw_bwd: launched past its limit")
-    del a, tau
-
-    rng = np.random.default_rng(21)
-
-    # ssa up to 0.9 and g up to 0.8 put the two-stream k in [0.55, 2]; mu0
-    # in [0.2, 0.3] keeps k mu0 below 0.6, away from the clamp at k mu0 =
-    # 1, near which float32 resolves the adjoint's ssa, g and mu0
-    # cotangents in no implementation (test_sw_solver_adjoint_low_suns)
-    def args(nlay, mu_lo=0.2, mu_hi=0.3):
-        bc = (ncol, ngpt)
-        inc = u(0.5, 2.0, *bc)
-        return (u(0.0, 0.1, ncol, nlay, ngpt), u(0.0, 0.9, ncol, nlay, ngpt),
-                u(0.0, 0.8, ncol, nlay, ngpt), u(mu_lo, mu_hi, ncol, nlay),
-                u(0.0, 0.3, *bc), u(0.0, 0.3, *bc), inc, 0.05 * inc)
-
-    for kernel, fn, plain, tol, cots in (
-            ("solver_sw", ss.sw_2stream, ss.sw_2stream_plain, TOL_FLUX, 0),
-            ("solver_sw_bwd", ssw.sw_2stream_bwd, ssw.sw_2stream_bwd_plain,
-             TOL_ADJ, 3)):
-        nlay = tallest_column(kernel, ngpt)
-        a = args(nlay) + tuple(u(0.5, 1.5, ncol, nlay + 1)
-                               for _ in range(cots))
-        got, ref = fn(*a), plain(*a)
-        torch.cuda.synchronize()
-        if cots:
-            errs = [float((g - r).abs().max()) / float(r.abs().max())
-                    for g, r in zip(got, ref)]
-        else:
-            errs = [max(float((g - r).abs().max()) for g, r in zip(got, ref))
-                    / max(float(r.abs().max()) for r in ref)]
-        log(f"{kernel}: the tallest column, {nlay} layers at {ngpt} "
-            f"g-points, against the twin: "
-            + ", ".join(f"{e:.3e}" for e in errs)
-            + f" of the largest twin value (limit {tol})")
-        beyond = [i for i, e in enumerate(errs) if not e <= tol]
-        if beyond and cots:
-            with float32_constants():
-                ref64 = plain(*to_f64(a))
-            for i in list(beyond):
-                scale = float(ref64[i].abs().max())
-                k64 = float((got[i].double() - ref64[i]).abs().max()) / scale
-                t64 = float((ref[i].double() - ref64[i]).abs().max()) / scale
-                log(f"{kernel}: cotangent {i} against the float64 twin: "
-                    f"kernel {k64:.3e}, float32 twin {t64:.3e}")
-                if t64 > tol and k64 <= tol:
-                    beyond.remove(i)
-        if beyond:
-            raise SystemExit(f"{kernel}: the tallest column disagrees with "
-                             "the twin")
-        a = args(nlay + 1) + tuple(u(0.5, 1.5, ncol, nlay + 2)
-                                   for _ in range(cots))
-        n0 = fn.launches
-        try:
-            fn(*a)
-        except ValueError as e:
-            if f"at most {nlay} layers" not in str(e):
-                raise
-            log(f"{kernel}: {nlay + 1} layers raise ValueError: {e}")
-        else:
-            raise SystemExit(f"{kernel}: {nlay + 1} layers did not raise")
-        if fn.launches != n0:
-            raise SystemExit(f"{kernel}: launched past its limit")
-
-    # row 15 again with mu0 in [0.3, 0.9], k mu0 up to the clamp: each
-    # cotangent within TOL_ADJ of its largest twin value or, where the
-    # float32 twin misses TOL_ADJ against the float64 twin, within
-    # TOL_COND times the twin's distance from it (the low-suns rule)
-    nlay = tallest_column("solver_sw_bwd", ngpt)
-    a = args(nlay, 0.3, 0.9) + tuple(u(0.5, 1.5, ncol, nlay + 1)
-                                     for _ in range(3))
-    got, ref = ssw.sw_2stream_bwd(*a), ssw.sw_2stream_bwd_plain(*a)
-    with float32_constants():
-        ref64 = ssw.sw_2stream_bwd_plain(*to_f64(a))
-    for i, (g, r, r64) in enumerate(zip(got, ref, ref64)):
-        err = float((g - r).abs().max()) / float(r.abs().max())
-        scale = float(r64.abs().max())
-        k64 = float((g.double() - r64).abs().max()) / scale
-        t64 = float((r.double() - r64).abs().max()) / scale
-        log(f"solver_sw_bwd: the tallest column, mu0 in [0.3, 0.9], "
-            f"cotangent {i}: {err:.3e} of the largest twin value; from the "
-            f"float64 twin kernel {k64:.3e}, float32 twin {t64:.3e}")
-        if not (err <= TOL_ADJ or (t64 > TOL_ADJ and k64 <= TOL_COND * t64)):
-            raise SystemExit(f"solver_sw_bwd: the tallest column near the "
-                             f"clamp, cotangent {i} disagrees with the twin")
-    del got, ref, ref64
-
-
-def peak_memory(name, fn):
-    """Peak device memory of one call of fn beyond what is held before."""
-    import torch
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    fn()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    log(f"{name}: peak device memory {peak} B ({peak / 1e9:.3f} GB; "
-        f"{(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB held "
-        "before the step)")
-
-
-def train_loss(step, inputs):
-    """One training step's loss and its gradients with respect to (tlay,
-    tsfc, lwp, rel, h2o vmr): sum(w_lev up) + 0.5 sum(w_lev dn) for LW and
-    SW, + 0.25 sum(SW direct), w_lev = linspace(0.5, 1.5, nlay+1) (as
-    tests/test_fused_autodiff.py:69)."""
-    import torch
+    from torch_bench.steps.grad import loss_of
     ncol, nlay = inputs.play.shape
     leaves = {k: getattr(inputs, k).detach().clone().requires_grad_()
               for k in ("tlay", "tsfc", "lwp", "rel")}
-    leaves["h2o"] = inputs.gas_concs.get_vmr("h2o", ncol, nlay).detach() \
-        .clone().requires_grad_()
-    gc = inputs.gas_concs.set_vmr("h2o", leaves["h2o"])
-    inp = inputs._replace(gas_concs=gc, **{k: v for k, v in leaves.items()
-                                           if k != "h2o"})
-    lw_up, lw_dn, sw_up, sw_dn, sw_dir = step(inp)
-    w = torch.linspace(0.5, 1.5, nlay + 1, dtype=lw_up.dtype,
-                       device=lw_up.device)[None, :]
-    loss = ((w * lw_up).sum() + 0.5 * (w * lw_dn).sum() + (w * sw_up).sum()
-            + 0.5 * (w * sw_dn).sum() + 0.25 * sw_dir.sum())
-    grads = torch.autograd.grad(loss, tuple(leaves.values()))
-    return loss, dict(zip(leaves, grads))
+    h2o = inputs.gas_concs.get_vmr("h2o", ncol, nlay).detach().clone() \
+        .requires_grad_()
+    out = step(inputs._replace(
+        gas_concs=inputs.gas_concs.set_vmr("h2o", h2o), **leaves))
+    return torch.autograd.grad(loss_of(out), tuple(leaves.values()) + (h2o,))
 
 
-def gradient_gates(dev):
-    """Phase 4, the gradients at the production configuration (256 x 72):
-    the float32 fused-path d(sum of TOA LW up)/d(tsfc) against the
-    analytic surface Jacobian transported by lw_solver_noscat (rtol 2e-2,
-    all positive; tests/test_fused_autodiff.py:110-149), then the float32
-    card gradients of the training loss against the port's float64 twin
-    on the CPU: the largest difference per input over that input's
-    largest float64 gradient, printed as the measured noise floor (no
-    gate)."""
-    import torch
-    from rte_rrtmgp_tpu_torch.drivers.allsky import (allsky_step_lw,
-                                                     build_allsky,
-                                                     build_allsky_step)
-    from rte_rrtmgp_tpu_torch.ops.solver_lw import (GAUSS_DS, GAUSS_WTS,
-                                                    lw_solver_noscat)
-    from rte_rrtmgp_tpu_torch.optical_props import increment
-    p = build_allsky(**PROD, device=dev)
-    i = p.inputs
-    tsfc = i.tsfc.clone().requires_grad_()
-    f = allsky_step_lw(i._replace(tsfc=tsfc), p.gas_lw, cloud_optics=p.cld_lw)
-    grad, = torch.autograd.grad(f.flux_up[:, 0].sum(), tsfc)
-    props, src = p.gas_lw.gas_optics_lw(i.play, i.plev, i.tlay, i.tsfc,
-                                        i.gas_concs, tlev=i.tlev,
-                                        top_at_1=True)
-    props = increment(props, p.cld_lw.cloud_optics(i.lwp, i.iwp, i.rel,
-                                                   i.dei, scattering=False))
-    ngpt = props.tau.shape[2]
-    emis = i.sfc_emis.expand(-1, ngpt).contiguous()
-    jac = lw_solver_noscat(props.tau, src.lay_source, src.lev_source, emis,
-                           src.sfc_source, torch.zeros_like(emis),
-                           top_at_1=True, ds=GAUSS_DS[0],
-                           weights=GAUSS_WTS[0],
-                           sfc_src_jac=src.sfc_source_jac,
-                           do_jacobians=True).flux_up_jac[:, 0]
-    rel = float(((grad - jac).abs() / jac.abs()).max())
-    log(f"gradient gate: fused d(TOA up)/d(tsfc) vs analytic Jacobian, max "
-        f"rel diff {rel:.3e} (limit 2e-2), Jacobian min "
-        f"{float(jac.min()):.4g} W/m2/K")
-    if not (rel <= 2e-2 and bool((jac > 0).all())):
-        raise SystemExit("the fused tsfc gradient disagrees with the "
-                         "analytic surface Jacobian")
-    step, inputs = build_allsky_step(**PROD, device=dev)
-    _, g32 = train_loss(step, inputs)
-    t0 = time.perf_counter()
-    step64, inputs64 = build_allsky_step(**PROD, device="cpu",
-                                         dtype=torch.float64)
-    _, g64 = train_loss(step64, inputs64)
-    log(f"gradient noise floor: float64 twin gradients on the CPU in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for k, v in g64.items():
-        d = float((g32[k].double().cpu() - v).abs().max())
-        log(f"gradient noise floor {k}: max |f32 card - f64 twin| / max "
-            f"|f64| = {d / float(v.abs().max()):.3e}")
-
-
-def training_steps(name, step, inputs, counters, exact, launched):
-    """Phase 5: two training steps (forward + backward) of one path with
-    the counters set to 0 just before them: the kernels a step launches an
-    exact number of times (``exact``, name -> launches per step), those it
-    launches at least once (``launched``), no other; finite gradients that
-    are not all zero and bit-identical over the two steps; then the median
-    step time beside the forward's. Returns the launches of one step."""
-    import torch
-    runs, launches = counted(
-        f"{name} training step", counters,
-        lambda: [train_loss(step, inputs) for _ in range(2)], exact,
-        launched, per=2)
-    (_, ga), (_, gb) = runs
-    for k in ga:
-        if not bool(torch.isfinite(ga[k]).all()) or not bool(
-                (ga[k] != 0).any()):
-            raise SystemExit(f"{name}: d loss / d {k} not finite or all "
-                             "zero")
-        if not torch.equal(ga[k], gb[k]):
-            raise SystemExit(f"{name}: d loss / d {k} differs between two "
-                             "runs")
-    log(f"{name} training step: gradients finite and bit-identical over "
-        "two runs; max |d loss / d x|: " + ", ".join(
-            f"{k} {float(v.abs().max()):.3e}" for k, v in ga.items()))
-    t_train = wall_ms(lambda: train_loss(step, inputs))
-    t_fwd = wall_ms(lambda: step(inputs))
-    log(f"{name} training step: {t_train:.3f} ms median of {REPS} "
-        f"(forward alone {t_fwd:.3f} ms)")
-    return launches
-
-
-def golden_gate(what, out, golden=None):
-    """Each float32 field within 3x the float32 noise floor of the f64
-    golden (the production configuration): tests/golden/production.npz,
-    or the given float64 fields."""
-    import numpy as np
-    if golden is None:
-        golden = np.load(os.path.join(HERE, "tests", "golden",
-                                      "production.npz"))
-    with open(os.path.join(HERE, "tests", "golden",
-                           "production_f32_noise.json")) as f:
-        noise = json.load(f)["f32_noise"]
-    for key, o in zip(("lw_up", "lw_dn", "sw_up", "sw_dn", "sw_dir"), out):
-        d = float(np.abs(o.double().cpu().numpy()
-                         - np.asarray(golden[key])).max())
-        log(f"golden {what} {key}: max |f32 - f64 golden| {d:.4g} "
-            f"(limit {3 * noise[key]:.4g})")
-        if not d <= 3 * noise[key]:
-            raise SystemExit(f"golden gate failed on {what} {key}")
-
-
-def step_fn(prob, path, **opts):
-    """One all-sky step through the public API ("api") or the staged
-    lane-layout branch ("staged"), composed from the problem's objects:
-    (lw_up, lw_dn, sw_up, sw_dn, sw_dn_dir), each (ncol, nlay+1)."""
+def composed(prob, path, **opts):
+    """One all-sky step composed from the problem's objects through the
+    fused step ("step"), the public API ("api") or the staged lane-layout
+    branch ("staged"), or ("two-stream") the LW two-stream path:
+    rte_lw with use_2stream on :func:`two_stream_optics`."""
     from rte_rrtmgp_tpu_torch.drivers import allsky
-    lw_fn = getattr(allsky, f"allsky_{path}_lw")
-    sw_fn = getattr(allsky, f"allsky_{path}_sw")
+    from rte_rrtmgp_tpu_torch.rte import rte_lw
 
-    def step(inputs):
-        lw = lw_fn(inputs, prob.gas_lw, cloud_optics=prob.cld_lw,
-                   aerosol_optics=prob.aer_lw, **opts)
-        sw = sw_fn(inputs, prob.gas_sw, cloud_optics=prob.cld_sw,
-                   aerosol_optics=prob.aer_sw, **opts)
+    def two_stream(i):
+        f = rte_lw(*two_stream_optics(prob, i), i.sfc_emis,
+                   use_2stream=True, **opts)
+        return f.flux_up, f.flux_dn
+
+    def step(i):
+        lw, sw = (getattr(allsky, f"allsky_{path}_{b}")(
+            i, getattr(prob, f"gas_{b}"), cloud_optics=getattr(
+                prob, f"cld_{b}"), aerosol_optics=getattr(prob, f"aer_{b}"),
+            **opts) for b in ("lw", "sw"))
         return (lw.flux_up, lw.flux_dn, sw.flux_up, sw.flux_dn,
                 sw.flux_dn_dir)
-    return step
+    return two_stream if path == "two-stream" else step
 
 
-def agree(what, out, ref):
-    """A path's fluxes against a reference path's (the fused path, or the
-    broadband run of a by-band one) on the same inputs."""
-    gap = max(float(((a - f).abs() - PATH_RTOL * f.abs()).max())
-              for a, f in zip(out, ref))
-    diff = max(float((a - f).abs().max()) for a, f in zip(out, ref))
-    log(f"{what} vs reference: max |diff| {diff:.3e} W/m2, max(|diff| - "
-        f"{PATH_RTOL} |reference|) {gap:.3e} W/m2 (limit {PATH_ATOL})")
-    if not gap <= PATH_ATOL:
-        raise SystemExit(f"{what} and its reference disagree")
-
-
-def run_path(name, step, inputs, counters, must, solar, once=(),
-             nonneg=True, exact=None):
-    """Drive one path with the counters set to 0 just before it; check
-    the launches (each in ``must`` at least once, those in ``once``
-    exactly once, those in ``exact`` (name -> launches) so many times, no
-    other), finite (and with ``nonneg`` non-negative) outputs and, with
-    ``solar``, TOA SW; time it. Returns (outputs, launches)."""
+def path_launches(dev, rf):
+    """Phase 4, each path the cuda tests hold, run once at the main shapes
+    with the kernels' launch counters set to 0 just before it (RFMIP at
+    1800 x 61; the pod-scale loop over 4 chunks of 4096 x 72, resident and
+    streamed, each with its untimed first step): path -> kernel ->
+    launches, the kernels it launched. Nothing is gated here: the tests
+    test_paths_launch_and_agree_at_main_shapes,
+    test_gradient_step_launches_adjoints, test_rfmip_routes_on_card and
+    test_podscale_streamed_equals_resident assert these counts."""
     import torch
-    out, launches = counted(f"{name} path", counters, lambda: step(inputs),
-                            dict({k: 1 for k in once}, **(exact or {})),
-                            must)
-    ncol, nlev = inputs.play.shape[0], inputs.play.shape[1] + 1
-    for o in out:
-        if tuple(o.shape[:2]) != (ncol, nlev):
-            raise SystemExit(f"{name} output shape {tuple(o.shape)}")
-        if not bool(torch.isfinite(o).all()) or (nonneg
-                                                 and bool((o < 0).any())):
-            raise SystemExit(f"{name} path output not finite or negative")
-    if not nonneg:
-        log(f"{name}: smallest output {min(float(o.min()) for o in out):.4g}"
-            " W/m2")
-    if solar is not None:
-        toa = solar * inputs.mu0.double()
-        toa_err = float(((out[3][:, 0].double() - toa).abs() / toa).max())
-        log(f"{name} sw_dn at TOA vs sum(solar source) * mu0: rel err "
-            f"{toa_err:.2e}")
-        if toa_err > 1e-5:
-            raise SystemExit(f"{name}: sw_dn at TOA does not equal the "
-                             "incident flux")
-    t_step = wall_ms(lambda: step(inputs))
-    log(f"{name} path step: {t_step:.3f} ms median of {REPS}, "
-        f"{ncol / t_step * 1e3:.1f} columns/s")
-    return out, launches
-
-
-# the hand-written kernels (csrc/*.cu), which profile_path names whatever
-# their rank
-HAND_KERNELS = ("cloud_props_kernel", "fused_lw_kernel", "fused_sw_kernel",
-                "gas_major_kernel", "gas_minor_kernel", "gas_rayleigh_kernel",
-                "solver_lw_kernel", "solver_lw_2str_kernel",
-                "solver_sw_kernel", "fused_lw_bwd_kernel",
-                "fused_sw_bwd_kernel", "solver_lw_bwd_kernel",
-                "solver_sw_bwd_kernel", "minor_scale_kernel",
-                "minor_scale_bwd_kernel", "gas_descriptors_kernel",
-                "gas_descriptors_bwd_kernel")
-
-
-def profile_path(name, step, inputs, n=3, top=8):
-    """Device time by kernel and the device's busy share over n steps,
-    from torch.profiler (the profiler's own overhead lengthens the wall
-    time, so the busy share is a lower bound): the ``top`` kernels by
-    time, then every other hand-written kernel, each on its own line."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    step(inputs)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step(inputs)
+    from rte_rrtmgp_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_tpu_torch.drivers.allsky import (build_allsky,
+                                                     build_allsky_step)
+    from rte_rrtmgp_tpu_torch.models.ssm import (ssm_lw_defaults,
+                                                 ssm_sw_defaults)
+    from rte_rrtmgp_tpu_torch.ops.kernels import (
+        cloud_props, fused_lw, fused_sw, gas_descriptors, gas_major,
+        gas_minor, minor_scale, solver_lanes, solver_lw, solver_lw_2str,
+        solver_lw_bwd, solver_sw, solver_sw_bwd)
+    from rte_rrtmgp_tpu_torch.parallel.scaling import _podscale
+    counters = dict(
+        cloud_props=cloud_props.cloud_props, fused_lw=fused_lw.lw_fused,
+        fused_sw=fused_sw.sw_fused, gas_major=gas_major.gas_major,
+        gas_minor=gas_minor.gas_minor, gas_rayleigh=gas_minor.gas_rayleigh,
+        solver_lw=solver_lw.lw_noscat, solver_sw=solver_sw.sw_2stream,
+        solver_lw_lanes=solver_lanes.lw_noscat_lanes,
+        solver_lw_pfrac=solver_lanes.lw_noscat_lanes_pfrac,
+        solver_sw_lanes=solver_lanes.sw_2stream_lanes,
+        solver_sw_combined=solver_lanes.sw_2stream_lanes_combined,
+        solver_lw_2str=solver_lw_2str.lw_2stream,
+        fused_lw_bwd=fused_lw.lw_fused_bwd, fused_sw_bwd=fused_sw.sw_fused_bwd,
+        solver_lw_bwd=solver_lw_bwd.lw_noscat_bwd,
+        solver_sw_bwd=solver_sw_bwd.sw_2stream_bwd,
+        minor_scale=minor_scale.minor_scale,
+        minor_scale_bwd=minor_scale.minor_scale_bwd,
+        gas_descriptors=gas_descriptors.gas_descriptors,
+        gas_descriptors_bwd=gas_descriptors.gas_descriptors_bwd)
+    step, inputs = build_allsky_step(**MAIN, device=dev)
+    prob = build_allsky(**MAIN, device=dev, use_aerosols=True)
+    nb = build_allsky(**NONBANDED, device=dev, use_aerosols=True)
+    nb_step = build_allsky_step(**NONBANDED, device=dev)[0]
+    aer_step = build_allsky_step(**MAIN, device=dev, use_aerosols=True)[0]
+    clear_step = build_allsky_step(**MAIN, device=dev, use_clouds=False)[0]
+    aer, clear = dict(use_aerosols=True), dict(use_clouds=False)
+    data, g_lw, g_sw = rf
+    x = rfmip._inputs(data, g_lw)
+    rf_lw = rfmip._lw_compute(g_lw, True, False, 1)
+    rf_sw = rfmip._sw_compute(g_sw, True, False)
+    s_lw, s_sw = ssm_lw_defaults(device=dev), ssm_sw_defaults(device=dev)
+    pod = dict(chunk_cols_per_device=MAIN["ncol"], reps_per_chunk=1,
+               host_pool=3, verbose=False, device=dev,
+               **{k: MAIN[k] for k in ("ngpt_lw", "nbnd_lw", "ngpt_sw",
+                                       "nbnd_sw", "ntemp", "npres")})
+    paths = {
+        "fused": lambda: step(inputs),
+        "public API": lambda: composed(prob, "api")(inputs),
+        "staged": lambda: composed(prob, "staged")(inputs),
+        "fused by band": lambda: composed(prob, "step", byband=True)(inputs),
+        "two-stream": lambda: composed(prob, "two-stream")(inputs),
+        "two-stream by band": lambda: composed(prob, "two-stream",
+                                               byband=True)(inputs),
+        "fused non-banded": lambda: nb_step(nb.inputs),
+        "staged non-banded": lambda: composed(nb, "staged")(nb.inputs),
+        "aerosols fused": lambda: aer_step(inputs),
+        "aerosols staged": lambda: composed(prob, "staged", **aer)(inputs),
+        "aerosols public API": lambda: composed(prob, "api", **aer)(inputs),
+        "clear-sky fused": lambda: clear_step(inputs),
+        "clear-sky staged": lambda: composed(prob, "staged",
+                                             **clear)(inputs),
+        "fused training step": lambda: train(step, inputs),
+        "aerosols fused training step": lambda: train(aer_step, inputs),
+        "public API training step": lambda: train(composed(prob, "api"),
+                                                  inputs),
+        "rfmip": lambda: rfmip.rfmip_lw_sw(data, g_lw, g_sw),
+        "rfmip generic route": lambda: (rf_lw(*rfmip._lw_args(x))
+                                        + rf_sw(*rfmip._sw_args(x))),
+        "rfmip ssm": lambda: rfmip.rfmip_lw_sw(data, s_lw, s_sw),
+        "podscale resident": lambda: _podscale(
+            4 * MAIN["ncol"], MAIN["nlay"], stream=False, **pod),
+        "podscale streamed": lambda: _podscale(
+            4 * MAIN["ncol"], MAIN["nlay"], stream=True, **pod)}
+    out = {}
+    for name, fn in paths.items():
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / n * 1e3
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0)) / 1e3 / n
-    on_card = lambda e: e.device_type == torch.autograd.DeviceType.CUDA
-    rows = sorted(((dev(e), e.count / n, e.key) for e in prof.key_averages()
-                   if on_card(e) and dev(e) > 0), reverse=True)
-    total = sum(r[0] for r in rows)
-    if total == 0:
-        log(f"profile {name}: the profiler saw no device time (not "
-            "measured)")
-        return
-    log(f"profile {name}: device {total:.3f} ms per step, wall "
-        f"{wall_ms:.3f} ms under the profiler, busy share "
-        f"{total / wall_ms:.3f}")
-    hand = lambda key: any(k + "<" in key or k + "(" in key
-                           for k in HAND_KERNELS)
-    shown = rows[:top] + [r for r in rows[top:] if hand(r[2])]
-    for ms, count, key in shown:
-        log(f"profile {name}:   {ms:8.3f} ms  x{count:g}  {key[:70]}")
-    rest = [r for r in rows[top:] if not hand(r[2])]
-    log(f"profile {name}:   {sum(r[0] for r in rest):8.3f} ms  in "
-        f"{sum(r[1] for r in rest):g} other launches")
-
-
-def angles_check(prob, inputs):
-    """Phase 6: rte_lw with 3 Gauss angles and with per-(column, g-point)
-    optimal-angle secants, on the card against the same calls on the CPU
-    (the twins), on 512 columns."""
-    import dataclasses
-    from rte_rrtmgp_tpu_torch.rte import rte_lw
-    from rte_rrtmgp_tpu_torch.optical_props import subset
-    from rte_rrtmgp_tpu_torch.sources import subset_sources
-    n = 512
-    props, src = prob.gas_lw.gas_optics_lw(
-        inputs.play, inputs.plev, inputs.tlay, inputs.tsfc,
-        inputs.gas_concs, tlev=inputs.tlev, top_at_1=True)
-    props, src = subset(props, 0, n), subset_sources(src, 0, n)
-    emis = inputs.sfc_emis[:n]
-    cpu = lambda x: x.cpu() if hasattr(x, "cpu") else x
-    props_c = dataclasses.replace(props, tau=props.tau.cpu())
-    src_c = dataclasses.replace(src, **{f: cpu(getattr(src, f)) for f in (
-        "lay_source", "lev_source", "sfc_source", "sfc_source_jac")})
-    ds = prob.gas_lw.compute_optimal_angles(props)
-    for what, kw, kw_c in (("3 angles", dict(n_gauss_angles=3),
-                            dict(n_gauss_angles=3)),
-                           ("optimal angles", dict(lw_ds=ds),
-                            dict(lw_ds=ds.cpu()))):
-        got = rte_lw(props, src, emis, **kw)
-        ref = rte_lw(props_c, src_c, emis.cpu(), **kw_c)
-        pairs = ((got.flux_up, ref.flux_up), (got.flux_dn, ref.flux_dn))
-        err = max(float((g.cpu() - r).abs().max()) for g, r in pairs)
-        scale = max(float(r.abs().max()) for _, r in pairs)
-        log(f"rte_lw {what}: card vs CPU twin max_abs_err {err:.3e} "
-            f"(limit {TOL_FLUX * scale:.3e})")
-        if not err <= TOL_FLUX * scale:
-            raise SystemExit(f"rte_lw {what}: card and twin disagree")
-
-
-def secant_check(prob, inputs):
-    """Phase 6: lw_solver_noscat's secant as a tuple of floats, a 0-d
-    tensor, a 1-D tensor and a tuple holding a 0-d tensor, at 4096
-    columns: one kernel launch each and bit-identical fluxes."""
-    import torch
-    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import lw_noscat
-    from rte_rrtmgp_tpu_torch.ops.solver_lw import lw_solver_noscat
-    i = inputs
-    props, src = prob.gas_lw.gas_optics_lw(i.play, i.plev, i.tlay, i.tsfc,
-                                           i.gas_concs, tlev=i.tlev,
-                                           top_at_1=True)
-    emis = i.sfc_emis.expand(-1, props.tau.shape[2]).contiguous()
-    args = (props.tau, src.lay_source, src.lev_source, emis, src.sfc_source,
-            torch.zeros_like(emis))
-    d = torch.tensor(1.66, device=emis.device)
-    ref = None
-    for what, ds in (("tuple", (1.66,)), ("0-d tensor", d),
-                     ("1-D tensor", d[None]), ("tuple of a 0-d tensor", (d,))):
-        n0 = lw_noscat.launches
-        f = lw_solver_noscat(*args, top_at_1=True, ds=ds, weights=(0.5,))
+        for c in counters.values():
+            c.launches = 0
+        fn()
         torch.cuda.synchronize()
-        if lw_noscat.launches != n0 + 1:
-            raise SystemExit(f"secant as a {what}: {lw_noscat.launches - n0}"
-                             " launches of solver_lw, expected one")
-        if ref is None:
-            ref = f
-            continue
-        same = (torch.equal(f.flux_up, ref.flux_up)
-                and torch.equal(f.flux_dn, ref.flux_dn))
-        log(f"secant as a {what}: fluxes "
-            f"{'bit-identical to' if same else 'differ from'} a tuple's")
-        if not same:
-            raise SystemExit(f"secant as a {what} gives other fluxes")
+        out[name] = {k: c.launches for k, c in counters.items()
+                     if c.launches}
+        log(f"{name} launches: {out[name]}")
+    return out
 
 
 def main():
@@ -2260,27 +1507,8 @@ def main():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
 
-    from rte_rrtmgp_tpu_torch.drivers.allsky import (build_allsky,
-                                                     build_allsky_step)
+    from rte_rrtmgp_tpu_torch.drivers.allsky import build_allsky
     from rte_rrtmgp_tpu_torch.ops.kernels import _build
-    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lanes as sl
-    from rte_rrtmgp_tpu_torch.ops.kernels.cloud_props import cloud_props
-    from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import (lw_fused,
-                                                           lw_fused_bwd)
-    from rte_rrtmgp_tpu_torch.ops.kernels.fused_sw import (sw_fused,
-                                                           sw_fused_bwd)
-    from rte_rrtmgp_tpu_torch.ops.kernels.gas_descriptors import (
-        gas_descriptors, gas_descriptors_bwd)
-    from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import gas_major
-    from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (gas_minor,
-                                                            gas_rayleigh)
-    from rte_rrtmgp_tpu_torch.ops.kernels.minor_scale import (
-        minor_scale, minor_scale_bwd)
-    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw import lw_noscat
-    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_2str import lw_2stream
-    from rte_rrtmgp_tpu_torch.ops.kernels.solver_lw_bwd import lw_noscat_bwd
-    from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw import sw_2stream
-    from rte_rrtmgp_tpu_torch.ops.kernels.solver_sw_bwd import sw_2stream_bwd
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2313,212 +1541,30 @@ def main():
             + descriptor_rows(prob, variants)
             + api_rows(prob, dev, variants)
             + lw2_rows(prob, dev, variants) + lanes_rows(prob, nonbanded))
+    del nonbanded
     torch.cuda.empty_cache()
     rows += adjoint_rows(prob, dev, variants)
     adjoint_report(prob, reports)
     onchip_report(prob, reports)
-    onchip_limits(dev)
-    t0 = time.perf_counter()
-    rf = rfmip_problem(dev)
-    rfmip_rows(rf, dev, variants)
-    added = {"phase 3": time.perf_counter() - t0}
-    log(f"variants checked against their twins: "
-        f"{', '.join(v['name'] for v in variants)}")
-    solar = float(prob.gas_sw.kdist.solar_source.double().sum())
-    solar_nb = float(nonbanded.gas_sw.kdist.solar_source.double().sum())
     del prob
     torch.cuda.empty_cache()
+    rf = rfmip_problem(dev)
+    rfmip_rows(rf, dev, variants)
+    log(f"variants checked against their twins: "
+        f"{', '.join(v['name'] for v in variants)}")
 
-    # ---- 4. golden gates at the production configuration ----
-    step, inputs = build_allsky_step(**PROD, device=dev)
-    golden_gate("fused", step(inputs))
-    prod = build_allsky(**PROD, device=dev)
-    golden_gate("public API", step_fn(prod, "api")(inputs))
-    golden_gate("staged", step_fn(prod, "staged")(inputs))
-    step, inputs = build_allsky_step(**PROD, device=dev, use_aerosols=True)
-    t0 = time.perf_counter()
-    step64, inputs64 = build_allsky_step(**PROD, device="cpu",
-                                         dtype=torch.float64,
-                                         use_aerosols=True)
-    twin = dict(zip(("lw_up", "lw_dn", "sw_up", "sw_dn", "sw_dir"),
-                    (x.numpy() for x in step64(inputs64))))
-    log(f"aerosols float64 twin on the CPU: {time.perf_counter() - t0:.1f} s")
-    golden_gate("aerosols fused vs f64 twin", step(inputs), twin)
-    t0 = time.perf_counter()
-    prod64 = build_allsky(**PROD, device="cpu", dtype=torch.float64)
-    twin = dict(zip(("lw_up", "lw_dn"),
-                    (x.numpy() for x in lw2_step(prod64)(prod64.inputs))))
-    log(f"two-stream float64 twin on the CPU: "
-        f"{time.perf_counter() - t0:.1f} s")
-    golden_gate("two-stream vs f64 twin", lw2_step(prod)(prod.inputs), twin)
-    del prod, prod64, step64, inputs64, twin
-    t0 = time.perf_counter()
-    rfmip_gate(dev)
-    added["phase 4"] = time.perf_counter() - t0
-    gradient_gates(dev)
-    torch.cuda.empty_cache()
-
-    # ---- 5. the paths at 4096 x 72 ----
-    counters = {"cloud_props": cloud_props, "fused_lw": lw_fused,
-                "fused_sw": sw_fused, "gas_major": gas_major,
-                "gas_minor": gas_minor, "gas_rayleigh": gas_rayleigh,
-                "solver_lw": lw_noscat, "solver_sw": sw_2stream,
-                "solver_lw_lanes": sl.lw_noscat_lanes,
-                "solver_lw_pfrac": sl.lw_noscat_lanes_pfrac,
-                "solver_sw_lanes": sl.sw_2stream_lanes,
-                "solver_sw_combined": sl.sw_2stream_lanes_combined,
-                "solver_lw_2str": lw_2stream,
-                "fused_lw_bwd": lw_fused_bwd, "fused_sw_bwd": sw_fused_bwd,
-                "solver_lw_bwd": lw_noscat_bwd,
-                "solver_sw_bwd": sw_2stream_bwd,
-                "minor_scale": minor_scale,
-                "minor_scale_bwd": minor_scale_bwd,
-                "gas_descriptors": gas_descriptors,
-                "gas_descriptors_bwd": gas_descriptors_bwd}
-    gathers = ("gas_major", "gas_minor", "gas_rayleigh")
-    prep = ("minor_scale", "gas_descriptors")
-    launched = {
-        "fused": ("cloud_props", "fused_lw", "fused_sw") + prep,
-        "public API": ("cloud_props",) + gathers + ("solver_lw",
-                                                    "solver_sw") + prep,
-        "staged": ("cloud_props",) + gathers + ("solver_lw_pfrac",
-                                                "solver_sw_combined") + prep,
-        "staged non-banded": ("cloud_props",) + gathers + (
-            "solver_lw_lanes", "solver_sw_lanes") + prep,
-        "two-stream": ("cloud_props", "gas_major", "gas_minor",
-                       "solver_lw_2str") + prep}
-    # the scaling rows and the descriptors: one launch each per gas-optics
-    # call (LW and SW; the two-stream path's LW alone)
-    scale_calls = {"two-stream": 1}
-
-    def drive(name, kind, step, inputs, solar, clouds=True, once=(),
-              nonneg=True):
-        must = tuple(k for k in launched[kind]
-                     if clouds or k != "cloud_props")
-        return run_path(name, step, inputs, counters, must, solar, once,
-                        nonneg, {k: scale_calls.get(kind, 2) for k in prep})
-
-    step, inputs = build_allsky_step(**MAIN, device=dev)
-    fused_out, path_launches = drive("fused", "fused", step, inputs, solar)
-    launches = {k: path_launches[k] for k in launched["fused"]}
-    prob = build_allsky(**MAIN, device=dev, use_aerosols=True)
-    for kind, fn in (("public API", "api"), ("staged", "staged")):
-        out, path_launches = drive(kind, kind, step_fn(prob, fn), inputs,
-                                   solar)
-        agree(kind, out, fused_out)
-        launches.update({k: path_launches[k] for k in launched[kind]
-                         if k not in launches})
-        del out
-    # the fused step by band: its band sums are its broadband fluxes
-    out, _ = drive("fused by band", "fused", step_fn(prob, "step",
-                                                     byband=True),
-                   inputs, None, once=("fused_lw", "fused_sw"))
-    agree("fused by-band sums", tuple(o.sum(-1) for o in out), fused_out)
-    del out, fused_out
-    # the LW two-stream path, broadband and by band: the two-stream kernel
-    # once per step, no no-scattering solver. By band the float32 rounding
-    # of the Toon sources (TOL_COND) leaves some bands' downward flux in
-    # the top layers below zero, where the exact value is near zero (the
-    # float32 twin does the same): finite, and their sums the broadband
-    # fluxes
-    lw2_out, path_launches = drive("two-stream", "two-stream", lw2_step(prob),
-                                   inputs, None, once=("solver_lw_2str",))
-    launches["solver_lw_2str"] = path_launches["solver_lw_2str"]
-    out, _ = drive("two-stream by band", "two-stream",
-                   lw2_step(prob, byband=True), inputs, None,
-                   once=("solver_lw_2str",), nonneg=False)
-    agree("two-stream by-band sums", tuple(o.sum(-1) for o in out), lw2_out)
-    del out, lw2_out
-    profile_path("fused", step, inputs)
-    profile_path("public API", step_fn(prob, "api"), inputs)
-    profile_path("staged", step_fn(prob, "staged"), inputs)
-    profile_path("two-stream", lw2_step(prob), inputs)
-    peak_memory("fused step", lambda: step(inputs))
-    peak_memory("two-stream step", lambda: lw2_step(prob)(inputs))
-
-    # the staged path on the non-banded configuration: the plain lane
-    # solvers, against the fused path on the same problem
-    nb_staged = step_fn(nonbanded, "staged")
-    ref, _ = drive("fused non-banded", "fused",
-                   build_allsky_step(**NONBANDED, device=dev)[0],
-                   nonbanded.inputs, solar_nb)
-    out, path_launches = drive("staged non-banded", "staged non-banded",
-                               nb_staged, nonbanded.inputs, solar_nb)
-    agree("staged non-banded", out, ref)
-    launches.update({k: path_launches[k]
-                     for k in ("solver_lw_lanes", "solver_sw_lanes")})
-    del nonbanded, nb_staged, ref, out
-    torch.cuda.empty_cache()
-
-    # the aerosols and clear-sky configurations
-    for config, opts in (("aerosols", dict(use_aerosols=True)),
-                         ("clear-sky", dict(use_clouds=False))):
-        clouds = opts.get("use_clouds", True)
-        step, _ = build_allsky_step(**MAIN, device=dev, **opts)
-        ref, _ = drive(f"{config} fused", "fused", step, inputs, solar,
-                       clouds)
-        if config == "aerosols":
-            profile_path("aerosols fused", step, inputs)
-        kinds = (("staged", "staged"),) + (
-            (("public API", "api"),) if config == "aerosols" else ())
-        for kind, fn in kinds:
-            out, _ = drive(f"{config} {kind}", kind,
-                           step_fn(prob, fn, **opts), inputs, solar, clouds)
-            agree(f"{config} {kind}", out, ref)
-            del out
-        del ref
-
-    # the training steps at full width: the fused path with clouds, then
-    # with aerosols, then the public API; each forward kernel of the fused
-    # path once per step (cloud optics once per band set), each backward
-    # kernel once
-    fused_step = {"fused_lw": 1, "fused_sw": 1, "fused_lw_bwd": 1,
-                  "fused_sw_bwd": 1, "cloud_props": 2, "minor_scale": 2,
-                  "minor_scale_bwd": 2, "gas_descriptors": 2,
-                  "gas_descriptors_bwd": 2}
-    step, _ = build_allsky_step(**MAIN, device=dev)
-    got = training_steps("fused", step, inputs, counters, fused_step, ())
-    peak_memory("fused training step", lambda: train_loss(step, inputs))
-    launches.update({k: got[k] for k in ("fused_lw_bwd", "fused_sw_bwd",
-                                         "minor_scale_bwd",
-                                         "gas_descriptors_bwd")})
-    profile_path("fused training step", lambda i: train_loss(step, i),
-                 inputs)
-    step, _ = build_allsky_step(**MAIN, device=dev, use_aerosols=True)
-    training_steps("aerosols fused", step, inputs, counters, fused_step, ())
-    got = training_steps(
-        "public API", step_fn(prob, "api"), inputs, counters,
-        {"solver_lw_bwd": 1, "solver_sw_bwd": 1, "solver_lw": 1,
-         "solver_sw": 1, "cloud_props": 2, "minor_scale": 2,
-         "minor_scale_bwd": 2, "gas_descriptors": 2,
-         "gas_descriptors_bwd": 2},
-        ("gas_major", "gas_minor", "gas_rayleigh"))
-    launches.update({k: got[k] for k in ("solver_lw_bwd", "solver_sw_bwd")})
-    del step
-    torch.cuda.empty_cache()
-
-    # the RFMIP driver (fused and generic routes, SSM) and the pod-scale
-    # stream
-    t0 = time.perf_counter()
-    rfmip_paths(rf, dev, counters, card)
+    # ---- 4. each path's launches; a row's are those of the first path
+    # that launches its kernel ----
+    paths = path_launches(dev, rf)
     del rf
-    podscale_paths(dev, counters, card)
     torch.cuda.empty_cache()
-    added["phase 5"] = time.perf_counter() - t0
-    log("RFMIP, SSM and podscale additions: " + ", ".join(
-        f"{k} {v:.1f} s" for k, v in added.items())
-        + f", {sum(added.values()):.1f} s in all")
-
-    # ---- 6. multi-angle and optimal-angle LW against the twins; the
-    # secant's forms ----
-    angles_check(prob, inputs)
-    secant_check(prob, inputs)
-
-    # ---- 7. result ----
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = next((n[row["name"]] for n in paths.values()
+                                if row["name"] in n), None)
+
+    # ---- 5. result ----
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": rows, "paths": paths}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

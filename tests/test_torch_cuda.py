@@ -63,8 +63,27 @@ launch; the pod-scale stream against the resident chunk, bit for bit.
 The whole-grid stream at ne30pg2's 21,600 x 72 and the flagship widths:
 every sweep's LW bit for bit the fused step run resident on each chunk,
 its SW likewise on each chunk's day columns and 0 at night, its counts
-and launches; its readbacks wait for each chunk's step.
+and launches; its readbacks wait for each chunk's step. The paths: in
+float32 on the card against float64 at the production configuration
+(256 x 72; the fused step, the public API and the staged branch against
+tests/golden/production.npz, the aerosols step and the LW two-stream path
+against their float64 twins on the CPU, each within 3x its float32 noise
+floor; the RFMIP driver against tests/golden/rfmip.npz within 3x its
+float32 twin's distance); the fused step's d(TOA LW up)/d(tsfc) against
+the analytic surface Jacobian; every path at 4096 x 72 with each kernel's
+launches and against the fused step (or its broadband run) within rtol
+3e-5 / atol 5e-4 W/m2; the RFMIP driver's fused, generic and SSM routes
+at 1800 x 61; rte_lw's Gauss and optimal angles against the CPU twins;
+each kernel's shared memory, occupancy and scratch at the main shapes.
+
+This file is the pass/fail gate on the card. ``chip_smoke.py`` prints the
+kernel table (each kernel at its path's shapes, its error, time and
+bound); the paths' times, launches and idle share are the benchmark's
+(``torch_bench/``, ``scripts/torch_trace_breakdown.py``).
 """
+import json
+import os
+
 import numpy as np
 import pytest
 
@@ -121,6 +140,22 @@ DIMS = {"g32": (10, 9, 32, 4, 32, 4, 5, 10),
 NONBANDED = (9, 7, 24, 6, 24, 6, 5, 10)
 LANE_KERNELS = (lw_noscat_lanes, lw_noscat_lanes_pfrac, sw_2stream_lanes,
                 sw_2stream_lanes_combined)
+# every hand-written kernel's launch counter, by its row's name in
+# chip_smoke.py's kernel table
+KERNELS = {"cloud_props": cloud_props, "fused_lw": lw_fused,
+           "fused_sw": sw_fused, "gas_major": gas_major,
+           "gas_minor": gas_minor, "gas_rayleigh": gas_rayleigh,
+           "solver_lw": lw_noscat, "solver_sw": sw_2stream,
+           "solver_lw_lanes": lw_noscat_lanes,
+           "solver_lw_pfrac": lw_noscat_lanes_pfrac,
+           "solver_sw_lanes": sw_2stream_lanes,
+           "solver_sw_combined": sw_2stream_lanes_combined,
+           "solver_lw_2str": lw_2stream, "fused_lw_bwd": lw_fused_bwd,
+           "fused_sw_bwd": sw_fused_bwd, "solver_lw_bwd": lw_noscat_bwd,
+           "solver_sw_bwd": sw_2stream_bwd, "minor_scale": minor_scale,
+           "minor_scale_bwd": minor_scale_bwd,
+           "gas_descriptors": gas_descriptors,
+           "gas_descriptors_bwd": gas_descriptors_bwd}
 
 
 @pytest.fixture
@@ -128,6 +163,27 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", 0)
+
+
+def _launches(fn):
+    """fn's result and how often it launched each kernel of KERNELS."""
+    torch.cuda.synchronize()
+    before = {k: f.launches for k, f in KERNELS.items()}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches - before[k] for k, f in KERNELS.items()}
+
+
+def _assert_launches(got, exact, launched=()):
+    """Each kernel in ``exact`` (name -> launches) launched so many times,
+    each in ``launched`` at least once, no other."""
+    for k, n in got.items():
+        if k in exact:
+            assert n == exact[k], (k, n, exact[k])
+        elif k in launched:
+            assert n > 0, k
+        else:
+            assert n == 0, (k, n)
 
 
 def _close(got, ref, tol):
@@ -255,10 +311,13 @@ def test_gas_rayleigh_matches_twin(cuda, scattering):
     _close(got, ref, 1e-6)
 
 
-# the minor-gas scaling rows at the paths' shapes: the all-sky problem
-# (4096 x 72, the flagship LW and SW k-distributions) and RFMIP's cells
-# (100 sites x 18 experiments x 60 layers) through the same gas optics
-FLAGSHIP = (4096, 72, 256, 16, 224, 14, 14, 59)
+# the paths' main shapes (chip_smoke.py's MAIN): the all-sky problem at
+# 4096 x 72 with the flagship LW and SW k-distributions, and the
+# non-banded configuration (bands of 12 g-points) at the same size; the
+# minor-gas scaling rows at the first and at RFMIP's cells (100 sites x
+# 18 experiments x 60 layers) through the same gas optics
+MAIN = (4096, 72, 256, 16, 224, 14, 14, 59)
+MAIN_NONBANDED = (4096, 72, 192, 16, 168, 14, 14, 59)
 
 
 @pytest.fixture(scope="module")
@@ -270,7 +329,7 @@ def scale_cases():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
-    p = build_allsky(*FLAGSHIP, device=dev)
+    p = build_allsky(*MAIN, device=dev)
     rf = synthetic_rfmip(nsite=100, nlay=60, nexp=18).device_inputs(
         dev, torch.float32)
     cases = []
@@ -357,7 +416,7 @@ def test_minor_scale_adjoint_matches_f64_twin(scale_cases):
 def test_fused_fluxes_on_kernel_rows_equal_twin_rows(cuda):
     """The fused LW and SW kernels on the rows from the kernel and on the
     twins' rows: the same fluxes, bit for bit (the rows are)."""
-    p = build_allsky(*FLAGSHIP, device=cuda)
+    p = build_allsky(*MAIN, device=cuda)
     inp = p.inputs
     for inputs, gas, fused in (
             (allsky_lw_inputs(inp, p.gas_lw, cloud_optics=p.cld_lw),
@@ -374,23 +433,6 @@ def test_fused_fluxes_on_kernel_rows_equal_twin_rows(cuda):
     torch.cuda.empty_cache()
 
 
-@pytest.mark.parametrize("path", ["fused", "api"])
-def test_gradient_step_launches_minor_scale_adjoint(cuda, path):
-    """The rows once per gas-optics call (LW and SW) forward and their
-    adjoint once per call backward: 2 and 2 a gradient step."""
-    if path == "api":
-        p = build_allsky(*DIMS["g32"], device=cuda)
-        step, inputs = _api_step(p), p.inputs
-    else:
-        step, inputs = build_allsky_step(*DIMS["g32"], device=cuda)
-    n0 = (minor_scale.launches, minor_scale_bwd.launches)
-    grads = _train_grads(step, inputs)
-    torch.cuda.synchronize()
-    assert (minor_scale.launches - n0[0],
-            minor_scale_bwd.launches - n0[1]) == (2, 2)
-    assert all(bool(torch.isfinite(g).all()) for g in grads)
-
-
 # the gas-optics descriptors (column amounts and interpolation
 # coefficients) of one call in one launch, at the paths' shapes: the
 # all-sky problem (4096 x 72, flagship LW and SW), RFMIP's cells (1800 x
@@ -402,7 +444,7 @@ def desc_cases():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
-    p = build_allsky(*FLAGSHIP, device=dev)
+    p = build_allsky(*MAIN, device=dev)
     rf = synthetic_rfmip(nsite=100, nlay=60, nexp=18).device_inputs(
         dev, torch.float32)
     inp = p.inputs
@@ -489,7 +531,7 @@ def test_fused_fluxes_on_kernel_descriptors_equal_twin(cuda):
     """The fused LW and SW kernels on the kernel's descriptors and on the
     twin's (with the scaling rows and Rayleigh scale of the twin's
     columns): the same fluxes, bit for bit."""
-    p = build_allsky(*FLAGSHIP, device=cuda)
+    p = build_allsky(*MAIN, device=cuda)
     inp = p.inputs
     for inputs, gas, fused in (
             (allsky_lw_inputs(inp, p.gas_lw, cloud_optics=p.cld_lw),
@@ -568,29 +610,12 @@ def test_gas_descriptors_adjoint_matches_f64_twin(desc_cases, col_dry):
     torch.cuda.empty_cache()
 
 
-@pytest.mark.parametrize("path", ["fused", "api"])
-def test_gradient_step_launches_gas_descriptors_adjoint(cuda, path):
-    """The descriptors once per gas-optics call (LW and SW) forward and
-    their adjoint once per call backward: 2 and 2 a gradient step."""
-    if path == "api":
-        p = build_allsky(*DIMS["g32"], device=cuda)
-        step, inputs = _api_step(p), p.inputs
-    else:
-        step, inputs = build_allsky_step(*DIMS["g32"], device=cuda)
-    n0 = (gas_descriptors.launches, gas_descriptors_bwd.launches)
-    grads = _train_grads(step, inputs)
-    torch.cuda.synchronize()
-    assert (gas_descriptors.launches - n0[0],
-            gas_descriptors_bwd.launches - n0[1]) == (2, 2)
-    assert all(bool(torch.isfinite(g).all()) for g in grads)
-
-
 def test_fused_step_makes_no_host_wait(cuda):
     """With the value checks off, the fused all-sky step (LW, then SW)
     makes no host wait: torch's sync debug mode set to raise stays
     silent."""
     from rte_rrtmgp_tpu_torch.config import checks_disabled
-    p = build_allsky(*FLAGSHIP, device=cuda)
+    p = build_allsky(*MAIN, device=cuda)
     inp = p.inputs
     step = lambda: (allsky_step_lw(inp, p.gas_lw, cloud_optics=p.cld_lw),
                     allsky_step_sw(inp, p.gas_sw, cloud_optics=p.cld_sw))
@@ -809,11 +834,10 @@ def test_staged_path_runs_on_kernels(cuda, dims):
     assert moved == set(want) | {cloud_props, gas_major, gas_minor,
                                  gas_rayleigh}
     step, _ = build_allsky_step(*d, device=cuda, use_aerosols=True)
-    fused = step(p.inputs)
-    for got, ref in zip((lw.flux_up, lw.flux_dn, sw.flux_up, sw.flux_dn,
-                         sw.flux_dn_dir), fused):
+    out = (lw.flux_up, lw.flux_dn, sw.flux_up, sw.flux_dn, sw.flux_dn_dir)
+    for got in out:
         assert got.is_cuda and bool(torch.isfinite(got).all())
-        assert bool(((got - ref).abs() <= 5e-4 + 3e-5 * ref.abs()).all())
+    _paths_agree(out, step(p.inputs))
 
 
 def test_aerosols_fused_step_runs_on_kernels(cuda):
@@ -1040,44 +1064,80 @@ def test_sw_solver_adjoint_low_suns(cuda, case, monkeypatch):
 
 
 def _train_grads(step, inputs):
-    """d/d(tlay, tsfc, lwp, rel) of the weighted flux loss of one step."""
+    """d/d(tlay, tsfc, lwp, rel, h2o vmr) of the weighted flux loss of one
+    step (the benchmark's gradient step's loss, torch_bench/steps/grad.py:
+    level weights 0.5 to 1.5, up fluxes 1, down 0.5, the SW direct beam
+    0.25)."""
     ncol, nlay = inputs.play.shape
     leaves = {k: getattr(inputs, k).detach().clone().requires_grad_()
               for k in ("tlay", "tsfc", "lwp", "rel")}
-    out = step(inputs._replace(**leaves))
+    h2o = inputs.gas_concs.get_vmr("h2o", ncol, nlay).detach().clone() \
+        .requires_grad_()
+    out = step(inputs._replace(
+        gas_concs=inputs.gas_concs.set_vmr("h2o", h2o), **leaves))
     w = torch.linspace(0.5, 1.5, nlay + 1, device=inputs.play.device)
     loss = sum((w * f).sum() * c for f, c in zip(out, (1, 0.5, 1, 0.5)))
     loss = loss + 0.25 * out[4].sum()
-    return torch.autograd.grad(loss, tuple(leaves.values()))
+    return torch.autograd.grad(loss, tuple(leaves.values()) + (h2o,))
 
 
-def _api_step(p):
-    def step(inputs):
-        lw = allsky_api_lw(inputs, p.gas_lw, cloud_optics=p.cld_lw)
-        sw = allsky_api_sw(inputs, p.gas_sw, cloud_optics=p.cld_sw)
+def _composed_step(p, path, **opts):
+    """One all-sky step composed from the problem's objects through the
+    fused step ("step"), the public API ("api") or the staged lane-layout
+    branch ("staged"): (lw_up, lw_dn, sw_up, sw_dn, sw_dn_dir); or the LW
+    two-stream path ("two-stream", examples/flux_variants.py:76-82, the
+    true two-stream with clouds: gas optics with scattering, the 2-stream
+    cloud optics, increment, then rte_lw(use_2stream=True)): (flux_up,
+    flux_dn), (ncol, nlay+1) or by band (ncol, nlay+1, nband)."""
+    import rte_rrtmgp_tpu_torch.drivers.allsky as allsky
+    from rte_rrtmgp_tpu_torch.rte import rte_lw
+
+    def two_stream(i):
+        props, src = p.gas_lw.gas_optics_lw(
+            i.play, i.plev, i.tlay, i.tsfc, i.gas_concs, tlev=i.tlev,
+            scattering=True, top_at_1=True)
+        props = increment(props, p.cld_lw.cloud_optics(
+            i.lwp, i.iwp, i.rel, i.dei, scattering=True))
+        f = rte_lw(props, src, i.sfc_emis, use_2stream=True, **opts)
+        return f.flux_up, f.flux_dn
+
+    def step(i):
+        lw, sw = (getattr(allsky, f"allsky_{path}_{b}")(
+            i, getattr(p, f"gas_{b}"), cloud_optics=getattr(p, f"cld_{b}"),
+            aerosol_optics=getattr(p, f"aer_{b}"), **opts)
+            for b in ("lw", "sw"))
         return (lw.flux_up, lw.flux_dn, sw.flux_up, sw.flux_dn,
                 sw.flux_dn_dir)
-    return step
+    return two_stream if path == "two-stream" else step
 
 
+@pytest.mark.parametrize("dims", ["g32", "main"])
 @pytest.mark.parametrize("path", ["fused", "fused-aerosols", "api"])
-def test_gradient_step_launches_adjoints(cuda, path):
-    """A gradient step launches each adjoint of its path once and no
-    other; finite gradients, not all zero, the same bits twice."""
+def test_gradient_step_launches_adjoints(cuda, path, dims):
+    """A gradient step, at 32 g-points and at the main shapes (4096 x 72,
+    LW 256 / SW 224: the fused adjoints' blocks of 256 and 224 threads,
+    as the benchmark's gradient cell runs them), launches
+    each kernel of its path an exact number of times (each adjoint once,
+    cloud optics once per band set, the scaling rows, the descriptors and
+    their adjoints once per gas-optics call; the public API's gathers at
+    least once) and no other; finite gradients, not all zero, the same
+    bits twice."""
+    shape = MAIN if dims == "main" else DIMS[dims]
+    exact = dict(cloud_props=2, minor_scale=2, minor_scale_bwd=2,
+                 gas_descriptors=2, gas_descriptors_bwd=2)
+    launched = ()
     if path == "api":
-        p = build_allsky(*DIMS["g32"], device=cuda)
-        step, inputs = _api_step(p), p.inputs
-        want = {lw_noscat_bwd, sw_2stream_bwd}
+        p = build_allsky(*shape, device=cuda)
+        step, inputs = _composed_step(p, "api"), p.inputs
+        exact.update(solver_lw=1, solver_sw=1, solver_lw_bwd=1,
+                     solver_sw_bwd=1)
+        launched = ("gas_major", "gas_minor", "gas_rayleigh")
     else:
         step, inputs = build_allsky_step(
-            *DIMS["g32"], device=cuda, use_aerosols=path != "fused")
-        want = {lw_fused_bwd, sw_fused_bwd}
-    counters = tuple(k for k, _ in ADJOINTS.values())
-    before = {f: f.launches for f in counters}
-    grads = _train_grads(step, inputs)
-    torch.cuda.synchronize()
-    assert {f: f.launches - before[f] for f in counters} == {
-        f: int(f in want) for f in counters}
+            *shape, device=cuda, use_aerosols=path != "fused")
+        exact.update(fused_lw=1, fused_sw=1, fused_lw_bwd=1, fused_sw_bwd=1)
+    grads, got = _launches(lambda: _train_grads(step, inputs))
+    _assert_launches(got, exact, launched)
     for g in grads:
         assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
     again = _train_grads(step, inputs)
@@ -1630,21 +1690,23 @@ def test_onchip_sw_lanes_match_twins(cuda, dims, variant):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-def test_onchip_sw_tallest_column_and_past_it(cuda, monkeypatch):
-    """The tallest column that the narrowest chunk (32 g-points) holds, on
-    the SW solver's three launchers and its adjoint, against the twins
+@pytest.mark.parametrize("ngpt", [32, 224])
+def test_onchip_sw_tallest_column_and_past_it(cuda, monkeypatch, ngpt):
+    """The tallest column that a 32-wide chunk holds, in one chunk and in
+    the flagship's cluster of 7 (224 g-points), on the SW solver's three
+    launchers and its adjoint, against the twins
     (fluxes by the TOL_FLUX rule; each cotangent within TOL_ADJ of its
     largest twin value, or, where the float32 twin misses that against
     the float64 twin, within TOL_ADJ of the float64 twin's, the rule of
     test_adjoint_kernels_match_twins); one layer more raises ValueError
     naming the limit and launches nothing."""
-    ngpt, ncol = 32, 3
+    ncol = 3
     rng = np.random.default_rng(15)
     u = lambda lo, hi, *s: torch.from_numpy(
         rng.uniform(lo, hi, s).astype(np.float32)).to(cuda)
 
     # mu0 in [0.2, 0.3]: k mu0 below 0.6, away from the clamp at k mu0 = 1
-    # (chip_smoke.py's onchip_limits)
+    # (test_onchip_sw_2stream_bwd_tallest_column_near_clamp holds it there)
     def args(nlay):
         inc = u(0.5, 2.0, ncol, ngpt)
         return (u(0.0, 0.1, ncol, nlay, ngpt), u(0.0, 0.9, ncol, nlay, ngpt),
@@ -1704,8 +1766,9 @@ def test_onchip_sw_tallest_column_and_past_it(cuda, monkeypatch):
 
 
 def test_onchip_lw_noscat_bwd_tallest_column_and_past_it(cuda, monkeypatch):
-    """Row 14 in the tallest column that a 32-wide chunk holds and one of
-    a single chunk with idle lanes (24 g-points), seeded optical depths
+    """Row 14 in the tallest column that a 32-wide chunk holds, at the
+    flagship's 256 g-points (8 chunks), at 32 and in a single chunk with
+    idle lanes (24 g-points), seeded optical depths
     from 1e-6 to 10, sources and flux cotangents, against the twin's
     autograd (each cotangent within TOL_ADJ of its largest twin value, or
     the float64 twin's rule of test_adjoint_kernels_match_twins); one
@@ -1716,7 +1779,7 @@ def test_onchip_lw_noscat_bwd_tallest_column_and_past_it(cuda, monkeypatch):
     u = lambda lo, hi, *s: torch.from_numpy(
         rng.uniform(lo, hi, s).astype(np.float32)).to(cuda)
     kw = dict(ds=1.66, weight=0.5)
-    for ngpt in (32, 24):
+    for ngpt in (256, 32, 24):
         nlay = _tallest("solver_lw_bwd", ngpt)
         for n, fits in ((nlay, True), (nlay + 1, False)):
             lay3 = (ncol, n, ngpt)
@@ -1747,15 +1810,18 @@ def test_onchip_lw_noscat_bwd_tallest_column_and_past_it(cuda, monkeypatch):
                 assert t64 > TOL_ADJ and k64 <= TOL_ADJ, f"cotangent {i}"
 
 
-def test_onchip_sw_2stream_bwd_tallest_column_near_clamp(cuda, monkeypatch):
-    """Row 15 in the tallest column that a 32-wide chunk holds, mu0 per
+@pytest.mark.parametrize("ngpt", [32, 224])
+def test_onchip_sw_2stream_bwd_tallest_column_near_clamp(cuda, monkeypatch,
+                                                         ngpt):
+    """Row 15 in the tallest column that a 32-wide chunk holds (one chunk;
+    the flagship's cluster of 7 at 224 g-points), mu0 per
     layer in [0.3, 0.9], so that k mu0 reaches the clamp at 1: each
     cotangent within TOL_ADJ of its largest twin value, or, where the
     float32 twin itself misses TOL_ADJ against the float64 twin (there the
     ssa, g and mu0 cotangents), within TOL_COND times the float32 twin's
     distance from the float64 twin (test_sw_solver_adjoint_low_suns's
     rule)."""
-    ngpt, ncol = 32, 3
+    ncol = 3
     rng = np.random.default_rng(16)
     u = lambda lo, hi, *s: torch.from_numpy(
         rng.uniform(lo, hi, s).astype(np.float32)).to(cuda)
@@ -1865,22 +1931,28 @@ def test_onchip_fused_lw_matches_twin(cuda, dims, variant):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("byband", [False, True], ids=["broadband", "byband"])
-def test_onchip_fused_lw_tallest_column_and_past_it(cuda, byband):
+@pytest.mark.parametrize("case", ["broadband", "byband", "flagship-inc"])
+def test_onchip_fused_lw_tallest_column_and_past_it(cuda, case):
     """The tallest column that the narrowest chunk (32 g-points) holds,
-    against the twin; one layer more raises ValueError naming the limit
-    and launches nothing."""
-    dims = DIMS["g32"]
-    p = build_allsky(2, 8, *dims[2:], device=cuda)
+    and, at the flagship's 256 g-points (a cluster of 8 chunks), with a
+    seeded incident flux, on 4 columns: against the twin; one layer more
+    raises ValueError naming the limit and launches nothing."""
+    byband = case == "byband"
+    ncol, dims = (4, MAIN) if case == "flagship-inc" else (2, DIMS["g32"])
+    p = build_allsky(ncol, 8, *dims[2:], device=cuda)
     x = allsky_lw_inputs(p.inputs, p.gas_lw, cloud_optics=p.cld_lw)
     nband = x.totplnk.shape[1] if byband else 0
     with pytest.raises(ValueError, match="at most") as e:
         onchip_geometry("fused_lw", 10 ** 6, dims[2], nband, len(x.minors))
     nlay = int(str(e.value).split("at most ")[1].split()[0])
     for n, fits in ((nlay, True), (nlay + 1, False)):
-        p = build_allsky(2, n, *dims[2:], device=cuda)
+        p = build_allsky(ncol, n, *dims[2:], device=cuda)
         x = allsky_lw_inputs(p.inputs, p.gas_lw, cloud_optics=p.cld_lw)
         x = x._replace(byband=byband)
+        if case == "flagship-inc":
+            gen = torch.Generator(device=cuda).manual_seed(22)
+            x = x._replace(inc=0.5 + torch.rand(x.inc.shape, generator=gen,
+                                                device=cuda))
         n0 = lw_fused.launches
         if fits:
             _flux_close(lw_fused(x), lw_fused_plain(x))
@@ -2303,30 +2375,88 @@ def test_rfmip_blocked_equals_unblocked_on_card(cuda):
     np.testing.assert_array_equal(dev.cpu().numpy(), np.stack(whole))
 
 
-def test_podscale_streamed_equals_resident(cuda):
+@pytest.mark.parametrize("route", ["fused", "generic", "ssm"])
+def test_rfmip_routes_on_card(cuda, route):
+    """rfmip_lw_sw at 1800 x 61 (100 sites x 18 experiments, a per-column
+    TSI, night columns). The fused route: fused_lw and fused_sw once, the
+    scaling rows and the descriptors once per gas-optics call, nothing
+    else; the device result the host readback's; finite, non-negative
+    fluxes, the night columns' SW zero, TOA SW down TSI mu0 on the day
+    columns (rel 1e-5). The generic route (the gathers and the public
+    solvers, as ``fused_ok=False`` runs them): its launches, and its
+    fluxes within rtol 3e-5 / atol 5e-4 W/m2 of the fused route's. SSM:
+    solver_lw and solver_sw once, finite fluxes."""
+    from rte_rrtmgp_tpu_torch.drivers import rfmip
+    from rte_rrtmgp_tpu_torch.models.ssm import (ssm_lw_defaults,
+                                                 ssm_sw_defaults)
+    data, g_lw, g_sw = _rfmip(cuda, nsite=100, nexp=18)
+    if route == "ssm":
+        s_lw, s_sw = ssm_lw_defaults(device=cuda), ssm_sw_defaults(device=cuda)
+        out, got = _launches(lambda: rfmip.rfmip_lw_sw(data, s_lw, s_sw,
+                                                       device_out=True))
+        _assert_launches(got, dict(solver_lw=1, solver_sw=1))
+        assert bool(torch.isfinite(out).all())
+        return
+    host, got = _launches(lambda: rfmip.rfmip_lw_sw(data, g_lw, g_sw))
+    _assert_launches(got, dict(fused_lw=1, fused_sw=1, minor_scale=2,
+                               gas_descriptors=2))
+    out = rfmip.rfmip_lw_sw(data, g_lw, g_sw, device_out=True)
+    np.testing.assert_array_equal(out.cpu().numpy(), np.stack(host))
+    assert bool(torch.isfinite(out).all()) and not bool((out < 0).any())
+    x = rfmip._inputs(data, g_lw)
+    usecol, mu0 = rfmip._sun(x["sza"])
+    assert bool((~usecol).any()) and not bool((out[2:, ~usecol] != 0).any())
+    toa = (x["tsi"] * mu0)[usecol].double()
+    assert float(((out[3, usecol, 0].double() - toa).abs() / toa).max()) \
+        <= 1e-5
+    if route == "generic":
+        lw = rfmip._lw_compute(g_lw, True, False, 1)
+        sw = rfmip._sw_compute(g_sw, True, False)
+        gen, got = _launches(
+            lambda: lw(*rfmip._lw_args(x)) + sw(*rfmip._sw_args(x)))
+        _assert_launches(got, dict(gas_major=2, gas_minor=4, gas_rayleigh=1,
+                                   solver_lw=1, solver_sw=1, minor_scale=2,
+                                   gas_descriptors=2))
+        _paths_agree(gen, tuple(out))
+
+
+# chunk columns, layers, k-distribution and chunks streamed: at 32
+# g-points, and at the flagship widths in chunks of 4096 x 72
+PODSCALE_CASES = {"g32": ((64, 9, 32, 4, 32, 4, 5, 10), 7),
+                  "main": (MAIN, 4)}
+
+
+@pytest.mark.parametrize("case", sorted(PODSCALE_CASES))
+def test_podscale_streamed_equals_resident(cuda, case):
     """The pod-scale loop over a few chunks, streamed (a pinned pool of 3
     distinct chunks, copy stream, two device buffers in turn) and
     resident: each streamed chunk's outputs bit for bit the fused step's
-    on its pool entry, the last the resident run's; cloud_props twice,
-    fused_lw and fused_sw once per chunk."""
+    on its pool entry, the pool entries' outputs distinct, the last
+    chunk's the resident run's; cloud_props twice, fused_lw and fused_sw
+    once, the scaling rows and the descriptors twice per chunk."""
     from rte_rrtmgp_tpu_torch.parallel.scaling import _podscale, _pool_entry
-    dims = dict(chunk_cols_per_device=64, ngpt_lw=32, nbnd_lw=4, ngpt_sw=32,
-                nbnd_sw=4, ntemp=5, npres=10, reps_per_chunk=1,
-                host_pool=3, verbose=False, device=cuda)
-    counters = (cloud_props, lw_fused, sw_fused)
-    n0 = [k.launches for k in counters]
+    shape, n = PODSCALE_CASES[case]
+    chunk, nlay = shape[:2]
+    dims = dict(zip(("ngpt_lw", "nbnd_lw", "ngpt_sw", "nbnd_sw", "ntemp",
+                     "npres"), shape[2:]), chunk_cols_per_device=chunk,
+                reps_per_chunk=1, host_pool=3, verbose=False, device=cuda)
     # chunk k reads pool entry k % 3 from buffer k % 2; the last, entry 0
-    r, streamed = _podscale(7 * 64, 9, stream=True, keep=True, **dims)
-    assert r["n_chunks"] == 7 and len(streamed) == 7
+    (r, streamed), got = _launches(
+        lambda: _podscale(n * chunk, nlay, stream=True, keep=True, **dims))
+    assert r["n_chunks"] == n and len(streamed) == n
+    assert (len(streamed) - 1) % 3 == 0
     # the untimed first step and one step per chunk
-    assert [k.launches - n for k, n in zip(counters, n0)] == [16, 8, 8]
-    _, resident = _podscale(3 * 64, 9, stream=False, **dims)
-    step, inputs = build_allsky_step(64, 9, 32, 4, 32, 4, 5, 10,
-                                     device=cuda)
+    _assert_launches(got, dict(cloud_props=2 * (n + 1), fused_lw=n + 1,
+                               fused_sw=n + 1, minor_scale=2 * (n + 1),
+                               gas_descriptors=2 * (n + 1)))
+    _, resident = _podscale(3 * chunk, nlay, stream=False, **dims)
+    step, inputs = build_allsky_step(*shape, device=cuda)
     refs = []
     for j in range(3):
         lw_up, _, sw_up, _, _ = step(_pool_entry(inputs, j))
         refs.append((lw_up[:, 0], sw_up[:, 0]))
+    assert not any(torch.equal(a, b) for j in (1, 2)
+                   for a, b in zip(refs[0], refs[j]))
     for k, out in enumerate(streamed):
         for a, ref in zip(out, refs[k % 3]):
             assert bool(torch.isfinite(a).all())
@@ -2485,3 +2615,345 @@ def test_stream_readback_waits_for_each_chunk(cuda, monkeypatch):
                          (False, False, True, True, True)):
         want = grid.plev * k
         assert torch.equal(o, torch.where(day, want, 0.0) if lit else want)
+
+
+# ---------------------------------------------------------------------------
+# the paths on the card: float32 against float64 at the production
+# configuration, the surface Jacobian, and each path's launches and
+# agreement with the fused step at the main shapes
+# ---------------------------------------------------------------------------
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+# the production configuration of tests/golden/production.npz: 256 x 72 at
+# the flagship widths
+PROD = (256,) + MAIN[1:]
+FLUXES = ("lw_up", "lw_dn", "sw_up", "sw_dn", "sw_dir")
+# one path against another on the same inputs (the JAX package's bound
+# for its fused-vs-generic test, tests/test_pallas_gas_optics.py:275)
+PATH_RTOL, PATH_ATOL = 3e-5, 5e-4
+
+
+def _paths_agree(out, ref):
+    """Each flux within PATH_RTOL of the reference's plus PATH_ATOL W/m2."""
+    gap = max(float(((a - f).abs() - PATH_RTOL * f.abs()).max())
+              for a, f in zip(out, ref))
+    assert gap <= PATH_ATOL, gap
+
+
+@pytest.mark.parametrize("path", ["fused", "api", "staged", "aerosols",
+                                  "two-stream", "rfmip"])
+def test_float32_paths_match_float64_on_card(cuda, path):
+    """The float32 paths on the card against float64 (the golden rule):
+    the fused step, the public API and the staged branch at the
+    production configuration against tests/golden/production.npz; the
+    aerosols fused step and the LW two-stream path there against the
+    port's float64 twin of the same path on the CPU (no golden is
+    committed for either); each field within 3x its float32 noise floor
+    (tests/golden/production_f32_noise.json). The RFMIP driver at the
+    golden's shape (6 sites x 20 layers x 3 experiments, 32 g-points)
+    against tests/golden/rfmip.npz, each field within 3x the distance of
+    the port's float32 twin of the same driver on the CPU."""
+    if path == "rfmip":
+        from rte_rrtmgp_tpu_torch.drivers.rfmip import rfmip_lw, rfmip_sw
+        from rte_rrtmgp_tpu_torch.models.rrtmgp.gas_optics import (
+            GasOpticsRRTMGP)
+        from rte_rrtmgp_tpu_torch.utils.synthetic import synthetic_kdist
+
+        def run(device):
+            data = synthetic_rfmip(6, 20, 3)
+            kd = dict(ngpt=32, nbnd=4, ntemp=6, npres=12, device=device)
+            out = (rfmip_lw(data, GasOpticsRRTMGP(synthetic_kdist(
+                sw=False, **kd))) + rfmip_sw(data, GasOpticsRRTMGP(
+                    synthetic_kdist(sw=True, **kd))))
+            return dict(zip(FLUXES, out))
+        card, twin = run(cuda), run("cpu")
+        golden = np.load(os.path.join(GOLDEN, "rfmip.npz"))
+        for key in golden.files:
+            d = float(np.abs(card[key] - golden[key]).max())
+            t = float(np.abs(twin[key] - golden[key]).max())
+            assert d <= 3 * t, (key, d, t)
+        return
+    if path in ("aerosols", "two-stream"):
+        opts = dict(use_aerosols=path == "aerosols")
+        p = build_allsky(*PROD, device=cuda, **opts)
+        p64 = build_allsky(*PROD, device="cpu", dtype=torch.float64, **opts)
+        route, kw = (path, {}) if path == "two-stream" else ("step", opts)
+        golden = dict(zip(FLUXES, (x.numpy() for x in _composed_step(
+            p64, route, **kw)(p64.inputs))))
+        out = _composed_step(p, route, **kw)(p.inputs)
+    else:
+        golden = np.load(os.path.join(GOLDEN, "production.npz"))
+        p = build_allsky(*PROD, device=cuda)
+        out = _composed_step(p, "step" if path == "fused" else path)(p.inputs)
+    with open(os.path.join(GOLDEN, "production_f32_noise.json")) as f:
+        noise = json.load(f)["f32_noise"]
+    for key, o in zip(FLUXES, out):
+        d = float(np.abs(o.double().cpu().numpy() - golden[key]).max())
+        assert d <= 3 * noise[key], (key, d, 3 * noise[key])
+
+
+def test_fused_tsfc_gradient_matches_surface_jacobian(cuda):
+    """d(sum of TOA LW up)/d(tsfc) through the fused step on the card, at
+    the production configuration, against the analytic surface Jacobian
+    that lw_solver_noscat transports: all positive, within a relative 2e-2
+    (tests/test_fused_autodiff.py:110-149)."""
+    from rte_rrtmgp_tpu_torch.ops.solver_lw import (GAUSS_DS, GAUSS_WTS,
+                                                    lw_solver_noscat)
+    p = build_allsky(*PROD, device=cuda)
+    i = p.inputs
+    tsfc = i.tsfc.clone().requires_grad_()
+    f = allsky_step_lw(i._replace(tsfc=tsfc), p.gas_lw, cloud_optics=p.cld_lw)
+    grad, = torch.autograd.grad(f.flux_up[:, 0].sum(), tsfc)
+    props, src = p.gas_lw.gas_optics_lw(i.play, i.plev, i.tlay, i.tsfc,
+                                        i.gas_concs, tlev=i.tlev,
+                                        top_at_1=True)
+    props = increment(props, p.cld_lw.cloud_optics(i.lwp, i.iwp, i.rel,
+                                                   i.dei, scattering=False))
+    emis = i.sfc_emis.expand(-1, props.tau.shape[2]).contiguous()
+    jac = lw_solver_noscat(props.tau, src.lay_source, src.lev_source, emis,
+                           src.sfc_source, torch.zeros_like(emis),
+                           top_at_1=True, ds=GAUSS_DS[0],
+                           weights=GAUSS_WTS[0],
+                           sfc_src_jac=src.sfc_source_jac,
+                           do_jacobians=True).flux_up_jac[:, 0]
+    assert bool((jac > 0).all())
+    assert float(((grad - jac).abs() / jac.abs()).max()) <= 2e-2
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    """The paths' problems at the main shapes: the fused step and its
+    inputs (clouds, no aerosols), the same problem's objects with the
+    aerosol tables, and the non-banded configuration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    step, inputs = build_allsky_step(*MAIN, device=dev)
+    return dict(step=step, inputs=inputs,
+                prob=build_allsky(*MAIN, device=dev, use_aerosols=True),
+                nonbanded=build_allsky(*MAIN_NONBANDED, device=dev,
+                                       use_aerosols=True))
+
+
+_GATHERS = ("gas_major", "gas_minor", "gas_rayleigh")
+# case: (the kernels it launches at least once, those it launches once a
+# step, the case it is held to: its configuration's fused step, or, by
+# band, its broadband run summed over bands)
+PATH_CASES = {
+    "fused": (("cloud_props", "fused_lw", "fused_sw"), (), None),
+    "api": (("cloud_props",) + _GATHERS + ("solver_lw", "solver_sw"), (),
+            "fused"),
+    "staged": (("cloud_props",) + _GATHERS
+               + ("solver_lw_pfrac", "solver_sw_combined"), (), "fused"),
+    "byband-fused": (("cloud_props",), ("fused_lw", "fused_sw"), "fused"),
+    "two-stream": (("cloud_props", "gas_major", "gas_minor"),
+                   ("solver_lw_2str",), None),
+    "byband-two-stream": (("cloud_props", "gas_major", "gas_minor"),
+                          ("solver_lw_2str",), "two-stream"),
+    "nonbanded-fused": (("cloud_props", "fused_lw", "fused_sw"), (), None),
+    "nonbanded-staged": (("cloud_props",) + _GATHERS
+                         + ("solver_lw_lanes", "solver_sw_lanes"), (),
+                         "nonbanded-fused"),
+    "aerosols-fused": (("cloud_props", "fused_lw", "fused_sw"), (), None),
+    "aerosols-staged": (("cloud_props",) + _GATHERS
+                        + ("solver_lw_pfrac", "solver_sw_combined"), (),
+                        "aerosols-fused"),
+    "aerosols-api": (("cloud_props",) + _GATHERS + ("solver_lw",
+                                                    "solver_sw"), (),
+                     "aerosols-fused"),
+    "clear-fused": (("fused_lw", "fused_sw"), (), None),
+    "clear-staged": (_GATHERS + ("solver_lw_pfrac", "solver_sw_combined"),
+                     (), "clear-fused"),
+}
+
+
+def _flagship_path(fl, case):
+    """(step, inputs, problem) of a path case at the main shapes: a route
+    (fused, api, staged, two-stream) in a configuration (clouds; by band;
+    the non-banded widths; aerosols; clear sky)."""
+    config, _, route = case.partition("-")
+    if config not in ("byband", "nonbanded", "aerosols", "clear"):
+        config, route = "", case
+    opts = dict(aerosols=dict(use_aerosols=True),
+                clear=dict(use_clouds=False)).get(config, {})
+    p, inputs = ((fl["nonbanded"], fl["nonbanded"].inputs)
+                 if config == "nonbanded" else (fl["prob"], fl["inputs"]))
+    if route == "two-stream":
+        return (_composed_step(p, route, byband=config == "byband"), inputs,
+                p)
+    if route == "fused" and config != "byband":
+        step = (fl["step"] if not config else build_allsky_step(
+            *(MAIN_NONBANDED if config == "nonbanded" else MAIN),
+            device=inputs.play.device, **opts)[0])
+        return step, inputs, p
+    if config == "byband":
+        return _composed_step(p, "step", byband=True), inputs, p
+    return _composed_step(p, route, **opts), inputs, p
+
+
+@pytest.mark.parametrize("case", sorted(PATH_CASES))
+def test_paths_launch_and_agree_at_main_shapes(cuda, flagship, case):
+    """Each path at 4096 x 72 (the non-banded configuration at LW 192 /
+    SW 168 g-points): the kernels it must launch at least once (cloud
+    optics not without clouds), the fused kernels by band and the
+    two-stream kernel once a step, the scaling rows and the descriptors
+    once per gas-optics call (2 a step; 1 on the LW-only two-stream path),
+    no other kernel; finite (ncol, nlay+1[, nband]) fluxes, non-negative
+    but the two-stream path's by band (float32 rounding of the Toon
+    sources leaves some bands' near-zero downward flux in the top layers
+    below zero, as in the float32 twin); TOA SW down the solar source
+    times mu0 (rel 1e-5); held against its reference within rtol 3e-5 /
+    atol 5e-4 W/m2."""
+    launched, once, ref_case = PATH_CASES[case]
+    step, inputs, p = _flagship_path(flagship, case)
+    out, got = _launches(lambda: step(inputs))
+    nprep = 1 if case.endswith("two-stream") else 2
+    _assert_launches(got, dict({k: 1 for k in once}, minor_scale=nprep,
+                               gas_descriptors=nprep), launched)
+    ncol, nlay = inputs.play.shape
+    for o in out:
+        assert tuple(o.shape[:2]) == (ncol, nlay + 1)
+        assert bool(torch.isfinite(o).all())
+        if case != "byband-two-stream":
+            assert not bool((o < 0).any())
+    if len(out) == 5 and not case.startswith("byband"):
+        solar = float(p.gas_sw.kdist.solar_source.double().sum())
+        toa = solar * inputs.mu0.double()
+        assert float(((out[3][:, 0].double() - toa).abs() / toa).max()) \
+            <= 1e-5
+    if ref_case is not None:
+        ref_step, ref_inputs, _ = _flagship_path(flagship, ref_case)
+        ref = ref_step(ref_inputs)
+        if case.startswith("byband"):
+            out = tuple(o.sum(-1) for o in out)
+        _paths_agree(out, ref)
+
+
+@pytest.mark.parametrize("angles", ["3 gauss", "optimal"])
+def test_rte_lw_angles_match_cpu_twins(cuda, flagship, angles):
+    """rte_lw with 3 Gauss quadrature angles and with per-(column,
+    g-point) optimal-angle secants, on 512 columns of the main problem:
+    on the card against the same call on the CPU (the twins), within 2e-6
+    of the largest flux (the TOL_FLUX rule)."""
+    import dataclasses
+    from rte_rrtmgp_tpu_torch.rte import rte_lw
+    from rte_rrtmgp_tpu_torch.optical_props import subset
+    from rte_rrtmgp_tpu_torch.sources import subset_sources
+    n, p, i = 512, flagship["prob"], flagship["inputs"]
+    props, src = p.gas_lw.gas_optics_lw(i.play, i.plev, i.tlay, i.tsfc,
+                                        i.gas_concs, tlev=i.tlev,
+                                        top_at_1=True)
+    props, src = subset(props, 0, n), subset_sources(src, 0, n)
+    emis = i.sfc_emis[:n]
+    cpu = lambda x: x.cpu() if hasattr(x, "cpu") else x
+    props_c = dataclasses.replace(props, tau=props.tau.cpu())
+    src_c = dataclasses.replace(src, **{f: cpu(getattr(src, f)) for f in (
+        "lay_source", "lev_source", "sfc_source", "sfc_source_jac")})
+    if angles == "3 gauss":
+        kw = kw_c = dict(n_gauss_angles=3)
+    else:
+        ds = p.gas_lw.compute_optimal_angles(props)
+        kw, kw_c = dict(lw_ds=ds), dict(lw_ds=ds.cpu())
+    got = rte_lw(props, src, emis, **kw)
+    ref = rte_lw(props_c, src_c, emis.cpu(), **kw_c)
+    _flux_close((got.flux_up.cpu(), got.flux_dn.cpu()),
+                (ref.flux_up, ref.flux_dn))
+
+
+@pytest.mark.parametrize("kernel", ["fused_lw", "fused_sw", "solver_lw",
+                                    "solver_lw_2str", "solver_sw",
+                                    "solver_lw_bwd", "solver_sw_bwd",
+                                    "occupancy"])
+def test_kernel_resources_at_main_shapes(cuda, flagship, kernel):
+    """The resources chip_smoke.py prints at the main path's shapes. Each
+    kernel that holds its transport on chip, broadband and by band
+    (solver_lw also rescaled with the Jacobian and PFRAC; solver_sw also
+    COMBINED): the shared memory per block that onchip_geometry counts
+    equal to the launcher's own count, at least one resident block per SM
+    and, in a cluster, one cluster at a time, no device scratch. The fused
+    adjoints (rows 16, 17) and the minor, Rayleigh and major gathers: at
+    least one resident block per SM."""
+    from rte_rrtmgp_tpu_torch.ops.kernels import fused_lw as flw
+    from rte_rrtmgp_tpu_torch.ops.kernels import fused_sw as fsw
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw as slw
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_2str as l2
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_lw_bwd as lwb
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw as ss
+    from rte_rrtmgp_tpu_torch.ops.kernels import solver_sw_bwd as ssw
+    from rte_rrtmgp_tpu_torch.ops.kernels._build import library
+    p = flagship["prob"]
+    ncol, nlay = p.inputs.play.shape
+    ngl, nbl = p.gas_lw.ngpt, p.gas_lw.grid.nband
+    ngs, nbs = p.gas_sw.ngpt, p.gas_sw.grid.nband
+    xl = allsky_lw_inputs(p.inputs, p.gas_lw, cloud_optics=p.cld_lw)
+    xs = allsky_sw_inputs(p.inputs, p.gas_sw, cloud_optics=p.cld_sw)
+    if kernel == "occupancy":
+        from rte_rrtmgp_tpu_torch.ops.kernels.gas_major import (
+            gas_major_occupancy)
+        from rte_rrtmgp_tpu_torch.ops.kernels.gas_minor import (
+            gas_minor_occupancy, gas_rayleigh_occupancy)
+        assert flw.lw_fused_bwd_occupancy(xl) >= 1
+        assert fsw.sw_fused_bwd_occupancy(xs) >= 1
+        for gas in (p.gas_lw, p.gas_sw):
+            for mset in (gas.kdist.minor_lower, gas.kdist.minor_upper):
+                assert gas_minor_occupancy(gas.ngpt, len(mset)) >= 1
+        assert gas_rayleigh_occupancy(ngs) >= 1
+        for ngpt, planck in ((ngl, True), (ngs, False),
+                             (MAIN_NONBANDED[2], True)):
+            assert gas_major_occupancy(ngpt, planck) >= 1
+        return
+    lib = library(kernel)
+    cases = []      # (geometry, occupancy, the launcher's shared memory,
+    #                  scratch bytes)
+    if kernel == "fused_lw":
+        for nband in (0, nbl):
+            x = xl._replace(byband=nband > 0)
+            geo = flw.lw_fused_geometry(x)
+            cases.append((geo, flw.lw_fused_occupancy(x), lib.smem_fused_lw(
+                nlay, geo.chunk, len(xl.minors), nband),
+                flw.lw_fused_scratch_bytes(ncol, nlay, ngl)))
+    elif kernel == "fused_sw":
+        for nband in (0, xs.nband):
+            x = xs._replace(byband=nband > 0, nband=nband)
+            geo = fsw.sw_fused_geometry(x)
+            cases.append((geo, fsw.sw_fused_occupancy(x), lib.smem_fused_sw(
+                nlay, geo.chunk, len(xs.minors), nband),
+                fsw.sw_fused_scratch_bytes(ncol, nlay, ngs)))
+    elif kernel == "solver_lw":
+        for nband, rescale, pfrac in ((0, False, False), (nbl, False, False),
+                                      (0, True, False), (nbl, True, False),
+                                      (0, False, True)):
+            v = dict(rescale=rescale, jacobian=rescale, pfrac=pfrac)
+            geo = slw.lw_noscat_geometry(nlay, ngl, nband, **v)
+            cases.append((geo, slw.lw_noscat_occupancy(nlay, ngl, nband, **v),
+                          lib.smem_solver_lw(nlay, geo.chunk, nband,
+                                             int(rescale), int(rescale),
+                                             int(pfrac)),
+                          slw.lw_noscat_scratch_bytes(ncol, nlay, ngl)))
+    elif kernel == "solver_lw_2str":
+        for nband in (0, nbl):
+            geo = l2.lw_2stream_geometry(nlay, ngl, nband)
+            cases.append((geo, l2.lw_2stream_occupancy(nlay, ngl, nband),
+                          lib.smem_solver_lw_2str(nlay, geo.chunk, nband),
+                          l2.lw_2stream_scratch_bytes(ncol, nlay, ngl)))
+    elif kernel == "solver_sw":
+        for nband, combined in ((0, False), (nbs, False), (0, True)):
+            geo = ss.sw_2stream_geometry(nlay, ngs, nband)
+            cases.append((geo, ss.sw_2stream_occupancy(
+                nlay, ngs, nband, combined=combined),
+                lib.smem_solver_sw(nlay, geo.chunk, nband),
+                ss.sw_2stream_scratch_bytes(ncol, nlay, ngs)))
+    elif kernel == "solver_lw_bwd":
+        geo = lwb.lw_noscat_bwd_geometry(nlay, ngl)
+        cases.append((geo, (lwb.lw_noscat_bwd_occupancy(nlay, ngl), None),
+                      lib.smem_solver_lw_bwd(nlay, geo.chunk),
+                      lwb.lw_noscat_bwd_scratch_bytes(ncol, nlay, ngl)))
+    else:
+        geo = ssw.sw_2stream_bwd_geometry(nlay, ngs)
+        cases.append((geo, ssw.sw_2stream_bwd_occupancy(nlay, ngs),
+                      lib.smem_solver_sw_bwd(nlay, geo.chunk),
+                      ssw.sw_2stream_bwd_scratch_bytes(ncol, nlay, ngs)))
+    for geo, (blocks, clusters), smem, scratch in cases:
+        assert smem == geo.smem, (smem, geo.smem)
+        assert blocks >= 1 and (clusters is None or clusters >= 1)
+        assert scratch == 0
