@@ -23,7 +23,8 @@ _DTYPES = (torch.float32, torch.float64)
 @dataclasses.dataclass
 class RTEConfig:
     # eager range checks on inputs (cloud particle sizes, water paths);
-    # each costs one device -> host read of a boolean
+    # each costs one device -> host read (the cloud check none right after
+    # a pass on the same, unchanged tensors)
     check_values: bool = True
 
 

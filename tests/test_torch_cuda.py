@@ -49,7 +49,9 @@ vmrs and a given col_dry: bit for bit the twins', and the fused fluxes on
 them bit for bit those on the twins'; their adjoint within 1e-6 of the
 float64 twin's autograd, the same bits twice, once per gas-optics call of
 a gradient step; the fused step with the value checks off makes no host
-wait. The minor-gas
+wait, and with them on its SW call makes none after the LW call on the
+same cloud fields (also in a gradient step) but reads again, and raises,
+after an in-place change of them. The minor-gas
 gather in place and out of place (the public
 paths' call), on both atmospheres and with a scaling row of zeros; the
 major-gas gather from the interleaved LW table at the paths' widths; and
@@ -627,6 +629,48 @@ def test_fused_step_makes_no_host_wait(cuda):
             step()
         finally:
             torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_cloud_check_reads_once_per_new_state(cuda):
+    """With the value checks on, at the main shapes: the SW call after the
+    LW call on the same new cloud fields makes no host wait (its cloud
+    check returns on the LW call's), also in a gradient step; a change of
+    rel in place between the two calls makes the SW call read again and
+    raise."""
+    p = build_allsky(*MAIN, device=cuda)
+    fresh = lambda x: x._replace(lwp=x.lwp.clone(), iwp=x.iwp.clone(),
+                                 rel=x.rel.clone(), dei=x.dei.clone())
+    lw = lambda x: allsky_step_lw(x, p.gas_lw, cloud_optics=p.cld_lw)
+    sw = lambda x: allsky_step_sw(x, p.gas_sw, cloud_optics=p.cld_sw)
+
+    def sw_without_wait(x):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return sw(x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    lw(p.inputs), sw(p.inputs)
+    x = fresh(p.inputs)
+    lw(x)
+    sw_without_wait(x)
+
+    x = fresh(p.inputs)
+    lw(x)
+    x.rel.mul_(100.0)
+    with pytest.raises(ValueError, match="liquid effective radius"):
+        sw(x)
+
+    x = fresh(p.inputs)
+    leaves = (x.tlay.clone().requires_grad_(),
+              x.rel.clone().requires_grad_())
+    x = x._replace(tlay=leaves[0], rel=leaves[1])
+    up = lw(x).flux_up
+    out = sw_without_wait(x)
+    grads = torch.autograd.grad(up.sum() + out.flux_dn.sum(), leaves)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
     torch.cuda.synchronize()
 
 

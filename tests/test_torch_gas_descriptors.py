@@ -433,7 +433,7 @@ def test_cuda_branch_one_launch_per_call(allsky, card, path):
         got = step(allsky, x)
     assert rec.counters["launches.gas_descriptors"] == 2
     assert rec.counters["launches.gas_descriptors_bwd"] == 0
-    assert rec.counters["waits"] == (4 if path == "fused" else 14)
+    assert rec.counters["waits"] == (1 if path == "fused" else 11)
     assert [fn for fn, _ in card.calls] == ["launch_gas_descriptors"] * 2
     for a, b in zip(got, ref):
         assert torch.equal(a, b)

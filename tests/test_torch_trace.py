@@ -9,10 +9,13 @@
     kernels' ``.launches`` are read and left as they are.
   * Whole steps at 24 columns (the fused all-sky step, the public API,
     RFMIP, the fused step's gradient): the layer spans with their parents,
-    the same number of waits on two consecutive steps, equal to the count
-    of host waits PERF.md documents for each path (on the card,
-    ``torch.cuda.set_sync_debug_mode`` counts them), and outputs bit for
-    bit those of the step with tracing off.
+    the same number of waits on two consecutive steps, each on new cloud
+    fields, equal to the count of host waits PERF.md documents for each
+    path (on the card, ``torch.cuda.set_sync_debug_mode`` counts them):
+    the SW call's cloud check returns on the LW call's (one
+    ``check.cloud.reused``), and a step repeated on the same fields reads
+    them again, once; outputs bit for bit those of the step with tracing
+    off.
 """
 import threading
 
@@ -160,11 +163,10 @@ def _grad(p, x):
 
 # (step, waits per step (PERF.md), (span, parent) pairs it must record)
 PATHS = {
-    "fused": (_fused, 4, {
+    "fused": (_fused, 1, {
         ("allsky.lw", None), ("allsky.sw", None),
         ("cloud.optics", "allsky.lw"), ("check.cloud", "cloud.optics"),
-        ("wait.cloud.reliq", "check.cloud"),
-        ("wait.cloud.dgice", "check.cloud"),
+        ("wait.cloud.ranges", "check.cloud"),
         ("kernel.cloud_props", "cloud.optics"),
         ("gas.fused_inputs", "allsky.sw"),
         ("gas.descriptors", "gas.fused_inputs"),
@@ -172,8 +174,9 @@ PATHS = {
         ("kernel.gas_descriptors", "gas.descriptors"),
         ("gas.minor_scaling", "gas.descriptors"),
         ("kernel.lw_fused", "allsky.lw"), ("kernel.sw_fused", "allsky.sw")}),
-    "api": (_api, 14, {
+    "api": (_api, 11, {
         ("allsky_api.lw", None), ("allsky_api.sw", None),
+        ("wait.cloud.ranges", "check.cloud"),
         ("gas.descriptors", "allsky_api.lw"),
         ("kernel.gas_descriptors", "gas.descriptors"),
         ("gas.minor_scaling", "allsky_api.sw"),
@@ -190,13 +193,20 @@ PATHS = {
         ("check.props", "rte.sw"), ("wait.props.g", "check.props"),
         ("check.mu0", "rte.sw"), ("wait.mu0", "check.mu0"),
         ("kernel.lw_noscat", "rte.lw"), ("kernel.sw_2stream", "rte.sw")}),
-    "grad": (_grad, 5, {
+    "grad": (_grad, 2, {
         ("check.vmr", None), ("wait.vmr", "check.vmr"),
         ("allsky.lw", None), ("kernel.lw_fused", "allsky.lw"),
         ("backward.lw_fused", None), ("backward.sw_fused", None),
         ("kernel.gas_descriptors", "gas.descriptors"),
         ("backward.gas_descriptors", None)}),
 }
+
+
+def _fresh_clouds(x):
+    """``x`` with copies of its cloud fields: a new state, whose cloud
+    check no earlier check has seen."""
+    return x._replace(lwp=x.lwp.clone(), iwp=x.iwp.clone(),
+                      rel=x.rel.clone(), dei=x.dei.clone())
 
 
 @pytest.mark.parametrize("path", sorted(PATHS))
@@ -206,16 +216,28 @@ def test_step_spans_waits_and_bits(allsky, path):
     off = step(allsky, x)
     recs, outs = [], []
     for _ in range(2):
+        y = _fresh_clouds(x)
         with trace.collect() as rec:
-            outs.append(step(allsky, x))
+            outs.append(step(allsky, y))
         recs.append(rec)
     for rec, out in zip(recs, outs):
         assert rec.counters["waits"] == waits
+        assert rec.counters["check.cloud.reused"] == 1
         got = {(r[0], r[2]) for r in rec.spans}
         assert pairs <= got, sorted(pairs - got)
         assert sum(r[0].startswith("wait.") for r in rec.spans) == waits
+        assert sum(r[0] == "wait.cloud.ranges" for r in rec.spans) == 1
         for a, b in zip(off, out):
             assert torch.equal(a, b)
+    # the same state again: the record is spent by the SW call that
+    # returned on it, so the LW call reads again and the SW call reuses
+    with trace.collect() as rec:
+        out = step(allsky, y)
+    assert rec.counters["waits"] == waits
+    assert rec.counters["check.cloud.reused"] == 1
+    assert sum(r[0] == "wait.cloud.ranges" for r in rec.spans) == 1
+    for a, b in zip(off, out):
+        assert torch.equal(a, b)
 
 
 def test_rfmip_spans_waits_and_bits():
@@ -229,6 +251,7 @@ def test_rfmip_spans_waits_and_bits():
         with trace.collect() as rec:
             out = rfmip_lw_sw(data, gas_lw, gas_sw)
         assert rec.counters["waits"] == 1
+        assert "check.cloud.reused" not in rec.counters
         got = {(r[0], r[2]) for r in rec.spans}
         assert {("rfmip.lw_sw", None),
                 ("gas.fused_inputs", "rfmip.lw_sw"),
