@@ -11,6 +11,9 @@ per-layer metric or kernel lives in a file of its own, found by the name
                              the check's limits
   entries/<entry>.py         the program's entry point for the step
   steps/<step>.py            what one step does and how it is checked
+  traffic/<problem>.py       the problem's pool states, and any tables
+                             and sizes of its own (``traffic/generator``
+                             draws the shared tables)
   reference/<problem>.py     the configuration's plain reference
   metrics/<metric>.py        LAYER and read(run): one per-layer metric
   work/<kernel>.py           work(shapes, cell) -> (bytes, operations)
@@ -40,6 +43,8 @@ WARMUP_STEPS = 2
 SAMPLES = 2
 # the untraced stretch a traced run times after its window (step_mfu)
 UNTRACED_S = 5.0
+# top-level modules a run may not hold once its window has closed
+FORBIDDEN = ("jax", "jaxlib", "flax", "rte_rrtmgp_tpu")
 
 
 def read_json(*parts):
@@ -49,16 +54,30 @@ def read_json(*parts):
 
 def load(kind: str, name: str):
     """The module ``<kind>/<name>.py`` of the benchmark (names may hold
-    dots, so modules are loaded by path)."""
+    dots, so modules are loaded by path). A missing file raises
+    FileNotFoundError naming it; a module whose code raises is not kept."""
     path = os.path.join(BENCH, kind, name + ".py")
     mod_name = "torch_bench_" + kind + "_" + re.sub(r"\W", "_", name)
     if mod_name in sys.modules:
         return sys.modules[mod_name]
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no file torch_bench/{kind}/{name}.py")
     spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[mod_name] = mod
-    spec.loader.exec_module(mod)
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[mod_name]
+        raise
     return mod
+
+
+def forbidden_modules() -> list:
+    """The loaded modules whose top-level name is JAX's, jaxlib's, flax's
+    or the JAX package's (``rte_rrtmgp_tpu``; the port's own name only
+    begins with it), compared whole."""
+    return sorted(n for n in sys.modules if n.split(".")[0] in FORBIDDEN)
 
 
 def cell_spec(workload: str) -> dict:
@@ -280,7 +299,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
              t_start: float, spec=None) -> dict:
     """One run of one cell on ``device``; returns the result line's
     object. ``spec`` (from :func:`cell_spec`) may be given to run a
-    modified configuration (the tests' small sizes)."""
+    modified configuration (the tests' small sizes). Raises instead, once
+    the check is done, if the process holds a module that
+    :func:`forbidden_modules` names."""
     import torch
     from torch_bench.traffic import generator
     spec = spec or cell_spec(workload)
@@ -418,5 +439,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
                        for n in checker.names}
     for n in checker.names:
         log(f"check {n}: {got.get(n)} (limit {limits.get(n)})")
+    found = forbidden_modules()
+    if found:
+        raise RuntimeError("the run loaded JAX or the JAX package, so it "
+                           "gives no result: " + ", ".join(found))
     return result
 

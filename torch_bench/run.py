@@ -16,7 +16,9 @@ line of standard output, one JSON object: ``correct``, ``attempted``,
 number compared with the plain reference beside its limit (also the last
 lines of standard error). Without a CUDA card, or with fewer than the
 cell asks for, it prints no result and exits with code 2. It imports the
-PyTorch port and never JAX.
+PyTorch port and never JAX: if JAX, jaxlib, flax or the JAX package is
+loaded once the check is done, it names them on standard error, prints no
+result and exits with code 1.
 """
 import argparse
 import json

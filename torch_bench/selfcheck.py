@@ -4,9 +4,9 @@
     python3 torch_bench/selfcheck.py
 
   * every name in BENCHMARK.json resolves to its file (configuration,
-    cell, entry, step kind, reference, per-layer metric with the same
-    layer), and every name, unit and text keeps to the allowed characters
-    and lengths;
+    cell, entry, step kind, the problem's inputs and reference, per-layer
+    metric with the same layer), and every name, unit and text keeps to
+    the allowed characters and lengths;
   * ``work/`` reproduces the operation counts of PERF.md's kernel table
     at that table's layout (16 lower and 12 upper minor windows):
     row 2 at 1800 x 61 3.373 Gop, row 3 4.034 Gop, rows 16 and 17 at
@@ -102,6 +102,7 @@ def check_json(errors):
                                           w["config"] + ".json")))
         for kind, name in (("entries", cell["entry"]),
                            ("steps", cell["step"]),
+                           ("traffic", cfg["problem"]),
                            ("reference", cfg["problem"])):
             if not os.path.exists(os.path.join(BENCH, kind, name + ".py")):
                 err(f"cell {w['name']}: no {kind}/{name}.py")

@@ -12,12 +12,15 @@ its plain twins there):
   * a whole run of each cell, its card look skipped, with the timed path
     broken underneath (half the columns left out; one column's answer
     altered where it is produced) comes out not correct, and sound comes
-    out correct.
+    out correct;
+  * a run in a process that holds JAX, jaxlib, flax or the JAX package
+    once its check is done gives no result.
 """
 import copy
 import os
 import sys
 import time
+import types
 
 import numpy as np
 import pytest
@@ -159,3 +162,29 @@ def test_run_catches_faults(workload, fault, monkeypatch):
     assert r["correct"] == (fault == "sound"), r["check"]
     assert r["attempted"] >= 1 and set(r["metrics"]) == {
         "setup_s", "columns_per_s", "step_p95_ms"}
+
+
+@pytest.mark.parametrize("name,found", [
+    ("jax", True), ("jax.numpy", True), ("jaxlib.xla_client", True),
+    ("flax", True), ("rte_rrtmgp_tpu", True), ("rte_rrtmgp_tpu.ops", True),
+    ("rte_rrtmgp_tpu_torch", False), ("jaxtyping", False)])
+def test_forbidden_modules_by_whole_top_level_name(name, found, monkeypatch):
+    monkeypatch.setitem(sys.modules, name, types.ModuleType(name))
+    assert (name in harness.forbidden_modules()) == found
+
+
+def test_run_holding_jax_gives_no_result(monkeypatch):
+    spec = small_spec("rfmip.fused.fwd")
+    assert harness.forbidden_modules() == []
+    entry_mod = harness.load("entries", spec["cell"]["entry"])
+    forward = entry_mod.Entry.forward
+
+    def loads_jax(self, x, span):
+        sys.modules.setdefault("jax", types.ModuleType("jax"))
+        return forward(self, x, span)
+    monkeypatch.setitem(sys.modules, "jax", None)
+    del sys.modules["jax"]
+    monkeypatch.setattr(entry_mod.Entry, "forward", loads_jax)
+    with pytest.raises(RuntimeError, match="JAX package.*: jax$"):
+        harness.run_cell("rfmip.fused.fwd", 2 ** 31 + 12345, 0.3, False,
+                         torch.device("cpu"), time.perf_counter(), spec)

@@ -1,12 +1,25 @@
-"""The benchmark's one generator: tables and an input pool from a seed.
+"""The benchmark's generator: tables and an input pool from a seed.
 
-Everything a cell feeds the program is made here, on the device, from
-``--seed`` and the cell's traffic parameters (``workloads/<cell>.json``,
-key ``traffic``): the LW and SW k-distribution tables and the cloud
-tables at the configuration's shapes, then a pool of distinct
-atmospheric states that the closed loop cycles through, one per step.
-The program receives only these tensors (as numpy arrays where its
-constructors take host arrays).
+Everything a cell feeds the program is made here and in its problem's
+file, on the device, from ``--seed`` and the cell's traffic parameters
+(``workloads/<cell>.json``, key ``traffic``), in a fixed order: the LW
+and SW k-distribution tables and the cloud tables at the configuration's
+shapes (this file), the problem's own tables, then a pool of distinct
+states that the closed loop cycles through, one per step. The program
+receives only these tensors (as numpy arrays where its constructors take
+host arrays).
+
+A problem is the configuration's ``problem`` key; its inputs live in
+``traffic/<problem>.py``, found by name as the harness finds entries and
+references, so a configuration that needs other tables or state fields
+brings a file of its own and edits nothing here. The file provides
+
+  state(config, traffic, draw) -> dict   one pool state (required)
+  tables(config, data, draw) -> dict     extra tables (optional), drawn
+                                         after the shared ones, which
+                                         ``data`` holds
+  shapes(config) -> dict                 extra sizes for ``work/`` counts
+                                         (optional)
 
 The tables take the published files' dimensions from the
 configuration: the 19 absorbers, the 21 minor absorbers, the lower and
@@ -15,7 +28,7 @@ key species, which gas each minor window holds, the reference profiles
 and the profile arithmetic are copies of the port's
 ``utils/synthetic.synthetic_kdist_raw``, ``utils/profiles`` and
 ``drivers/rfmip.synthetic_rfmip``; the table values, the perturbations
-and the cloud and sun draws are this generator's own, drawn with one
+and the cloud and sun draws are the benchmark's own, drawn with one
 ``torch.Generator`` on the device in a fixed order, so one seed gives one
 problem on any run. Every seed gives the same shapes and the same
 amount of work: only values move.
@@ -24,6 +37,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from torch_bench import harness
 
 # the absorbers of the published k-distributions (rrtmgp-gas-lw-g256.nc
 # and rrtmgp-gas-sw-g224.nc: 19 each) and their present-day volume mixing
@@ -124,7 +139,8 @@ def minors(n: int, nbnd: int, width: int):
 
 def shapes(config: dict) -> dict:
     """The sizes the work counts read (``work/*.py``): cells, g-points,
-    bands, table sizes, flavors and the minor windows' widths."""
+    bands, table sizes, flavors and the minor windows' widths, and the
+    problem's own sizes where its file has ``shapes``."""
     ncol = config.get("ncol") or config["nsite"] * config["nexp"]
     out = dict(ncol=ncol, nlay=config["nlay"], ntemp=config["ntemp"],
                neta=config["neta"], npres=config["npres"], nplanck=config["ntemp_planck"],
@@ -137,6 +153,11 @@ def shapes(config: dict) -> dict:
         out[f"nflav_{side}"] = flavors(nbnd)[1]
         out[f"minor_widths_{side}_lower"] = [width] * kd["nminor_lower"]
         out[f"minor_widths_{side}_upper"] = [width] * kd["nminor_upper"]
+    # chip_smoke.shapes passes the sizes of a configuration with no problem
+    mod = harness.load("traffic", config["problem"]) \
+        if "problem" in config else None
+    if hasattr(mod, "shapes"):
+        out.update(mod.shapes(config))
     return out
 
 
@@ -246,94 +267,20 @@ def host(raw: dict) -> dict:
             for k, v in raw.items()}
 
 
-def allsky_state(config: dict, traffic: dict, draw: Draw) -> dict:
-    """One all-sky state: the example's atmosphere (clouds between 100 and
-    900 hPa, liquid above 263 K, ice below 273 K), each column warmer or
-    colder by up to ``dT`` K and moister or drier by a factor in
-    ``h2o_scale``, a fixed share of the columns cloudy (which ones drawn),
-    water paths, particle sizes and the sun drawn in the given ranges."""
-    ncol, nlay = config["ncol"], config["nlay"]
-    t = traffic
-    dev = draw.device
-    play, plev, tlay, tlev, q, o3 = column(nlay, 300.0)
-    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
-    dT = draw.uniform((ncol, 1), -t["dT"], t["dT"])
-    h2o = f32(q)[None] * draw.uniform((ncol, 1), *t["h2o_scale"])
-    cloudy = torch.zeros(ncol, dtype=torch.bool, device=dev)
-    cloudy[draw.perm(ncol)[:round(t["cloudy_share"] * ncol)]] = True
-    tl = f32(tlay)[None] + dT
-    in_layer = ((f32(play) > 100e2) & (f32(play) < 900e2))[None] \
-        & cloudy[:, None]
-    liq = in_layer & (tl > 263.0)
-    ice = in_layer & (tl < 273.0)
-    zero = torch.zeros((), device=dev)
-    lwp = torch.where(liq, draw.uniform((ncol, nlay), *t["lwp"]), zero)
-    iwp = torch.where(ice, draw.uniform((ncol, nlay), *t["iwp"]), zero)
-    return dict(
-        play=f32(play)[None].expand(ncol, nlay).contiguous(),
-        plev=f32(plev)[None].expand(ncol, nlay + 1).contiguous(),
-        tlay=tl.contiguous(), tlev=(f32(tlev)[None] + dT).contiguous(),
-        tsfc=(300.0 + dT[:, 0]).contiguous(), h2o=h2o.contiguous(),
-        o3=f32(o3), lwp=lwp, iwp=iwp,
-        rel=torch.where(liq, draw.uniform((ncol, nlay), *t["rel"]), zero),
-        dei=torch.where(ice, draw.uniform((ncol, nlay), *t["dei"]), zero),
-        mu0=draw.uniform((ncol,), *t["mu0"]),
-        sfc_emis=torch.full((ncol, 1), config["sfc_emis"], device=dev),
-        sfc_alb=torch.full((ncol, 1), config["sfc_alb"], device=dev),
-        gases=dict(co2=348.0e-6, ch4=1650.0e-9, n2o=306.0e-9, n2=0.7808,
-                   o2=0.2095, co=0.0, **{g: VMR[g] for g in TRACE}))
-
-
-def rfmip_state(config: dict, traffic: dict, draw: Draw) -> dict:
-    """One RFMIP state: RCEMIP sites (each warmer or colder by up to
-    ``dT`` K and moister or drier by a factor in ``h2o_scale``), repeated
-    for every experiment, which scale CO2, CH4 and N2O; each column's TSI
-    and solar zenith angle drawn in the configuration's ranges. Every
-    field (ncol, nlay[+1]) with column = experiment * nsite + site."""
-    nsite, nexp, nlay = config["nsite"], config["nexp"], config["nlay"]
-    ncol = nsite * nexp
-    t = traffic
-    dev = draw.device
-    play, plev, tlay, tlev, q, o3 = column(nlay, 295.0)
-    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
-    dT = draw.uniform((nsite, 1), -t["dT"], t["dT"])
-    hs = draw.uniform((nsite, 1), *t["h2o_scale"])
-    rep = lambda x: x.repeat(nexp, 1).contiguous()
-    tl = rep(f32(tlay)[None] + dT)
-    scale = torch.linspace(*config["ghg_scale"], nexp, device=dev)
-    per_exp = lambda base: (base * scale).repeat_interleave(nsite)[:, None] \
-        .expand(ncol, nlay).contiguous()
-    const = lambda v: torch.full((ncol, nlay), v, device=dev)
-    return dict(
-        play=rep(f32(play)[None].expand(nsite, nlay)),
-        plev=rep(f32(plev)[None].expand(nsite, nlay + 1)),
-        tlay=tl, tlev=rep(f32(tlev)[None] + dT), sfc_t=tl[:, -1].contiguous(),
-        sfc_emis=torch.full((ncol,), config["sfc_emis"], device=dev),
-        sfc_alb=torch.full((ncol,), config["sfc_alb"], device=dev),
-        tsi=draw.uniform((ncol,), *config["tsi_range"]),
-        sza=draw.uniform((ncol,), *config["sza_range"]),
-        gases=dict(h2o=rep(f32(q)[None] * hs),
-                   o3=rep(f32(o3)[None].expand(nsite, nlay)),
-                   co2=per_exp(348e-6), ch4=per_exp(1650e-9),
-                   n2o=per_exp(306e-9), o2=const(0.209), n2=const(0.781),
-                   co=const(1.5e-7), **{g: const(VMR[g]) for g in TRACE}))
-
-
-STATES = {"allsky": allsky_state, "rfmip": rfmip_state}
-
-
 def make(config: dict, traffic: dict, seed: int, device) -> dict:
     """The cell's data from the seed: ``lw``, ``sw`` (k-distribution
     arrays), ``cloud_lw``, ``cloud_sw`` (cloud arrays, for configurations
-    with clouds) and ``pool``, the ``traffic["pool"]`` states the loop
-    cycles through."""
+    with clouds), the problem's own tables under its keys, and ``pool``,
+    the ``traffic["pool"]`` states the loop cycles through."""
+    mod = harness.load("traffic", config["problem"])
     draw = Draw(seed, device)
     out = dict(lw=kdist_raw(config, False, draw),
                sw=kdist_raw(config, True, draw))
     if "cloud_nsize_liq" in config:
         out["cloud_lw"] = cloud_raw(config, out["lw"]["band_lims_wvn"], draw)
         out["cloud_sw"] = cloud_raw(config, out["sw"]["band_lims_wvn"], draw)
-    state = STATES[config["problem"]]
-    out["pool"] = [state(config, traffic, draw)
+    if hasattr(mod, "tables"):
+        out.update(mod.tables(config, dict(out), draw))
+    out["pool"] = [mod.state(config, traffic, draw)
                    for _ in range(traffic["pool"])]
     return out

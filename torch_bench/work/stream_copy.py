@@ -4,7 +4,7 @@ Up: the fields the fused all-sky step reads for every column (play,
 tlay, lwp, iwp, rel, dei and h2o per layer; plev and tlev per level;
 tsfc, sfc_emis, sfc_alb and mu0 one each), the all-sky state's o3
 profile and its 17 other gases' single values once a sweep
-(``traffic/generator.allsky_state``), and the int32 indices of the day
+(``traffic/allsky.state``), and the int32 indices of the day
 columns of every chunk that holds both day and night columns (each chunk
 of 4096 columns under a sun uniform in mu0 on [-1, 1]). Down: five flux
 profiles per column. No operations.
