@@ -24,8 +24,10 @@ non-zero exit and no result, so the table never times a wrong kernel):
      public-path step, the Rayleigh gather out of place, as the gas optics
      call them); the minor-gas scaling rows and the gas-optics descriptors
      within 0 of their twins and their adjoints against the float64 twins'
-     autograd; the four adjoint kernels against the twins' autograd on
-     the same inputs and seeded flux cotangents (see TOL_ADJ); then the
+     autograd; the aerosol lookup (LW with the clouds folded in; SW and
+     the lanes as variants) against its twin; the four adjoint kernels
+     against the twins' autograd on the same inputs and seeded flux
+     cotangents (see TOL_ADJ); then the
      variants the paths can ask for, each against its twin and timed,
      logged but not in the kernels line: by-band output of the fused LW
      and SW steps and of the LW no-scattering, LW two-stream and SW
@@ -550,6 +552,42 @@ def descriptor_rows(prob, variants):
                 variants.append(fwd)
             del got, g, dg, bargs
     torch.cuda.empty_cache()
+    return rows
+
+
+def aerosol_rows(prob, variants):
+    """Phase 3, the aerosol lookup of one gas-optics call in one launch
+    (csrc/aerosol_props.cu; no TPU kernel: the JAX package forms it in
+    plain JAX, rte_rrtmgp_tpu/models/rrtmgp/aerosol_optics.py:180-243) on
+    the all-sky example's aerosols, as the all-sky step calls it: LW the
+    absorption with the clouds' folded in (the kernels line's row), SW
+    the delta-scaled aerosols combined with the clouds', and the lanes
+    alone (both into ``variants``); each against its twin beside
+    TOL_GATHER, the kernel timed by :func:`queued_ms`, the twin by
+    :func:`cuda_ms`, bound by torch_bench/work/aerosol_props.py's count of
+    one launch (the lanes alone: the LW launch's)."""
+    from rte_rrtmgp_tpu_torch.ops.kernels import aerosol_props as ap
+    inp = prob.inputs
+    ncol, nlay = inp.play.shape
+    count = bench("aerosol_props").launch_work
+    rows = []
+    for name, aer, cld, mode in (
+            ("aerosol_props", prob.aer_lw, prob.cld_lw, ap.LW),
+            ("aerosol_props sw", prob.aer_sw, prob.cld_sw, ap.SW),
+            ("aerosol_props lanes", prob.aer_lw, None, ap.LANES)):
+        cloud = None if cld is None else cld.cloud_optics_lanes(
+            inp.lwp, inp.iwp, inp.rel, inp.dei)
+        args = (inp.aero_type, inp.aero_size, inp.aero_mass, inp.relhum,
+                aer.lut, aer.offsets, cloud, mode)
+        shapes = dict(nlay=nlay, aerosol_nbin=aer.nbin, aerosol_nrh=aer.nrh)
+        row = check_kernel(
+            name, lambda a: ap.aerosol_props(*a),
+            lambda a: ap.aerosol_props_plain(*a), args, TOL_GATHER,
+            "rte_rrtmgp_tpu_torch/csrc/aerosol_props.cu",
+            "none (plain JAX, rte_rrtmgp_tpu/models/rrtmgp/"
+            "aerosol_optics.py:180-243)",
+            count(shapes, ncol, aer.nbnd, mode == ap.SW), timer=queued_ms)
+        (rows if mode == ap.LW else variants).append(row)
     return rows
 
 
@@ -1423,7 +1461,8 @@ def path_launches(dev, rf):
     from rte_rrtmgp_tpu_torch.models.ssm import (ssm_lw_defaults,
                                                  ssm_sw_defaults)
     from rte_rrtmgp_tpu_torch.ops.kernels import (
-        cloud_props, fused_lw, fused_sw, gas_descriptors, gas_major,
+        aerosol_props, cloud_props, fused_lw, fused_sw, gas_descriptors,
+        gas_major,
         gas_minor, minor_scale, solver_lanes, solver_lw, solver_lw_2str,
         solver_lw_bwd, solver_sw, solver_sw_bwd)
     from rte_rrtmgp_tpu_torch.parallel.scaling import _podscale
@@ -1443,7 +1482,8 @@ def path_launches(dev, rf):
         minor_scale=minor_scale.minor_scale,
         minor_scale_bwd=minor_scale.minor_scale_bwd,
         gas_descriptors=gas_descriptors.gas_descriptors,
-        gas_descriptors_bwd=gas_descriptors.gas_descriptors_bwd)
+        gas_descriptors_bwd=gas_descriptors.gas_descriptors_bwd,
+        aerosol_props=aerosol_props.aerosol_props)
     step, inputs = build_allsky_step(**MAIN, device=dev)
     prob = build_allsky(**MAIN, device=dev, use_aerosols=True)
     nb = build_allsky(**NONBANDED, device=dev, use_aerosols=True)
@@ -1538,7 +1578,7 @@ def main():
     nonbanded = build_allsky(**NONBANDED, device=dev, use_aerosols=True)
     variants = []
     rows = (fused_rows(prob, dev, variants) + scale_rows(prob, variants)
-            + descriptor_rows(prob, variants)
+            + descriptor_rows(prob, variants) + aerosol_rows(prob, variants)
             + api_rows(prob, dev, variants)
             + lw2_rows(prob, dev, variants) + lanes_rows(prob, nonbanded))
     del nonbanded

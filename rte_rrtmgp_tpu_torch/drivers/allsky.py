@@ -6,7 +6,9 @@ aerosols on or off (``use_clouds``, ``use_aerosols``), the fused and
 public-API branches with broadband or by-band fluxes (``byband``):
 
   * the fused branch (``allsky_step_lw/sw``): per step, cloud optics
-    (``ops/kernels/cloud_props``) and aerosol optics, then the fused LW
+    (``ops/kernels/cloud_props``) and aerosol optics
+    (``ops/kernels/aerosol_props``, which folds the clouds' increment into
+    the aerosols' in the same launch), then the fused LW
     kernel with the absorption-only increment, then the fused SW kernel
     with the delta-scaled increment. :func:`build_allsky_step` is the
     counterpart of the JAX package's ``__graft_entry__._build``;
@@ -35,6 +37,7 @@ from ..gas_concs import GasConcs
 from ..models.rrtmgp.aerosol_optics import MERRA_AERO_DUST, MERRA_AERO_SULF
 from ..models.rrtmgp.gas_optics import GasOpticsRRTMGP
 from ..optical_props import delta_scale, increment
+from ..ops.kernels.aerosol_props import delta_scaled_band
 from ..ops.kernels.fused_lw import LWFusedInputs, lw_fused, reverse_axes
 from ..ops.kernels.fused_sw import SWFusedInputs, sw_fused
 from ..ops.kernels.solver_lanes import (increment_2str_bybnd,
@@ -136,85 +139,45 @@ def make_allsky_inputs(ncol: int, nlay: int, *, cloud_optics=None,
         mu0=cast(np.full(ncol, 0.86)))
 
 
-def _delta_scaled_band(t, ts, tsg):
-    """(tau, tau*ssa, tau*ssa*g) by band -> delta-Eddington-scaled
-    (tau, ssa, g) with f = g^2 (JAX drivers/allsky.py:131-144)."""
-    finfo = torch.finfo(t.dtype)
-    g = tsg / torch.clamp(ts, min=finfo.eps)
-    ssa = ts / torch.clamp(t, min=finfo.eps)
-    f = g * g
-    wf = ssa * f
-    return ((1.0 - wf) * t,
-            torch.where(wf < 1.0, (ssa - wf)
-                        / torch.clamp(1.0 - wf, min=finfo.tiny), 0.0),
-            torch.where(f < 1.0, (g - f)
-                        / torch.clamp(1.0 - f, min=finfo.tiny), 0.0))
-
-
-def _combine_band_2str(a, b):
-    """Two by-band (tau, ssa, g) increments as one (JAX drivers/
-    allsky.py:147-162): the tau-weighted averaging of
-    increment_2stream_by_2stream is associative, so incrementing with the
-    combination equals the reference's sequential increments
-    (rrtmgp_allsky.F90:394-399). Either may be None."""
-    if a is None:
-        return b
-    if b is None:
-        return a
-    tiny = torch.finfo(a[0].dtype).tiny
-    t = a[0] + b[0]
-    tauscat = a[0] * a[1] + b[0] * b[1]
-    g = (a[0] * a[1] * a[2] + b[0] * b[1] * b[2]) / torch.clamp(tauscat,
-                                                               min=tiny)
-    ssa = tauscat / torch.clamp(t, min=tiny)
-    return (t, torch.where(t > 2.0 * tiny, ssa, 0.0),
-            torch.where(tauscat > 2.0 * tiny, g, 0.0))
-
-
-def _aerosol_lanes(inputs: AllSkyInputs, aerosol_optics):
-    i = inputs
-    return aerosol_optics.aerosol_optics_lanes(i.aero_type, i.aero_size,
-                                               i.aero_mass, i.relhum)
-
-
 def _absorption_lanes(inputs: AllSkyInputs, cloud_optics, use_clouds,
                       aerosol_optics, use_aerosols):
     """The LW increment by band, (nbnd, nlay, ncol) or None: the
     absorption (tau - tau*ssa) of the clouds plus that of the aerosols
     (reference increment_1scalar_by_2stream; JAX drivers/allsky.py:
-    122-128, :231-245)."""
-    out = None
+    122-128, :231-245), the aerosols' added inside their lookup's
+    launch."""
+    i = inputs
+    cloud = None
     if use_clouds:
         if cloud_optics is None:
             raise ValueError("allsky LW: use_clouds needs cloud_optics")
-        t, ts, _ = cloud_optics.cloud_optics_lanes(
-            inputs.lwp, inputs.iwp, inputs.rel, inputs.dei)
-        out = t - ts
+        cloud = cloud_optics.cloud_optics_lanes(i.lwp, i.iwp, i.rel, i.dei)
     if use_aerosols:
         if aerosol_optics is None:
             raise ValueError("allsky LW: use_aerosols needs aerosol_optics")
-        t, ts, _ = _aerosol_lanes(inputs, aerosol_optics)
-        out = t - ts if out is None else out + (t - ts)
-    return out
+        return aerosol_optics.absorption_lanes(
+            i.aero_type, i.aero_size, i.aero_mass, i.relhum, cloud=cloud)
+    return None if cloud is None else cloud[0] - cloud[1]
 
 
 def _scattering_lanes(inputs: AllSkyInputs, cloud_optics, use_clouds,
                       aerosol_optics, use_aerosols):
     """The SW increment by band, delta-scaled (tau, ssa, g) each (nbnd,
     nlay, ncol), or None: the clouds' combined with the aerosols' (JAX
-    drivers/allsky.py:288-301, :327-341)."""
-    out = None
+    drivers/allsky.py:288-301, :327-341), inside the aerosols' lookup's
+    launch where there are aerosols."""
+    i = inputs
+    cloud = None
     if use_clouds:
         if cloud_optics is None:
             raise ValueError("allsky SW: use_clouds needs cloud_optics")
-        out = _delta_scaled_band(*cloud_optics.cloud_optics_lanes(
-            inputs.lwp, inputs.iwp, inputs.rel, inputs.dei))
+        cloud = cloud_optics.cloud_optics_lanes(i.lwp, i.iwp, i.rel, i.dei)
     if use_aerosols:
         if aerosol_optics is None:
             raise ValueError("allsky SW: use_aerosols needs aerosol_optics")
-        out = _combine_band_2str(out, _delta_scaled_band(
-            *_aerosol_lanes(inputs, aerosol_optics)))
-    return out
+        return aerosol_optics.scattering_lanes(
+            i.aero_type, i.aero_size, i.aero_mass, i.relhum, cloud=cloud)
+    return None if cloud is None else delta_scaled_band(*cloud)
 
 
 def allsky_lw_inputs(inputs: AllSkyInputs, gas_optics: GasOpticsRRTMGP, *,

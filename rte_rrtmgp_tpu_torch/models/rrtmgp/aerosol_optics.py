@@ -5,10 +5,14 @@ Counterpart of ``rte_rrtmgp_tpu.models.rrtmgp.aerosol_optics`` (reference
 mo_aerosol_optics_rrtmgp_merra.F90): per-cell aerosol type dispatch over
 seven GOCART species with size-bin selection (dust, sea salt) and
 relative-humidity interpolation (the hydrophilic species). The small
-lookup tables are concatenated once into one (species, rh, bin) row
-table; each cell becomes two row indices (the RH pair), two row gathers
-and the RH lerp. Plain PyTorch: the JAX package has no Pallas kernel
-here. Tables are stored value-major (ext/ssa/g on axis 0).
+lookup tables are concatenated once, at load, into one (species, rh,
+bin) row table on the tables' device, beside the RH grid and the bin
+limits (``lut``); the lookup runs in ``ops/kernels/aerosol_props`` (one
+CUDA launch per call, or its plain twin), differentiable through the
+twin's gradient. The all-sky step asks it for its increments by band
+with the clouds' folded in (:meth:`AerosolOpticsMERRA.absorption_lanes`,
+:meth:`AerosolOpticsMERRA.scattering_lanes`). Tables are stored
+value-major (ext/ssa/g on axis 0).
 """
 from __future__ import annotations
 
@@ -17,7 +21,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from ... import trace
 from ...config import get_config, resolve_device
+from ...ops.kernels.aerosol_props import (LANES, LW, SW, aerosol_props,
+                                          aerosol_props_plain)
+from ...ops.kernels.autodiff import with_twin_grad
 from ...optical_props import OpticalProps, OpticalProps1scl, OpticalProps2str
 from ...spectral import SpectralGrid
 
@@ -61,10 +69,14 @@ class AerosolOpticsMERRA:
         :96-165): dust (nval, nbin, nbnd), salt (nrh, nval, nbin, nbnd),
         sulfate/bcar_rh/ocar_rh (nrh, nval, nbnd), bcar/ocar (nval, nbnd),
         nval = 3 = ext/ssa/g. Stored value-major on ``device`` (default:
-        the CUDA device)."""
+        the CUDA device). A table may be a tensor already on ``device``:
+        it is rearranged there, with no trip through the host."""
         device = resolve_device(device)
 
         def vm(a, val_axis):
+            if isinstance(a, torch.Tensor):
+                return a.to(device=device, dtype=dtype).movedim(
+                    val_axis, 0).contiguous()
             return torch.as_tensor(np.moveaxis(np.asarray(a), val_axis, 0),
                                    dtype=dtype, device=device).contiguous()
 
@@ -86,55 +98,14 @@ class AerosolOpticsMERRA:
     @property
     def nbnd(self): return self.grid.nband
 
-    def validate_inputs(self, aero_type, aero_size, relhum) -> None:
-        """Reference bounds checks (:344-347) on cells with a nonzero
-        type: size within the bin table, relative humidity in [0, 1].
-        One host read per check."""
-        active = aero_type > 0
-        lims = self.bin_lims
-        if bool((active & ((aero_size < float(lims[0, 0]))
-                           | (aero_size > float(lims[1, -1])))).any()):
-            raise ValueError("aerosol optics: requested aerosol size is out "
-                             "of bounds")
-        if bool((active & ((relhum < 0.0) | (relhum > 1.0))).any()):
-            raise ValueError("aerosol optics: relative humidity fraction is "
-                             "out of bounds")
-
-    def aerosol_optics(self, aero_type, aero_size, aero_mass, relhum, *,
-                       scattering: bool = True,
-                       top_at_1: bool = True) -> OpticalProps:
-        """Aerosol optical properties by band (reference aerosol_optics
-        :233-430), each (ncol, nlay, nbnd): 2-stream (tau, ssa, g), or the
-        absorption tau - tau*ssa without ``scattering``. aero_type
-        (ncol, nlay) integer codes; aero_size [microns]; aero_mass
-        [kg/m2]; relhum in [0, 1]."""
-        tau, taussa, taussag = self._tau_triplet(aero_type, aero_size,
-                                                 aero_mass, relhum)
-        if not scattering:
-            return OpticalProps1scl(tau=tau - taussa, grid=self.grid,
-                                    top_at_1=top_at_1)
-        eps = torch.finfo(tau.dtype).eps
-        return OpticalProps2str(
-            tau=tau, ssa=taussa / torch.clamp(tau, min=eps),
-            g=taussag / torch.clamp(taussa, min=eps), grid=self.grid,
-            top_at_1=top_at_1)
-
-    def aerosol_optics_lanes(self, aero_type, aero_size, aero_mass, relhum):
-        """(tau, tau*ssa, tau*ssa*g) by band, each (nbnd, nlay, ncol) (a
-        permuted view; the contract of ``cloud_optics_lanes``)."""
-        lane = lambda x: x.permute(2, 1, 0)
-        return tuple(lane(x) for x in self._tau_triplet(
-            aero_type, aero_size, aero_mass, relhum))
-
-    def _row_table(self):
-        """The (species, rh, bin) rows, (nrows, 3 * nbnd), and each
-        species' first row; row 0 is zero (no or unknown type). Built once
-        per instance (JAX aerosol_optics.py:146-178)."""
-        cached = self.__dict__.get("_rows")
-        if cached is not None:
-            return cached
+    def __post_init__(self):
+        """The lookup's tables on the tables' device, made once (JAX
+        aerosol_optics.py:146-178): the bin limits (2, nbin), the RH grid
+        (nrh,) and the (species, rh, bin) rows (nrows, 3, nbnd), row 0
+        zero (no or unknown type); and each species' first row."""
         nbnd, nbin, nrh = self.nbnd, self.nbin, self.nrh
-        blocks = [("none", self.dust_tbl.new_zeros((1, 3, nbnd))),
+        tab = self.dust_tbl
+        blocks = [("none", tab.new_zeros((1, 3, nbnd))),
                   ("dust", self.dust_tbl.movedim(0, 1)),
                   ("salt", self.salt_tbl.movedim(0, 2).reshape(
                       nrh * nbin, 3, nbnd)),
@@ -143,64 +114,99 @@ class AerosolOpticsMERRA:
                   ("bcar", self.bcar_tbl[None]),
                   ("ocar_rh", self.ocar_rh_tbl.movedim(0, 1)),
                   ("ocar", self.ocar_tbl[None])]
-        off, n = {}, 0
+        first, n = {}, 0
         for name, b in blocks:
-            off[name] = n
+            first[name] = n
             n += b.shape[0]
-        table = torch.cat([b for _, b in blocks]).reshape(-1, 3 * nbnd)
-        object.__setattr__(self, "_rows", (table, off))
-        return table, off
+        on = lambda a: torch.as_tensor(a, dtype=tab.dtype, device=tab.device)
+        lut = (on(self.bin_lims), on(self.aero_rh),
+               torch.cat([b for _, b in blocks]).contiguous())
+        object.__setattr__(self, "lut", lut)
+        object.__setattr__(self, "offsets", tuple(first[k] for k in (
+            "dust", "salt", "sulf", "bcar_rh", "bcar", "ocar_rh", "ocar")))
 
-    def _tau_triplet(self, aero_type, aero_size, aero_mass, relhum):
-        """(tau, tau*ssa, tau*ssa*g), each (ncol, nlay, nbnd) (JAX
-        aerosol_optics.py:180-243)."""
+    @trace.spanned("check.aerosol")
+    def validate_inputs(self, aero_type, aero_size, relhum) -> None:
+        """Reference bounds checks (:344-347) on cells with a nonzero
+        type: size within the bin table, relative humidity in [0, 1]. Both
+        flags formed on the device and read back together, one host
+        read."""
+        active = aero_type > 0
+        lims = self.bin_lims
+        size = active & ((aero_size < float(lims[0, 0]))
+                         | (aero_size > float(lims[1, -1])))
+        rh = active & ((relhum < 0.0) | (relhum > 1.0))
+        flags = torch.stack([size.any(), rh.any()])
+        with trace.wait("aerosol.ranges"):
+            bad_size, bad_rh = flags.cpu().tolist()
+        if bad_size:
+            raise ValueError("aerosol optics: requested aerosol size is out "
+                             "of bounds")
+        if bad_rh:
+            raise ValueError("aerosol optics: relative humidity fraction is "
+                             "out of bounds")
+
+    def _props(self, mode, cloud, aero_type, aero_size, aero_mass, relhum):
+        """One call of the lookup kernel (or its twin) in ``mode``, with
+        the twin's gradient (``ops/kernels/aerosol_props``)."""
         if get_config().check_values:
             self.validate_inputs(aero_type, aero_size, relhum)
-        atype = aero_type.to(torch.int32)
-        size = aero_size
-        dtype = size.dtype
-        mass = aero_mass.to(dtype)
-        rh = relhum.to(dtype)
+        size = aero_size.contiguous()
+        cast = lambda x: x.to(size.dtype).contiguous()
+        return with_twin_grad(
+            aerosol_props, aerosol_props_plain,
+            aero_type.to(torch.int32).contiguous(), size, cast(aero_mass),
+            cast(relhum), self.lut, self.offsets, cloud, mode,
+            name="aerosol_props")
 
-        # size bin: the last bin whose [lo, hi] holds the size (ref :472-477)
-        lims = self.bin_lims
-        ibin = torch.zeros_like(atype)
-        for i in range(self.nbin):
-            inbin = (size >= float(lims[0, i])) & (size <= float(lims[1, i]))
-            ibin = torch.where(inbin, i, ibin)
+    @trace.spanned("aerosol.optics")
+    def aerosol_optics(self, aero_type, aero_size, aero_mass, relhum, *,
+                       scattering: bool = True,
+                       top_at_1: bool = True) -> OpticalProps:
+        """Aerosol optical properties by band (reference aerosol_optics
+        :233-430), each (ncol, nlay, nbnd): 2-stream (tau, ssa, g), or the
+        absorption tau - tau*ssa without ``scattering``. aero_type
+        (ncol, nlay) integer codes; aero_size [microns]; aero_mass
+        [kg/m2]; relhum in [0, 1]."""
+        x = (aero_type, aero_size, aero_mass, relhum)
+        if not scattering:
+            return OpticalProps1scl(
+                tau=self._props(LW, None, *x).permute(2, 1, 0),
+                grid=self.grid, top_at_1=top_at_1)
+        tau, taussa, taussag = self._props(LANES, None, *x).permute(
+            0, 3, 2, 1)
+        eps = torch.finfo(tau.dtype).eps
+        return OpticalProps2str(
+            tau=tau, ssa=taussa / torch.clamp(tau, min=eps),
+            g=taussag / torch.clamp(taussa, min=eps), grid=self.grid,
+            top_at_1=top_at_1)
 
-        # RH pair (ref :481-494): irh2 is the first grid point >= rh
-        rh_grid = torch.as_tensor(self.aero_rh, dtype=dtype,
-                                  device=size.device)
-        nbelow = (rh[..., None] > rh_grid).sum(-1)
-        irh1 = torch.where(nbelow == 0, 0,
-                           torch.clamp(nbelow, 1, self.nrh) - 1)
-        irh2 = torch.clamp(nbelow, 0, self.nrh - 1)
-        same = irh1 == irh2
-        drh0 = rh_grid[irh2] - rh_grid[irh1]
-        drh1 = rh - rh_grid[irh1]
-        rdrh = torch.where(same, 0.0, drh1 / torch.where(same, 1.0, drh0))
+    @trace.spanned("aerosol.optics")
+    def aerosol_optics_lanes(self, aero_type, aero_size, aero_mass, relhum):
+        """(tau, tau*ssa, tau*ssa*g) by band, each (nbnd, nlay, ncol) (the
+        contract of ``cloud_optics_lanes``)."""
+        out = self._props(LANES, None, aero_type, aero_size, aero_mass,
+                          relhum)
+        return out[0], out[1], out[2]
 
-        table, off = self._row_table()
-        nbin = self.nbin
+    @trace.spanned("aerosol.optics")
+    def absorption_lanes(self, aero_type, aero_size, aero_mass, relhum, *,
+                         cloud=None):
+        """The all-sky step's LW increment by band, (nbnd, nlay, ncol):
+        the aerosols' absorption tau - tau*ssa plus the clouds', where
+        ``cloud`` (their (tau, tau*ssa, tau*ssa*g) lanes) is given
+        (reference increment_1scalar_by_2stream; JAX drivers/allsky.py:
+        122-128). One launch."""
+        return self._props(LW, cloud, aero_type, aero_size, aero_mass,
+                           relhum)
 
-        def rows_of(irh):
-            r = torch.zeros_like(atype)
-            for code, base, idx in (
-                    (MERRA_AERO_DUST, off["dust"], ibin),
-                    (MERRA_AERO_SALT, off["salt"], irh * nbin + ibin),
-                    (MERRA_AERO_SULF, off["sulf"], irh),
-                    (MERRA_AERO_BCAR_RH, off["bcar_rh"], irh),
-                    (MERRA_AERO_BCAR, off["bcar"], 0),
-                    (MERRA_AERO_OCAR_RH, off["ocar_rh"], irh),
-                    (MERRA_AERO_OCAR, off["ocar"], 0)):
-                r = torch.where(atype == code, base + idx, r)
-            return r.long()
-
-        lo = table[rows_of(irh1)]                   # (ncol, nlay, 3 * nbnd)
-        hi = table[rows_of(irh2)]
-        v = (lo + rdrh[..., None] * (hi - lo)).reshape(
-            tuple(atype.shape) + (3, self.nbnd))
-        tau = mass[..., None] * v[..., 0, :]
-        taussa = tau * v[..., 1, :]
-        return tau, taussa, taussa * v[..., 2, :]
+    @trace.spanned("aerosol.optics")
+    def scattering_lanes(self, aero_type, aero_size, aero_mass, relhum, *,
+                         cloud=None):
+        """The all-sky step's SW increment by band, delta-scaled
+        (tau, ssa, g), each (nbnd, nlay, ncol): the aerosols' combined
+        with the clouds', where ``cloud`` (their (tau, tau*ssa,
+        tau*ssa*g) lanes) is given (JAX drivers/allsky.py:288-301). One
+        launch."""
+        out = self._props(SW, cloud, aero_type, aero_size, aero_mass, relhum)
+        return out[0], out[1], out[2]

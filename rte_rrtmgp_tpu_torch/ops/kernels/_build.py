@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("cloud_props", "fused_lw", "fused_sw", "gas_major", "gas_minor",
            "solver_lw", "solver_lw_2str", "solver_sw", "fused_lw_bwd",
            "fused_sw_bwd", "solver_lw_bwd", "solver_sw_bwd", "minor_scale",
-           "gas_descriptors")
+           "gas_descriptors", "aerosol_props")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

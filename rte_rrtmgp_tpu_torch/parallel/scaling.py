@@ -7,7 +7,11 @@ radiation time step: ``AllSkyStream(gas_lw, gas_sw, cloud_lw, cloud_sw,
 chunk=4096).run(grid)`` runs the fused all-sky step (``drivers/allsky.
 allsky_step_lw`` on every column, ``allsky_step_sw`` on the day columns
 alone, ``mu0 > 0``) over the grid in chunks of ``chunk`` columns and
-returns the five flux profiles in host memory. Per sweep:
+returns the five flux profiles in host memory. Given aerosol optics
+(``aerosol_lw=``, ``aerosol_sw=``), the step runs with them
+(``use_aerosols``), and the grid's aerosol fields (type, size, mass,
+relative humidity) join the fields that go up and that the day gather
+takes. Per sweep:
 
   * chunk k's fields (those the step reads) are copied from the host grid
     into one of two device buffers (buffer k % 2), on a copy stream on a
@@ -74,12 +78,14 @@ from ..utils.synthetic import synthetic_cloud_optics, synthetic_kdist
 
 __all__ = ["AllSkyStream", "StreamFluxes", "podscale_allsky"]
 
-# the per-column fields the fused all-sky step reads (no aerosols), and
-# those of them its SW half reads, which the day gather takes
+# the per-column fields the fused all-sky step reads without aerosols,
+# and those of them its SW half reads, which the day gather takes; with
+# aerosols both take the aerosol fields too
 STEP_FIELDS = ("play", "plev", "tlay", "tlev", "tsfc", "lwp", "iwp", "rel",
                "dei", "sfc_emis", "sfc_alb", "mu0")
 SW_FIELDS = ("play", "plev", "tlay", "lwp", "iwp", "rel", "dei", "sfc_alb",
              "mu0")
+AEROSOL_FIELDS = ("aero_type", "aero_size", "aero_mass", "relhum")
 
 
 class StreamFluxes(NamedTuple):
@@ -96,29 +102,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _columns(inputs: AllSkyInputs, c0: int, c1: int) -> AllSkyInputs:
-    """Columns [c0, c1) of the step's fields (views); the gas store's
+def _columns(inputs: AllSkyInputs, c0: int, c1: int,
+             fields=STEP_FIELDS) -> AllSkyInputs:
+    """Columns [c0, c1) of the step's ``fields`` (views); the gas store's
     fields sliced, its scalars and profiles whole; the fields the step
     does not read None."""
     gas = inputs.gas_concs.get_subset(c0, c1 - c0)
     return AllSkyInputs(**{f: None for f in AllSkyInputs._fields})._replace(
-        gas_concs=gas, **{f: getattr(inputs, f)[c0:c1] for f in STEP_FIELDS})
+        gas_concs=gas, **{f: getattr(inputs, f)[c0:c1] for f in fields})
 
 
-def _layout(inputs: AllSkyInputs) -> tuple:
-    """What the device buffers depend on: each field's width and dtype,
-    the gas names and which gas values are per-column fields."""
+def _layout(inputs: AllSkyInputs, fields: tuple) -> tuple:
+    """What the device buffers depend on: the fields, each one's width
+    and dtype, the gas names and which gas values are per-column
+    fields."""
     w = lambda t: (t.ndim, tuple(t.shape[1:]), t.dtype)
     gas = inputs.gas_concs
-    return (tuple(w(getattr(inputs, f)) for f in STEP_FIELDS), gas.names,
+    return (fields, tuple(w(getattr(inputs, f)) for f in fields), gas.names,
             tuple(w(v) for v in gas.values))
 
 
 class _Uploads:
     """Chunk k's fields copied from host memory into one of two device
     buffers (buffer k % 2), each ``chunk`` columns wide. ``put(k, src,
-    day)`` enqueues the copies of ``src`` (the step's fields of at most
-    ``chunk`` columns, as :func:`_columns` gives them) and of its day
+    day)`` enqueues the copies of ``src`` (the step's ``fields`` of at
+    most ``chunk`` columns, as :func:`_columns` gives them) and of its day
     columns' indices ``day`` (int32, or None) after the last step that
     read that buffer; ``get(k)`` makes the current stream wait for them and
     returns (the chunk's inputs, the indices), views of the buffer's
@@ -128,13 +136,15 @@ class _Uploads:
     the copies run on the stream ``copy``; on the CPU they are plain
     copies."""
 
-    def __init__(self, like: AllSkyInputs, chunk: int, device):
+    def __init__(self, like: AllSkyInputs, chunk: int, device,
+                 fields: tuple):
         self.device, self.cuda = device, device.type == "cuda"
-        self.layout = _layout(like)
+        self.fields = fields
+        self.layout = _layout(like, fields)
         cols = lambda t: torch.empty((chunk,) + tuple(t.shape[1:]),
                                      dtype=t.dtype, device=device)
         gas = like.gas_concs
-        self.bufs = [dict({f: cols(getattr(like, f)) for f in STEP_FIELDS},
+        self.bufs = [dict({f: cols(getattr(like, f)) for f in fields},
                           day=torch.empty(chunk, dtype=torch.int32,
                                           device=device),
                           **{"gas." + n: cols(v)
@@ -156,7 +166,7 @@ class _Uploads:
         buf = self.bufs[b]
         n = src.play.shape[0]
         with trace.span("stream.upload"):
-            copies = [(buf[f][:n], getattr(src, f)) for f in STEP_FIELDS]
+            copies = [(buf[f][:n], getattr(src, f)) for f in self.fields]
             values = []
             for name, v in zip(src.gas_concs.names, src.gas_concs.values):
                 if v.ndim == 2:
@@ -191,7 +201,7 @@ class _Uploads:
         x = src._replace(
             gas_concs=GasConcs(names=src.gas_concs.names,
                                values=tuple(values)),
-            **{f: buf[f][:n] for f in STEP_FIELDS})
+            **{f: buf[f][:n] for f in self.fields})
         self.chunks[b] = (x, idx)
 
     def get(self, k: int):
@@ -208,20 +218,31 @@ class _Uploads:
 class AllSkyStream:
     """A whole grid's all-sky step, streamed from host memory through one
     device in chunks of ``chunk`` columns (see the module's notes):
-    ``run(grid)`` takes an ``AllSkyInputs`` of CPU tensors (aerosol fields
-    unread) and returns its :class:`StreamFluxes` in host buffers (pinned
-    on a CUDA device) that the next sweep overwrites. ``gas_lw``,
-    ``gas_sw``, ``cloud_lw`` and ``cloud_sw`` are the optics objects
-    ``allsky_step_lw`` and ``allsky_step_sw`` take, on ``device``
-    (default: the CUDA device)."""
+    ``run(grid)`` takes an ``AllSkyInputs`` of CPU tensors and returns its
+    :class:`StreamFluxes` in host buffers (pinned on a CUDA device) that
+    the next sweep overwrites. ``gas_lw``, ``gas_sw``, ``cloud_lw`` and
+    ``cloud_sw`` are the optics objects ``allsky_step_lw`` and
+    ``allsky_step_sw`` take, on ``device`` (default: the CUDA device);
+    ``aerosol_lw`` and ``aerosol_sw``, both or neither, their aerosol
+    optics: given, the grid's aerosol fields are read, else they are
+    not."""
 
     def __init__(self, gas_lw: GasOpticsRRTMGP, gas_sw: GasOpticsRRTMGP,
-                 cloud_lw, cloud_sw, chunk: int = 4096, device=None):
+                 cloud_lw, cloud_sw, chunk: int = 4096, device=None, *,
+                 aerosol_lw=None, aerosol_sw=None):
         if int(chunk) < 1:
             raise ValueError(f"AllSkyStream: chunk must be positive, got "
                              f"{chunk}")
+        if (aerosol_lw is None) != (aerosol_sw is None):
+            raise ValueError("AllSkyStream: give both aerosol_lw and "
+                             "aerosol_sw, or neither")
         self.gas_lw, self.gas_sw = gas_lw, gas_sw
         self.cloud_lw, self.cloud_sw = cloud_lw, cloud_sw
+        self.aerosol_lw, self.aerosol_sw = aerosol_lw, aerosol_sw
+        self.aerosols = aerosol_lw is not None
+        self.fields = STEP_FIELDS + (AEROSOL_FIELDS if self.aerosols else ())
+        self.sw_fields = SW_FIELDS + (AEROSOL_FIELDS if self.aerosols
+                                      else ())
         self.chunk = int(chunk)
         self.device = resolve_device(device)
         self._uploads = None
@@ -241,7 +262,7 @@ class AllSkyStream:
         return grid._replace(
             gas_concs=GasConcs(names=gas.names,
                                values=tuple(p(v) for v in gas.values)),
-            **{f: p(getattr(grid, f)) for f in STEP_FIELDS})
+            **{f: p(getattr(grid, f)) for f in self.fields})
 
     def _bounds(self, ncol: int) -> list:
         """Each chunk's columns [c0, c1): whole chunks, then the rest."""
@@ -258,8 +279,10 @@ class AllSkyStream:
         ``source(k)`` giving chunk k's host fields and day indices;
         chunk k+1 goes up beside chunk k's step, and chunk k's buffer is
         released when the next chunk is asked for."""
-        if self._uploads is None or self._uploads.layout != _layout(like):
-            self._uploads = _Uploads(like, self.chunk, self.device)
+        fields = self.fields
+        if self._uploads is None \
+                or self._uploads.layout != _layout(like, fields):
+            self._uploads = _Uploads(like, self.chunk, self.device, fields)
         up = self._uploads
         up.clear()
         if n:
@@ -276,13 +299,18 @@ class AllSkyStream:
         contiguous: LW on every column, SW on the ``nday`` lit ones (the
         columns ``idx``, or all of them), 0 on the others."""
         n, nlev = x.play.shape[0], x.plev.shape[1]
-        lw = allsky_step_lw(x, self.gas_lw, cloud_optics=self.cloud_lw)
+        aer = dict(use_aerosols=True) if self.aerosols else {}
+        lw = allsky_step_lw(x, self.gas_lw, cloud_optics=self.cloud_lw,
+                            aerosol_optics=self.aerosol_lw, **aer)
         out = [lw.flux_up.contiguous(), lw.flux_dn.contiguous()]
         if nday == 0:
             zero = x.play.new_zeros((n, nlev))
             return out + [zero, zero, zero]
+        sw_step = lambda y: allsky_step_sw(
+            y, self.gas_sw, cloud_optics=self.cloud_sw,
+            aerosol_optics=self.aerosol_sw, **aer)
         if idx is None:
-            sw = allsky_step_sw(x, self.gas_sw, cloud_optics=self.cloud_sw)
+            sw = sw_step(x)
             return out + [f.contiguous() for f in (sw.flux_up, sw.flux_dn,
                                                    sw.flux_dn_dir)]
         with trace.span("stream.day_gather"):
@@ -293,8 +321,8 @@ class AllSkyStream:
                 tlev=None, tsfc=None, sfc_emis=None,
                 gas_concs=GasConcs(names=gas.names, values=tuple(
                     pick(v) if v.ndim == 2 else v for v in gas.values)),
-                **{f: pick(getattr(x, f)) for f in SW_FIELDS})
-        sw = allsky_step_sw(day, self.gas_sw, cloud_optics=self.cloud_sw)
+                **{f: pick(getattr(x, f)) for f in self.sw_fields})
+        sw = sw_step(day)
         with trace.span("stream.day_gather"):
             for f in (sw.flux_up, sw.flux_dn, sw.flux_dn_dir):
                 out.append(x.play.new_zeros((n, nlev)).index_copy_(0, i, f))
@@ -341,7 +369,7 @@ class AllSkyStream:
         columns with ``mu0 > 0`` (0 on the others); returns the five flux
         profiles, each (ncol, nlay+1), in host memory, valid until the
         next sweep."""
-        if any(getattr(grid, f).device.type != "cpu" for f in STEP_FIELDS):
+        if any(getattr(grid, f).device.type != "cpu" for f in self.fields):
             raise ValueError("AllSkyStream.run: the grid must be in host "
                              "memory (CPU tensors)")
         grid = self.pin(grid)
@@ -358,7 +386,7 @@ class AllSkyStream:
                 idx = stage[a:a + m]
                 idx.copy_(day)
                 a += m
-            sources.append((_columns(grid, c0, c1), idx, m))
+            sources.append((_columns(grid, c0, c1, self.fields), idx, m))
         trace.count("stream.sw_columns", sum(s[2] for s in sources))
         for k, (x, idx) in self._stream(len(bounds),
                                          lambda k: sources[k][:2], grid):

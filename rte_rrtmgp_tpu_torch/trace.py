@@ -31,7 +31,7 @@ whole-grid stream's ``stream.*`` counters).
 
 Span names follow the layers: ``allsky.lw`` and the other entry points,
 ``gas.*`` (the gas optics' input prep), ``check.*`` (value checks),
-``cloud.optics``, ``optics.*``, ``sources.planck``, ``rte.lw``/``rte.sw``
+``cloud.optics``, ``aerosol.optics``, ``optics.*``, ``sources.planck``, ``rte.lw``/``rte.sw``
 (the public front ends), ``stream.*`` (the whole-grid stream's sweep,
 uploads, chunks, day gathers and readbacks, ``parallel/scaling.py``),
 ``kernel.<name>`` (the host's dispatch of one hand-written kernel),

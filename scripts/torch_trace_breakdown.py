@@ -68,12 +68,14 @@ KERNEL_SPANS = {
     "minor_scale_bwd_kernel": "backward.minor_scale",
     "gas_descriptors_kernel": "kernel.gas_descriptors",
     "gas_descriptors_bwd_kernel": "backward.gas_descriptors",
+    "aerosol_props_kernel": "kernel.aerosol_props",
 }
 # the entry points' spans, the program's and the benchmark's
 ENTRIES = ("allsky.lw", "allsky.sw", "allsky_api.lw", "allsky_api.sw",
            "rfmip.lw_sw", "stream.sweep")
 BENCH_ENTRIES = ("allsky_step_lw", "allsky_step_sw", "allsky_api_lw",
-                 "allsky_api_sw", "rfmip_lw_sw", "ne30pg2_stream")
+                 "allsky_api_sw", "rfmip_lw_sw", "ne30pg2_stream",
+                 "ne30pg2_aer_stream")
 # the whole-grid stream's counters (parallel/scaling.AllSkyStream)
 STREAM_COUNTERS = ("stream.chunks", "stream.sw_columns", "stream.bytes_up",
                    "stream.bytes_down")
@@ -193,26 +195,32 @@ def stream_copies(spec, entry, steps, counters, dev, runtime, timeline,
     the span that launched them beside the copies the stream makes: per
     chunk one per field it sends up (the step's fields, the per-column
     gases, the day indices of a chunk with both day and night columns)
-    and five down; per sweep one per scalar or profile gas."""
+    and five down; per sweep one per scalar or profile gas. With aerosols
+    (the stream given aerosol optics) the four aerosol fields of every
+    column go up too, beside what ``work/stream_copy.py`` counts."""
     from rte_rrtmgp_tpu_torch.parallel.scaling import STEP_FIELDS
     from torch_bench import harness
     from torch_bench.traffic import generator
     work = harness.load("work", "stream_copy")
     shapes = generator.shapes(spec["config"])
     chunk = spec["config"]["chunk"]
+    fields = entry.stream.fields
+    extra = [f for f in fields if f not in STEP_FIELDS]
     grids = entry.inputs
     up, down, h2d = 0, 0, 0
     for i in range(steps):
         x = grids[i % len(grids)]
         nday = work.day_indices(x.mu0, chunk)
         u, d = work.copy_bytes(shapes, nday)
+        u += sum(getattr(x, f).numel() * getattr(x, f).element_size()
+                 for f in extra)
         up, down = up + u, down + d
         values = x.gas_concs.values
         nchunk = -(-x.mu0.shape[0] // chunk)
         mixed = sum(0 < int((x.mu0[c0:c0 + chunk] > 0).sum())
                     < x.mu0[c0:c0 + chunk].shape[0]
                     for c0 in range(0, x.mu0.shape[0], chunk))
-        h2d += (nchunk * (len(STEP_FIELDS) + sum(v.ndim == 2
+        h2d += (nchunk * (len(fields) + sum(v.ndim == 2
                                                  for v in values))
                 + mixed + sum(v.ndim < 2 for v in values))
     copies = collections.Counter()

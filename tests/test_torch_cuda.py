@@ -65,7 +65,10 @@ launch; the pod-scale stream against the resident chunk, bit for bit.
 The whole-grid stream at ne30pg2's 21,600 x 72 and the flagship widths:
 every sweep's LW bit for bit the fused step run resident on each chunk,
 its SW likewise on each chunk's day columns and 0 at night, its counts
-and launches; its readbacks wait for each chunk's step. The paths: in
+and launches; its readbacks wait for each chunk's step; the same with
+MERRA aerosols, their lookup once per gas-optics call and one host wait
+a sweep. The aerosol lookup kernel at 4096 x 72 in its three modes
+against its float32 and float64 twins. The paths: in
 float32 on the card against float64 at the production configuration
 (256 x 72; the fused step, the public API and the staged branch against
 tests/golden/production.npz, the aerosols step and the LW two-stream path
@@ -98,6 +101,8 @@ from rte_rrtmgp_tpu_torch.drivers.allsky import (  # noqa: E402
     build_allsky, build_allsky_step)
 from rte_rrtmgp_tpu_torch.drivers.rfmip import synthetic_rfmip  # noqa: E402
 from rte_rrtmgp_tpu_torch.ops.gas_optics import minor_scaling  # noqa: E402
+from rte_rrtmgp_tpu_torch.ops.kernels.aerosol_props import (  # noqa: E402
+    aerosol_props, aerosol_props_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.cloud_props import (  # noqa: E402
     cloud_props, cloud_props_plain)
 from rte_rrtmgp_tpu_torch.ops.kernels.fused_lw import (  # noqa: E402
@@ -157,7 +162,8 @@ KERNELS = {"cloud_props": cloud_props, "fused_lw": lw_fused,
            "solver_sw_bwd": sw_2stream_bwd, "minor_scale": minor_scale,
            "minor_scale_bwd": minor_scale_bwd,
            "gas_descriptors": gas_descriptors,
-           "gas_descriptors_bwd": gas_descriptors_bwd}
+           "gas_descriptors_bwd": gas_descriptors_bwd,
+           "aerosol_props": aerosol_props}
 
 
 @pytest.fixture
@@ -1163,8 +1169,8 @@ def test_gradient_step_launches_adjoints(cuda, path, dims):
     as the benchmark's gradient cell runs them), launches
     each kernel of its path an exact number of times (each adjoint once,
     cloud optics once per band set, the scaling rows, the descriptors and
-    their adjoints once per gas-optics call; the public API's gathers at
-    least once) and no other; finite gradients, not all zero, the same
+    their adjoints, and with aerosols their lookup, once per gas-optics
+    call; the public API's gathers at least once) and no other; finite gradients, not all zero, the same
     bits twice."""
     shape = MAIN if dims == "main" else DIMS[dims]
     exact = dict(cloud_props=2, minor_scale=2, minor_scale_bwd=2,
@@ -1179,7 +1185,8 @@ def test_gradient_step_launches_adjoints(cuda, path, dims):
     else:
         step, inputs = build_allsky_step(
             *shape, device=cuda, use_aerosols=path != "fused")
-        exact.update(fused_lw=1, fused_sw=1, fused_lw_bwd=1, fused_sw_bwd=1)
+        exact.update(fused_lw=1, fused_sw=1, fused_lw_bwd=1, fused_sw_bwd=1,
+                     aerosol_props=2 if path != "fused" else 0)
     grads, got = _launches(lambda: _train_grads(step, inputs))
     _assert_launches(got, exact, launched)
     for g in grads:
@@ -2661,6 +2668,169 @@ def test_stream_readback_waits_for_each_chunk(cuda, monkeypatch):
         assert torch.equal(o, torch.where(day, want, 0.0) if lit else want)
 
 
+def _aerosol_case(cuda, nbnd, ncol=4096, nlay=72, seed=9):
+    """MERRA tables on ``nbnd`` bands with an RH grid from 0.1 to 0.99,
+    float32 on the card, and (ncol, nlay) cells: type codes 0-8 (8
+    unknown), sizes across the five bins and on their edges, RH below the
+    grid, on its points, between them and at 1.0 in turn by column."""
+    from rte_rrtmgp_tpu_torch.models.rrtmgp.aerosol_optics import (
+        AerosolOpticsMERRA)
+    from rte_rrtmgp_tpu_torch.utils.synthetic import synthetic_aerosol_raw
+    raw = synthetic_aerosol_raw(nbnd=nbnd, seed=seed)
+    grid = np.linspace(0.1, 0.99, 37)
+    raw["aero_rh"] = grid
+    aer = AerosolOpticsMERRA.load(dtype=torch.float32, device=cuda, **raw)
+    g = np.random.default_rng(seed)
+    edges = np.logspace(-1, 1, 6)
+    size = g.uniform(edges[0], edges[-1], (ncol, nlay))
+    size[:, :6] = edges
+    k = g.integers(0, len(grid) - 1, (ncol, nlay))
+    rh = np.stack([g.uniform(0.0, grid[0], (ncol, nlay)), grid[k],
+                   grid[k] + 0.5 * (grid[k + 1] - grid[k]),
+                   np.ones((ncol, nlay))])[np.arange(ncol) % 4,
+                                           np.arange(ncol)]
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=cuda)
+    x = (t(g.integers(0, 9, (ncol, nlay)), torch.int32), t(size),
+         t(g.uniform(1e-7, 1e-4, (ncol, nlay))), t(rh))
+    return aer, x
+
+
+@pytest.mark.parametrize("clouds", [False, True], ids=["clear", "cloudy"])
+@pytest.mark.parametrize("mode", ["lanes", "lw", "sw"])
+def test_aerosol_props_matches_twin(cuda, mode, clouds):
+    """The aerosol lookup kernel at 4096 x 72 (LW 16 bands, SW 14) in
+    each mode (the lanes; the LW increment, the absorption plus the
+    clouds'; the SW increment, delta-scaled and combined with the
+    clouds'), with and without clouds: one launch; within 2e-6 of the
+    largest value of its float32 twin on the same inputs and within 1e-5
+    of the float64 twin's (every type code, both size-binned species,
+    RH below, on and between the grid's points and at 1.0, type 0 and
+    an unknown code); the same bits twice."""
+    from rte_rrtmgp_tpu_torch.ops.kernels import aerosol_props as ap
+    nbnd = 14 if mode == "sw" else 16
+    aer, x = _aerosol_case(cuda, nbnd)
+    ncol, nlay = x[0].shape
+    cloud = None
+    if clouds:
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        u = lambda: torch.rand((nbnd, nlay, ncol), generator=gen,
+                               device=cuda)
+        t = 3.0 * u() * (u() > 0.33)
+        ts = t * (0.4 + 0.6 * u())
+        cloud = (t, ts, ts * (0.6 + 0.35 * u()))
+    m = dict(lanes=ap.LANES, lw=ap.LW, sw=ap.SW)[mode]
+    args = (*x, aer.lut, aer.offsets, cloud, m)
+    n0 = aerosol_props.launches
+    got = aerosol_props(*args)
+    assert aerosol_props.launches == n0 + 1
+    assert torch.equal(got, aerosol_props(*args))
+    _close(got, aerosol_props_plain(*args), 2e-6)
+    d = lambda v: v.double() if v.is_floating_point() else v
+    ref = aerosol_props_plain(*(d(v) for v in x),
+                              tuple(d(v) for v in aer.lut), aer.offsets,
+                              None if cloud is None
+                              else tuple(d(v) for v in cloud), m)
+    assert float((got.double() - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max())
+    assert bool((got[0] != 0).any())
+
+
+def test_stream_aerosols_equals_resident_chunks(cuda):
+    """ne30pg2 (21,600 x 72, chunks of 4096 and one of 1,120) at the
+    flagship widths with the all-sky example's aerosols, the stream given
+    the LW and SW aerosol optics: two sweeps over two grids (value checks
+    on, then off); each sweep's LW bit for bit allsky_step_lw with
+    aerosols on each chunk resident on the card, its SW bit for bit
+    allsky_step_sw with aerosols on each chunk's day columns, 0 at night;
+    the bytes up count the aerosol fields; the aerosol lookup once per
+    gas-optics call (at most 2 a chunk); with the checks off the sweep
+    makes one host wait (its readback) and torch's sync debug mode sees
+    at most that one."""
+    import contextlib
+    import warnings
+
+    from rte_rrtmgp_tpu_torch import trace
+    from rte_rrtmgp_tpu_torch.config import checks_disabled
+    from rte_rrtmgp_tpu_torch.gas_concs import GasConcs
+    from rte_rrtmgp_tpu_torch.parallel.scaling import (
+        AEROSOL_FIELDS, STEP_FIELDS, AllSkyStream, _columns, _pool_entry)
+    ncol, chunk = 21_600, 4096
+    p = build_allsky(ncol, 72, 256, 16, 224, 14, 14, 59, device=cuda,
+                     use_aerosols=True)
+    g = torch.Generator().manual_seed(12)
+    grids = [_pool_entry(p.inputs, j)._replace(
+        mu0=(torch.rand(ncol, generator=g) * 2 - 1).to(cuda))
+        for j in range(2)]
+    stream = AllSkyStream(p.gas_lw, p.gas_sw, p.cld_lw, p.cld_sw,
+                          chunk=chunk, device=cuda, aerosol_lw=p.aer_lw,
+                          aerosol_sw=p.aer_sw)
+    hosts = [stream.pin(_host(x)) for x in grids]
+    fields = STEP_FIELDS + AEROSOL_FIELDS
+    aer = dict(use_aerosols=True)
+    for sweep, j in enumerate((0, 1)):
+        n0 = aerosol_props.launches
+        checks = checks_disabled() if sweep else contextlib.nullcontext()
+        with checks, trace.collect() as rec:
+            out = [f.clone() for f in stream.run(hosts[j])]
+        c = rec.counters
+        mu0 = hosts[j].mu0
+        sw_chunks = sum(bool((mu0[c0:c0 + chunk] > 0).any())
+                        for c0 in range(0, ncol, chunk))
+        assert aerosol_props.launches - n0 == 6 + sw_chunks <= 2 * 6
+        assert c["launches.aerosol_props"] == 6 + sw_chunks
+        aer_bytes = sum(getattr(hosts[j], f).numel() * 4
+                        for f in AEROSOL_FIELDS)
+        assert aer_bytes == 4 * 4 * ncol * 72
+        if sweep:
+            assert c["waits"] == 1
+        grid = grids[j]
+        for c0 in range(0, ncol, chunk):
+            c1 = min(c0 + chunk, ncol)
+            x = _columns(grid, c0, c1, fields)
+            lw = allsky_step_lw(x, p.gas_lw, cloud_optics=p.cld_lw,
+                                aerosol_optics=p.aer_lw, **aer)
+            assert torch.equal(out[0][c0:c1], lw.flux_up.cpu())
+            assert torch.equal(out[1][c0:c1], lw.flux_dn.cpu())
+            day = torch.nonzero(mu0[c0:c1] > 0).flatten()
+            i = day.to(cuda)
+            gas = x.gas_concs
+            sub = x._replace(
+                gas_concs=GasConcs(names=gas.names, values=tuple(
+                    v[i] if v.ndim == 2 else v for v in gas.values)),
+                **{f: getattr(x, f)[i] for f in fields})
+            sw = allsky_step_sw(sub, p.gas_sw, cloud_optics=p.cld_sw,
+                                aerosol_optics=p.aer_sw, **aer)
+            night = mu0[c0:c1] <= 0
+            for o, f in zip(out[2:], (sw.flux_up, sw.flux_dn,
+                                      sw.flux_dn_dir)):
+                assert torch.equal(o[c0:c1][day], f.cpu())
+                assert bool((o[c0:c1][night] == 0).all())
+    # the bytes up: the stream without aerosols' and the aerosol fields
+    plain = AllSkyStream(p.gas_lw, p.gas_sw, p.cld_lw, p.cld_sw,
+                         chunk=chunk, device=cuda)
+    with checks_disabled():
+        with trace.collect() as bare:
+            plain.run(hosts[0])
+        with trace.collect() as rec:
+            stream.run(hosts[0])
+    assert rec.counters["stream.bytes_up"] == \
+        bare.counters["stream.bytes_up"] + 4 * 4 * ncol * 72
+    assert bare.counters.get("launches.aerosol_props", 0) == 0
+    # one host wait a sweep, under torch's sync debug mode
+    seen = []
+    with checks_disabled(), warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = lambda m, *a, **k: seen.append(str(m))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            stream.run(hosts[1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert sum("synchroniz" in m for m in seen) <= 1, seen
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # the paths on the card: float32 against float64 at the production
 # configuration, the surface Jacobian, and each path's launches and
@@ -2841,8 +3011,8 @@ def test_paths_launch_and_agree_at_main_shapes(cuda, flagship, case):
     SW 168 g-points): the kernels it must launch at least once (cloud
     optics not without clouds), the fused kernels by band and the
     two-stream kernel once a step, the scaling rows and the descriptors
-    once per gas-optics call (2 a step; 1 on the LW-only two-stream path),
-    no other kernel; finite (ncol, nlay+1[, nband]) fluxes, non-negative
+    (and with aerosols their lookup) once per gas-optics call (2 a step; 1
+    on the LW-only two-stream path), no other kernel; finite (ncol, nlay+1[, nband]) fluxes, non-negative
     but the two-stream path's by band (float32 rounding of the Toon
     sources leaves some bands' near-zero downward flux in the top layers
     below zero, as in the float32 twin); TOA SW down the solar source
@@ -2853,7 +3023,9 @@ def test_paths_launch_and_agree_at_main_shapes(cuda, flagship, case):
     out, got = _launches(lambda: step(inputs))
     nprep = 1 if case.endswith("two-stream") else 2
     _assert_launches(got, dict({k: 1 for k in once}, minor_scale=nprep,
-                               gas_descriptors=nprep), launched)
+                               gas_descriptors=nprep,
+                               aerosol_props=2 * case.startswith("aerosols")),
+                     launched)
     ncol, nlay = inputs.play.shape
     for o in out:
         assert tuple(o.shape[:2]) == (ncol, nlay + 1)
